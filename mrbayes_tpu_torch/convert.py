@@ -1,0 +1,66 @@
+"""Carry chain state and bookkeeping between the JAX package and the port.
+
+The JAX engine's state pytree and bookkeeping, taken to host numpy arrays
+(``np.asarray`` of each leaf), become the port's tensors and back, so
+both engines can be evaluated at identical states.  Integer leaves become
+int64 (torch indexing) and float leaves float32.  JAX PRNG keys have no
+torch counterpart: the port seeds its generators from the key words.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def state_from_numpy(states: dict, device) -> dict:
+    """JAX chain states (numpy leaves, leading chain axis) -> tensors."""
+    out = {}
+    for k, v in states.items():
+        a = np.asarray(v)
+        dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) \
+            else torch.bool if a.dtype == np.bool_ else torch.float32
+        out[k] = torch.tensor(a, dtype=dtype, device=device)
+    return out
+
+
+def state_to_numpy(states: dict) -> dict:
+    """Port chain states -> numpy, with the JAX package's dtypes (int32
+    indices, float32 values)."""
+    out = {}
+    for k, v in states.items():
+        a = v.detach().cpu().numpy()
+        if np.issubdtype(a.dtype, np.integer):
+            a = a.astype(np.int32)
+        out[k] = a
+    return out
+
+
+def _seed_of(key) -> int:
+    words = np.asarray(key, np.uint64).reshape(-1)
+    return int(words[0]) << 32 | int(words[-1])
+
+
+def bookkeeping_from_numpy(bk: dict, device) -> dict:
+    """JAX bookkeeping (numpy leaves) -> the port's: generators seeded
+    from the PRNG keys, counters as device tensors, and the generation,
+    autotune batch and power as Python numbers."""
+    dev = torch.device(device)
+    seed = _seed_of(bk["key"])
+    out = {
+        "rng": torch.Generator(device=dev).manual_seed(seed),
+        "rng_host": torch.Generator().manual_seed(seed),
+        "rng_swap": torch.Generator(device=dev).manual_seed(
+            _seed_of(bk["swap_key"])),
+        "temp_id": torch.tensor(np.asarray(bk["temp_id"]),
+                                dtype=torch.int64, device=dev),
+        "tuning": torch.tensor(np.asarray(bk["tuning"]),
+                               dtype=torch.float32, device=dev),
+        "batch": int(np.asarray(bk["batch"])),
+        "gen": int(np.asarray(bk["gen"])),
+        "power": float(np.asarray(bk.get("power", 1.0))),
+    }
+    for k in ("tries", "accepts", "tries_total", "accepts_total",
+              "swap_tries", "swap_accepts"):
+        out[k] = torch.tensor(np.asarray(bk[k]), dtype=torch.int32,
+                              device=dev)
+    return out

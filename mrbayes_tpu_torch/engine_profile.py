@@ -1,0 +1,188 @@
+"""Where a generation's time goes: primates GTR+I+G MC3 on one device.
+
+Usage (from the repository root, on a machine with a CUDA GPU):
+
+    python -m mrbayes_tpu_torch.engine_profile --chains 4 --gens 100
+
+It builds the same engine as ``chip_smoke.py``'s main path, warms it up,
+and then measures, each on the device it runs on:
+
+  * ``run_block`` under ``torch.profiler``: wall time, the device's busy
+    and idle share (summed kernel time over the window), kernel launches
+    per generation, and the kernels and host operators that take the most
+    time;
+  * one generation of each move type alone (host clock around
+    ``torch.cuda.synchronize()``), with the move's share of the draws;
+  * one ``log_likelihood`` call, one ``refresh_eigs`` call and one pruning
+    kernel call.
+
+It prints one JSON object (also written to ``--out``).  ``--device cpu``
+rehearses it on the CPU; those numbers are CPU numbers and are labelled so.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+from .data import DataSet, make_divisions
+from .mcmc.engine import Engine
+from .mcmc.settings import DivisionSettings, McmcSettings
+from .nexus.parser import read_nexus_file
+from .ops.traversal import postorder_internal
+from .ops.pruning import branch_tiprobs
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PRIMATES = os.path.join(_ROOT, "tests", "data", "ref", "examples",
+                        "primates.nex")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _ms_per_call(dev, fn, reps):
+    fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(dev)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _device_name(dev) -> str:
+    if dev.type != "cuda":
+        return "cpu"
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return line[0] if line else torch.cuda.get_device_name(dev)
+
+
+def profile_block(eng, states, bk, gens, dev, top=12):
+    """run_block under torch.profiler: busy share, launches, top names."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    _sync(dev)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        states, bk = eng.run_block(states, bk, gens)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    kernels, host = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host[e.key] = (e.count, e.self_cpu_time_total / 1e3)
+    busy_ms = sum(v[1] for v in kernels.values())
+    n_kernels = sum(v[0] for v in kernels.values())
+
+    def ranked(d):
+        return [{"name": k[:90], "count": v[0], "ms": v[1]}
+                for k, v in sorted(d.items(), key=lambda kv: -kv[1][1])[:top]]
+
+    out = {"gens": gens, "wall_ms": wall * 1e3,
+           "ms_per_gen": wall * 1e3 / gens,
+           "device_busy_ms": busy_ms if dev.type == "cuda" else None,
+           "device_idle_share": (1.0 - busy_ms / (wall * 1e3)
+                                 if dev.type == "cuda" else None),
+           "kernel_launches_per_gen": (n_kernels / gens
+                                       if dev.type == "cuda" else None),
+           "top_kernels": ranked(kernels),
+           "top_host_ops_self": ranked(host)}
+    return out, states, bk
+
+
+def per_move(eng, states, bk, dev, reps):
+    """ms of one generation of each move type alone, and its draw share."""
+    probs = eng._move_probs.tolist()
+    C = eng.mcmc.n_chains_total
+    heats = 1.0 / (1.0 + eng.mcmc.temp * bk["temp_id"].float())
+    u = torch.rand((C,), generator=bk["rng"], device=dev)
+    rows = []
+    for m, spec in enumerate(eng.moves):
+        def step():
+            eng._chain_step(bk["rng"], states, heats, bk["tuning"][:, m],
+                            1.0, m, u)
+        rows.append({"move": spec.name, "share": probs[m],
+                     "ms": _ms_per_call(dev, step, reps)})
+    rows.append({"move": "weighted mean",
+                 "share": 1.0,
+                 "ms": sum(r["share"] * r["ms"] for r in rows)})
+    return rows
+
+
+def parts(eng, states, dev, reps):
+    """ms of the likelihood, the eigensystem refresh and the kernel call."""
+    pr = eng._pruners[0]
+    _, _, lam, U, Uinv, rates, pinv, _, _ = eng._generic_div_params(
+        states, 0)
+    P = branch_tiprobs(states["blen"], lam, U, Uinv, rates, pinv)
+    order = postorder_internal(states["parent"], eng.n_tips)
+    launches = pr.launches
+    out = {
+        "log_likelihood_ms": _ms_per_call(
+            dev, lambda: eng.log_likelihood(states), reps),
+        "refresh_eigs_ms": _ms_per_call(
+            dev, lambda: eng.refresh_eigs(states), reps),
+        "tiprobs_and_postorder_ms": _ms_per_call(
+            dev, lambda: (branch_tiprobs(states["blen"], lam, U, Uinv,
+                                         rates, pinv),
+                          postorder_internal(states["parent"], eng.n_tips)),
+            reps),
+        "pruner_call_ms": _ms_per_call(
+            dev, lambda: pr(order, states["left"], states["right"], P), reps),
+    }
+    pr.launches = launches          # these launches are not the main path's
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--chains", type=int, default=4)
+    ap.add_argument("--gens", type=int, default=100)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (raises without a CUDA device)")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    nf = read_nexus_file(PRIMATES)
+    ds = DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar,
+                 divisions=make_divisions(nf.matrix))
+    eng = Engine(ds, [DivisionSettings(nst="6", rates="invgamma")],
+                 mcmc=McmcSettings(nruns=1, nchains=args.chains, seed=3),
+                 device=args.device)
+    dev = eng.device
+    states, bk = eng.init_chains()
+    states, bk = eng.run_block(states, bk, 50)
+    block, states, bk = profile_block(eng, states, bk, args.gens, dev)
+    result = {"device": _device_name(dev), "torch": torch.__version__,
+              "config": f"primates GTR+I+G, 1 run x {args.chains} chains",
+              "run_block": block,
+              "per_move": per_move(eng, states, bk, dev, args.reps),
+              "parts": parts(eng, states, dev, args.reps)}
+    text = json.dumps(result, indent=1)
+    print(text)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,768 @@
+"""The MC3 engine on PyTorch: state assembly, likelihood/prior
+composition, and the generation loop with Metropolis-coupled chain swaps.
+
+Counterpart of ``mrbayes_tpu/mcmc/engine.py`` (reference RunChain loop,
+src/mcmc.c:15988).  Every chain of every run is one row of a chain-state
+dict of ``[C, ...]`` tensors; a generation applies ONE move type, drawn on
+the host for the whole block, to all chains at once (the JAX package's
+shared move index per generation), recomputes lnL and the prior component
+the move can change, and accepts per chain with ``torch.where``.  Heated-
+chain swaps permute a temperature-id vector (states never move, as in the
+reference's MPI design, src/mcmc.c:826-842).
+
+``run_block`` never synchronises with the host: move indices come from a
+host generator, every other random number from a device generator, and
+acceptance, swaps and autotuning stay tensor math on the device.
+
+This slice carries nucleotide data under nst 1/2/6 with equal, gamma,
+propinv or invgamma rates, one unrooted non-clock tree with the default
+priors, any number of runs and chains; every other setting raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from functools import partial
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..data import DataSet, Division
+from ..models.rates import GammaRateTable
+from ..models.substitution import nuc_q_gtr, nuc_q_nst1, nuc_q_nst2
+from ..nexus.datatypes import DataType
+from ..ops.pruning import constant_state_mask, division_loglik
+from ..ops.pruning_cuda import PruningCuda
+from ..ops.tiprobs import eigh_reversible
+from ..trees import Tree, random_unrooted
+from . import moves as M
+from .priors import (beta_lpdf, brlens_exponential_lpdf, brlens_gammadir_lpdf,
+                     brlens_uniform_lpdf, dirichlet_lpdf, exponential_lpdf,
+                     gamma_lpdf, lognormal_lpdf, normal_lpdf, uniform_lpdf)
+from .settings import DivisionSettings, McmcSettings, Prior, TreeSettings
+
+NEG_INF = -1e30
+SCORE_KEYS = ("lnL", "lnP", "lnP_tree", "lnP_par")
+
+
+@dataclass
+class MoveSpec:
+    name: str
+    fn: object
+    weight: float
+    tuning0: float
+    target: float = 0.25
+    direction: int = 1        # +1: larger tuning bolder; -1: larger = timid
+    tmin: float = 1e-3
+    tmax: float = 1e3
+    tunable: bool = True
+    updates_q: bool = False   # move changes a Q matrix -> re-eigendecompose
+                              # (reference upDateCijk, src/likelihood.c:7864)
+    prior_scope: str | None = None  # carried prior component the move can
+                              # change: "tree", "params" or "both"; None is
+                              # filled by registration position
+
+
+@dataclass
+class DivCfg:
+    """Static per-division wiring resolved at build time."""
+    div: Division
+    settings: DivisionSettings
+    pi_group: int = -1          # -1: fixed (not sampled)
+    pi_field: str = "pi"
+    revmat_group: int = -1
+    tratio_group: int = -1
+    shape_group: int = -1
+    pinvar_group: int = -1
+    n_cats: int = 1
+    fixed_pi: np.ndarray | None = None
+
+
+def _scalar_prior_lpdf(prior: Prior, x):
+    k = prior.kind
+    p = prior.params
+    if k == "exponential":
+        return exponential_lpdf(x, p[0])
+    if k == "uniform":
+        return uniform_lpdf(x, p[0], p[1])
+    if k == "gamma":
+        return gamma_lpdf(x, p[0], p[1])
+    if k == "lognormal":
+        return lognormal_lpdf(x, p[0], p[1])
+    if k == "normal":
+        return normal_lpdf(x, p[0], p[1])
+    if k == "beta":
+        return beta_lpdf(x, p[0], p[1])
+    if k == "offsetexp":
+        # params (offset, mean) — reference
+        # LnPriorProbOffsetExponential_Param_Offset_Mean, src/utils.c:12787
+        off, mean = p[0], p[1]
+        rate = 1.0 / (mean - off)
+        return torch.where(x >= off, math.log(rate) - rate * (x - off),
+                           NEG_INF)
+    if k == "truncatednormal":
+        # params (min, mean, sd); unnormalized, as in the reference
+        lo, mu, sd = p[0], p[1], p[2]
+        return torch.where(x >= lo, normal_lpdf(x, mu, sd), NEG_INF)
+    if k == "fixed":
+        return torch.zeros_like(x)
+    raise ValueError(f"unsupported scalar prior {k}")
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to mrbayes_tpu_torch yet (ROADMAP Queue 1 "
+        f"{item})")
+
+
+class Engine:
+    """Builds and runs one analysis (the analog of SetUpAnalysis + DoMcmc,
+    reference src/model.c:21386 / src/mcmc.c:2270).  ``device=None`` means
+    CUDA and raises when there is none; tests pass ``device="cpu"``."""
+
+    def __init__(self, dataset: DataSet,
+                 div_settings: list[DivisionSettings],
+                 tree_settings: TreeSettings | None = None,
+                 mcmc: McmcSettings | None = None,
+                 links: dict[str, list[int]] | None = None,
+                 device=None):
+        self.device = resolve_device(device)
+        # fp32 throughout, no TF32: the JAX package pins matmul precision
+        # to HIGHEST (mrbayes_tpu/__init__.py) because reduced-precision
+        # passes bias per-pattern lnL by about 1e-2, and TF32 keeps only
+        # about three decimal digits
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.data = dataset
+        self.tree_settings = tree_settings or TreeSettings()
+        self.mcmc = mcmc or McmcSettings()
+        self.n_tips = dataset.ntax
+        self.n_nodes = 2 * self.n_tips - 1
+        if len(div_settings) != len(dataset.divisions):
+            raise ValueError("one DivisionSettings per division required")
+        self._check_slice(div_settings, links)
+        self._build_groups(div_settings)
+        self._build_data_tensors()
+        self._build_moves()
+        self._build_constants()
+
+    # ------------------------------------------------------------------
+    # static wiring
+
+    def _check_slice(self, div_settings, links):
+        """Raise for every setting this slice of the port does not carry."""
+        ts, mc = self.tree_settings, self.mcmc
+        if ts.clock or ts.constraints or ts.tip_calibrations:
+            raise _not_ported("clock trees, dating and constraints",
+                              "item 10")
+        if ts.speciestree:
+            raise _not_ported("the multispecies coalescent (BEST)",
+                              "item 14")
+        if ts.brlenspr.kind not in ("gammadir", "exponential", "uniform"):
+            raise ValueError(f"brlenspr {ts.brlenspr.kind} not supported")
+        if links or len(div_settings) > 1:
+            raise _not_ported("partitioned models and link/unlink", "item 9")
+        if mc.per_chain_moves:
+            raise _not_ported("per-chain move selection", "item 14")
+        if mc.starttree not in ("current", "random") or mc.nperts > 0:
+            raise _not_ported("built or perturbed starting trees",
+                              "item 14")
+        for div, s in zip(self.data.divisions, div_settings):
+            if div.dtype not in (DataType.DNA, DataType.RNA):
+                raise _not_ported(f"{div.dtype.value} data", "items 12-13")
+            if s.nucmodel != "4by4":
+                raise _not_ported(f"nucmodel={s.nucmodel}", "item 12")
+            if s.nst not in ("1", "2", "6"):
+                raise _not_ported(f"nst={s.nst}", "item 9")
+            if s.rates not in ("equal", "gamma", "propinv", "invgamma"):
+                raise _not_ported(f"rates={s.rates}", "item 13")
+            if s.covarion or s.parsmodel \
+                    or s.statefreqmodel != "stationary":
+                raise _not_ported("covarion, parsimony and directional "
+                                  "models", "item 13")
+            if s.ratepr != "fixed":
+                raise _not_ported("ratepr=variable", "item 9")
+
+    def _build_groups(self, div_settings):
+        """Assign each sampled parameter of each division to a link group:
+        divisions with identical settings share a group (the reference
+        links parameters when IsModelSame holds, src/model.c:13827)."""
+        self.div_cfg: list[DivCfg] = []
+        counters: dict = {}
+
+        def group_of(param, d, signature):
+            dim = self.data.divisions[d].n_states if param == "pi" else 0
+            key = (param, "nuc", dim, signature)
+            store = counters.setdefault(param, {})
+            if key not in store:
+                store[key] = len(store)
+            return store[key]
+
+        for d, (div, s) in enumerate(zip(self.data.divisions, div_settings)):
+            cfg = DivCfg(div=div, settings=s)
+            fixed_params = (s.statefreqpr.kind == "fixed"
+                            and s.statefreqpr.params)
+            if s.statefreqpr.kind == "dirichlet":
+                cfg.pi_group = group_of("pi", d, repr(s.statefreqpr))
+            elif fixed_params and s.statefreqpr.params[0] == "empirical":
+                cfg.fixed_pi = self._empirical_freqs(div)
+            elif fixed_params and not isinstance(s.statefreqpr.params[0],
+                                                 str):
+                cfg.fixed_pi = np.asarray(s.statefreqpr.params)
+            else:
+                cfg.fixed_pi = np.full(div.n_states, 1.0 / div.n_states)
+            if s.nst == "6":
+                cfg.revmat_group = group_of("revmat", d,
+                                            repr(s.revmatpr) + s.nst)
+            if s.nst == "2":
+                cfg.tratio_group = group_of("tratio", d, repr(s.tratiopr))
+            if s.rates in ("gamma", "invgamma"):
+                cfg.shape_group = group_of("shape", d, repr(s.shapepr))
+                cfg.n_cats = s.ngammacat
+            if s.rates in ("propinv", "invgamma"):
+                cfg.pinvar_group = group_of("pinvar", d, repr(s.pinvarpr))
+            self.div_cfg.append(cfg)
+        self.n_groups = {p: len(v) for p, v in counters.items()}
+        self.n_div = len(div_settings)
+        # priors per group: use the first division that defined the group
+        self.group_priors: dict[tuple, Prior] = {}
+        for cfg in self.div_cfg:
+            s = cfg.settings
+            for param, gid, pr in [("pi", cfg.pi_group, s.statefreqpr),
+                                   ("revmat", cfg.revmat_group, s.revmatpr),
+                                   ("tratio", cfg.tratio_group, s.tratiopr),
+                                   ("shape", cfg.shape_group, s.shapepr),
+                                   ("pinvar", cfg.pinvar_group, s.pinvarpr)]:
+                if gid >= 0:
+                    self.group_priors.setdefault((param, gid), pr)
+
+    def _empirical_freqs(self, div) -> np.ndarray:
+        """Observed state frequencies (ambiguity split uniformly)."""
+        bits = (div.patterns[..., None] >> np.arange(div.n_states)) & 1
+        w = bits / np.maximum(bits.sum(-1, keepdims=True), 1)
+        freq = (w * div.weights[None, :, None]).sum((0, 1))
+        return freq / freq.sum()
+
+    def _build_data_tensors(self):
+        dev = self.device
+        self._gamma_tables = {}
+        for cfg in self.div_cfg:
+            if cfg.shape_group >= 0 and cfg.n_cats not in self._gamma_tables:
+                self._gamma_tables[cfg.n_cats] = GammaRateTable(
+                    cfg.n_cats, device=dev)
+        self.tip_partials, self.weights, self.const_masks = [], [], []
+        self._fixed_pi = []
+        self._pruners: list[PruningCuda] = []
+        masks, factors = [], []
+        v_typ = 0.03    # reference default tuningParam[2] (model.c:22598)
+        for cfg in self.div_cfg:
+            d = cfg.div
+            tp = d.tip_partials()
+            self.tip_partials.append(torch.as_tensor(tp, device=dev))
+            self.weights.append(torch.as_tensor(
+                np.asarray(d.weights, np.float32), device=dev))
+            self.const_masks.append(torch.as_tensor(
+                constant_state_mask(d.patterns, d.n_states), device=dev))
+            self._fixed_pi.append(
+                None if cfg.fixed_pi is None else torch.as_tensor(
+                    np.asarray(cfg.fixed_pi, np.float32)[None], device=dev))
+            self._pruners.append(PruningCuda(tp, cfg.n_cats, dev))
+            # bit-coded state sets for parsimony-guided proposals
+            # (reference InitParsSets src/mcmc.c:6834)
+            S = max(2, min(d.n_states, 32))
+            divf = -np.log(max(1e-10, 1.0 / S
+                               - np.exp(-S / (S - 1.0) * v_typ) / S))
+            masks.append(d.patterns.astype(np.int64))
+            factors.append(d.weights * divf)
+        self._pars_masks = torch.as_tensor(np.concatenate(masks, axis=1),
+                                           device=dev)
+        self._pars_factors = torch.as_tensor(
+            np.concatenate(factors).astype(np.float32), device=dev)
+
+    def _build_moves(self):
+        """The unrooted non-clock move set (mrbayes_tpu engine.py:1479-
+        1540), then the substitution-parameter moves."""
+        n = self.n_tips
+        mk = []
+
+        def wrap(base):
+            return partial(base, n_tips=n)
+
+        mk.append(MoveSpec("nni", wrap(M.move_nni), 5.0, 0.0,
+                           tunable=False))
+        mk.append(MoveSpec("spr", wrap(M.move_spr), 5.0, 0.0,
+                           tunable=False))
+        # the reference's workhorse topology moves: extending SPR
+        # (Move_ExtSPR) and the subtree swapper (Move_ExtSS)
+        mk.append(MoveSpec("ext_spr", wrap(M.move_ext_spr),
+                           10.0, 0.8, 0.25, 1, 0.05, 0.95))
+        if n > 3:
+            # bisection moves need a true internal edge
+            mk.append(MoveSpec("ext_tbr", wrap(M.move_ext_tbr),
+                               5.0, 0.8, 0.25, 1, 0.05, 0.95))
+            mk.append(MoveSpec("local", wrap(M.move_local),
+                               2.0, 2.0 * np.log(1.6), 0.25, 1, 1e-3, 20.0))
+        mk.append(MoveSpec("subtree_swap", wrap(M.move_subtree_swap),
+                           2.0, 0.0, tunable=False))
+        mk.append(MoveSpec(
+            "pars_spr",
+            wrap(M.make_pars_spr_move(self._pars_masks, self._pars_factors)),
+            5.0, 0.1, 0.25, -1, 0.01, 1.0))
+        mk.append(MoveSpec(
+            "pars_tbr",
+            wrap(M.make_pars_tbr_move(self._pars_masks, self._pars_factors)),
+            3.0, 0.1, 0.25, -1, 0.01, 1.0))
+        mk.append(MoveSpec("blen_mult", wrap(M.move_blen_multiplier),
+                           15.0, 2.0 * np.log(1.6), 0.25, 1, 1e-3, 20.0))
+        mk.append(MoveSpec("node_slider", wrap(M.move_node_slider),
+                           5.0, 0.0, tunable=False))
+        mk.append(MoveSpec("treelen_mult", wrap(M.move_treelen_multiplier),
+                           2.0, 2.0 * np.log(1.6), 0.25, 1, 1e-3, 10.0))
+        self._finish_moves(mk)
+
+    def _finish_moves(self, mk):
+        """Append the substitution-parameter moves and finalize weights
+        (tail of reference SetUpMoveTypes, src/model.c:21618)."""
+        n = self.n_tips
+        # every move registered before this point touches only tree-
+        # component prior inputs; every move appended below touches only
+        # group_priors fields.  The split drives the carried-prior
+        # recomputation in _chain_step.
+        n_tree_moves = len(mk)
+        if self.n_groups.get("pi"):
+            mk.append(MoveSpec("pi_dir",
+                               partial(M.make_simplex_move("pi"), n_tips=n),
+                               2.0, 100.0, 0.25, -1, 1.0, 1e5))
+        if self.n_groups.get("revmat"):
+            mk.append(MoveSpec(
+                "revmat_dir",
+                partial(M.make_simplex_move("revmat"), n_tips=n),
+                2.0, 200.0, 0.25, -1, 1.0, 1e5))
+        if self.n_groups.get("tratio"):
+            mk.append(MoveSpec(
+                "tratio_mult",
+                partial(M.make_multiplier_move("tratio", 1e-4, 1e4),
+                        n_tips=n), 1.0, 1.0, 0.25, 1, 1e-3, 20.0))
+        if self.n_groups.get("shape"):
+            mk.append(MoveSpec(
+                "shape_mult",
+                partial(M.make_multiplier_move("shape", 1e-4, 200.0),
+                        n_tips=n), 1.5, 2.0 * np.log(1.6), 0.25, 1,
+                1e-3, 20.0))
+        if self.n_groups.get("pinvar"):
+            mk.append(MoveSpec(
+                "pinvar_slider",
+                partial(M.make_slider_move("pinvar", 0.0, 1.0), n_tips=n),
+                1.5, 0.2, 0.25, 1, 1e-3, 1.0))
+        q_moves = {"pi_dir", "revmat_dir", "tratio_mult"}
+        for i, m in enumerate(mk):
+            m.updates_q = m.name in q_moves
+            if m.prior_scope is None:
+                m.prior_scope = "tree" if i < n_tree_moves else "params"
+        self.moves = mk
+
+    def _build_constants(self):
+        """Every constant tensor the generation loop reads, built once (a
+        tensor made from host data inside the loop would synchronise)."""
+        dev = self.device
+        mv = self.moves
+        w = np.array([m.weight for m in mv], np.float64)
+        self._move_probs = torch.as_tensor(w / w.sum())        # host
+
+        def per_move(values):
+            return torch.tensor([float(x) for x in values],
+                                dtype=torch.float32, device=dev)
+
+        self._tune_target = per_move(m.target for m in mv)
+        self._tune_dir = per_move(m.direction for m in mv)
+        self._tune_on = per_move(m.tunable for m in mv)
+        self._tune_min = per_move(m.tmin for m in mv)
+        self._tune_max = per_move(m.tmax for m in mv)
+        idx = np.arange(self.n_nodes)
+        self._blen_mask = torch.as_tensor(
+            (idx != self.n_nodes - 1) & (idx != 0), device=dev)
+        self._interior = torch.as_tensor(idx >= self.n_tips, device=dev)
+        self._unit_rates = torch.ones((1, 1), device=dev)
+        self._prior_alpha = {}
+        for (param, gid), pr in self.group_priors.items():
+            if param in ("pi", "revmat"):
+                k = 4 if param == "pi" else 6
+                a = pr.params[0] if pr.params else 1.0
+                self._prior_alpha[(param, gid)] = torch.full(
+                    (k,), float(a), device=dev)
+
+    # ------------------------------------------------------------------
+    # state
+
+    def init_state(self, rng: np.random.Generator, tree: Tree | None = None):
+        """One chain's starting state (host numpy values): ``tree``, or a
+        random unrooted tree drawn from ``rng`` (the same draws as the JAX
+        package's init_state), plus the substitution-parameter defaults."""
+        t = tree if tree is not None else random_unrooted(
+            self.n_tips, rng, mean_blen=0.1)
+        st = {"left": np.asarray(t.left, np.int64),
+              "right": np.asarray(t.right, np.int64),
+              "parent": np.asarray(t.parent, np.int64),
+              "blen": np.clip(t.blen, 0.0, M.BRLEN_MAX).astype(np.float32)}
+        return self._init_substitution_state(st)
+
+    def _init_substitution_state(self, st):
+        """Starting values for the sampled substitution parameters (role
+        of reference FillNormalParams, src/model.c:11444)."""
+        g = self.n_groups
+        if g.get("pi"):
+            st["pi"] = np.full((g["pi"], 4), 0.25, np.float32)
+        if g.get("revmat"):
+            st["revmat"] = np.full((g["revmat"], 6), 1.0 / 6, np.float32)
+        if g.get("tratio"):
+            st["tratio"] = np.ones((g["tratio"],), np.float32)
+        if g.get("shape"):
+            st["shape"] = np.full((g["shape"],), 0.5, np.float32)
+        if g.get("pinvar"):
+            st["pinvar"] = np.full((g["pinvar"],), 0.1, np.float32)
+        return st
+
+    def init_chains(self, seed: int | None = None):
+        """Starting states for all runs × chains, on the engine's device,
+        plus the bookkeeping dict."""
+        seed = self.mcmc.seed if seed is None else seed
+        rng = np.random.default_rng(seed)
+        per = [self.init_state(rng) for _ in range(self.mcmc.n_chains_total)]
+        states = {k: torch.as_tensor(np.stack([p[k] for p in per]),
+                                     device=self.device) for k in per[0]}
+        states = self.score(self.refresh_eigs(states))
+        return states, self.init_bookkeeping(seed)
+
+    def init_bookkeeping(self, seed: int, swapseed: int | None = None):
+        """Generators, temperatures, tuning and move/swap counters."""
+        dev = self.device
+        mc = self.mcmc
+        nt, nm = mc.n_chains_total, len(self.moves)
+        swapseed = mc.swapseed if swapseed is None else swapseed
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        return {
+            "rng": torch.Generator(device=dev).manual_seed(seed),
+            "rng_host": torch.Generator().manual_seed(seed),
+            "rng_swap": torch.Generator(device=dev).manual_seed(swapseed),
+            "temp_id": torch.arange(mc.nchains, device=dev).repeat(
+                mc.nruns),
+            "tuning": torch.tensor([float(m.tuning0) for m in self.moves],
+                                   dtype=torch.float32,
+                                   device=dev).repeat(nt, 1),
+            "tries": zeros(nt, nm),
+            "accepts": zeros(nt, nm),
+            "tries_total": zeros(nt, nm),
+            "accepts_total": zeros(nt, nm),
+            "swap_tries": zeros(mc.nruns, mc.nchains, mc.nchains),
+            "swap_accepts": zeros(mc.nruns, mc.nchains, mc.nchains),
+            "batch": 0,
+            "gen": 0,
+            "power": 1.0,
+        }
+
+    def score(self, states):
+        """States with lnL, lnP_tree, lnP_par and lnP recomputed exactly."""
+        lnL = self.log_likelihood(states)
+        lnP_tree = self.log_prior_tree(states)
+        lnP_par = self.log_prior_params(states)
+        return {**states, "lnL": lnL, "lnP": lnP_tree + lnP_par,
+                "lnP_tree": lnP_tree, "lnP_par": lnP_par}
+
+    # ------------------------------------------------------------------
+    # densities
+
+    def _division_pi(self, state, i):
+        cfg = self.div_cfg[i]
+        if cfg.pi_group >= 0:
+            return state[cfg.pi_field][:, cfg.pi_group]
+        return self._fixed_pi[i].expand(state["blen"].shape[0], -1)
+
+    def _division_q_pi(self, state, i):
+        """(Q, pi) of division i for every chain (reference SetNucQMatrix
+        inputs, src/likelihood.c:8166)."""
+        cfg = self.div_cfg[i]
+        pi = self._division_pi(state, i)
+        nst = cfg.settings.nst
+        if nst == "1":
+            Q = nuc_q_nst1(pi)
+        elif nst == "2":
+            Q = nuc_q_nst2(state["tratio"][:, cfg.tratio_group], pi)
+        else:
+            Q = nuc_q_gtr(state["revmat"][:, cfg.revmat_group], pi)
+        return Q, pi
+
+    def _division_eig(self, state, i):
+        Q, pi = self._division_q_pi(state, i)
+        return eigh_reversible(Q, pi)
+
+    def refresh_eigs(self, state):
+        """(Re)compute every division's cached eigensystem.  The cache
+        lives in the chain state so it rides accept/reject; only
+        Q-changing moves call this (reference upDateCijk,
+        src/likelihood.c:10476)."""
+        out = dict(state)
+        for i in range(self.n_div):
+            lam, U, Uinv = self._division_eig(state, i)
+            out[f"eigL{i}"], out[f"eigU{i}"], out[f"eigV{i}"] = lam, U, Uinv
+        return out
+
+    def _division_eig_cached(self, state, i):
+        if f"eigL{i}" in state:
+            return state[f"eigL{i}"], state[f"eigU{i}"], state[f"eigV{i}"]
+        return self._division_eig(state, i)
+
+    def log_likelihood(self, state):
+        """lnL [C] of every chain."""
+        if not self.mcmc.use_data:
+            # mcmc data=no: prior-only sampling
+            return state["blen"].new_zeros(state["blen"].shape[0])
+        total = 0.0
+        for i in range(self.n_div):
+            total = total + self._division_lnL(state, i, state["blen"])
+        return total
+
+    def _generic_div_params(self, state, i):
+        """(pi, coding, lam, U, Uinv, rates, pinv, cmask, mult) of a
+        division — the inputs division_loglik needs beyond the tree."""
+        cfg = self.div_cfg[i]
+        pi = self._division_pi(state, i)
+        lam, U, Uinv = self._division_eig_cached(state, i)
+        if cfg.shape_group >= 0:
+            rates = self._gamma_tables[cfg.n_cats](
+                state["shape"][:, cfg.shape_group])
+        else:
+            rates = self._unit_rates
+        if cfg.pinvar_group >= 0:
+            # gamma rates describe the variable fraction
+            pinv = state["pinvar"][:, cfg.pinvar_group]
+            cmask = self.const_masks[i]
+        else:
+            pinv, cmask = 0.0, None
+        return pi, "all", lam, U, Uinv, rates, pinv, cmask, 1.0
+
+    def _division_lnL(self, state, i, blen):
+        pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \
+            self._generic_div_params(state, i)
+        return division_loglik(
+            state["left"], state["right"], state["parent"], blen,
+            self.tip_partials[i], self.weights[i], lam, U, Uinv, pi, rates,
+            pinv, cmask, self.n_tips, rate_mult=mult, coding=coding,
+            pruner=self._pruners[i])
+
+    def log_prior(self, state):
+        """Full log prior [C] = tree component + parameter component."""
+        return self.log_prior_tree(state) + self.log_prior_params(state)
+
+    def log_prior_params(self, state):
+        """Prior over the substitution-model parameter groups."""
+        return self._grouped_params_prior(state)
+
+    def log_prior_tree(self, state):
+        """Prior over the branch lengths of the unrooted tree (the
+        uniform topology prior is a constant and dropped)."""
+        bp = self.tree_settings.brlenspr
+        blen = state["blen"]
+        if bp.kind == "gammadir":
+            a_t, b_t, a_f, c_i = bp.params
+            return brlens_gammadir_lpdf(
+                blen, self._blen_mask, a_t, b_t, a_f, c_i,
+                self._interior if c_i != 1.0 else None)
+        if bp.kind == "exponential":
+            return brlens_exponential_lpdf(blen, self._blen_mask,
+                                           bp.params[0])
+        return brlens_uniform_lpdf(blen, self._blen_mask, bp.params[0],
+                                   bp.params[1])
+
+    def _grouped_params_prior(self, state):
+        lp = state["blen"].new_zeros(state["blen"].shape[0])
+        for (param, gid), pr in self.group_priors.items():
+            x = state[param][:, gid]
+            if param in ("pi", "revmat"):
+                lp = lp + dirichlet_lpdf(x, self._prior_alpha[(param, gid)])
+            elif param == "tratio":
+                # Beta prior on x/(x+1) with Jacobian 1/(1+x)^2
+                # (reference tRatioDir)
+                a, b = (pr.params + (1.0, 1.0))[:2]
+                lp = lp + beta_lpdf(x / (1.0 + x), a, b) \
+                    - 2.0 * torch.log1p(x)
+            else:
+                lp = lp + _scalar_prior_lpdf(pr, x)
+        return lp
+
+    # ------------------------------------------------------------------
+    # generation loop
+
+    def _chain_step(self, gen, state, heat, tuning, power, move_idx, u_acc):
+        """One generation of move ``move_idx`` for every chain.  Returns
+        (state, accepted [C]).  ``power`` raises the likelihood for
+        power-posterior sampling; 1.0 for ordinary MCMC."""
+        spec = self.moves[move_idx]
+        cur = {k: v for k, v in state.items() if k not in SCORE_KEYS}
+        new, lnH = spec.fn(gen, cur, tuning)
+        if spec.updates_q:
+            new = self.refresh_eigs(new)
+        lnL = self.log_likelihood(new)
+        # recompute only the prior component the move can touch; carry
+        # the other (exact: a "params" move leaves every tree-prior input
+        # unchanged, and vice versa)
+        lnP_tree = (self.log_prior_tree(new) if spec.prior_scope != "params"
+                    else state["lnP_tree"])
+        lnP_par = (self.log_prior_params(new) if spec.prior_scope != "tree"
+                   else state["lnP_par"])
+        lnP = lnP_tree + lnP_par
+        ln_r = heat * (power * (lnL - state["lnL"])
+                       + lnP - state["lnP"]) + lnH
+        ln_r = torch.where(torch.isnan(ln_r), NEG_INF, ln_r)
+        accept = torch.log(u_acc) < ln_r
+        new.update(lnL=lnL, lnP=lnP, lnP_tree=lnP_tree, lnP_par=lnP_par)
+        out = {}
+        for k, old in state.items():
+            nv = new[k]
+            if nv is old:
+                out[k] = old
+            else:
+                a = accept.reshape((-1,) + (1,) * (old.ndim - 1))
+                out[k] = torch.where(a, nv, old)
+        return out, accept
+
+    def _swap_step(self, draws, states, temp_id, power=1.0):
+        """``nswaps`` swap attempts per run between random chain pairs
+        (reference AttemptSwap, src/mcmc.c:591; acceptance math :718), as
+        dense vector math over the [runs, chains] layout.  ``draws`` is
+        (si, sj_off, su) [nswaps, R], pregenerated for the block.
+        Returns (temp_id, (lo, hi, acc) per attempt)."""
+        si, sj_off, su = draws
+        nc = self.mcmc.nchains
+        R = self.mcmc.nruns
+        lam = self.mcmc.temp
+        E = (power * states["lnL"] + states["lnP"]).reshape(R, nc)
+        tid = temp_id.reshape(R, nc)
+        idx = torch.arange(nc, device=tid.device)
+        los, his, accs = [], [], []
+        for a in range(si.shape[0]):
+            i = si[a]
+            j = (i + sj_off[a]) % nc
+            sel_i = idx[None, :] == i[:, None]
+            sel_j = idx[None, :] == j[:, None]
+            ti = torch.where(sel_i, tid, 0).sum(1)
+            tj = torch.where(sel_j, tid, 0).sum(1)
+            Ei = torch.where(sel_i, E, 0.0).sum(1)
+            Ej = torch.where(sel_j, E, 0.0).sum(1)
+            beta_i = 1.0 / (1.0 + lam * ti.float())
+            beta_j = 1.0 / (1.0 + lam * tj.float())
+            acc = torch.log(su[a]) < (beta_i - beta_j) * (Ej - Ei)
+            swapped = torch.where(sel_i, tj[:, None],
+                                  torch.where(sel_j, ti[:, None], tid))
+            tid = torch.where(acc[:, None], swapped, tid)
+            los.append(torch.minimum(ti, tj))
+            his.append(torch.maximum(ti, tj))
+            accs.append(acc)
+        rec = (torch.stack(los), torch.stack(his), torch.stack(accs))
+        return tid.reshape(-1), rec
+
+    def _accumulate_swap_stats(self, swap_tries, swap_accepts, lo, hi, acc):
+        """Fold a block's swap records ([n, nswaps, R] lo/hi/acc) into the
+        [R, nc, nc] swap-rate matrices with two scatter-adds."""
+        nc = self.mcmc.nchains
+        R = self.mcmc.nruns
+        r_idx = torch.arange(R, device=lo.device).expand_as(lo)
+        flat = ((r_idx * nc + lo) * nc + hi).reshape(-1)
+        tries = torch.zeros(R * nc * nc, dtype=swap_tries.dtype,
+                            device=lo.device)
+        tries.index_add_(0, flat, torch.ones_like(flat, dtype=tries.dtype))
+        accs = torch.zeros_like(tries)
+        accs.index_add_(0, flat, acc.reshape(-1).to(accs.dtype))
+        return (swap_tries + tries.reshape(R, nc, nc),
+                swap_accepts + accs.reshape(R, nc, nc))
+
+    def _autotune(self, bk):
+        """Batch autotune toward target acceptance (diminishing adaptation;
+        reference Autotune* fns, src/mcmc.c:16916-16931)."""
+        rate = bk["accepts"] / bk["tries"].clamp_min(1)
+        step = min(0.5, 1.0 / math.sqrt(1.0 + bk["batch"]))
+        factor = torch.exp(step * self._tune_dir * (rate - self._tune_target)
+                           * self._tune_on)
+        tuning = bk["tuning"] * torch.where(bk["tries"] > 0, factor, 1.0)
+        tuning = torch.clamp(tuning, self._tune_min, self._tune_max)
+        return {**bk, "tuning": tuning,
+                "tries": torch.zeros_like(bk["tries"]),
+                "accepts": torch.zeros_like(bk["accepts"]),
+                "batch": bk["batch"] + 1}
+
+    def run_block(self, states, bk, n_gens: int):
+        """Advance all chains ``n_gens`` generations on the device.
+
+        The block's move indices are drawn up front from the host
+        generator (so the host knows which move to run); acceptance
+        uniforms and swap draws come from the device generators in one
+        batch each.  Nothing in the loop waits for the device."""
+        mc = self.mcmc
+        C = mc.n_chains_total
+        dev = self.device
+        bk = {k: (v.clone() if torch.is_tensor(v) else v)
+              for k, v in bk.items()}
+        gen0 = bk["gen"]
+        midx = torch.multinomial(self._move_probs, n_gens, replacement=True,
+                                 generator=bk["rng_host"]).tolist()
+        u_acc = torch.rand((n_gens, C), generator=bk["rng"], device=dev)
+        swapping = mc.nchains > 1
+        if swapping:
+            shape = (n_gens, max(1, mc.nswaps), mc.nruns)
+            si = torch.randint(0, mc.nchains, shape,
+                               generator=bk["rng_swap"], device=dev)
+            sj = torch.randint(1, mc.nchains, shape,
+                               generator=bk["rng_swap"], device=dev)
+            su = torch.rand(shape, generator=bk["rng_swap"], device=dev)
+        power = bk["power"]
+        recs = []
+        for g in range(n_gens):
+            m = midx[g]
+            heats = 1.0 / (1.0 + mc.temp * bk["temp_id"].float())
+            states, accepted = self._chain_step(
+                bk["rng"], states, heats, bk["tuning"][:, m], power, m,
+                u_acc[g])
+            acc = accepted.to(torch.int32)
+            bk["tries"][:, m] += 1
+            bk["tries_total"][:, m] += 1
+            bk["accepts"][:, m] += acc
+            bk["accepts_total"][:, m] += acc
+            absolute = gen0 + g + 1
+            if swapping and absolute % mc.swapfreq == 0:
+                bk["temp_id"], rec = self._swap_step(
+                    (si[g], sj[g], su[g]), states, bk["temp_id"], power)
+                recs.append(rec)
+            if mc.tune and absolute % mc.tunefreq == 0:
+                bk = self._autotune(bk)
+        if recs:
+            lo, hi, acc = (torch.stack(x) for x in zip(*recs))
+            bk["swap_tries"], bk["swap_accepts"] = \
+                self._accumulate_swap_stats(bk["swap_tries"],
+                                            bk["swap_accepts"], lo, hi, acc)
+        bk["gen"] = gen0 + n_gens
+        return states, bk
+
+    # ------------------------------------------------------------------
+    # host-side helpers
+
+    def cold_indices(self, bk) -> list[int]:
+        """Chain-slot index of the cold chain of each run."""
+        tid = bk["temp_id"].cpu().numpy()
+        nc = self.mcmc.nchains
+        return [int(r * nc + np.argmin(tid[r * nc:(r + 1) * nc]))
+                for r in range(self.mcmc.nruns)]
+
+    def extract_tree(self, states, slot: int) -> Tree:
+        """One chain's tree as a host ``Tree``."""
+        def host(k):
+            return states[k][slot].cpu().numpy()
+
+        return Tree(parent=host("parent").astype(np.int32),
+                    left=host("left").astype(np.int32),
+                    right=host("right").astype(np.int32),
+                    blen=host("blen").astype(np.float64),
+                    n_tips=self.n_tips, rooted=False)

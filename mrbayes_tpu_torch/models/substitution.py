@@ -1,0 +1,48 @@
+"""Substitution-model Q matrices (batched torch).
+
+Reversible Q construction for nucleotide models (nst=1/2/6) and any
+reversible exchangeability vector.  All Q matrices are normalized to one
+expected substitution per unit branch length: ``-sum_i pi_i Q_ii = 1``
+(reference: src/likelihood.c:8166 SetNucQMatrix behavior).  Every function
+takes leading batch dims (the chain axis) on its tensor arguments.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def reversible_q(exchange: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
+    """Normalized reversible Q from exchangeabilities r_ij [..., n(n-1)/2]
+    (upper-triangle order: for DNA AC, AG, AT, CG, CT, GT, the reference
+    revmat order) and stationary frequencies pi [..., n]:
+    Q_ij = r_ij * pi_j (i != j), rows sum to 0, mean rate 1.  The pair
+    index is built on the device, so a call makes no host transfer."""
+    n = pi.shape[-1]
+    iu = torch.triu_indices(n, n, 1, device=pi.device)
+    R = exchange.new_zeros(exchange.shape[:-1] + (n, n))
+    R[..., iu[0], iu[1]] = exchange
+    R = R + R.transpose(-1, -2)
+    Q = R * pi[..., None, :]
+    diag = -Q.sum(-1)
+    Q = Q + torch.diag_embed(diag)
+    mu = -(pi * diag).sum(-1)
+    return Q / mu[..., None, None]
+
+
+def nuc_q_nst1(pi: torch.Tensor) -> torch.Tensor:
+    """JC-style (F81): all exchangeabilities equal."""
+    return reversible_q(pi.new_ones(pi.shape[:-1] + (6,)), pi)
+
+
+def nuc_q_nst2(kappa: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
+    """HKY85: transitions (AG, CT) get rate kappa (tratio)."""
+    one = torch.ones_like(kappa)
+    # order AC, AG, AT, CG, CT, GT; transitions at 1 (AG) and 4 (CT)
+    ex = torch.stack([one, kappa, one, one, kappa, one], -1)
+    return reversible_q(ex, pi)
+
+
+def nuc_q_gtr(revmat: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
+    """GTR: 6 exchangeabilities (scale is irrelevant after
+    normalization)."""
+    return reversible_q(revmat, pi)

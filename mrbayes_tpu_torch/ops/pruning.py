@@ -1,0 +1,170 @@
+"""Felsenstein pruning on dense tensors, batched over chains.
+
+One division's log-likelihood for every chain given each chain's topology.
+The conditional-likelihood tensor is ``[C, n_nodes, patterns, rate_cats,
+states]``; ``root_partials`` is a Python loop over the internal nodes in
+each chain's postorder, each step two batched (pattern×cat, state)×(state,
+state) contractions.  Per-node max-rescaling keeps float32 partials in
+range (role of the reference's CondLikeScaler_*, src/likelihood.c:4939-
+5612; here rescaling is unconditional).  This is the plain twin of the
+CUDA kernel in ``pruning_cuda.py``: the kernel is held against it.
+
+Root reduction: lnL = Σ_p w_p log( (1-pinv) Σ_k f_k Σ_s π_s CL[p,k,s]
++ pinv Σ_s π_s 1[pattern p constant at s] ), reference
+src/likelihood.c:6238-6368 (Likelihood_NUC4 family).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .tiprobs import transition_probs
+from .traversal import postorder_internal
+
+_TINY = 1e-30
+
+
+def branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult=1.0):
+    """Per-branch, per-category transition matrices [C, n_nodes, K, S, S].
+    ``pinv > 0`` rescales the variable-class rate by 1/(1-pinv)
+    (reference src/likelihood.c:9309-9310).  blen [C, n_nodes]; lam [C, S];
+    U/Uinv [C, S, S]; cat_rates [C, K]; pinv [C] or a float."""
+    if torch.is_tensor(pinv):
+        base = (rate_mult / torch.clamp_min(1.0 - pinv, 1e-6))[:, None]
+    else:
+        base = rate_mult / max(1.0 - pinv, 1e-6)
+    tau = blen * base
+    eff = tau[..., None] * cat_rates[:, None, :]          # [C, N, K]
+    return transition_probs(lam[:, None, None], U[:, None, None],
+                            Uinv[:, None, None], eff)
+
+
+def root_partials(left, right, parent, blen, tip_partials, lam, U, Uinv,
+                  cat_rates, pinv, n_tips: int, rate_mult=1.0):
+    """Run the pruning pass for every chain; return (partials [C, n_nodes,
+    P, K, S] with every internal row populated, logscale [C, P]).
+
+    left/right/parent/blen [C, n_nodes]; tip_partials [n_tips, P, S]
+    (shared by all chains); lam [C, S]; U/Uinv [C, S, S]; cat_rates
+    [C, K]; pinv [C] or a float."""
+    C, n_nodes = parent.shape
+    npat, s = tip_partials.shape[1], tip_partials.shape[2]
+    k = cat_rates.shape[-1]
+    P = branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult)
+    partials = tip_partials.new_zeros((C, n_nodes, npat, k, s))
+    partials[:, :n_tips] = tip_partials[None, :, :, None, :]
+    order = postorder_internal(parent, n_tips)
+    rows = torch.arange(C, device=parent.device)
+    logscale = tip_partials.new_zeros((C, npat))
+    for i in range(n_tips - 1):
+        v = order[:, i]
+        lch = left.gather(1, v[:, None])[:, 0]
+        rch = right.gather(1, v[:, None])[:, 0]
+        wl = torch.einsum("cksj,cpkj->cpks", P[rows, lch], partials[rows, lch])
+        wr = torch.einsum("cksj,cpkj->cpks", P[rows, rch], partials[rows, rch])
+        cl = wl * wr
+        m = torch.clamp_min(cl.amax(dim=(2, 3)), _TINY)       # [C, P]
+        partials[rows, v] = cl / m[:, :, None, None]
+        logscale = logscale + torch.log(m)
+    return partials, logscale
+
+
+def root_clv(left, right, parent, blen, tip_partials, lam, U, Uinv,
+             cat_rates, pinv, n_tips: int, rate_mult=1.0, pruner=None):
+    """Root conditional likelihoods [C, P, K, S] and per-pattern log
+    rescale sums [C, P].  With a ``PruningCuda`` wiring the pass goes
+    through it (the CUDA kernel for CUDA tensors, its plain version for
+    CPU tensors); otherwise through ``root_partials``."""
+    if pruner is not None:
+        P = branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult)
+        order = postorder_internal(parent, n_tips)
+        root, ls = pruner(order, left, right, P)       # [C, K, S, P]
+        return root.permute(0, 3, 1, 2), ls
+    partials, logscale = root_partials(
+        left, right, parent, blen, tip_partials, lam, U, Uinv,
+        cat_rates, pinv, n_tips, rate_mult)
+    return partials[:, 2 * n_tips - 2], logscale
+
+
+def division_site_loglik(left, right, parent, blen, tip_partials,
+                         lam, U, Uinv, pi, cat_rates, pinv, const_mask,
+                         n_tips: int, rate_mult=1.0, cat_weights=None,
+                         pruner=None) -> torch.Tensor:
+    """Per-pattern log-likelihoods [C, P] for one division.
+
+    Shapes: left/right/parent/blen [C, 2n-1]; tip_partials [n, P, S];
+    lam [C, S]; U/Uinv [C, S, S]; pi [C, S]; cat_rates [C, K];
+    cat_weights [K] (None = equal 1/K); const_mask [P, S] (None when pinv
+    is fixed at 0); pinv [C] or a float.
+    """
+    root_cl, logscale = root_clv(
+        left, right, parent, blen, tip_partials, lam, U, Uinv,
+        cat_rates, pinv if const_mask is not None else 0.0, n_tips,
+        rate_mult, pruner=pruner)
+    k = cat_rates.shape[-1]
+    if cat_weights is None:
+        cat_weights = root_cl.new_full((k,), 1.0 / k)
+    site_l = torch.einsum("cpks,k,cs->cp", root_cl, cat_weights, pi)
+    ln_var = torch.log(torch.clamp_min(site_l, _TINY)) + logscale
+    if const_mask is None:
+        return ln_var
+    pinv = (pinv.reshape(-1, 1) if torch.is_tensor(pinv)
+            else ln_var.new_full((1, 1), pinv))               # [C|1, 1]
+    const_l = torch.einsum("ps,cs->cp", const_mask, pi)
+    ln_inv = torch.log(torch.clamp_min(pinv, _TINY)) + \
+        torch.log(torch.clamp_min(const_l, _TINY))
+    mixed = torch.logaddexp(
+        torch.log1p(-torch.clamp_max(pinv, 1 - 1e-7)) + ln_var, ln_inv)
+    return torch.where(pinv > 0.0, mixed, ln_var)
+
+
+def division_loglik(left, right, parent, blen, tip_partials, weights,
+                    lam, U, Uinv, pi, cat_rates, pinv, const_mask,
+                    n_tips: int, rate_mult=1.0, coding: str = "all",
+                    cat_weights=None, pruner=None) -> torch.Tensor:
+    """Weighted log-likelihood [C] of one division, with optional
+    ascertainment-bias correction for datasets that by construction lack
+    certain patterns (reference: AddDummyChars src/model.c:176).
+
+    coding: "all" (none) | "variable" | "noabsence" | "nopresence".  With
+    a correction, ``tip_partials`` (and the pruner's tips) carry the S
+    dummy constant patterns appended after the real ones.
+    """
+    s = tip_partials.shape[-1]
+    if coding != "all" and pruner is None:
+        dummy = torch.eye(s, dtype=tip_partials.dtype,
+                          device=tip_partials.device)
+        tip_partials = torch.cat(
+            [tip_partials, dummy.expand(tip_partials.shape[0], s, s)], 1)
+    if coding != "all" and const_mask is not None:
+        const_mask = torch.cat([const_mask, torch.eye(
+            s, dtype=const_mask.dtype, device=const_mask.device)], 0)
+    ln_site = division_site_loglik(
+        left, right, parent, blen, tip_partials, lam, U, Uinv, pi,
+        cat_rates, pinv, const_mask, n_tips, rate_mult, cat_weights,
+        pruner=pruner)
+    if coding == "all":
+        return (weights * ln_site).sum(-1)
+    return _coding_total(ln_site[:, :-s], ln_site[:, -s:], weights, coding)
+
+
+def _coding_total(ln_real, ln_dummy, weights, coding: str):
+    """Σ_p w_p ln L_p - Σ_p w_p log(1 - P(unobservable)), per chain."""
+    if coding == "variable":
+        p_unobs = torch.exp(ln_dummy).sum(-1)
+    elif coding == "noabsence":
+        p_unobs = torch.exp(ln_dummy[:, 0])
+    elif coding == "nopresence":
+        p_unobs = torch.exp(ln_dummy[:, -1])
+    else:
+        raise ValueError(f"unknown coding {coding!r}")
+    correction = weights.sum() * torch.log1p(
+        -torch.clamp_max(p_unobs, 1.0 - 1e-7))
+    return (weights * ln_real).sum(-1) - correction
+
+
+def constant_state_mask(patterns, n_states: int):
+    """Host-side helper: [P, S] 1.0 where a pattern is compatible with all
+    taxa having constant state s (bit s set in every taxon's mask)."""
+    bits = (patterns[..., None] >> np.arange(n_states)) & 1  # [n,P,S]
+    return np.all(bits, axis=0).astype(np.float32)

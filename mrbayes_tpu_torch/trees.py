@@ -1,0 +1,308 @@
+"""Array-based phylogenetic trees.
+
+A tree over ``n`` tips is a fixed-size node-indexed structure:
+
+* nodes ``0..n-1`` are tips (taxon order of the data set),
+* nodes ``n..2n-2`` are internal; the root is always node ``2n-2``.
+
+Arrays (all length ``2n-1``):
+
+* ``parent[i]``  — parent node id (root: ``-1``)
+* ``left[i], right[i]`` — child ids (tips: ``-1``)
+* ``blen[i]``    — length of the edge above node ``i``
+
+**Unrooted convention** (reversible, non-clock models): the root node's right
+child is always tip 0 with ``blen[0] == 0``; ``blen[left-child-of-root]``
+carries the edge adjacent to tip 0.  This yields exactly the ``2n-3`` free
+branch lengths of the unrooted tree while keeping a strictly binary rooted
+array layout, so the same pruning kernel serves rooted (clock) and unrooted
+models.  (The reference stores unrooted trees rooted at a tip instead —
+src/bayes.h:594-621, src/utils.c — pointer-based; this dense layout keeps
+every chain's tree a fixed-shape tensor row.)
+
+Everything here is host-side numpy; the batched tensor topology utilities
+live in ``mrbayes_tpu_torch.ops.traversal``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass
+class Tree:
+    parent: np.ndarray  # int32 [2n-1]
+    left: np.ndarray    # int32 [2n-1]
+    right: np.ndarray   # int32 [2n-1]
+    blen: np.ndarray    # float64 [2n-1]
+    n_tips: int
+    rooted: bool = False
+
+    @property
+    def n_nodes(self) -> int:
+        return 2 * self.n_tips - 1
+
+    @property
+    def root(self) -> int:
+        return 2 * self.n_tips - 2
+
+    def copy(self) -> "Tree":
+        return Tree(self.parent.copy(), self.left.copy(), self.right.copy(),
+                    self.blen.copy(), self.n_tips, self.rooted)
+
+    def postorder(self) -> np.ndarray:
+        """Internal nodes in child-before-parent order (root last)."""
+        order, stack, visited = [], [self.root], set()
+        while stack:
+            v = stack[-1]
+            kids = [k for k in (self.left[v], self.right[v]) if k >= 0]
+            ready = all(k in visited or k < self.n_tips for k in kids)
+            if ready:
+                stack.pop()
+                if v >= self.n_tips:
+                    order.append(v)
+                visited.add(v)
+            else:
+                stack.extend(k for k in kids
+                             if k >= self.n_tips and k not in visited)
+        return np.array(order, dtype=np.int32)
+
+    def check(self) -> None:
+        """Structural invariants (analog of reference IsTreeConsistent,
+        src/utils.c:4778)."""
+        n = self.n_tips
+        assert self.parent[self.root] == -1
+        for i in range(self.n_nodes):
+            for c in (self.left[i], self.right[i]):
+                if c >= 0:
+                    assert self.parent[c] == i, f"parent link broken at {c}"
+            if i < n:
+                assert self.left[i] == -1 and self.right[i] == -1
+        if not self.rooted:
+            assert self.right[self.root] == 0, "unrooted: root right != tip 0"
+            assert self.blen[0] == 0.0
+        assert len(self.postorder()) == n - 1, "tree not fully connected"
+
+
+# ---------------------------------------------------------------------------
+# Newick parsing
+
+def _parse_newick_tokens(s: str):
+    """Parse newick into nested (children, label, blen) tuples."""
+    pos = [0]
+
+    def parse_clade():
+        children = []
+        label, blen = "", None
+        if s[pos[0]] == "(":
+            pos[0] += 1
+            while True:
+                children.append(parse_clade())
+                if s[pos[0]] == ",":
+                    pos[0] += 1
+                    continue
+                if s[pos[0]] == ")":
+                    pos[0] += 1
+                    break
+        j = pos[0]
+        while j < len(s) and s[j] not in ",():;":
+            j += 1
+        label = s[pos[0]:j]
+        pos[0] = j
+        if j < len(s) and s[j] == ":":
+            k = j + 1
+            while k < len(s) and s[k] not in ",();":
+                k += 1
+            blen = float(s[j + 1:k])
+            pos[0] = k
+        return (children, label, blen)
+
+    return parse_clade()
+
+
+def parse_newick(newick: str, taxa: list[str], rooted: bool = False) -> Tree:
+    """Build a Tree from a newick string whose labels are taxon names or
+    1-based numbers. Unrooted inputs (basal bifurcation or trifurcation) are
+    re-rooted at tip 0 per the unrooted convention."""
+    s = newick.strip().rstrip(";").replace(" ", "")
+    node = _parse_newick_tokens(s)
+    n = len(taxa)
+    name_to_id = {t: i for i, t in enumerate(taxa)}
+    for i, t in enumerate(taxa):
+        name_to_id.setdefault(str(i + 1), i)
+
+    # collect undirected adjacency with edge lengths
+    adj: dict[int, list[tuple[int, float]]] = {}
+    next_internal = [n]
+
+    def add_edge(a, b, w):
+        adj.setdefault(a, []).append((b, w))
+        adj.setdefault(b, []).append((a, w))
+
+    def build(nd) -> int:
+        children, label, blen = nd
+        if not children:
+            if label not in name_to_id:
+                raise ValueError(f"unknown taxon {label!r}")
+            return name_to_id[label]
+        my = next_internal[0]
+        next_internal[0] += 1
+        for ch in children:
+            cid = build(ch)
+            add_edge(my, cid, ch[2] if ch[2] is not None else 0.0)
+        return my
+
+    top_children, _, _ = node
+    if rooted:
+        return _build_rooted(node, taxa)
+    top_id = build(node)
+    # If the file root is a bifurcation, merge its two edges (it is a fake
+    # root on an unrooted edge); a trifurcation is a real internal node.
+    if len(adj[top_id]) == 2:
+        (a, wa), (b, wb) = adj[top_id]
+        adj[a] = [(x, w) for x, w in adj[a] if x != top_id] + [(b, wa + wb)]
+        adj[b] = [(x, w) for x, w in adj[b] if x != top_id] + [(a, wa + wb)]
+        del adj[top_id]
+
+    # Re-root at tip 0: DFS away from tip 0, relabel internal nodes densely.
+    t = Tree(parent=np.full(2 * n - 1, -1, np.int32),
+             left=np.full(2 * n - 1, -1, np.int32),
+             right=np.full(2 * n - 1, -1, np.int32),
+             blen=np.zeros(2 * n - 1), n_tips=n, rooted=False)
+    new_id = {}
+    counter = [n]
+
+    def relabel(old: int) -> int:
+        if old < n:
+            return old
+        if old not in new_id:
+            new_id[old] = counter[0]
+            counter[0] += 1
+        return new_id[old]
+
+    root = t.root
+    (basal_old, w0) = adj[0][0]
+    basal = relabel(basal_old)
+    t.left[root], t.right[root] = basal, 0
+    t.parent[basal] = root
+    t.parent[0] = root
+    t.blen[basal] = w0
+    stack = [(basal_old, 0)]  # (old id, old parent id)
+    while stack:
+        old, old_par = stack.pop()
+        me = relabel(old)
+        kids = [(x, w) for x, w in adj[old] if x != old_par]
+        assert len(kids) == 2, f"non-binary node degree {len(kids)+1}"
+        (l_old, wl), (r_old, wr) = kids
+        l, r = relabel(l_old), relabel(r_old)
+        t.left[me], t.right[me] = l, r
+        t.parent[l] = t.parent[r] = me
+        t.blen[l], t.blen[r] = wl, wr
+        for k_old, _ in kids:
+            if k_old >= n:
+                stack.append((k_old, old))
+    t.check()
+    return t
+
+
+def _build_rooted(node, taxa: list[str]) -> Tree:
+    n = len(taxa)
+    name_to_id = {t: i for i, t in enumerate(taxa)}
+    for i, tx in enumerate(taxa):
+        name_to_id.setdefault(str(i + 1), i)
+    t = Tree(parent=np.full(2 * n - 1, -1, np.int32),
+             left=np.full(2 * n - 1, -1, np.int32),
+             right=np.full(2 * n - 1, -1, np.int32),
+             blen=np.zeros(2 * n - 1), n_tips=n, rooted=True)
+    counter = [n]
+
+    def build(nd, want_root=False) -> int:
+        children, label, blen = nd
+        if not children:
+            return name_to_id[label]
+        if len(children) != 2:
+            raise ValueError("rooted trees must be binary")
+        if want_root:
+            my = t.root
+        else:
+            my = counter[0]
+            counter[0] += 1
+            if my == t.root:  # reserve root id
+                my = counter[0]
+                counter[0] += 1
+        l = build(children[0])
+        r = build(children[1])
+        t.left[my], t.right[my] = l, r
+        t.parent[l] = t.parent[r] = my
+        t.blen[l] = children[0][2] or 0.0
+        t.blen[r] = children[1][2] or 0.0
+        return my
+
+    build(node, want_root=True)
+    t.check()
+    return t
+
+
+def to_newick(t: Tree, taxa: list[str] | None = None, digits: int = 8,
+              numbers: bool = False) -> str:
+    """Serialize. Unrooted trees are written with a basal trifurcation
+    (tip 0 first), matching the reference's .t-file layout."""
+    def label(i: int) -> str:
+        if numbers or taxa is None:
+            return str(i + 1)
+        return taxa[i]
+
+    def rec(i: int) -> str:
+        if i < t.n_tips:
+            return f"{label(i)}:{t.blen[i]:.{digits}g}"
+        return (f"({rec(t.left[i])},{rec(t.right[i])})"
+                f":{t.blen[i]:.{digits}g}")
+
+    if t.rooted:
+        return (f"({rec(t.left[t.root])},{rec(t.right[t.root])});")
+    basal = t.left[t.root]
+    bl, br = t.left[basal], t.right[basal]
+    tip0 = f"{label(0)}:{t.blen[basal]:.{digits}g}"
+    return f"({tip0},{rec(bl)},{rec(br)});"
+
+
+def random_unrooted(n_tips: int, rng: np.random.Generator,
+                    mean_blen: float = 0.1) -> Tree:
+    """Random topology by sequential addition; exp(mean_blen) branch
+    lengths (reference: src/utils.c:2560 GetRandomEmbeddedSubtree area)."""
+    n = n_tips
+    t = Tree(parent=np.full(2 * n - 1, -1, np.int32),
+             left=np.full(2 * n - 1, -1, np.int32),
+             right=np.full(2 * n - 1, -1, np.int32),
+             blen=rng.exponential(mean_blen, 2 * n - 1), n_tips=n,
+             rooted=False)
+    root = t.root
+    # start: root -> (basal=(1,2) joined at node n, tip0)
+    t.blen[0] = 0.0
+    basal = n
+    t.left[root], t.right[root] = basal, 0
+    t.parent[basal], t.parent[0] = root, root
+    t.left[basal], t.right[basal] = 1, 2
+    t.parent[1] = t.parent[2] = basal
+    edges = [1, 2, basal]  # nodes whose parent-edge can be split
+    next_int = n + 1
+    for tip in range(3, n):
+        e = int(rng.integers(len(edges)))
+        child = edges[e]
+        par = t.parent[child]
+        mid = next_int
+        next_int += 1
+        # split edge (par -> child) with new node mid; attach tip
+        if t.left[par] == child:
+            t.left[par] = mid
+        else:
+            t.right[par] = mid
+        t.parent[mid] = par
+        t.left[mid], t.right[mid] = child, tip
+        t.parent[child] = mid
+        t.parent[tip] = mid
+        t.blen[mid] = rng.exponential(mean_blen)
+        edges.extend([tip, mid])
+    t.check()
+    return t
