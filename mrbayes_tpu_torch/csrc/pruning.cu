@@ -27,6 +27,8 @@
 //     wrote itself, so no __syncthreads is needed.
 //   * S in {2, 4, 20} is a template parameter (child columns in
 //     registers); other S up to 64 with K <= 16 take the runtime-S path.
+//   * the per-thread walk is mb::down_pass (down_pass.cuh), which the
+//     multiwalk kernel (multiwalk.cu) shares.
 //
 // What bounds it on an H100: latency.  The n_int-step dependent chain (each
 // step waits on the previous step's global writes through L2) plus the
@@ -40,10 +42,11 @@
 
 #include <cuda_runtime.h>
 
+#include "down_pass.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr float kTiny = 1e-30f;
+using mb::kThreads;
 
 template <int S_T>
 __global__ void __launch_bounds__(kThreads)
@@ -58,73 +61,12 @@ pruning_down_kernel(const int* __restrict__ lr,        // [C, n_int, 2]
   const int c = blockIdx.y;
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= P) return;
-  const long long SP = (long long)S * P;
-  const long long KSP = (long long)K * SP;
-  const int SS = S * S;
-  float* scr = scratch + (long long)c * n_int * KSP + p;
-  const int* lr_c = lr + (long long)c * n_int * 2;
-  const float* op_c = pstep + (long long)c * n_int * 2 * K * SS;
-  float lsum = 0.f;
-  for (int i = 0; i < n_int; ++i) {
-    const int sl = __ldg(lr_c + 2 * i);
-    const int sr = __ldg(lr_c + 2 * i + 1);
-    // child column bases; a tip's column is the same for every category
-    const float* bl = sl < n_tips ? tips + sl * SP + p
-                                  : scr + (long long)(sl - n_tips) * KSP;
-    const float* br = sr < n_tips ? tips + sr * SP + p
-                                  : scr + (long long)(sr - n_tips) * KSP;
-    const long long kl = sl < n_tips ? 0 : SP;
-    const long long kr = sr < n_tips ? 0 : SP;
-    const float* opl = op_c + (long long)(2 * i) * K * SS;
-    const float* opr = opl + K * SS;
-    float* out = scr + (long long)i * KSP;
-    float m = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float* xl = bl + k * kl;
-      const float* xr = br + k * kr;
-      const float* ol = opl + k * SS;
-      const float* orr = opr + k * SS;
-      float* o = out + k * SP;
-      if constexpr (S_T > 0) {
-        float vl[S_T], vr[S_T];
-#pragma unroll
-        for (int j = 0; j < S_T; ++j) {
-          vl[j] = xl[j * P];
-          vr[j] = xr[j * P];
-        }
-#pragma unroll
-        for (int s = 0; s < S_T; ++s) {
-          float wl = 0.f, wr = 0.f;
-#pragma unroll
-          for (int j = 0; j < S_T; ++j) {
-            wl = fmaf(__ldg(ol + s * S_T + j), vl[j], wl);
-            wr = fmaf(__ldg(orr + s * S_T + j), vr[j], wr);
-          }
-          const float x = wl * wr;
-          o[s * P] = x;
-          m = fmaxf(m, x);
-        }
-      } else {
-        for (int s = 0; s < S; ++s) {
-          float wl = 0.f, wr = 0.f;
-          for (int j = 0; j < S; ++j) {
-            wl = fmaf(__ldg(ol + s * S + j), xl[j * P], wl);
-            wr = fmaf(__ldg(orr + s * S + j), xr[j * P], wr);
-          }
-          const float x = wl * wr;
-          o[s * P] = x;
-          m = fmaxf(m, x);
-        }
-      }
-    }
-    m = fmaxf(m, kTiny);
-    for (int ks = 0; ks < K * S; ++ks) out[ks * P] = out[ks * P] / m;
-    lsum += logf(m);
-  }
-  const float* last = scr + (long long)(n_int - 1) * KSP;
-  float* rt = root + (long long)c * KSP + p;
-  for (int ks = 0; ks < K * S; ++ks) rt[ks * P] = last[ks * P];
-  ls[(long long)c * P + p] = lsum;
+  const long long KSP = (long long)K * S * P;
+  mb::down_pass<S_T>(lr + (long long)c * n_int * 2,
+                     pstep + (long long)c * n_int * 2 * K * S * S, tips + p,
+                     scratch + (long long)c * n_int * KSP + p,
+                     root + (long long)c * KSP + p,
+                     ls + (long long)c * P + p, n_tips, n_int, K, S, P);
 }
 
 }  // namespace

@@ -1,11 +1,16 @@
-"""Where a generation's time goes: primates GTR+I+G MC3 on one device.
+"""Where a generation's time goes: one engine of ``chip_smoke.py`` on one
+device.
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
     python -m mrbayes_tpu_torch.engine_profile --chains 4 --gens 100
+    python -m mrbayes_tpu_torch.engine_profile --config test1 [--multiwalk]
 
-It builds the same engine as ``chip_smoke.py``'s main path, warms it up,
-and then measures, each on the device it runs on:
+``--config primates`` (the default) is primates GTR+I+G, 1 run;
+``--config test1`` is test1's partitioned model (built through the CLI's
+commands, ``envelope.TEST1_MODEL``), 2 runs, with the multiwalk switch as
+given.  ``--chains`` is the chain count per run.  It builds the engine,
+warms it up, and then measures, each on the device it runs on:
 
   * ``run_block`` under ``torch.profiler``: wall time, the device's busy
     and idle share (summed kernel time over the window), kernel launches
@@ -14,7 +19,7 @@ and then measures, each on the device it runs on:
   * one generation of each move type alone (host clock around
     ``torch.cuda.synchronize()``), with the move's share of the draws;
   * one ``log_likelihood`` call, one ``refresh_eigs`` call and one pruning
-    kernel call.
+    kernel call (division 0's single-division wiring).
 
 It prints one JSON object (also written to ``--out``).  ``--device cpu``
 rehearses it on the CPU; those numbers are CPU numbers and are labelled so.
@@ -150,6 +155,26 @@ def parts(eng, states, dev, reps):
     return out
 
 
+def build_engine(config: str, chains: int, device, multiwalk: bool):
+    """(engine, description) of one profiled configuration."""
+    if config == "primates":
+        nf = read_nexus_file(PRIMATES)
+        ds = DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar,
+                     divisions=make_divisions(nf.matrix))
+        eng = Engine(ds, [DivisionSettings(nst="6", rates="invgamma")],
+                     mcmc=McmcSettings(nruns=1, nchains=chains, seed=3),
+                     device=device)
+        return eng, f"primates GTR+I+G, 1 run x {chains} chains"
+    from .cli import Interpreter
+    from .envelope import TEST1_MODEL
+    it = Interpreter(log=lambda m: None, device=device, multiwalk=multiwalk)
+    for line in (f"execute {PRIMATES}", *TEST1_MODEL,
+                 f"mcmcp nruns=2 nchains={chains} seed=3"):
+        it.run_line(line)
+    return it.build_engine(), (f"test1, 2 runs x {chains} chains, multiwalk "
+                               f"{'on' if multiwalk else 'off'}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--chains", type=int, default=4)
@@ -157,20 +182,21 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a CUDA device)")
+    ap.add_argument("--config", choices=("primates", "test1"),
+                    default="primates")
+    ap.add_argument("--multiwalk", action="store_true",
+                    help="test1: group the divisions into one multiwalk "
+                         "launch")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
-    nf = read_nexus_file(PRIMATES)
-    ds = DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar,
-                 divisions=make_divisions(nf.matrix))
-    eng = Engine(ds, [DivisionSettings(nst="6", rates="invgamma")],
-                 mcmc=McmcSettings(nruns=1, nchains=args.chains, seed=3),
-                 device=args.device)
+    eng, config = build_engine(args.config, args.chains, args.device,
+                               args.multiwalk)
     dev = eng.device
     states, bk = eng.init_chains()
     states, bk = eng.run_block(states, bk, 50)
     block, states, bk = profile_block(eng, states, bk, args.gens, dev)
     result = {"device": _device_name(dev), "torch": torch.__version__,
-              "config": f"primates GTR+I+G, 1 run x {args.chains} chains",
+              "config": config,
               "run_block": block,
               "per_move": per_move(eng, states, bk, dev, args.reps),
               "parts": parts(eng, states, dev, args.reps)}

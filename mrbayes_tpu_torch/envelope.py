@@ -1,0 +1,158 @@
+"""The test1 envelope run: MrBayes' own CI check (testing/test1.nex with
+testing/runtests.sh.in:82-161's statistics) through the port's CLI.
+
+test1 is primates.nex split into two partitions (1-400, 401-.) under
+nst=mixed rates=invgamma with state frequencies, exchangeabilities,
+pinvar and shape unlinked and ratepr=variable, 2 runs x 4 chains.  The
+run must land in the reference's envelope:
+
+  * cold-chain best lnL    in [-5715, -5700]
+  * posterior mean TL      in [2.2, 4.5] (the reference binary's own
+    measured range on this configuration; see tests/envelope_check.py)
+  * final ASDSF            < 0.05
+  * average PSRF           in [0.95, 1.2]
+
+Usage (on the GPU; ``--device cpu`` for the CPU):
+
+    python -m mrbayes_tpu_torch.envelope [--ngen 20000] [--multiwalk]
+        [--workdir runs/envelope]
+
+prints one ``ENVELOPE {...}`` JSON line and exits 1 outside the envelope.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+from .mcmc.diagnostics import psrf
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PRIMATES = os.path.join(HERE, os.pardir, "tests", "data", "ref", "examples",
+                        "primates.nex")
+
+# test1's model commands, after its execute
+TEST1_MODEL = ("partition test = 2: 1-400, 401-.",
+               "set partition=test",
+               "lset applyto=(all) nst=mixed rates=invgamma",
+               "unlink statefreq=(all) revmat=(all) pinvar=(all) shape=(all)",
+               "prset applyto=(all) ratepr=variable")
+TEST1 = """#NEXUS
+begin mrbayes;
+    set autoclose=yes nowarn=yes;
+    execute {data};
+""" + "".join(f"    {c};\n" for c in TEST1_MODEL) + """\
+    mcmc ngen={ngen} nruns=2 nchains=4 samplefreq={samplefreq}
+         printfreq=2000 diagnfreq={diagnfreq} file={prefix};
+    sump;
+    sumt;
+end;
+"""
+
+
+def write_test1(workdir: str, ngen: int = 20000, samplefreq: int = 100,
+                diagnfreq: int = 2000, data: str = PRIMATES) -> str:
+    """Write test1's batch file into ``workdir``; returns its path."""
+    os.makedirs(workdir, exist_ok=True)
+    path = os.path.join(workdir, "test1.nex")
+    with open(path, "w") as f:
+        f.write(TEST1.format(data=os.path.abspath(data), ngen=ngen,
+                             samplefreq=samplefreq, diagnfreq=diagnfreq,
+                             prefix=os.path.join(os.path.abspath(workdir),
+                                                 "test1")))
+    return path
+
+
+def run_test1(workdir: str, ngen: int = 20000, device=None,
+              multiwalk: bool | None = None, log=print):
+    """Run test1 through ``cli.Interpreter.execute_file``.  Returns
+    (interpreter, statistics dict, log lines)."""
+    from .cli import Interpreter
+    lines: list[str] = []
+
+    def keep(msg):
+        lines.append(str(msg))
+        log(msg)
+
+    it = Interpreter(log=keep, device=device, multiwalk=multiwalk)
+    t0 = time.time()
+    it.execute_file(write_test1(workdir, ngen))
+    wall = time.time() - t0
+    stats = test1_stats(os.path.join(workdir, "test1"), lines)
+    runner = it._last_runner
+    stats.update(wall_s=wall, run_s=runner.wall_seconds,
+                 gens_per_s=runner.generations / runner.wall_seconds,
+                 ngen=ngen)
+    return it, stats, lines
+
+
+def test1_stats(prefix: str, lines: list[str]) -> dict:
+    """Best lnL, posterior mean TL, average PSRF (after 25% burn-in) from
+    the .p files, and the last ASDSF the log printed."""
+    best_lnl = -np.inf
+    tl_all, runs_cols = [], []
+    for r in (1, 2):
+        with open(f"{prefix}.run{r}.p") as f:
+            f.readline()
+            header = f.readline().rstrip("\n").split("\t")
+            rows = np.array([[float(x) for x in ln.split("\t")]
+                             for ln in f if ln.strip()])
+        burn = len(rows) // 4
+        cols = {h.strip(): rows[:, i] for i, h in enumerate(header)}
+        runs_cols.append({h: v[burn:] for h, v in cols.items()})
+        best_lnl = max(best_lnl, float(cols["lnLike"].max()))
+        tl_all.append(cols.get("TL{all}", cols.get("TL"))[burn:])
+    vals = []
+    for name in runs_cols[0]:
+        if name in ("Gen", "lnLike", "lnPrior") \
+                or name.startswith("gtrsubmodel"):
+            continue
+        p = psrf(np.stack([rc[name] for rc in runs_cols]))
+        if np.isfinite(p) and p <= 10.0:
+            vals.append(float(p))
+    asdsf = None
+    for ln in reversed(lines):
+        if "standard deviation of split frequencies" in ln:
+            asdsf = float(ln.replace("=", ":").split(":")[-1])
+            break
+    return {"best_lnl": best_lnl,
+            "tl_mean": float(np.mean(np.concatenate(tl_all))),
+            "asdsf": asdsf, "avg_psrf": float(np.mean(vals))}
+
+
+def envelope_errors(stats: dict) -> list[str]:
+    errors = []
+    if not -5715 <= stats["best_lnl"] <= -5700:
+        errors.append(f"best lnL {stats['best_lnl']:.2f} outside "
+                      f"[-5715, -5700]")
+    if not 2.2 <= stats["tl_mean"] <= 4.5:
+        errors.append(f"TL mean {stats['tl_mean']:.3f} outside [2.2, 4.5]")
+    if stats["asdsf"] is None or stats["asdsf"] >= 0.05:
+        errors.append(f"ASDSF {stats['asdsf']} not < 0.05")
+    if not 0.95 <= stats["avg_psrf"] <= 1.2:
+        errors.append(f"average PSRF {stats['avg_psrf']:.3f} outside "
+                      f"[0.95, 1.2]")
+    return errors
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m mrbayes_tpu_torch.envelope")
+    ap.add_argument("--ngen", type=int, default=20000)
+    ap.add_argument("--workdir", default=os.path.join("runs", "envelope"))
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--multiwalk", action="store_true",
+                    help="group the divisions into one multiwalk launch")
+    args = ap.parse_args(argv)
+    _, stats, _ = run_test1(args.workdir, args.ngen, args.device,
+                            True if args.multiwalk else None)
+    errors = envelope_errors(stats)
+    print("ENVELOPE " + json.dumps({**stats, "errors": errors}), flush=True)
+    return 1 if errors else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

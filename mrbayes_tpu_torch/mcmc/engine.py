@@ -14,14 +14,30 @@ reference's MPI design, src/mcmc.c:826-842).
 host generator, every other random number from a device generator, and
 acceptance, swaps and autotuning stay tensor math on the device.
 
-This slice carries nucleotide data under nst 1/2/6 with equal, gamma,
-propinv or invgamma rates, one unrooted non-clock tree with the default
-priors, any number of runs and chains; every other setting raises
+The port carries nucleotide data under nst 1/2/6/mixed with equal,
+gamma, propinv or invgamma rates, any number of divisions (partitions)
+with linked or unlinked parameters and fixed or variable rate
+multipliers, one unrooted non-clock tree with the default priors, and
+any number of runs and chains; every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
+
+Divisions that share the tree can go through one multiwalk kernel launch
+(``ops/multiwalk_cuda.py``) instead of one launch each.  The switch keeps
+the JAX package's meaning and default: off unless ``Engine(multiwalk=
+True)`` or ``MB_TPU_MULTIWALK=1``, read once when the engine is built.
+The grouping differs on purpose: the JAX engine buckets divisions by
+their pattern count padded to the TPU's 128-lane tile
+(mrbayes_tpu/mcmc/engine.py:1025-1041), so test1's two divisions (199 and
+258 patterns, padded to 256 and 384) form no group there.  The CUDA
+kernel needs no lane padding, so here divisions are grouped by what that
+kernel takes: one state count per launch, supported (S, K) pairs, at most
+65,535 walks and a bounded scratch buffer.  A division's lnL is the same
+function of its partials either way.
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from functools import partial
 
@@ -33,10 +49,14 @@ from ..data import DataSet, Division
 from ..models.rates import GammaRateTable
 from ..models.substitution import nuc_q_gtr, nuc_q_nst1, nuc_q_nst2
 from ..nexus.datatypes import DataType
-from ..ops.pruning import constant_state_mask, division_loglik
-from ..ops.pruning_cuda import PruningCuda
+from ..ops.multiwalk_cuda import PruningCudaMultiwalk
+from ..ops.pruning import (branch_tiprobs, constant_state_mask,
+                           division_loglik, site_loglik_from_root)
+from ..ops.pruning_cuda import PruningCuda, check_kernel_shape
+from ..ops.traversal import postorder_internal
 from ..ops.tiprobs import eigh_reversible
 from ..trees import Tree, random_unrooted
+from . import mixed_gtr as MG
 from . import moves as M
 from .priors import (beta_lpdf, brlens_exponential_lpdf, brlens_gammadir_lpdf,
                      brlens_uniform_lpdf, dirichlet_lpdf, exponential_lpdf,
@@ -45,6 +65,8 @@ from .settings import DivisionSettings, McmcSettings, Prior, TreeSettings
 
 NEG_INF = -1e30
 SCORE_KEYS = ("lnL", "lnP", "lnP_tree", "lnP_par")
+# cap on one multiwalk launch's scratch (floats) when forming groups
+MULTIWALK_SCRATCH_CAP = 1 << 28
 
 
 @dataclass
@@ -127,8 +149,13 @@ class Engine:
                  tree_settings: TreeSettings | None = None,
                  mcmc: McmcSettings | None = None,
                  links: dict[str, list[int]] | None = None,
-                 device=None):
+                 device=None, multiwalk: bool | None = None):
         self.device = resolve_device(device)
+        # the kernel-path switch is read once, here (the JAX package reads
+        # its MB_TPU_* flags at trace time, which made a JAX test depend
+        # on test order)
+        self.multiwalk = (os.environ.get("MB_TPU_MULTIWALK", "0") == "1"
+                          if multiwalk is None else bool(multiwalk))
         # fp32 throughout, no TF32: the JAX package pins matmul precision
         # to HIGHEST (mrbayes_tpu/__init__.py) because reduced-precision
         # passes bias per-pattern lnL by about 1e-2, and TF32 keeps only
@@ -143,7 +170,7 @@ class Engine:
         if len(div_settings) != len(dataset.divisions):
             raise ValueError("one DivisionSettings per division required")
         self._check_slice(div_settings, links)
-        self._build_groups(div_settings)
+        self._build_groups(div_settings, links)
         self._build_data_tensors()
         self._build_moves()
         self._build_constants()
@@ -162,8 +189,10 @@ class Engine:
                               "item 14")
         if ts.brlenspr.kind not in ("gammadir", "exponential", "uniform"):
             raise ValueError(f"brlenspr {ts.brlenspr.kind} not supported")
-        if links or len(div_settings) > 1:
-            raise _not_ported("partitioned models and link/unlink", "item 9")
+        if links and (any(links.get("topology", ()))
+                      or any(links.get("brlens", ()))):
+            raise _not_ported("unlinked topologies and branch lengths",
+                              "item 9")
         if mc.per_chain_moves:
             raise _not_ported("per-chain move selection", "item 14")
         if mc.starttree not in ("current", "random") or mc.nperts > 0:
@@ -174,27 +203,31 @@ class Engine:
                 raise _not_ported(f"{div.dtype.value} data", "items 12-13")
             if s.nucmodel != "4by4":
                 raise _not_ported(f"nucmodel={s.nucmodel}", "item 12")
-            if s.nst not in ("1", "2", "6"):
-                raise _not_ported(f"nst={s.nst}", "item 9")
+            if s.nst not in ("1", "2", "6", "mixed"):
+                raise ValueError(f"nst={s.nst} is not a nucleotide model")
             if s.rates not in ("equal", "gamma", "propinv", "invgamma"):
                 raise _not_ported(f"rates={s.rates}", "item 13")
             if s.covarion or s.parsmodel \
                     or s.statefreqmodel != "stationary":
                 raise _not_ported("covarion, parsimony and directional "
                                   "models", "item 13")
-            if s.ratepr != "fixed":
-                raise _not_ported("ratepr=variable", "item 9")
 
-    def _build_groups(self, div_settings):
-        """Assign each sampled parameter of each division to a link group:
-        divisions with identical settings share a group (the reference
-        links parameters when IsModelSame holds, src/model.c:13827)."""
+    def _build_groups(self, div_settings, links):
+        """Assign each sampled parameter of each division to a link group.
+        By default divisions with identical settings share a group (the
+        reference links parameters when IsModelSame holds,
+        src/model.c:13827); ``links[param][d]`` overrides (link/unlink)."""
         self.div_cfg: list[DivCfg] = []
+        self._mixed_rev: set[int] = set()
         counters: dict = {}
 
         def group_of(param, d, signature):
-            dim = self.data.divisions[d].n_states if param == "pi" else 0
-            key = (param, "nuc", dim, signature)
+            if links and param in links:
+                key = (param, links[param][d])
+            else:
+                dim = (self.data.divisions[d].n_states if param == "pi"
+                       else 0)
+                key = (param, "nuc", dim, signature)
             store = counters.setdefault(param, {})
             if key not in store:
                 store[key] = len(store)
@@ -213,9 +246,11 @@ class Engine:
                 cfg.fixed_pi = np.asarray(s.statefreqpr.params)
             else:
                 cfg.fixed_pi = np.full(div.n_states, 1.0 / div.n_states)
-            if s.nst == "6":
+            if s.nst in ("6", "mixed"):
                 cfg.revmat_group = group_of("revmat", d,
                                             repr(s.revmatpr) + s.nst)
+                if s.nst == "mixed":
+                    self._mixed_rev.add(cfg.revmat_group)
             if s.nst == "2":
                 cfg.tratio_group = group_of("tratio", d, repr(s.tratiopr))
             if s.rates in ("gamma", "invgamma"):
@@ -226,6 +261,8 @@ class Engine:
             self.div_cfg.append(cfg)
         self.n_groups = {p: len(v) for p, v in counters.items()}
         self.n_div = len(div_settings)
+        # per-division rate multipliers (reference ratepr=variable)
+        self.ratemult_on = any(s.ratepr == "variable" for s in div_settings)
         # priors per group: use the first division that defined the group
         self.group_priors: dict[tuple, Prior] = {}
         for cfg in self.div_cfg:
@@ -280,6 +317,51 @@ class Engine:
                                            device=dev)
         self._pars_factors = torch.as_tensor(
             np.concatenate(factors).astype(np.float32), device=dev)
+        w = np.array([float(c.div.weights.sum()) for c in self.div_cfg])
+        self.div_char_frac = w / w.sum()   # ratemult weighting
+        self._build_multiwalk_pruners()
+
+    def _build_multiwalk_pruners(self):
+        """Group the divisions into multiwalk launches when the switch is
+        on (port of mrbayes_tpu/mcmc/engine.py:988-1053 with the grouping
+        this kernel needs, see the module docstring): divisions of one
+        state count form a group, in order, while every (S, K_d) is one
+        the kernel takes, the walks stay within 65,535 and the scratch
+        within ``MULTIWALK_SCRATCH_CAP`` floats.  Groups of one division
+        keep their single-division launch."""
+        self._multiwalk_pruners: list = []
+        if not self.multiwalk:
+            return
+        C = self.mcmc.n_chains_total
+        n_int = self.n_tips - 1
+        by_states: dict = {}
+        for i, cfg in enumerate(self.div_cfg):
+            S = cfg.div.n_states
+            try:
+                check_kernel_shape(S, cfg.n_cats, "multiwalk")
+            except ValueError:
+                continue
+            by_states.setdefault(S, []).append(i)
+        groups = []
+        for S, idxs in by_states.items():
+            cur, scratch = [], 0
+            for i in idxs:
+                cfg = self.div_cfg[i]
+                need = C * n_int * cfg.n_cats * S * cfg.div.npat
+                if cur and (scratch + need > MULTIWALK_SCRATCH_CAP
+                            or (len(cur) + 1) * C > 65535):
+                    groups.append(cur)
+                    cur, scratch = [], 0
+                cur.append(i)
+                scratch += need
+            groups.append(cur)
+        for g in groups:
+            if len(g) < 2:
+                continue
+            specs = [(self.div_cfg[i].div.tip_partials(),
+                      self.div_cfg[i].n_cats) for i in g]
+            self._multiwalk_pruners.append(
+                (g, PruningCudaMultiwalk(specs, self.device)))
 
     def _build_moves(self):
         """The unrooted non-clock move set (mrbayes_tpu engine.py:1479-
@@ -335,11 +417,17 @@ class Engine:
             mk.append(MoveSpec("pi_dir",
                                partial(M.make_simplex_move("pi"), n_tips=n),
                                2.0, 100.0, 0.25, -1, 1.0, 1e5))
-        if self.n_groups.get("revmat"):
+        plain_rev = [g for g in range(self.n_groups.get("revmat", 0))
+                     if g not in self._mixed_rev]
+        if plain_rev:
             mk.append(MoveSpec(
                 "revmat_dir",
-                partial(M.make_simplex_move("revmat"), n_tips=n),
+                partial(M.make_simplex_move(
+                    "revmat", None if len(plain_rev) == self.n_groups[
+                        "revmat"] else self._rows(plain_rev)), n_tips=n),
                 2.0, 200.0, 0.25, -1, 1.0, 1e5))
+        if self._mixed_rev:
+            mk += self._mixed_gtr_moves()
         if self.n_groups.get("tratio"):
             mk.append(MoveSpec(
                 "tratio_mult",
@@ -356,12 +444,57 @@ class Engine:
                 "pinvar_slider",
                 partial(M.make_slider_move("pinvar", 0.0, 1.0), n_tips=n),
                 1.5, 0.2, 0.25, 1, 1e-3, 1.0))
-        q_moves = {"pi_dir", "revmat_dir", "tratio_mult"}
+        if self.ratemult_on:
+            mk.append(MoveSpec(
+                "ratemult_dir",
+                partial(M.make_simplex_move("ratemult"), n_tips=n),
+                1.5, 300.0, 0.25, -1, 1.0, 1e5))
+        q_moves = {"pi_dir", "revmat_dir", "revmat_splitmerge",
+                   "revmat_dirmix", "tratio_mult"}
         for i, m in enumerate(mk):
             m.updates_q = m.name in q_moves
             if m.prior_scope is None:
                 m.prior_scope = "tree" if i < n_tree_moves else "params"
         self.moves = mk
+
+    def _rows(self, values):
+        return torch.as_tensor(list(values), dtype=torch.long,
+                               device=self.device)
+
+    def _mixed_gtr_moves(self):
+        """The nst=mixed rjMCMC moves (mrbayes_tpu/mcmc/engine.py:1773-
+        1797): each chain picks one mixed revmat group on the device."""
+        gids = self._rows(sorted(self._mixed_rev))
+
+        def rows_of(gen, state):
+            gi = M.pick_group(gen, state["revmat"], 0, gids)
+            rows = torch.arange(gi.shape[0], device=gi.device)
+            return rows, gi
+
+        def put(arr, rows, gi, new):
+            out = arr.clone()
+            out[rows, gi] = new
+            return out
+
+        def mv_splitmerge(gen, state, tuning):
+            rows, gi = rows_of(gen, state)
+            z2, v2, lnH = MG.splitmerge(gen, state["gtr_class"][rows, gi],
+                                        state["revmat"][rows, gi], tuning)
+            return ({**state,
+                     "gtr_class": put(state["gtr_class"], rows, gi, z2),
+                     "revmat": put(state["revmat"], rows, gi, v2)}, lnH)
+
+        def mv_dirmix(gen, state, tuning):
+            rows, gi = rows_of(gen, state)
+            v2, lnH = MG.dirichlet_mixed(gen, state["gtr_class"][rows, gi],
+                                         state["revmat"][rows, gi], tuning)
+            return ({**state,
+                     "revmat": put(state["revmat"], rows, gi, v2)}, lnH)
+
+        return [MoveSpec("revmat_splitmerge", mv_splitmerge,
+                         2.0, 10.0, 0.25, -1, 0.5, 1e4),
+                MoveSpec("revmat_dirmix", mv_dirmix,
+                         2.0, 200.0, 0.25, -1, 1.0, 1e5)]
 
     def _build_constants(self):
         """Every constant tensor the generation loop reads, built once (a
@@ -392,6 +525,8 @@ class Engine:
                 a = pr.params[0] if pr.params else 1.0
                 self._prior_alpha[(param, gid)] = torch.full(
                     (k,), float(a), device=dev)
+        if self.ratemult_on:
+            self._ratemult_alpha = torch.ones(self.n_div, device=dev)
 
     # ------------------------------------------------------------------
     # state
@@ -416,12 +551,19 @@ class Engine:
             st["pi"] = np.full((g["pi"], 4), 0.25, np.float32)
         if g.get("revmat"):
             st["revmat"] = np.full((g["revmat"], 6), 1.0 / 6, np.float32)
+            if self._mixed_rev:
+                # every submodel starts as full GTR (reference
+                # FillNormalParams: gtr submodel 123456)
+                st["gtr_class"] = np.tile(np.arange(6, dtype=np.int64),
+                                          (g["revmat"], 1))
         if g.get("tratio"):
             st["tratio"] = np.ones((g["tratio"],), np.float32)
         if g.get("shape"):
             st["shape"] = np.full((g["shape"],), 0.5, np.float32)
         if g.get("pinvar"):
             st["pinvar"] = np.full((g["pinvar"],), 0.1, np.float32)
+        if self.ratemult_on:
+            st["ratemult"] = self.div_char_frac.astype(np.float32)
         return st
 
     def init_chains(self, seed: int | None = None):
@@ -521,9 +663,38 @@ class Engine:
         if not self.mcmc.use_data:
             # mcmc data=no: prior-only sampling
             return state["blen"].new_zeros(state["blen"].shape[0])
+        blen = state["blen"]
         total = 0.0
+        grouped = set()
+        for idxs, gpruner in self._multiwalk_pruners:
+            total = total + self._group_lnl(state, blen, idxs, gpruner)
+            grouped.update(idxs)
         for i in range(self.n_div):
-            total = total + self._division_lnL(state, i, state["blen"])
+            if i not in grouped:
+                total = total + self._division_lnL(state, i, blen)
+        return total
+
+    def _group_lnl(self, state, blen, idxs, gpruner):
+        """One multiwalk launch for a group of divisions sharing the tree,
+        then each division's root reduction (mrbayes_tpu/mcmc/engine.py:
+        2413-2474), with each division's own K_d, S and P_d."""
+        P_list, metas = [], []
+        for i in idxs:
+            pi, _, lam, U, Uinv, rates, pinv, cmask, mult = \
+                self._generic_div_params(state, i)
+            P_list.append(branch_tiprobs(
+                blen, lam, U, Uinv, rates,
+                pinv if cmask is not None else 0.0, mult))
+            metas.append((pi, pinv, cmask))
+        order = postorder_internal(state["parent"], self.n_tips)
+        root, ls = gpruner(order, state["left"], state["right"], P_list)
+        total = 0.0
+        for gi, i in enumerate(idxs):
+            pi, pinv, cmask = metas[gi]
+            r, ls_d = gpruner.div_view(root, ls, gi)      # [C,K,S,P], [C,P]
+            ln_site = site_loglik_from_root(r.permute(0, 3, 1, 2), ls_d, pi,
+                                            pinv, cmask)
+            total = total + (self.weights[i] * ln_site).sum(-1)
         return total
 
     def _generic_div_params(self, state, i):
@@ -543,7 +714,12 @@ class Engine:
             cmask = self.const_masks[i]
         else:
             pinv, cmask = 0.0, None
-        return pi, "all", lam, U, Uinv, rates, pinv, cmask, 1.0
+        mult = 1.0
+        if self.ratemult_on:
+            # the stored simplex is weighted by the character fractions;
+            # the branch-length multiplier has mean 1 over characters
+            mult = state["ratemult"][:, i] / float(self.div_char_frac[i])
+        return pi, "all", lam, U, Uinv, rates, pinv, cmask, mult
 
     def _division_lnL(self, state, i, blen):
         pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \
@@ -582,7 +758,11 @@ class Engine:
         lp = state["blen"].new_zeros(state["blen"].shape[0])
         for (param, gid), pr in self.group_priors.items():
             x = state[param][:, gid]
-            if param in ("pi", "revmat"):
+            if param == "revmat" and gid in self._mixed_rev:
+                symdir = pr.params[0] if pr.params else 1.0
+                lp = lp + MG.ln_prior_mixed(state["gtr_class"][:, gid], x,
+                                            symdir)
+            elif param in ("pi", "revmat"):
                 lp = lp + dirichlet_lpdf(x, self._prior_alpha[(param, gid)])
             elif param == "tratio":
                 # Beta prior on x/(x+1) with Jacobian 1/(1+x)^2
@@ -592,6 +772,8 @@ class Engine:
                     - 2.0 * torch.log1p(x)
             else:
                 lp = lp + _scalar_prior_lpdf(pr, x)
+        if self.ratemult_on:
+            lp = lp + dirichlet_lpdf(state["ratemult"], self._ratemult_alpha)
         return lp
 
     # ------------------------------------------------------------------
@@ -750,19 +932,25 @@ class Engine:
     # host-side helpers
 
     def cold_indices(self, bk) -> list[int]:
-        """Chain-slot index of the cold chain of each run."""
-        tid = bk["temp_id"].cpu().numpy()
+        """Chain-slot index of the cold chain of each run (``temp_id`` a
+        tensor or a host array)."""
+        tid = _host(bk["temp_id"])
         nc = self.mcmc.nchains
         return [int(r * nc + np.argmin(tid[r * nc:(r + 1) * nc]))
                 for r in range(self.mcmc.nruns)]
 
     def extract_tree(self, states, slot: int) -> Tree:
-        """One chain's tree as a host ``Tree``."""
+        """One chain's tree as a host ``Tree`` (``states`` tensors or
+        host arrays)."""
         def host(k):
-            return states[k][slot].cpu().numpy()
+            return _host(states[k][slot])
 
         return Tree(parent=host("parent").astype(np.int32),
                     left=host("left").astype(np.int32),
                     right=host("right").astype(np.int32),
                     blen=host("blen").astype(np.float64),
                     n_tips=self.n_tips, rooted=False)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

@@ -674,17 +674,29 @@ def _row_index(u, n_rows):
     return (u * n_rows).long().clamp_max(n_rows - 1)
 
 
-def make_simplex_move(field):
+def pick_group(gen, like, n_rows, candidates=None):
+    """One row per chain, drawn uniformly from ``range(n_rows)`` or from
+    ``candidates`` (a long tensor of row ids on ``like``'s device, built
+    once with the engine: a tensor made from host data in the loop would
+    synchronise)."""
+    u = _uniforms(gen, like, 1)[:, 0]
+    if candidates is None:
+        return _row_index(u, n_rows)
+    return candidates[_row_index(u, candidates.shape[0])]
+
+
+def make_simplex_move(field, groups=None):
     """Dirichlet move on one random group row of state[field] [C, G, K]
     (reference Move_Statefreqs / Move_Revmat_Dir, src/proposal.c); a
-    [C, K] field is itself one simplex."""
+    [C, K] field is itself one simplex.  ``groups``, a long tensor of row
+    ids, restricts the candidate rows (nst=mixed rows have their own
+    moves)."""
     def move(gen, state, tuning, n_tips):
         arr = state[field]
         if arr.ndim == 2:
             new, lnH = _dirichlet_proposal(gen, arr, tuning)
             return {**state, field: new}, lnH
-        u = _uniforms(gen, arr, 1)
-        gi = _row_index(u[:, 0], arr.shape[1])
+        gi = pick_group(gen, arr, arr.shape[1], groups)
         rows = torch.arange(arr.shape[0], device=arr.device)
         new_row, lnH = _dirichlet_proposal(gen, arr[rows, gi], tuning)
         out = arr.clone()

@@ -1,0 +1,474 @@
+"""MCMC run driver: sampling, output files, convergence, checkpointing.
+
+Counterpart of ``mrbayes_tpu/mcmc/run.py``.  Host-side orchestration
+around ``Engine.run_block``: the device advances ``samplefreq``
+generations per block; at each block boundary the driver makes ONE
+device->host copy of the chain states (every state tensor packed into one
+buffer) and from it writes the ``.p``/``.t`` sample rows of each run's
+cold chain, updates the split counters for ASDSF, prints progress and
+checkpoints.  File formats follow the reference (PreparePrintFiles
+src/mcmc.c:10427, PrintStatesToFiles :13186), so the reference's own
+sump/sumt can read them.
+
+Not ported yet: the ``report`` command's extra columns (ROADMAP Queue 1
+item 14) and the multi-GPU branch (item 11).
+"""
+from __future__ import annotations
+
+import os
+import signal
+import time
+
+import numpy as np
+import torch
+
+from ..trees import to_newick
+from .diagnostics import SplitCounter
+from .engine import SCORE_KEYS, Engine
+
+_REV_NAMES = ("A<->C", "A<->G", "A<->T", "C<->G", "C<->T", "G<->T")
+
+
+def param_columns(eng: Engine):
+    """Ordered (column-name, extractor) pairs mirroring the reference's .p
+    layout; names get {d}/{all} suffixes for partitioned models.  An
+    extractor maps (host states, chain slot) to a float."""
+    cols = []
+    n_div = eng.n_div
+    multi = n_div > 1
+
+    def suffix(param, gid):
+        if not multi:
+            return ""
+        divs = [i + 1 for i, c in enumerate(eng.div_cfg)
+                if getattr(c, f"{param}_group") == gid]
+        if len(divs) == n_div:
+            return "{all}"
+        return "{" + ",".join(map(str, divs)) + "}"
+
+    cols.append(("TL" + ("{all}" if multi else ""),
+                 lambda st, s: float(np.sum(st["blen"][s], dtype=np.float64))))
+    for gid in range(eng.n_groups.get("revmat", 0)):
+        for k, nm in enumerate(_REV_NAMES):
+            cols.append((f"r({nm})" + suffix("revmat", gid),
+                         lambda st, s, g=gid, k=k:
+                         float(st["revmat"][s, g, k])))
+        if gid in eng._mixed_rev:
+            # submodel indicator: growth string as digits (e.g. 112123),
+            # reference prints gtrsubmodel{...} (src/mcmc.c:12934)
+            cols.append(("gtrsubmodel" + suffix("revmat", gid),
+                         lambda st, s, g=gid: float("".join(
+                             str(int(x) + 1)
+                             for x in np.asarray(st["gtr_class"][s, g])))))
+    for gid in range(eng.n_groups.get("tratio", 0)):
+        cols.append(("kappa" + suffix("tratio", gid),
+                     lambda st, s, g=gid: float(st["tratio"][s, g])))
+    for gid in range(eng.n_groups.get("pi", 0)):
+        for k, nm in enumerate("ACGT"):
+            cols.append((f"pi({nm})" + suffix("pi", gid),
+                         lambda st, s, g=gid, k=k: float(st["pi"][s, g, k])))
+    for gid in range(eng.n_groups.get("shape", 0)):
+        cols.append(("alpha" + suffix("shape", gid),
+                     lambda st, s, g=gid: float(st["shape"][s, g])))
+    for gid in range(eng.n_groups.get("pinvar", 0)):
+        cols.append(("pinvar" + suffix("pinvar", gid),
+                     lambda st, s, g=gid: float(st["pinvar"][s, g])))
+    if eng.ratemult_on:
+        for d in range(n_div):
+            cols.append((f"m{{{d + 1}}}",
+                         lambda st, s, d=d: float(
+                             st["ratemult"][s, d] / eng.div_char_frac[d])))
+    return cols
+
+
+def host_states(states: dict, bk: dict) -> dict:
+    """Every chain-state tensor plus ``temp_id`` on the host, with ONE
+    device->host copy: the tensors are packed as float64 into one buffer
+    (float32 values and small integers round-trip exactly) and unpacked
+    into their own dtypes.  The eigensystem cache is left out."""
+    keys = [k for k in states if not k.startswith("eig")]
+    parts = [states[k] for k in keys] + [bk["temp_id"]]
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in parts])
+    buf = flat.cpu().numpy()
+    out, at = {}, 0
+    for k, t in zip(keys + ["temp_id"], parts):
+        n = t.numel()
+        dtype = {torch.float32: np.float32, torch.bool: np.bool_}.get(
+            t.dtype, np.int64)
+        out[k] = buf[at:at + n].reshape(tuple(t.shape)).astype(dtype)
+        at += n
+    return out
+
+
+class McmcRunner:
+    def __init__(self, engine: Engine, file_prefix: str | None = None,
+                 log=print):
+        self.eng = engine
+        self.mc = engine.mcmc
+        self.prefix = file_prefix or self.mc.filename
+        self.log = log
+        self.cols = param_columns(engine)
+        self.splits = SplitCounter(self.mc.nruns)
+        self.param_samples: list[list[dict]] = [
+            [] for _ in range(self.mc.nruns)]
+        self.asdsf_series: list[tuple[int, float]] = []
+
+    # ------------------------------------------------------------- files
+    @staticmethod
+    def _truncate_after(path: str, gen: int, tree_file: bool):
+        """Drop sample rows newer than the checkpoint generation so an
+        append run continues seamlessly (reference ReusePreviousResults,
+        src/mcmc.c:15840, src/utils.c:289)."""
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            lines = f.readlines()
+        kept = []
+        for ln in lines:
+            tok = ln.split()
+            g = None
+            if tree_file and len(tok) >= 2 and tok[0] == "tree" \
+                    and tok[1].startswith("gen."):
+                g = int(tok[1][4:])
+            elif not tree_file and tok and tok[0].isdigit():
+                g = int(tok[0])
+            if g is not None and g > gen:
+                continue
+            if tree_file and ln.strip() == "end;":
+                continue        # reopened for more samples
+            kept.append(ln)
+        with open(path, "w") as f:
+            f.writelines(kept)
+
+    def _open_files(self, append: bool, start_gen: int = 0):
+        mode = "a" if append else "w"
+        self.pf, self.tf = [], []
+        seed_id = self.mc.seed
+        for r in range(self.mc.nruns):
+            base = f"{self.prefix}.run{r + 1}"
+            if append:
+                self._truncate_after(base + ".p", start_gen, False)
+                self._truncate_after(base + ".t", start_gen, True)
+            pf = open(base + ".p", mode)
+            tf = open(base + ".t", mode)
+            if not append:
+                pf.write(f"[ID: {seed_id:010d}]\n")
+                pf.write("Gen\tlnLike\tlnPrior\t"
+                         + "\t".join(n for n, _ in self.cols) + "\n")
+                tf.write(f"#NEXUS\n[ID: {seed_id:010d}]\n[Param: tree]\n"
+                         "begin trees;\n   translate\n")
+                labels = self.eng.data.taxa
+                for i, name in enumerate(labels):
+                    sep = "," if i < len(labels) - 1 else ";"
+                    tf.write(f"       {i + 1} {name}{sep}\n")
+            self.pf.append(pf)
+            self.tf.append(tf)
+        self.mcmcf = open(f"{self.prefix}.mcmc", mode)
+        if not append:
+            self.mcmcf.write(f"[ID: {seed_id:010d}]\n")
+            self.mcmcf.write("Gen\tAvgStdDev(s)\n")
+
+    def _debug_checks(self, gen: int, host, states):
+        """Opt-in in-loop invariants (role of the reference's
+        --enable-debug generation checks: IsTreeConsistent
+        src/utils.c:4778 and the DEBUG_LNLIKELIHOOD full-recompute
+        cross-check, src/mcmc.c:16769-16861).  MB_DEBUG=1 validates every
+        chain's tree at each sample boundary; MB_DEBUG_LNL=1 recomputes
+        the carried lnL/lnP from scratch and raises on drift.  The
+        tolerance on the carried prior components scales with |lnP|
+        (float32 sums)."""
+        if os.environ.get("MB_DEBUG"):
+            for slot in range(self.mc.n_chains_total):
+                self.eng.extract_tree(host, slot).check()
+        if os.environ.get("MB_DEBUG_LNL"):
+            fresh = self.eng.score({k: v for k, v in states.items()
+                                    if k not in SCORE_KEYS})
+            diff = {k: float(np.abs(fresh[k].cpu().numpy()
+                                    - host[k]).max()) for k in SCORE_KEYS}
+            scale = 1e-6 * float(np.abs(host["lnP"]).max())
+            if diff["lnL"] > 0.5 or diff["lnP"] > 0.5 \
+                    or diff["lnP_tree"] > 1e-3 + scale \
+                    or diff["lnP_par"] > 1e-3 + scale:
+                raise AssertionError(
+                    f"DEBUG_LNL drift at gen {gen}: max |dlnL|="
+                    f"{diff['lnL']:.4f} |dlnP|={diff['lnP']:.4f} "
+                    f"|dlnP_tree|={diff['lnP_tree']:.5f} "
+                    f"|dlnP_par|={diff['lnP_par']:.5f} (carried vs "
+                    f"recomputed)")
+
+    def _write_sample(self, gen: int, host):
+        for r, slot in enumerate(self.eng.cold_indices(host)):
+            lnL = float(host["lnL"][slot])
+            lnP = float(host["lnP"][slot])
+            vals = [fn(host, slot) for _, fn in self.cols]
+            self.pf[r].write(
+                f"{gen}\t{lnL:.6e}\t{lnP:.6e}\t"
+                + "\t".join(f"{v:.6e}" for v in vals) + "\n")
+            t = self.eng.extract_tree(host, slot)
+            self.tf[r].write(f"   tree gen.{gen} = [&U] "
+                             + to_newick(t, numbers=True) + "\n")
+            self.splits.add(r, t)
+            self.param_samples[r].append(
+                dict(zip(["Gen", "lnLike", "lnPrior"]
+                         + [n for n, _ in self.cols], [gen, lnL, lnP] + vals)))
+
+    # --------------------------------------------------------- checkpoint
+    # The reference checkpoints every chain's full state, move tuning and
+    # RNG seeds to a rotated .ckp file (PrintCheckPoint src/mcmc.c:11192,
+    # resume :2449-2490).  Here every state key and every bookkeeping key
+    # is one `array` command of an `mbtpu_state` block; the three torch
+    # generators are stored as their state bytes, so a resumed run draws
+    # the numbers the uninterrupted run would have drawn.
+    _GENERATORS = ("rng", "rng_host", "rng_swap")
+
+    @staticmethod
+    def _fmt_array(a: np.ndarray) -> str:
+        flat = a.reshape(-1)
+        if np.issubdtype(a.dtype, np.floating):
+            # 9 significant digits round-trip float32 exactly
+            return " ".join(f"{float(x):.9e}" for x in flat)
+        return " ".join(str(int(x)) for x in flat)
+
+    def write_checkpoint(self, states, bk, gen: int):
+        """Rotated self-describing NEXUS checkpoint: a standard trees
+        block with every chain's current tree, then the exact state in an
+        `mbtpu_state` block (NEXUS readers skip unknown blocks)."""
+        mc = self.mc
+        nc = mc.nchains
+        host = host_states(states, bk)
+        lines = ["#NEXUS", f"[ID: {mc.seed:010d}]", f"[generation: {gen}]",
+                 f"[seed: {mc.seed}]", f"[swapseed: {mc.swapseed}]",
+                 "begin trees;", "   translate"]
+        labels = self.eng.data.taxa
+        for i, name in enumerate(labels):
+            sep = "," if i < len(labels) - 1 else ";"
+            lines.append(f"       {i + 1} {name}{sep}")
+        tid = host["temp_id"]
+        for slot in range(mc.n_chains_total):
+            r, c = slot // nc, slot % nc
+            t = self.eng.extract_tree(host, slot)
+            lines.append(f"   tree gen.{gen}$run={r + 1}.chain={c + 1}"
+                         f".heat={int(tid[slot])} = [&U] "
+                         + to_newick(t, numbers=True))
+        lines += ["end;", "begin mbtpu_state;", f"   generation {gen};"]
+
+        def dump(prefix, d):
+            for k, v in d.items():
+                a = np.asarray(v)
+                shape = ",".join(str(s) for s in a.shape)
+                lines.append(f"   array {prefix}.{k} {a.dtype.name} "
+                             f"[{shape}] = {self._fmt_array(a)};")
+
+        dump("states", {k: v for k, v in host.items() if k != "temp_id"})
+        dump("bk", {k: (v.get_state().numpy()
+                        if isinstance(v, torch.Generator)
+                        else v.cpu().numpy() if torch.is_tensor(v) else v)
+                    for k, v in bk.items()})
+        lines.append("end;")
+        path = f"{self.prefix}.ckp"
+        if os.path.exists(path):
+            os.replace(path, path + "~")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    def read_checkpoint(self):
+        """(states, bk, generation) from ``<prefix>.ckp``; the scores are
+        recomputed exactly."""
+        with open(f"{self.prefix}.ckp") as f:
+            arrays, gen = self._parse_nexus_ckp(f.read())
+        states, bk = self.eng.init_chains()
+        dev = self.eng.device
+        states = {k: (torch.as_tensor(arrays["states." + k].reshape(
+            tuple(v.shape)), dtype=v.dtype, device=dev)
+            if "states." + k in arrays else v)
+            for k, v in states.items() if k not in SCORE_KEYS}
+        for k, v in list(bk.items()):
+            a = arrays.get("bk." + k)
+            if a is None:
+                continue
+            if isinstance(v, torch.Generator):
+                v.set_state(torch.as_tensor(a.astype(np.uint8)))
+            elif torch.is_tensor(v):
+                bk[k] = torch.as_tensor(a.reshape(tuple(v.shape)),
+                                        dtype=v.dtype, device=dev)
+            else:
+                bk[k] = type(v)(a.reshape(()))
+        states = self.eng.score(self.eng.refresh_eigs(states))
+        return states, bk, gen
+
+    @staticmethod
+    def _parse_nexus_ckp(text: str):
+        """Parse the mbtpu_state block of a NEXUS checkpoint."""
+        arrays: dict = {}
+        gen = 0
+        body = text.split("begin mbtpu_state;", 1)[1]
+        for stmt in body.split(";"):
+            toks = stmt.split()
+            if not toks:
+                continue
+            if toks[0] == "generation":
+                gen = int(toks[1])
+            elif toks[0] == "array":
+                name, dtype, shape = toks[1], toks[2], toks[3]
+                shp = tuple(int(s) for s in shape.strip("[]").split(",")
+                            if s)
+                a = np.array([float(x) for x in toks[5:]], dtype=dtype)
+                arrays[name] = a.reshape(shp)
+            elif toks[0] == "end":
+                break
+        return arrays, gen
+
+    # --------------------------------------------------------------- run
+    def run(self):
+        mc = self.mc
+        eng = self.eng
+        start_gen = 0
+        if mc.append and os.path.exists(f"{self.prefix}.ckp"):
+            states, bk, start_gen = self.read_checkpoint()
+            self.log(f"   Resuming from checkpoint at generation {start_gen}")
+        else:
+            states, bk = eng.init_chains()
+        self._open_files(append=start_gen > 0, start_gen=start_gen)
+        host = host_states(states, bk)
+        self.log(f"   Running Markov chain ( {mc.nruns} runs x {mc.nchains} "
+                 f"chains, {mc.ngen} generations ) on {eng.device}")
+        self.log("   Initial log likelihoods: "
+                 + " ".join(f"{v:.2f}" for v in host["lnL"]))
+        if start_gen == 0:
+            self._write_sample(0, host)
+        # graceful SIGINT: the first ^C stops at the next block boundary
+        # (checkpoint written); a second aborts (reference CatchInterrupt,
+        # src/mcmc.c:2205, :15495)
+        self._abort = False
+        self.phase_times = {"device": 0.0, "sample_io": 0.0,
+                            "diagnostics": 0.0, "checkpoint": 0.0}
+
+        def on_sigint(sig, frame):
+            if self._abort:
+                raise KeyboardInterrupt
+            self._abort = True
+            self.log("   ^C received: stopping at the next sample "
+                     "boundary (checkpoint will be written); press ^C "
+                     "again to abort immediately")
+
+        try:
+            prev_handler = signal.signal(signal.SIGINT, on_sigint)
+        except ValueError:       # not the main thread
+            prev_handler = None
+        t0 = time.time()
+        gen = start_gen
+        stopped = False
+        while gen < mc.ngen and not stopped:
+            n = min(mc.samplefreq, mc.ngen - gen)
+            tb = time.time()
+            states, bk = eng.run_block(states, bk, n)
+            host = host_states(states, bk)   # waits for the device
+            self.phase_times["device"] += time.time() - tb
+            gen += n
+            if self._abort:
+                self.log(f"   Run aborted by user at generation {gen}")
+                stopped = True
+            tb = time.time()
+            if os.environ.get("MB_DEBUG") or os.environ.get("MB_DEBUG_LNL"):
+                self._debug_checks(gen, host, states)
+            if gen % mc.samplefreq == 0 or gen == mc.ngen or stopped:
+                self._write_sample(gen, host)
+            self.phase_times["sample_io"] += time.time() - tb
+            if gen % mc.printfreq == 0 or gen == mc.ngen:
+                cold = eng.cold_indices(host)
+                rate = (gen - start_gen) / max(time.time() - t0, 1e-9)
+                eta = (mc.ngen - gen) / max(rate, 1e-9)
+                self.log(f"   {gen} -- "
+                         + " ".join(f"[{host['lnL'][c]:.3f}]" for c in cold)
+                         + f" -- {rate:.0f} gen/s -- {eta:.0f} s remaining")
+            tb = time.time()
+            if gen % mc.diagnfreq == 0 and mc.nruns > 1:
+                asdsf = self._burned_asdsf()
+                self.asdsf_series.append((gen, asdsf))
+                self.mcmcf.write(f"{gen}\t{asdsf:.6f}\n")
+                self.mcmcf.flush()
+                self.log(f"   Average standard deviation of split "
+                         f"frequencies: {asdsf:.6f}")
+                if mc.stoprule and asdsf < mc.stopval:
+                    self.log("   Analysis stopped: convergence criterion "
+                             "reached")
+                    stopped = True
+            self.phase_times["diagnostics"] += time.time() - tb
+            tb = time.time()
+            if mc.checkfreq and gen % mc.checkfreq == 0:
+                self.write_checkpoint(states, bk, gen)
+            self.phase_times["checkpoint"] += time.time() - tb
+        tb = time.time()
+        self.write_checkpoint(states, bk, gen)
+        self.phase_times["checkpoint"] += time.time() - tb
+        if prev_handler is not None:
+            signal.signal(signal.SIGINT, prev_handler)
+        for f in self.pf:
+            f.close()
+        for f in self.tf:
+            f.write("end;\n")
+            f.close()
+        self.mcmcf.close()
+        dt = time.time() - t0
+        self.wall_seconds = dt
+        self.generations = gen - start_gen
+        self.log(f"   Analysis completed in {dt:.0f} seconds")
+        self.log(f"   Analysis used {dt:.2f} seconds of total time")
+        pt = self.phase_times
+        tracked = sum(pt.values())
+        self.log("   Time breakdown: "
+                 + "  ".join(f"{k} {v:.2f}s ({v / max(dt, 1e-9):.0%})"
+                             for k, v in pt.items())
+                 + f"  other {max(dt - tracked, 0.0):.2f}s")
+        for r, slot in enumerate(eng.cold_indices(host)):
+            best = max((s["lnLike"] for s in self.param_samples[r]),
+                       default=float(host["lnL"][slot]))
+            self.log(f"   Likelihood of best state for \"cold\" chain of "
+                     f"run {r + 1} was {best:.2f}")
+        self._print_move_summary(bk)
+        self.final_states, self.final_bk = states, bk
+        return states, bk
+
+    def _burned_asdsf(self) -> float:
+        """Live ASDSF with relative burn-in applied over the recorded
+        per-sample split sets (reference src/mcmc.c:1750)."""
+        mc = self.mc
+        burn = mc.burninfrac if mc.relburnin else 0.0
+        return self.splits.asdsf(mc.minpartfreq, burn_frac=burn)
+
+    def _print_move_summary(self, bk):
+        tries = bk["tries_total"].sum(0).cpu().numpy()
+        accepts = bk["accepts_total"].sum(0).cpu().numpy()
+        self.log("   Acceptance rates per move (all chains):")
+        for i, mv in enumerate(self.eng.moves):
+            if tries[i]:
+                self.log(f"      {accepts[i] / tries[i]:6.1%}  "
+                         f"({int(tries[i]):9d} tries)  {mv.name}")
+        self._print_swap_info(bk)
+
+    def _print_swap_info(self, bk):
+        """Chain swap matrix per run: upper triangle = acceptance rate,
+        lower triangle = attempt count (reference PrintSwapInfo,
+        src/mcmc.c:13579)."""
+        if self.mc.nchains < 2:
+            return
+        st = bk["swap_tries"].cpu().numpy()
+        sa = bk["swap_accepts"].cpu().numpy()
+        nc = self.mc.nchains
+        for r in range(self.mc.nruns):
+            self.log(f"   Chain swap information for run {r + 1} "
+                     "(upper: acceptance rate, lower: attempts):")
+            self.log("            " + "".join(f"{c + 1:>9d}"
+                                              for c in range(nc)))
+            for i in range(nc):
+                cells = []
+                for j in range(nc):
+                    if j > i:
+                        t = st[r, i, j]
+                        cells.append(f"{sa[r, i, j] / t:9.2f}" if t
+                                     else f"{'--':>9s}")
+                    elif j < i:
+                        cells.append(f"{int(st[r, j, i]):9d}")
+                    else:
+                        cells.append(f"{'--':>9s}")
+                self.log(f"      {i + 1:>4d}  " + "".join(cells))

@@ -28,11 +28,14 @@ def branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult=1.0):
     """Per-branch, per-category transition matrices [C, n_nodes, K, S, S].
     ``pinv > 0`` rescales the variable-class rate by 1/(1-pinv)
     (reference src/likelihood.c:9309-9310).  blen [C, n_nodes]; lam [C, S];
-    U/Uinv [C, S, S]; cat_rates [C, K]; pinv [C] or a float."""
+    U/Uinv [C, S, S]; cat_rates [C, K]; pinv and rate_mult [C] or
+    floats."""
     if torch.is_tensor(pinv):
-        base = (rate_mult / torch.clamp_min(1.0 - pinv, 1e-6))[:, None]
+        base = rate_mult / torch.clamp_min(1.0 - pinv, 1e-6)
     else:
         base = rate_mult / max(1.0 - pinv, 1e-6)
+    if torch.is_tensor(base):
+        base = base.reshape(-1, 1)                        # [C|1, 1]
     tau = blen * base
     eff = tau[..., None] * cat_rates[:, None, :]          # [C, N, K]
     return transition_probs(lam[:, None, None], U[:, None, None],
@@ -101,7 +104,19 @@ def division_site_loglik(left, right, parent, blen, tip_partials,
         left, right, parent, blen, tip_partials, lam, U, Uinv,
         cat_rates, pinv if const_mask is not None else 0.0, n_tips,
         rate_mult, pruner=pruner)
-    k = cat_rates.shape[-1]
+    return site_loglik_from_root(root_cl, logscale, pi, pinv, const_mask,
+                                 cat_weights)
+
+
+def site_loglik_from_root(root_cl, logscale, pi, pinv, const_mask,
+                          cat_weights=None) -> torch.Tensor:
+    """The root reduction: per-pattern log-likelihoods [C, P] from root
+    conditional likelihoods [C, P, K, S] and log rescale sums [C, P],
+    with the proportion-of-invariable-sites mixture when ``const_mask``
+    is given.  Shared by the per-division and the grouped passes, so a
+    division's lnL is the same function of its root partials either way.
+    """
+    k = root_cl.shape[2]
     if cat_weights is None:
         cat_weights = root_cl.new_full((k,), 1.0 / k)
     site_l = torch.einsum("cpks,k,cs->cp", root_cl, cat_weights, pi)

@@ -6,7 +6,8 @@ header comment records what bounds it on an H100 (latency: the
 n_int-step dependent chain plus the launch) and what its design does
 about that.  It is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``_build/`` beside this package (listed in ``.gitignore``) and loaded with
-``ctypes`` through a plain C interface.
+``ctypes`` through a plain C interface.  The per-thread walk is shared
+with the multiwalk kernel (``csrc/down_pass.cuh``).
 
 Differences from the TPU layout, all deliberate:
   * per-category S×S operators ``Pstep [C, n_int, 2, K, S, S]`` instead of
@@ -14,6 +15,10 @@ Differences from the TPU layout, all deliberate:
   * ``tips [n_tips, S, P]`` once, shared by all chains (no K-tiling);
   * no padding of P or K·S; the kernel masks the ragged pattern edge;
   * one grid slice per chain (no walk interleaving).
+
+The kernel library is built together with the multiwalk kernel's
+(``csrc/multiwalk.cu``, wired by ``ops/multiwalk_cuda.py``): ``build``
+starts one ``nvcc`` per source at once.
 
 ``pruning_down`` launches the kernel and takes CUDA tensors only;
 ``pruning_down_plain`` is its plain PyTorch version, the same function on
@@ -33,18 +38,27 @@ import numpy as np
 import torch
 
 _TINY = 1e-30
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
-                    "csrc", "pruning.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
+                     "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           os.pardir, "_build")
+# one shared library per source, all compiled at once; every source
+# includes the shared per-thread walk
+SOURCES = {"pruning": "pruning.cu", "multiwalk": "multiwalk.cu"}
+_HEADERS = ("down_pass.cuh",)
 MAX_RUNTIME_S = 64
 MAX_RUNTIME_K = 16
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_ENTRY_POINTS = {
+    "pruning": ("mb_pruning_down", [_PTR] * 6 + [_INT] * 7 + [_PTR]),
+    "multiwalk": ("mb_multiwalk_down", [_PTR] * 7 + [_INT] * 7 + [_PTR]),
+}
 
 
 class KernelBuild:
-    """The loaded shared library plus how it was built."""
+    """One loaded shared library plus how it was built."""
 
     def __init__(self, lib, path: str, seconds: float, log: str):
         self.lib, self.path, self.seconds, self.log = lib, path, seconds, log
@@ -58,56 +72,106 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(verbose: bool = False) -> KernelBuild:
-    """Compile ``csrc/pruning.cu`` (skipped when a library built from the
-    same source and flags exists) and load it.  ``verbose`` adds
-    ``-Xptxas -v`` so the log reports registers, shared memory and
-    spills per kernel instantiation."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
+def _library_path(name: str) -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name],) + _HEADERS:
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.abspath(os.path.join(
+        _BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so"))
+
+
+def build(verbose: bool = False) -> dict[str, KernelBuild]:
+    """Compile every source of ``csrc/`` (one ``nvcc`` per source, all
+    started together; a source whose library was already built from the
+    same sources and flags is skipped) and load each library.
+    ``verbose`` adds ``-Xptxas -v`` so each log reports registers, shared
+    memory and spills per kernel instantiation."""
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    path = os.path.abspath(os.path.join(_BUILD_DIR, f"libpruning_{tag}.so"))
-    log, seconds = "", 0.0
-    if verbose or not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, _SRC],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+    jobs = {}
+    for name, src in SOURCES.items():
+        path = _library_path(name)
+        if verbose or not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            proc = subprocess.Popen(
+                [_nvcc(), *flags, "-o", tmp, os.path.join(_CSRC, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, path, time.perf_counter())
+    logs, seconds = {}, {}
+    for name, (proc, tmp, path, t0) in jobs.items():
+        logs[name] = proc.communicate()[0]
+        seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc failed on {SOURCES[name]} "
+                               f"({proc.returncode}):\n{logs[name]}")
         os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    lib.mb_pruning_down.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.mb_pruning_down.restype = ctypes.c_int
-    lib.mb_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.mb_cuda_error_string.restype = ctypes.c_char_p
-    return KernelBuild(lib, path, seconds, log)
+    out = {}
+    for name in SOURCES:
+        path = _library_path(name)
+        lib = ctypes.CDLL(path)
+        fn_name, argtypes = _ENTRY_POINTS[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.mb_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mb_cuda_error_string.restype = ctypes.c_char_p
+        out[name] = KernelBuild(lib, path, seconds.get(name, 0.0),
+                                logs.get(name, ""))
+    return out
 
 
-class _Library:
-    """The process's loaded kernel library, built on first use."""
+class _Libraries:
+    """The process's loaded kernel libraries, built on first use."""
 
     def __init__(self):
-        self.build: KernelBuild | None = None
+        self.builds: dict[str, KernelBuild] | None = None
 
-    def get(self, verbose: bool = False) -> KernelBuild:
-        if self.build is None:
-            self.build = build(verbose)
-        return self.build
-
-
-_LIBRARY = _Library()
+    def get(self, verbose: bool = False) -> dict[str, KernelBuild]:
+        if self.builds is None:
+            self.builds = build(verbose)
+        return self.builds
 
 
-def library(verbose: bool = False) -> KernelBuild:
-    """The loaded kernel library (built now if this process has not built
-    it yet; ``verbose`` applies to that build)."""
-    return _LIBRARY.get(verbose)
+_LIBRARIES = _Libraries()
+
+
+def libraries(verbose: bool = False) -> dict[str, KernelBuild]:
+    """Every kernel library, by name (built now if this process has not
+    built them yet; ``verbose`` applies to that build)."""
+    return _LIBRARIES.get(verbose)
+
+
+def library(name: str = "pruning") -> KernelBuild:
+    """One loaded kernel library (``pruning`` or ``multiwalk``)."""
+    return _LIBRARIES.get()[name]
+
+
+def launch_error(lib, err: int, what: str) -> RuntimeError:
+    msg = lib.mb_cuda_error_string(err).decode()
+    return RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def check_kernel_shape(S: int, K: int, what: str):
+    """Raise unless the kernels take S states with K rate categories."""
+    if S not in (2, 4, 20) and not (
+            S <= MAX_RUNTIME_S and K <= MAX_RUNTIME_K):
+        raise ValueError(f"{what} supports S in (2, 4, 20) or S <= "
+                         f"{MAX_RUNTIME_S} with K <= {MAX_RUNTIME_K}; got "
+                         f"S={S}, K={K}")
+
+
+def check_cuda_operands(what: str, **tensors):
+    """Raise unless every operand is a contiguous CUDA tensor on one
+    device."""
+    dev = None
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{what}: {name} is not a CUDA tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{what}: operands on different devices")
+        dev = t.device
 
 
 def _check_operands(lr, pstep, tips):
@@ -138,19 +202,9 @@ def pruning_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor):
     Returns (root [C, K, S, P], ls [C, P]).  Raises on anything the kernel
     does not take, and when the launch is refused."""
     C, n_int, K, S, n_tips, P = _check_operands(lr, pstep, tips)
-    for name, t in (("lr", lr), ("pstep", pstep), ("tips", tips)):
-        if not t.is_cuda:
-            raise ValueError(f"pruning_down: {name} is not a CUDA tensor")
-        if not t.is_contiguous():
-            raise ValueError(f"pruning_down: {name} is not contiguous")
-        if t.device != lr.device:
-            raise ValueError("pruning_down: operands on different devices")
-    if S not in (2, 4, 20) and not (
-            S <= MAX_RUNTIME_S and K <= MAX_RUNTIME_K):
-        raise ValueError(f"pruning_down supports S in (2, 4, 20) or S <= "
-                         f"{MAX_RUNTIME_S} with K <= {MAX_RUNTIME_K}; got "
-                         f"S={S}, K={K}")
-    lib = _LIBRARY.get().lib
+    check_cuda_operands("pruning_down", lr=lr, pstep=pstep, tips=tips)
+    check_kernel_shape(S, K, "pruning_down")
+    lib = library("pruning").lib
     dev = lr.device
     scratch = torch.empty((C, n_int, K, S, P), dtype=torch.float32,
                           device=dev)
@@ -163,9 +217,7 @@ def pruning_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor):
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream)
     if err != 0:
-        msg = lib.mb_cuda_error_string(err).decode()
-        raise RuntimeError(f"pruning_down launch failed: CUDA error {err} "
-                           f"({msg})")
+        raise launch_error(lib, err, "pruning_down")
     return root, ls
 
 
@@ -191,6 +243,20 @@ def pruning_down_plain(lr: torch.Tensor, pstep: torch.Tensor,
     return cl[:, -1], ls
 
 
+def slot_operands(order, left, right, n_tips: int):
+    """Slot relabelling on the device, batched over chains: node
+    order[c, i] computes into slot n_tips + i, so a kernel reads children
+    by slot.  order [C, n_int]; left/right [C, n_nodes].  Returns (lr int32
+    [C, n_int, 2], left children [C, n_int], right children [C, n_int])."""
+    C, n_int = order.shape
+    ar = torch.arange(n_tips + n_int, device=order.device)
+    slot = ar.expand(C, -1).scatter(1, order, ar[n_tips:].expand(C, -1))
+    lch = left.gather(1, order)
+    rch = right.gather(1, order)
+    lr = torch.stack([slot.gather(1, lch), slot.gather(1, rch)], -1)
+    return lr.to(torch.int32), lch, rch
+
+
 class PruningCuda:
     """Per-division static wiring and the callable pruning op: the
     counterpart of ``PruningPallas``.
@@ -210,21 +276,13 @@ class PruningCuda:
         self.launches = 0
 
     def operands(self, order, left, right, Pmat):
-        """Slot relabelling on the device, batched over chains: node
-        order[c, i] computes into slot n_tips + i, so the kernel reads
-        children by slot.  order [C, n_int]; left/right [C, n_nodes];
-        Pmat [C, n_nodes, K, S, S].  Returns (lr int32 [C, n_int, 2],
-        pstep [C, n_int, 2, K, S, S])."""
-        C, n_int = order.shape
-        n_tips = self.n_tips
-        ar = torch.arange(n_tips + n_int, device=order.device)
-        slot = ar.expand(C, -1).scatter(1, order, ar[n_tips:].expand(C, -1))
-        lch = left.gather(1, order)
-        rch = right.gather(1, order)
-        lr = torch.stack([slot.gather(1, lch), slot.gather(1, rch)], -1)
-        rows = torch.arange(C, device=order.device)[:, None]
+        """(lr int32 [C, n_int, 2], pstep [C, n_int, 2, K, S, S]) from
+        order [C, n_int], left/right [C, n_nodes] and Pmat
+        [C, n_nodes, K, S, S] (see ``slot_operands``)."""
+        lr, lch, rch = slot_operands(order, left, right, self.n_tips)
+        rows = torch.arange(order.shape[0], device=order.device)[:, None]
         pstep = torch.stack([Pmat[rows, lch], Pmat[rows, rch]], 2)
-        return lr.to(torch.int32), pstep.contiguous()
+        return lr, pstep.contiguous()
 
     def __call__(self, order, left, right, Pmat):
         lr, pstep = self.operands(order, left, right, Pmat)

@@ -1,6 +1,9 @@
-"""The port stands alone: importing ``mrbayes_tpu_torch`` and running a CPU
-``Engine`` block loads neither JAX nor any module of the JAX package
-(``mrbayes_tpu``), and ``chip_smoke.py`` imports neither.  Checked in a
+"""The port stands alone: importing ``mrbayes_tpu_torch`` (the engine, the
+CLI, the run driver, the summaries, the native tree reader and the
+envelope run) and running CPU ``Engine`` blocks, single-division and
+partitioned through the multiwalk wiring, loads neither JAX nor any
+module of the JAX package (``mrbayes_tpu``), and ``chip_smoke.py``
+imports neither.  Checked in a
 fresh interpreter, since this test process has JAX loaded already."""
 import ast
 import os
@@ -24,6 +27,23 @@ eng = Engine(ds, [DivisionSettings(nst="6", rates="invgamma")],
 states, bk = eng.init_chains()
 states, bk = eng.run_block(states, bk, 3)
 assert bk["gen"] == 3
+# the partitioned path through the CLI, the driver and the summaries
+import mrbayes_tpu_torch.envelope
+import mrbayes_tpu_torch.native
+import mrbayes_tpu_torch.summarize.fast_t
+from mrbayes_tpu_torch.cli import Interpreter
+from mrbayes_tpu_torch.mcmc.run import McmcRunner
+from mrbayes_tpu_torch.summarize.sump import sump
+from mrbayes_tpu_torch.summarize.sumt import sumt
+it = Interpreter(log=lambda m: None, device="cpu", multiwalk=True)
+for line in ["execute " + sys.argv[1], "partition p = 2: 1-400, 401-.",
+             "set partition=p", "lset nst=mixed rates=invgamma",
+             "prset ratepr=variable",
+             "mcmcp nruns=1 nchains=2 ngen=3 samplefreq=3"]:
+    it.run_line(line)
+eng = it.build_engine()
+assert eng._multiwalk_pruners
+states, bk = eng.run_block(*eng.init_chains(), 3)
 print(" ".join(sorted(sys.modules)))
 """
 
@@ -36,7 +56,8 @@ def test_port_loads_no_jax_module():
     from conftest import example
     out = subprocess.run(
         [sys.executable, "-c", _PROBE, example("primates.nex")],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})   # small tensors
     assert out.returncode == 0, out.stderr[-2000:]
     loaded = out.stdout.split()
     assert "mrbayes_tpu_torch" in loaded

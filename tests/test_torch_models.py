@@ -22,6 +22,10 @@ from mrbayes_tpu_torch.ops import jacobi as TJ
 from mrbayes_tpu_torch.ops import tiprobs as TTP
 from mrbayes_tpu_torch.ops import traversal as TTR
 
+# the tensors here are small: intra-op threads would only contend with
+# the other test workers (an engine block ran 50x slower with them)
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.as_tensor(np.asarray(x))

@@ -16,6 +16,10 @@ from mrbayes_tpu_torch.nexus.parser import read_nexus_file
 from mrbayes_tpu_torch.trees import Tree, random_unrooted
 from conftest import example
 
+# the tensors here are small: intra-op threads would only contend with
+# the other test workers (an engine block ran 50x slower with them)
+torch.set_num_threads(1)
+
 N_TIPS = 9
 
 

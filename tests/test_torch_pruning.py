@@ -37,6 +37,10 @@ from mrbayes_tpu_torch.ops import pruning_cuda as PC
 from mrbayes_tpu_torch.trees import parse_newick
 from conftest import example
 
+# the tensors here are small: intra-op threads would only contend with
+# the other test workers (an engine block ran 50x slower with them)
+torch.set_num_threads(1)
+
 HERE = os.path.dirname(__file__)
 GOLD = json.load(open(os.path.join(HERE, "golden_primates.json")))
 MODEL = {
