@@ -3,14 +3,17 @@
 Usage (from the repository root, on a machine with an NVIDIA H100):
 
     python3 chip_smoke.py [--test1-gens N] [--primates-blocks N]
+                          [--cynmix-gens N] [--switch-blocks N]
 
 Phases, each fatal on failure:
   1. device: the card's name, count, and name/power limit from nvidia-smi;
   2. build: compile every csrc/*.cu with nvcc for sm_90a (-Xptxas -v), one
      nvcc per source, all started together;
-  3. kernels: the single-division pruning kernel and the multiwalk kernel
-     against their plain PyTorch versions on the card, at the test shapes,
-     primates' and test1's, and their times;
+  3. kernels: the single-division pruning kernel, the multiwalk kernel, the
+     wavefront kernel and the stacked launch against their plain PyTorch
+     versions on the card, at the test shapes, primates', test1's and
+     cynmix's, and their times (the wavefront beside pruning.cu for the
+     same work, the stacked launch beside one launch per division);
   4. primates: GTR+I+G Metropolis-coupled MCMC at 4 and 32 chains through
      the library entry points (Engine, init_chains, run_block): the
      pruning kernel's launches over the timed blocks, max lnL, carried
@@ -28,7 +31,19 @@ Phases, each fatal on failure:
   8. sync: a block and one generation of each test1 move type with host
      synchronisation made an error;
   9. golden partitioned: the primates_part2_unlinked_gtr_g rows of
-     tests/golden_extra.json through the port's CLI and engine.
+     tests/golden_extra.json through the port's CLI and engine;
+ 10. golden cynmix: the cynmix_mkv_f81 rows of tests/golden_primates.json
+     with every kernel-path switch off, and with the wavefront, stacked and
+     multiwalk paths, each within 0.25 of the reference and within 1e-3
+     (or two float32 spacings of |lnL|, where larger) of the others;
+ 11. cynmix: cynmix.nex's favored total-evidence model (Mk + four genes,
+     8 divisions, 2 runs x 4 chains) through cli.Interpreter.execute_file
+     with the wavefront and stacked switches on: carried versus recomputed
+     scores, each pruner's launches against what the grouping predicts,
+     the written files, sump and sumt;
+ 12. cynmix switch: gens/s with the switches off and on, in turns, and a
+     block and one generation of each move type with host synchronisation
+     made an error, switches on.
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -71,9 +86,21 @@ MULTIWALK_CASES = [TEST1_SHAPE + (8,), TEST1_SHAPE + (32,),
                    (12, (137, 40, 300), (4, 2, 1), 4, 4),
                    (6, (40, 64), (2, 1), 20, 4),
                    (6, (40, 23), (3, 1), 61, 2)]
+# wavefront cases (n_tips, P, S, K, W): cynmix's divisions (P with the
+# coding dummies) and tests/test_pallas.py's; each at C = 8 and 32 on
+# random, caterpillar and balanced trees
+CYNMIX_SHAPES = [(32, 537, 4, 4, 8), (32, 124, 2, 4, 8), (32, 34, 3, 4, 8),
+                 (32, 9, 8, 4, 8)]
+WAVEFRONT_CASES = CYNMIX_SHAPES + [(24, 137, 4, 4, 8), (40, 300, 4, 1, 8),
+                                   (24, 64, 2, 4, 4)]
 WARM_GENS, BLOCK_GENS, SYNC_GENS = 50, 200, 50
 DEV = "cuda"
 TEST1_GENS = 20000
+CYNMIX_GENS = 2000
+# lnL between kernel paths on one state: 1e-3, or two float32 spacings of
+# |lnL| where those are larger (the engine sums in float32, and at
+# cynmix's |lnL| of 36,117 one spacing is 0.0039)
+GOLDEN_PATH_TOL = 1e-3
 
 
 def log(msg):
@@ -88,18 +115,47 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_walks(torch, rng, n_tips, C):
-    """Each chain's random tree on the card: (order, left, right)."""
+def tree_walks(torch, trees):
+    """The trees on the card, one per chain: (order, left, right,
+    parent)."""
     from mrbayes_tpu_torch.ops.traversal import postorder_internal
-    from mrbayes_tpu_torch.trees import random_unrooted
-    trees = [random_unrooted(n_tips, rng, mean_blen=0.1) for _ in range(C)]
 
     def stack(field):
         return torch.as_tensor(np.stack([getattr(t, field) for t in trees]),
                                device=DEV).long()
 
     left, right, parent = stack("left"), stack("right"), stack("parent")
-    return postorder_internal(parent, n_tips), left, right
+    return postorder_internal(parent, trees[0].n_tips), left, right, parent
+
+
+def random_walks(torch, rng, n_tips, C):
+    """Each chain's random tree on the card: (order, left, right)."""
+    from mrbayes_tpu_torch.trees import random_unrooted
+    trees = [random_unrooted(n_tips, rng, mean_blen=0.1) for _ in range(C)]
+    return tree_walks(torch, trees)[:3]
+
+
+def shaped_tree(shape, n_tips, rng):
+    """A random, caterpillar or balanced tree in the package's layout
+    (internal nodes from n_tips on, the root last).  A balanced tree pairs
+    the nodes of each level and carries an odd one up."""
+    from mrbayes_tpu_torch.trees import Tree, random_unrooted
+    if shape == "random":
+        return random_unrooted(n_tips, rng, mean_blen=0.1)
+    n = 2 * n_tips - 1
+    parent, left, right = (np.full(n, -1, np.int32) for _ in range(3))
+    level, nxt = list(range(n_tips)), n_tips
+    while len(level) > 1:
+        k = 1 if shape == "caterpillar" else len(level) // 2
+        up = []
+        for a, b in zip(level[0:2 * k:2], level[1:2 * k:2]):
+            left[nxt], right[nxt] = a, b
+            parent[a] = parent[b] = nxt
+            up.append(nxt)
+            nxt += 1
+        level = up + level[2 * k:]
+    return Tree(parent=parent, left=left, right=right,
+                blen=np.full(n, 0.1), n_tips=n_tips, rooted=False)
 
 
 def random_operands(rng, n_tips, P, S, K, C):
@@ -142,8 +198,11 @@ def multiwalk_case(torch, n_tips, Ps, Ks, S, C, seed):
 
 
 def site_lnl(torch, root, ls, pi):
+    """Per-pattern lnL [C, P] of root [C, K, S, P] and ls [C, P] under pi
+    [S] or [C, S] with equal category weights."""
     K = root.shape[1]
-    return torch.log(torch.einsum("cksp,s->cp", root, pi) / K) + ls
+    pi = pi.expand(root.shape[0], -1)
+    return torch.log(torch.einsum("cksp,cs->cp", root, pi) / K) + ls
 
 
 def compare(torch, a, b, what):
@@ -219,6 +278,13 @@ def phase_kernels(torch):
             **bound(4 * (lr.numel() + pstep.numel() + tips.numel()
                          + root.numel() + ls.numel()),
                     2 * C * n_int * 2 * K * S * S * P)}
+        # the still unported sharded launch (PruningPallasSharded, the
+        # pattern axis over 4 devices): one device's bound, lr and the
+        # operators replicated, its pattern quarter of the rest
+        quarter = (tips.numel() + root.numel() + ls.numel()) / 4
+        timing[C]["sharded_4_devices_bound"] = bound(
+            4 * (lr.numel() + pstep.numel() + quarter),
+            2 * C * n_int * 2 * K * S * S * P / 4)
         log(f"pruning_down timing primates C={C}: {json.dumps(timing[C])}")
     return worst, timing
 
@@ -413,10 +479,11 @@ def phase_test1(torch, ngen, power_line):
     """test1 through the CLI with the multiwalk switch on.  The engine is
     built inside ``execute_file``, so its launch counts start at 0 there
     and are read when the run is over."""
-    from mrbayes_tpu_torch.envelope import envelope_errors, run_test1
+    from mrbayes_tpu_torch.envelope import envelope_errors, run_batch
     workdir = os.path.join(OUT, "test1")
     shutil.rmtree(workdir, ignore_errors=True)
-    it, stats, lines = run_test1(workdir, ngen, device=DEV, multiwalk=True)
+    it, stats, lines = run_batch("test1", workdir, ngen, device=DEV,
+                                 multiwalk=True)
     runner = it._last_runner
     eng = runner.eng
     groups = eng._multiwalk_pruners
@@ -526,10 +593,355 @@ def phase_golden_partitioned(torch):
     return worst
 
 
+def wavefront_case(torch, shape, n_tips, P, S, K, W, C, seed):
+    """One wavefront call from a seed: its wiring, its operands, the
+    chains' (order, left, right, parent) and operators Pm, the tips
+    [n_tips, P, S] (host) and a pi."""
+    from mrbayes_tpu_torch.ops.wavefront_cuda import PruningCudaWavefront
+    rng = np.random.default_rng(seed)
+    walk = tree_walks(torch, [shaped_tree(shape, n_tips, rng)
+                              for _ in range(C)])
+    tips, Pm, pi = random_operands(rng, n_tips, P, S, K, C)
+    pruner = PruningCudaWavefront(tips, K, torch.device(DEV), W=W)
+    Pm = torch.as_tensor(Pm, device=DEV)
+    ops = pruner.operands(*walk[:3], Pm, walk[3])
+    return pruner, ops, walk, Pm, tips, torch.as_tensor(pi, device=DEV)
+
+
+def wavefront_timing(torch, pruner, ops, walk, Pm, tips_host, W):
+    """The wavefront kernel's time (raw launches on preallocated outputs),
+    its wrapper's, its schedule and operands', its plain version's, and
+    pruning.cu's for the same work (same trees, operators and tips),
+    beside the bound of this call's work (the rows it runs)."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    from mrbayes_tpu_torch.ops import wavefront_cuda as WF
+    lib = PC.library("wavefront").lib
+    pr_lib = PC.library("pruning").lib
+    nrows, row_lr, row_out, bidx, wmask, pstep = ops
+    tips = pruner.tips
+    C, n_int, K, S = (pstep.shape[0], pstep.shape[1] - 1, pstep.shape[3],
+                      pstep.shape[4])
+    n_tips, _, P = tips.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    out = [torch.empty(sh, device=DEV) for sh in
+           ((C, n_int, K, S, P), (C, K, S, P), (C, P))]
+    out2 = [torch.empty_like(x) for x in out]
+    single = PC.PruningCuda(tips_host, K, torch.device(DEV))
+    lr, pst = single.operands(*walk[:3], Pm)
+
+    def raw():
+        lib.mb_wavefront_down(
+            nrows.data_ptr(), row_lr.data_ptr(), row_out.data_ptr(),
+            bidx.data_ptr(), wmask.data_ptr(), pstep.data_ptr(),
+            tips.data_ptr(), *(x.data_ptr() for x in out), C, n_tips, n_int,
+            n_int, W, K, S, P, 0, stream)
+
+    def raw_pruning():
+        pr_lib.mb_pruning_down(lr.data_ptr(), pst.data_ptr(),
+                               single.tips.data_ptr(),
+                               *(x.data_ptr() for x in out2), C, n_tips,
+                               n_int, K, S, P, 0, stream)
+
+    rows_run = int(nrows.sum())
+    # bytes: nrows, the rows run (5 words per entry), the live operators,
+    # the tips, root and log-scales
+    nbytes = 4 * (C + 5 * rows_run * W + C * n_int * 2 * K * S * S
+                  + tips.numel() + C * K * S * P + C * P)
+    return {"ms": time_events(torch, raw, 500),
+            "wrapper_ms": time_events(
+                torch, lambda: WF.wavefront_down(*ops, tips, W), 200),
+            "schedule_and_operands_ms": time_events(
+                torch, lambda: pruner.operands(*walk[:3], Pm, walk[3]), 200),
+            "plain_ms": time_events(
+                torch, lambda: WF.wavefront_down_plain(*ops, tips, W), 10),
+            "pruning_down_same_work_ms": time_events(torch, raw_pruning, 500),
+            "rows_mean": rows_run / C, "n_int": n_int,
+            **bound(nbytes, 2 * C * n_int * 2 * K * S * S * P)}
+
+
+def phase_wavefront_kernels(torch):
+    """The wavefront kernel against its plain version at every case, C and
+    tree shape; times at cynmix's division shapes (C = 8, random trees)."""
+    from mrbayes_tpu_torch.ops import wavefront_cuda as WF
+    worst, timing, seed = 0.0, {}, 300
+    for n_tips, P, S, K, W in WAVEFRONT_CASES:
+        for C in (8, 32):
+            for shape in ("random", "caterpillar", "balanced"):
+                seed += 1
+                pruner, ops, walk, Pm, tips, pi = wavefront_case(
+                    torch, shape, n_tips, P, S, K, W, C, seed)
+                root_k, ls_k = WF.wavefront_down(*ops, pruner.tips, W)
+                torch.cuda.synchronize()
+                root_p, ls_p = WF.wavefront_down_plain(*ops, pruner.tips, W)
+                nr = ops[0]
+                worst = max(worst, compare(
+                    torch, site_lnl(torch, root_k, ls_k, pi),
+                    site_lnl(torch, root_p, ls_p, pi),
+                    f"wavefront_down {shape} n_tips={n_tips} P={P} S={S} "
+                    f"K={K} W={W} C={C}: nrows {int(nr.min())}.."
+                    f"{int(nr.max())} of n_int {n_tips - 1}"))
+                if shape == "random" and C == 8 \
+                        and (n_tips, P, S, K, W) in CYNMIX_SHAPES:
+                    timing[P] = wavefront_timing(torch, pruner, ops, walk,
+                                                 Pm, tips, W)
+                    log(f"wavefront_down timing cynmix P={P} S={S} K={K} "
+                        f"C={C}: {json.dumps(timing[P])}")
+    return worst, timing
+
+
+def cynmix_interpreter(chains=4, seed=7):
+    """The CLI with cynmix's favored model read in (2 runs x ``chains``);
+    every kernel-path switch off unless ``build_engine`` turns it on."""
+    from mrbayes_tpu_torch.cli import Interpreter
+    from mrbayes_tpu_torch.envelope import BATCHES
+    data, model = BATCHES["cynmix"]
+    it = Interpreter(log=lambda m: None, device=DEV, multiwalk=False,
+                     wavefront=False, stacked=False)
+    for line in (f"execute {data}", *model,
+                 f"mcmcp nruns=2 nchains={chains} seed={seed}"):
+        it.run_line(line)
+    return it
+
+
+def phase_stacked(torch):
+    """The stacked launch of cynmix's group [0, 1, 2, 3, 5] at 2 runs x 4
+    chains (union K·S = 84, 302 patterns) against its plain version and
+    against one pruning.cu launch per division, with times."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    from mrbayes_tpu_torch.ops.pruning import branch_tiprobs
+    from mrbayes_tpu_torch.ops.traversal import postorder_internal
+    eng = cynmix_interpreter().build_engine(stacked=True)
+    (g, stack), = eng._stacked_pruners
+    if g != [0, 1, 2, 3, 5] or (stack.KS, stack.P) != (84, 302):
+        raise AssertionError(f"cynmix stacked group {g} K·S {stack.KS} "
+                             f"P {stack.P}, expected [0, 1, 2, 3, 5], 84, "
+                             f"302")
+    states = eng.refresh_eigs(eng.init_chains()[0])
+    P_list, pis = [], []
+    for i in g:
+        pi, _, lam, U, Uinv, rates, pinv, cmask, mult = \
+            eng._generic_div_params(states, i)
+        P_list.append(branch_tiprobs(states["blen"], lam, U, Uinv, rates,
+                                     pinv if cmask is not None else 0.0,
+                                     mult))
+        pis.append(pi)
+    walk = (postorder_internal(states["parent"], eng.n_tips),
+            states["left"], states["right"])
+    lr, pstep = stack.operands(*walk, P_list)
+    root_k, ls_k = PC.pruning_down(lr, pstep, stack.tips)
+    torch.cuda.synchronize()
+    root_p, ls_p = PC.pruning_down_plain(lr, pstep, stack.tips)
+    worst = 0.0
+    singles = []
+    for d, i in enumerate(g):
+        a = site_lnl(torch, *stack.div_view(root_k, ls_k, d), pis[d])
+        worst = max(worst, compare(
+            torch, a, site_lnl(torch, *stack.div_view(root_p, ls_p, d),
+                               pis[d]),
+            f"stacked launch (pruning_down K=1 S=84) division {i} vs plain"))
+        single = eng._pruners[i]
+        lr1, pst1 = single.operands(*walk, P_list[d])
+        root1, ls1 = PC.pruning_down(lr1, pst1, single.tips)
+        compare(torch, a, site_lnl(torch, root1, ls1, pis[d]),
+                f"stacked launch division {i} vs its own pruning_down launch")
+        singles.append((lr1, pst1, single, root1, ls1))
+    lib = PC.library("pruning").lib
+    stream = torch.cuda.current_stream().cuda_stream
+    C, n_int = lr.shape[:2]
+    n_tips = eng.n_tips
+    scr = torch.empty((C, n_int, 1, stack.KS, stack.P), device=DEV)
+
+    def raw():
+        lib.mb_pruning_down(lr.data_ptr(), pstep.data_ptr(),
+                            stack.tips.data_ptr(), scr.data_ptr(),
+                            root_k.data_ptr(), ls_k.data_ptr(), C, n_tips,
+                            n_int, 1, stack.KS, stack.P, 0, stream)
+
+    scratch1 = [torch.empty((C, n_int) + tuple(r.shape[1:]), device=DEV)
+                for _, _, _, r, _ in singles]
+
+    def per_division():
+        for (l1, p1, sg, r1, s1), sc in zip(singles, scratch1):
+            lib.mb_pruning_down(l1.data_ptr(), p1.data_ptr(),
+                                sg.tips.data_ptr(), sc.data_ptr(),
+                                r1.data_ptr(), s1.data_ptr(), C, n_tips,
+                                n_int, sg.K, sg.S, sg.P, 0, stream)
+
+    KS, P = stack.KS, stack.P
+    out = {"ms": time_events(torch, raw, 200),
+           "operands_ms": time_events(
+               torch, lambda: stack.operands(*walk, P_list), 100),
+           "plain_ms": time_events(
+               torch, lambda: PC.pruning_down_plain(lr, pstep, stack.tips),
+               10),
+           "pruning_down_per_division_ms": time_events(
+               torch, per_division, 200),
+           "per_division_operands_ms": time_events(
+               torch, lambda: [sg.operands(*walk, P_list[d])
+                               for d, (_, _, sg, _, _) in
+                               enumerate(singles)], 100),
+           **bound(4 * (lr.numel() + pstep.numel() + stack.tips.numel()
+                        + C * KS * P + C * P),
+                   2 * C * n_int * 2 * KS * KS * P)}
+    log(f"stacked launch timing cynmix group {g} C={C}: {json.dumps(out)}")
+    return worst, out
+
+
+def phase_golden_cynmix(torch):
+    """The cynmix_mkv_f81 golden rows (Mkv on the standard buckets, F81 on
+    the DNA) through every kernel path: each within 0.25 of reference
+    MrBayes (tests/test_golden.py's limit) and within GOLDEN_PATH_TOL of
+    the others, each path's kernel launched."""
+    from mrbayes_tpu_torch.data import DataSet, make_divisions
+    from mrbayes_tpu_torch.envelope import CYNMIX
+    from mrbayes_tpu_torch.mcmc.engine import Engine
+    from mrbayes_tpu_torch.mcmc.settings import (DivisionSettings,
+                                                 McmcSettings)
+    from mrbayes_tpu_torch.nexus.datatypes import DataType
+    from mrbayes_tpu_torch.nexus.parser import read_nexus_file
+    from mrbayes_tpu_torch.ops.wavefront_cuda import PruningCudaWavefront
+    from mrbayes_tpu_torch.trees import parse_newick
+    rows = [r for r in json.load(open(GOLDEN))
+            if r["model"] == "cynmix_mkv_f81"]
+    nf = read_nexus_file(CYNMIX)
+    ds = DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar,
+                 divisions=make_divisions(nf.matrix))
+    sets = [DivisionSettings(coding="variable", rates="equal")
+            if d.dtype is DataType.STANDARD
+            else DivisionSettings(nst="1", rates="equal")
+            for d in ds.divisions]
+    off = dict(multiwalk=False, wavefront=False, stacked=False)
+    lnl = {}
+    for path in ("off", "wavefront", "stacked", "multiwalk"):
+        eng = Engine(ds, sets, mcmc=McmcSettings(nruns=1, nchains=1),
+                     device=DEV, **{**off, **({path: True}
+                                              if path != "off" else {})})
+        lnl[path] = []
+        for rec in rows:
+            st = tree_state(torch, parse_newick(rec["newick"], ds.taxa))
+            st["pi"] = torch.tensor([[rec["pi"]]], device=DEV)
+            lnl[path].append(eng.log_likelihood(eng.refresh_eigs(st))[0]
+                             .item())
+        used = {"off": [p for p in eng._pruners
+                        if not isinstance(p, PruningCudaWavefront)],
+                "wavefront": [p for p in eng._pruners
+                              if isinstance(p, PruningCudaWavefront)],
+                "stacked": [p for _, p in eng._stacked_pruners],
+                "multiwalk": [p for _, p in eng._multiwalk_pruners]}[path]
+        if not used or min(p.launches for p in used) < len(rows):
+            raise AssertionError(f"golden cynmix, {path} path: its kernel "
+                                 f"was not launched for every row")
+    worst = max(abs(v - rec["lnL"]) for vals in lnl.values()
+                for v, rec in zip(vals, rows))
+    spread = max(max(v[r] for v in lnl.values())
+                 - min(v[r] for v in lnl.values()) for r in range(len(rows)))
+    tol = max(GOLDEN_PATH_TOL, 2 * max(float(np.spacing(np.float32(
+        abs(r["lnL"])))) for r in rows))
+    log(f"golden cynmix_mkv_f81: {len(rows)} rows, lnL by path "
+        f"{json.dumps(lnl)}, reference {[r['lnL'] for r in rows]}, max "
+        f"|lnL - reference| {worst:.4f} (limit 0.25), max spread between "
+        f"paths {spread:.2e} (limit {tol:.2e}: {GOLDEN_PATH_TOL} or two "
+        f"float32 spacings of |lnL|)")
+    if worst >= 0.25 or spread > tol:
+        raise AssertionError("golden cynmix rows outside their limits")
+    return worst, spread
+
+
+def phase_cynmix(torch, ngen, power_line):
+    """cynmix's favored model through the CLI with the wavefront and
+    stacked switches on.  The engine is built inside ``execute_file``, so
+    its launch counts start at 0 there and are read when the run is
+    over."""
+    from mrbayes_tpu_torch.envelope import run_batch
+    from mrbayes_tpu_torch.ops.wavefront_cuda import PruningCudaWavefront
+    workdir = os.path.join(OUT, "cynmix")
+    shutil.rmtree(workdir, ignore_errors=True)
+    it, stats, lines = run_batch(
+        "cynmix", workdir, ngen, device=DEV, diagnfreq=min(1000, ngen),
+        multiwalk=False, wavefront=True, stacked=True)
+    runner = it._last_runner
+    eng = runner.eng
+    groups = [g for g, _ in eng._stacked_pruners]
+    if groups != [[0, 1, 2, 3, 5]] or not all(
+            isinstance(p, PruningCudaWavefront) for p in eng._pruners):
+        raise AssertionError(f"cynmix grouping: stacked {groups}, pruners "
+                             f"{[type(p).__name__ for p in eng._pruners]}")
+    # one likelihood per generation plus the initial score: one stacked
+    # launch and one wavefront launch for each of divisions 4, 6 and 7
+    calls = ngen + 1
+    stacked = eng._stacked_pruners[0][1].launches
+    wave = [p.launches for p in eng._pruners]
+    expect = [calls if i in (4, 6, 7) else 0 for i in range(eng.n_div)]
+    if stacked != calls or wave != expect:
+        raise AssertionError(f"cynmix launches: stacked {stacked}, "
+                             f"wavefront {wave}; predicted {calls} and "
+                             f"{expect}")
+    assert_carried(eng, runner.final_states, runner.final_bk)
+    for phrase in ("Average PSRF for parameter values",
+                   "Credible sets of trees", "Consensus tree written to"):
+        if not any(phrase in ln for ln in lines):
+            raise AssertionError(f"sump/sumt printed no {phrase!r}")
+    expect_rows = ngen // eng.mcmc.samplefreq + 1
+    first = []
+    for r in (1, 2):
+        with open(os.path.join(workdir, f"cynmix.run{r}.p")) as f:
+            rows = [ln.split("\t") for ln in f if ln[:1].isdigit()]
+        with open(os.path.join(workdir, f"cynmix.run{r}.t")) as f:
+            text = f.read()
+        if len(rows) != expect_rows or not text.rstrip().endswith("end;") \
+                or text.count("tree gen.") != expect_rows:
+            raise AssertionError(f"cynmix.run{r}: {len(rows)} .p rows, "
+                                 f"expected {expect_rows}, or incomplete .t")
+        first.append(float(rows[0][1]))
+    if not stats["best_lnl"] > max(first):
+        raise AssertionError(f"cynmix best lnL {stats['best_lnl']} did not "
+                             f"climb from the start {first}")
+    log(f"cynmix through the CLI, wavefront and stacked on: "
+        f"{json.dumps(stats)}; start lnL {first}; stacked launches "
+        f"{stacked}, wavefront launches {wave} for {ngen} gens; card "
+        f"{power_line}")
+    return it, {**stats, "stacked_launches": stacked,
+                "wavefront_launches": sum(wave)}
+
+
+def phase_cynmix_switch(torch, it, blocks, power_line):
+    """gens/s of the cynmix engine with the switches off and on (wavefront
+    and stacked), in turns; then a block and one generation of each move
+    type with host synchronisation made an error, switches on."""
+    engines = {sw: it.build_engine(multiwalk=False, wavefront=sw, stacked=sw)
+               for sw in (False, True)}
+    runs = {}
+    for sw, eng in engines.items():
+        states, bk = eng.init_chains()
+        runs[sw] = list(eng.run_block(states, bk, WARM_GENS))
+    torch.cuda.synchronize()
+    rates = {False: [], True: []}
+    for b in range(blocks):
+        for sw in ((False, True) if b % 2 == 0 else (True, False)):
+            t0 = time.perf_counter()
+            runs[sw] = list(engines[sw].run_block(*runs[sw], BLOCK_GENS))
+            torch.cuda.synchronize()
+            rates[sw].append(BLOCK_GENS / (time.perf_counter() - t0))
+    out = {"off": float(np.median(rates[False])),
+           "on": float(np.median(rates[True])),
+           "off_blocks": rates[False], "on_blocks": rates[True]}
+    log(f"cynmix switches off/on, {blocks} blocks of {BLOCK_GENS} gens each, "
+        f"in turns: {json.dumps(out)}; card {power_line}")
+    eng = engines[True]
+    sync_checked(torch, eng, *runs[True], SYNC_GENS)
+    log(f"cynmix, wavefront and stacked on: no host sync in a {SYNC_GENS}-gen "
+        f"block or in any of the {len(eng.moves)} move types "
+        f"({', '.join(m.name for m in eng.moves)})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--test1-gens", type=int, default=TEST1_GENS)
     ap.add_argument("--primates-blocks", type=int, default=5)
+    ap.add_argument("--cynmix-gens", type=int, default=CYNMIX_GENS)
+    ap.add_argument("--switch-blocks", type=int, default=3,
+                    help="blocks per setting in each switch timing")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -558,6 +970,8 @@ def main(argv=None) -> int:
     # 3. kernels
     err_pd, t_pd = phase_kernels(torch)
     err_mw, t_mw = phase_multiwalk_kernels(torch)
+    err_wf, t_wf = phase_wavefront_kernels(torch)
+    err_st, t_st = phase_stacked(torch)
 
     # 4.-5. primates, the first slice's main path
     ds = primates_dataset()
@@ -568,8 +982,14 @@ def main(argv=None) -> int:
 
     # 6.-9. test1, this slice's main path
     it, t1 = phase_test1(torch, args.test1_gens, power_line)
-    switch = phase_switch(torch, it, 3, power_line)
+    switch = phase_switch(torch, it, args.switch_blocks, power_line)
     phase_golden_partitioned(torch)
+
+    # 10.-12. cynmix, this slice's main path
+    golden_cyn = phase_golden_cynmix(torch)
+    it_c, cyn = phase_cynmix(torch, args.cynmix_gens, power_line)
+    cswitch = phase_cynmix_switch(torch, it_c, args.switch_blocks,
+                                  power_line)
 
     keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [{
@@ -592,6 +1012,8 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shape": "primates n_tips=12 P=413 K=4 S=4 C=4",
         "c32": {k: t_pd[32][k] for k in keys},
+        "sharded_4_devices_bound": {
+            f"c{C}": t_pd[C]["sharded_4_devices_bound"] for C in (4, 32)},
         "gens_per_s": {f"primates_c{C}": r["gens_per_s"]
                        for C, r in runs.items()},
         "gens_per_s_blocks": {f"primates_c{C}": r["gens_per_s_blocks"]
@@ -620,6 +1042,45 @@ def main(argv=None) -> int:
                                      "avg_psrf", "run_s", "gens_per_s")},
         "test1_gens_per_s_switch": {"off": switch["off"],
                                     "on": switch["on"]},
+        "card": power_line,
+    }, {
+        "name": "wavefront_down",
+        "route": "cuda",
+        "source": "mrbayes_tpu_torch/csrc/wavefront.cu",
+        "replaces": "mrbayes_tpu/ops/pruning_pallas.py:478",
+        "launches": cyn["wavefront_launches"],
+        "gens": args.cynmix_gens,
+        "max_abs_err": err_wf,
+        **{k: t_wf[537][k] for k in keys + (
+            "schedule_and_operands_ms", "pruning_down_same_work_ms",
+            "rows_mean", "n_int")},
+        "library_ms": None,
+        "shape": "cynmix COI n_tips=32 P=537 K=4 S=4 W=8 C=8",
+        "cynmix_shapes": {f"P={P}": {k: v for k, v in t.items()
+                                     if k not in ("bytes", "flops")}
+                          for P, t in t_wf.items()},
+        "cynmix": {k: cyn[k] for k in ("best_lnl", "tl_mean", "asdsf",
+                                       "avg_psrf", "run_s", "gens_per_s")},
+        "cynmix_gens_per_s_switches": {"off": cswitch["off"],
+                                       "on": cswitch["on"]},
+        "golden_cynmix_max_err": golden_cyn[0],
+        "card": power_line,
+    }, {
+        "name": "stacked_down",
+        "route": "cuda",
+        "source": "mrbayes_tpu_torch/csrc/pruning.cu (K=1, S=84, operator "
+                  "assembly in mrbayes_tpu_torch/ops/stacked_cuda.py)",
+        "replaces": "mrbayes_tpu/ops/pruning_pallas.py:767",
+        "launches": cyn["stacked_launches"],
+        "gens": args.cynmix_gens,
+        "max_abs_err": err_st,
+        **{k: t_st[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "operands_ms",
+                                "pruning_down_per_division_ms",
+                                "per_division_operands_ms")},
+        "library_ms": None,
+        "shape": "cynmix divisions 0,1,2,3,5 stacked: n_tips=32 K=1 S=84 "
+                 "P=302 C=8",
         "card": power_line,
     }]
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")

@@ -6,7 +6,9 @@ execute, set, charset, partition, lset, prset, link/unlink, mcmc/mcmcp,
 sump, sumt, quit.  Every other command of the reference interpreter
 raises ``CommandError`` naming the ROADMAP item that brings it.  Batch
 mode: ``python -m mrbayes_tpu_torch.cli file.nex`` (on the GPU; add
-``--device cpu`` to run on the CPU); interactive without arguments.
+``--device cpu`` to run on the CPU, and ``--multiwalk``, ``--wavefront``
+or ``--stacked`` to turn on a kernel path, see ``Engine``); interactive
+without arguments.
 """
 from __future__ import annotations
 
@@ -113,12 +115,15 @@ def _not_ported(what: str, item: str) -> CommandError:
 class Interpreter:
     """The command interpreter.  ``device=None`` runs the analyses on
     CUDA and raises when there is none; tests pass ``device="cpu"``.
-    ``multiwalk`` is the engines' kernel-path switch (see ``Engine``)."""
+    ``multiwalk``, ``wavefront`` and ``stacked`` are the engines'
+    kernel-path switches (see ``Engine``; None reads the environment)."""
 
-    def __init__(self, log=None, device=None, multiwalk: bool | None = None):
+    def __init__(self, log=None, device=None, multiwalk: bool | None = None,
+                 wavefront: bool | None = None, stacked: bool | None = None):
         from . import resolve_device
         self.device = resolve_device(device)
-        self.multiwalk = multiwalk
+        self.switches = {"multiwalk": multiwalk, "wavefront": wavefront,
+                         "stacked": stacked}
         self.env = Environment()
         self._log_fn = log or print
 
@@ -498,10 +503,10 @@ class Interpreter:
         self.env.quit_requested = True
 
     # ------------------------------------------------------------------
-    def build_engine(self, multiwalk: bool | None = None) -> Engine:
+    def build_engine(self, **switches) -> Engine:
         """The engine for the current data and settings (reference
-        SetUpAnalysis).  ``multiwalk`` overrides the interpreter's
-        switch."""
+        SetUpAnalysis).  ``multiwalk=``, ``wavefront=`` and ``stacked=``
+        override the interpreter's switches."""
         env = self.env
         if env.nexus is None or env.nexus.matrix is None:
             raise CommandError("no data matrix read in")
@@ -527,8 +532,7 @@ class Interpreter:
                      f"rates={s.rates}")
         return Engine(ds, div_settings, env.tree_settings, env.mcmc,
                       links=links, device=self.device,
-                      multiwalk=self.multiwalk if multiwalk is None
-                      else multiwalk)
+                      **{**self.switches, **switches})
 
     MCMC_KEYS = ("ngen", "nruns", "nchains", "temp", "samplefreq",
                  "printfreq", "diagnfreq", "swapfreq", "nswaps",
@@ -709,9 +713,16 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' to run "
                              "on the CPU)")
+    for name, env in (("multiwalk", "MB_TPU_MULTIWALK"),
+                      ("wavefront", "MB_TPU_WAVEFRONT"),
+                      ("stacked", "MB_TPU_STACKED")):
+        parser.add_argument(f"--{name}", action="store_true", default=None,
+                            help=f"turn the {name} kernel path on "
+                                 f"(default: {env}, else off)")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     from . import __version__
-    interp = Interpreter(device=args.device)
+    interp = Interpreter(device=args.device, multiwalk=args.multiwalk,
+                         wavefront=args.wavefront, stacked=args.stacked)
     print(BANNER.format(version=__version__))
     if args.files:
         for path in args.files:

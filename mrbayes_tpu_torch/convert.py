@@ -5,6 +5,12 @@ The JAX engine's state pytree and bookkeeping, taken to host numpy arrays
 both engines can be evaluated at identical states.  Integer leaves become
 int64 (torch indexing) and float leaves float32.  JAX PRNG keys have no
 torch counterpart: the port seeds its generators from the key words.
+
+Every leaf is carried by name, so a partitioned state keeps each
+division's eigensystem cache (``eigL{i}``, ``eigU{i}``, ``eigV{i}``),
+standard (Mk) divisions' included: the port's engine computes those once
+when it is built and keeps none in its own states, but uses a carried one
+when a state has it (``Engine._division_eig_cached``).
 """
 from __future__ import annotations
 

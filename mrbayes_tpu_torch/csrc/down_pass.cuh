@@ -1,6 +1,7 @@
 // One thread's Felsenstein down-pass over a whole postorder: the body that
 // the single-division kernel (pruning.cu) and the multiwalk kernel
-// (multiwalk.cu) share.
+// (multiwalk.cu) share; its step (combine_step) is also the wavefront
+// kernel's (wavefront.cu).
 //
 // For one walk (one chain of one division) and one pattern p, for each
 // postorder step i with child slots (l, r) = lr[i]:
@@ -14,8 +15,9 @@
 // The last slot is the root, copied to root[K, S, P].  A thread reads
 // back only the column it wrote itself, so no barrier is needed.
 //
-// S in {2, 4, 20} is a template parameter (child columns in registers);
-// S_T = 0 takes S from S_rt at run time.
+// S in {2, 4, 20} (and 3 and 8 in the wavefront kernel) is a template
+// parameter (child columns in registers); S_T = 0 takes S from S_rt at run
+// time and keeps no per-S arrays, so any S the wrappers admit fits.
 
 #pragma once
 
@@ -25,6 +27,63 @@ namespace mb {
 
 constexpr int kThreads = 128;
 constexpr float kTiny = 1e-30f;
+
+// One postorder step for one pattern: the children's columns bl and br
+// (category strides kl and kr: 0 for a tip, S * P for an internal slot)
+// through the per-category operators opl and opr [K, S, S]; writes the
+// unnormalised x[k, s] to out[k * S * P + s * P] and returns
+// max(max_{k,s} x, 1e-30).  Shared by every down-pass kernel.  The child
+// columns are plain (coherent) loads: in the wavefront kernel another
+// thread of the block wrote them, before a __syncthreads().
+template <int S_T>
+__device__ __forceinline__ float combine_step(
+    const float* bl, long long kl, const float* br, long long kr,
+    const float* __restrict__ opl, const float* __restrict__ opr,
+    float* out, int K, int S_rt, int P) {
+  const int S = S_T > 0 ? S_T : S_rt;
+  const long long SP = (long long)S * P;
+  const int SS = S * S;
+  float m = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const float* xl = bl + k * kl;
+    const float* xr = br + k * kr;
+    const float* ol = opl + k * SS;
+    const float* orr = opr + k * SS;
+    float* o = out + k * SP;
+    if constexpr (S_T > 0) {
+      float vl[S_T], vr[S_T];
+#pragma unroll
+      for (int j = 0; j < S_T; ++j) {
+        vl[j] = xl[j * P];
+        vr[j] = xr[j * P];
+      }
+#pragma unroll
+      for (int s = 0; s < S_T; ++s) {
+        float wl = 0.f, wr = 0.f;
+#pragma unroll
+        for (int j = 0; j < S_T; ++j) {
+          wl = fmaf(__ldg(ol + s * S_T + j), vl[j], wl);
+          wr = fmaf(__ldg(orr + s * S_T + j), vr[j], wr);
+        }
+        const float x = wl * wr;
+        o[s * P] = x;
+        m = fmaxf(m, x);
+      }
+    } else {
+      for (int s = 0; s < S; ++s) {
+        float wl = 0.f, wr = 0.f;
+        for (int j = 0; j < S; ++j) {
+          wl = fmaf(__ldg(ol + s * S + j), xl[j * P], wl);
+          wr = fmaf(__ldg(orr + s * S + j), xr[j * P], wr);
+        }
+        const float x = wl * wr;
+        o[s * P] = x;
+        m = fmaxf(m, x);
+      }
+    }
+  }
+  return fmaxf(m, kTiny);
+}
 
 template <int S_T>
 __device__ __forceinline__ void down_pass(
@@ -48,51 +107,11 @@ __device__ __forceinline__ void down_pass(
                                   : scr + (long long)(sl - n_tips) * KSP;
     const float* br = sr < n_tips ? tips + sr * SP
                                   : scr + (long long)(sr - n_tips) * KSP;
-    const long long kl = sl < n_tips ? 0 : SP;
-    const long long kr = sr < n_tips ? 0 : SP;
     const float* opl = op + (long long)(2 * i) * K * SS;
-    const float* opr = opl + K * SS;
     float* out = scr + (long long)i * KSP;
-    float m = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float* xl = bl + k * kl;
-      const float* xr = br + k * kr;
-      const float* ol = opl + k * SS;
-      const float* orr = opr + k * SS;
-      float* o = out + k * SP;
-      if constexpr (S_T > 0) {
-        float vl[S_T], vr[S_T];
-#pragma unroll
-        for (int j = 0; j < S_T; ++j) {
-          vl[j] = xl[j * P];
-          vr[j] = xr[j * P];
-        }
-#pragma unroll
-        for (int s = 0; s < S_T; ++s) {
-          float wl = 0.f, wr = 0.f;
-#pragma unroll
-          for (int j = 0; j < S_T; ++j) {
-            wl = fmaf(__ldg(ol + s * S_T + j), vl[j], wl);
-            wr = fmaf(__ldg(orr + s * S_T + j), vr[j], wr);
-          }
-          const float x = wl * wr;
-          o[s * P] = x;
-          m = fmaxf(m, x);
-        }
-      } else {
-        for (int s = 0; s < S; ++s) {
-          float wl = 0.f, wr = 0.f;
-          for (int j = 0; j < S; ++j) {
-            wl = fmaf(__ldg(ol + s * S + j), xl[j * P], wl);
-            wr = fmaf(__ldg(orr + s * S + j), xr[j * P], wr);
-          }
-          const float x = wl * wr;
-          o[s * P] = x;
-          m = fmaxf(m, x);
-        }
-      }
-    }
-    m = fmaxf(m, kTiny);
+    const float m = combine_step<S_T>(bl, sl < n_tips ? 0 : SP, br,
+                                      sr < n_tips ? 0 : SP, opl,
+                                      opl + K * SS, out, K, S, P);
     for (int ks = 0; ks < K * S; ++ks) out[ks * P] = out[ks * P] / m;
     lsum += logf(m);
   }

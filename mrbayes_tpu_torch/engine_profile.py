@@ -5,10 +5,13 @@ Usage (from the repository root, on a machine with a CUDA GPU):
 
     python -m mrbayes_tpu_torch.engine_profile --chains 4 --gens 100
     python -m mrbayes_tpu_torch.engine_profile --config test1 [--multiwalk]
+    python -m mrbayes_tpu_torch.engine_profile --config cynmix \
+        [--wavefront] [--stacked] [--multiwalk]
 
 ``--config primates`` (the default) is primates GTR+I+G, 1 run;
-``--config test1`` is test1's partitioned model (built through the CLI's
-commands, ``envelope.TEST1_MODEL``), 2 runs, with the multiwalk switch as
+``--config test1`` is test1's partitioned model and ``--config cynmix``
+cynmix's favored total-evidence model (each built through the CLI's
+commands, ``envelope.BATCHES``), 2 runs, with the kernel-path switches as
 given.  ``--chains`` is the chain count per run.  It builds the engine,
 warms it up, and then measures, each on the device it runs on:
 
@@ -19,7 +22,7 @@ warms it up, and then measures, each on the device it runs on:
   * one generation of each move type alone (host clock around
     ``torch.cuda.synchronize()``), with the move's share of the draws;
   * one ``log_likelihood`` call, one ``refresh_eigs`` call and one pruning
-    kernel call (division 0's single-division wiring).
+    kernel call (division 0's own wiring).
 
 It prints one JSON object (also written to ``--out``).  ``--device cpu``
 rehearses it on the CPU; those numbers are CPU numbers and are labelled so.
@@ -149,14 +152,17 @@ def parts(eng, states, dev, reps):
                           postorder_internal(states["parent"], eng.n_tips)),
             reps),
         "pruner_call_ms": _ms_per_call(
-            dev, lambda: pr(order, states["left"], states["right"], P), reps),
+            dev, lambda: pr(order, states["left"], states["right"], P,
+                            parent=states["parent"]), reps),
     }
     pr.launches = launches          # these launches are not the main path's
     return out
 
 
-def build_engine(config: str, chains: int, device, multiwalk: bool):
-    """(engine, description) of one profiled configuration."""
+def build_engine(config: str, chains: int, device, **switches):
+    """(engine, description) of one profiled configuration, with the
+    kernel-path switches given (``multiwalk=``, ``wavefront=``,
+    ``stacked=``)."""
     if config == "primates":
         nf = read_nexus_file(PRIMATES)
         ds = DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar,
@@ -166,13 +172,15 @@ def build_engine(config: str, chains: int, device, multiwalk: bool):
                      device=device)
         return eng, f"primates GTR+I+G, 1 run x {chains} chains"
     from .cli import Interpreter
-    from .envelope import TEST1_MODEL
-    it = Interpreter(log=lambda m: None, device=device, multiwalk=multiwalk)
-    for line in (f"execute {PRIMATES}", *TEST1_MODEL,
+    from .envelope import BATCHES
+    data, model = BATCHES[config]
+    it = Interpreter(log=lambda m: None, device=device, **switches)
+    for line in (f"execute {data}", *model,
                  f"mcmcp nruns=2 nchains={chains} seed=3"):
         it.run_line(line)
-    return it.build_engine(), (f"test1, 2 runs x {chains} chains, multiwalk "
-                               f"{'on' if multiwalk else 'off'}")
+    on = [k for k, v in switches.items() if v]
+    return it.build_engine(), (f"{config}, 2 runs x {chains} chains, "
+                               f"switches on: {', '.join(on) or 'none'}")
 
 
 def main(argv=None) -> int:
@@ -182,15 +190,23 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a CUDA device)")
-    ap.add_argument("--config", choices=("primates", "test1"),
+    ap.add_argument("--config", choices=("primates", "test1", "cynmix"),
                     default="primates")
     ap.add_argument("--multiwalk", action="store_true",
-                    help="test1: group the divisions into one multiwalk "
+                    help="test1, cynmix: group the divisions of one state "
+                         "count into one multiwalk launch")
+    ap.add_argument("--wavefront", action="store_true",
+                    help="cynmix: the level-batched pruner for every "
+                         "division it takes")
+    ap.add_argument("--stacked", action="store_true",
+                    help="cynmix: stack the small divisions into one "
                          "launch")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     eng, config = build_engine(args.config, args.chains, args.device,
-                               args.multiwalk)
+                               multiwalk=args.multiwalk,
+                               wavefront=args.wavefront,
+                               stacked=args.stacked)
     dev = eng.device
     states, bk = eng.init_chains()
     states, bk = eng.run_block(states, bk, 50)

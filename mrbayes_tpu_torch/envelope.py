@@ -18,6 +18,8 @@ Usage (on the GPU; ``--device cpu`` for the CPU):
         [--workdir runs/envelope]
 
 prints one ``ENVELOPE {...}`` JSON line and exits 1 outside the envelope.
+``run_batch`` also runs cynmix's favored model the same way (``chip_smoke.py``
+drives it on the card).
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ import numpy as np
 from .mcmc.diagnostics import psrf
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PRIMATES = os.path.join(HERE, os.pardir, "tests", "data", "ref", "examples",
-                        "primates.nex")
+EXAMPLES = os.path.join(HERE, os.pardir, "tests", "data", "ref", "examples")
+PRIMATES = os.path.join(EXAMPLES, "primates.nex")
+CYNMIX = os.path.join(EXAMPLES, "cynmix.nex")
 
 # test1's model commands, after its execute
 TEST1_MODEL = ("partition test = 2: 1-400, 401-.",
@@ -41,36 +44,55 @@ TEST1_MODEL = ("partition test = 2: 1-400, 401-.",
                "lset applyto=(all) nst=mixed rates=invgamma",
                "unlink statefreq=(all) revmat=(all) pinvar=(all) shape=(all)",
                "prset applyto=(all) ratepr=variable")
-TEST1 = """#NEXUS
+# cynmix's favored partition under the model of the MrBayes manual's
+# partitioned tutorial (the commented-out block of cynmix.nex): Mk with
+# gamma rates on the morphology, GTR+I+G on each of the four genes, every
+# parameter unlinked, variable rate multipliers
+CYNMIX_MODEL = ("set partition=favored",
+                "lset applyto=(1) rates=gamma",
+                "lset applyto=(2,3,4,5) rates=invgamma nst=6",
+                "unlink revmat=(all) pinvar=(all) shape=(all) "
+                "statefreq=(all)",
+                "prset applyto=(all) ratepr=variable")
+# the batch runs: name -> (data file, model commands after its execute)
+BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "cynmix": (CYNMIX, CYNMIX_MODEL)}
+BATCH = """#NEXUS
 begin mrbayes;
     set autoclose=yes nowarn=yes;
     execute {data};
-""" + "".join(f"    {c};\n" for c in TEST1_MODEL) + """\
-    mcmc ngen={ngen} nruns=2 nchains=4 samplefreq={samplefreq}
-         printfreq=2000 diagnfreq={diagnfreq} file={prefix};
+{model}    mcmc ngen={ngen} nruns=2 nchains=4 samplefreq={samplefreq}
+         printfreq={printfreq} diagnfreq={diagnfreq} file={prefix};
     sump;
     sumt;
 end;
 """
 
 
-def write_test1(workdir: str, ngen: int = 20000, samplefreq: int = 100,
-                diagnfreq: int = 2000, data: str = PRIMATES) -> str:
-    """Write test1's batch file into ``workdir``; returns its path."""
+def write_batch(name: str, workdir: str, ngen: int = 20000,
+                samplefreq: int = 100, diagnfreq: int = 2000) -> str:
+    """Write the batch file of run ``name`` (test1 or cynmix: its data, its
+    model, an mcmc of 2 runs x 4 chains, sump and sumt) into ``workdir``;
+    returns its path."""
+    data, model = BATCHES[name]
     os.makedirs(workdir, exist_ok=True)
-    path = os.path.join(workdir, "test1.nex")
+    path = os.path.join(workdir, f"{name}.nex")
     with open(path, "w") as f:
-        f.write(TEST1.format(data=os.path.abspath(data), ngen=ngen,
-                             samplefreq=samplefreq, diagnfreq=diagnfreq,
-                             prefix=os.path.join(os.path.abspath(workdir),
-                                                 "test1")))
+        f.write(BATCH.format(
+            data=os.path.abspath(data),
+            model="".join(f"    {c};\n" for c in model), ngen=ngen,
+            samplefreq=samplefreq, printfreq=min(2000, diagnfreq),
+            diagnfreq=diagnfreq,
+            prefix=os.path.join(os.path.abspath(workdir), name)))
     return path
 
 
-def run_test1(workdir: str, ngen: int = 20000, device=None,
-              multiwalk: bool | None = None, log=print):
-    """Run test1 through ``cli.Interpreter.execute_file``.  Returns
-    (interpreter, statistics dict, log lines)."""
+def run_batch(name: str, workdir: str, ngen: int = 20000, device=None,
+              log=print, samplefreq: int = 100, diagnfreq: int = 2000,
+              **switches):
+    """Run the batch file of ``name`` through
+    ``cli.Interpreter.execute_file``, with the kernel-path switches given
+    (``multiwalk=``, ``wavefront=``, ``stacked=``).  Returns (interpreter,
+    statistics dict, log lines)."""
     from .cli import Interpreter
     lines: list[str] = []
 
@@ -78,11 +100,11 @@ def run_test1(workdir: str, ngen: int = 20000, device=None,
         lines.append(str(msg))
         log(msg)
 
-    it = Interpreter(log=keep, device=device, multiwalk=multiwalk)
+    it = Interpreter(log=keep, device=device, **switches)
     t0 = time.time()
-    it.execute_file(write_test1(workdir, ngen))
+    it.execute_file(write_batch(name, workdir, ngen, samplefreq, diagnfreq))
     wall = time.time() - t0
-    stats = test1_stats(os.path.join(workdir, "test1"), lines)
+    stats = test1_stats(os.path.join(workdir, name), lines)
     runner = it._last_runner
     stats.update(wall_s=wall, run_s=runner.wall_seconds,
                  gens_per_s=runner.generations / runner.wall_seconds,
@@ -92,7 +114,7 @@ def run_test1(workdir: str, ngen: int = 20000, device=None,
 
 def test1_stats(prefix: str, lines: list[str]) -> dict:
     """Best lnL, posterior mean TL, average PSRF (after 25% burn-in) from
-    the .p files, and the last ASDSF the log printed."""
+    the two runs' .p files, and the last ASDSF the log printed."""
     best_lnl = -np.inf
     tl_all, runs_cols = [], []
     for r in (1, 2):
@@ -147,8 +169,8 @@ def main(argv=None) -> int:
     ap.add_argument("--multiwalk", action="store_true",
                     help="group the divisions into one multiwalk launch")
     args = ap.parse_args(argv)
-    _, stats, _ = run_test1(args.workdir, args.ngen, args.device,
-                            True if args.multiwalk else None)
+    _, stats, _ = run_batch("test1", args.workdir, args.ngen, args.device,
+                            multiwalk=True if args.multiwalk else None)
     errors = envelope_errors(stats)
     print("ENVELOPE " + json.dumps({**stats, "errors": errors}), flush=True)
     return 1 if errors else 0

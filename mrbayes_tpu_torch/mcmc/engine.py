@@ -14,11 +14,13 @@ reference's MPI design, src/mcmc.c:826-842).
 host generator, every other random number from a device generator, and
 acceptance, swaps and autotuning stay tensor math on the device.
 
-The port carries nucleotide data under nst 1/2/6/mixed with equal,
-gamma, propinv or invgamma rates, any number of divisions (partitions)
+The port carries nucleotide data under nst 1/2/6/mixed and standard
+(morphology) data under the plain unordered Mk model with its
+ascertainment coding (``coding=variable`` by default), each with equal,
+gamma, propinv or invgamma rates; any number of divisions (partitions)
 with linked or unlinked parameters and fixed or variable rate
 multipliers, one unrooted non-clock tree with the default priors, and
-any number of runs and chains; every other setting raises
+any number of runs and chains.  Every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 Divisions that share the tree can go through one multiwalk kernel launch
@@ -33,6 +35,16 @@ kernel needs no lane padding, so here divisions are grouped by what that
 kernel takes: one state count per launch, supported (S, K) pairs, at most
 65,535 walks and a bounded scratch buffer.  A division's lnL is the same
 function of its partials either way.
+
+Two more kernel paths keep the JAX package's switches and defaults (off),
+read once when the engine is built: ``wavefront`` (``MB_TPU_WAVEFRONT``)
+gives a division of a tree with at least 24 tips and K·S <= 32 the
+level-batched pruner (``ops/wavefront_cuda.py``), and ``stacked``
+(``MB_TPU_STACKED``) puts divisions of at most 256 patterns into one
+launch on a union state axis (``ops/stacked_cuda.py``, grouped by
+``_build_stacked_pruners``).  The likelihood takes multiwalk groups
+first, then stacked groups, and every remaining division through its own
+pruner.
 """
 from __future__ import annotations
 
@@ -47,12 +59,14 @@ import torch
 from .. import resolve_device
 from ..data import DataSet, Division
 from ..models.rates import GammaRateTable
-from ..models.substitution import nuc_q_gtr, nuc_q_nst1, nuc_q_nst2
+from ..models.substitution import mk_q, nuc_q_gtr, nuc_q_nst1, nuc_q_nst2
 from ..nexus.datatypes import DataType
 from ..ops.multiwalk_cuda import PruningCudaMultiwalk
-from ..ops.pruning import (branch_tiprobs, constant_state_mask,
-                           division_loglik, site_loglik_from_root)
-from ..ops.pruning_cuda import PruningCuda, check_kernel_shape
+from ..ops.pruning import (branch_tiprobs, coding_tips, coding_total,
+                           constant_state_mask, division_loglik,
+                           make_pruner, site_loglik_from_root)
+from ..ops.pruning_cuda import check_kernel_shape
+from ..ops.stacked_cuda import PruningCudaStacked
 from ..ops.traversal import postorder_internal
 from ..ops.tiprobs import eigh_reversible
 from ..trees import Tree, random_unrooted
@@ -67,6 +81,16 @@ NEG_INF = -1e30
 SCORE_KEYS = ("lnL", "lnP", "lnP_tree", "lnP_par")
 # cap on one multiwalk launch's scratch (floats) when forming groups
 MULTIWALK_SCRATCH_CAP = 1 << 28
+# stacked groups: members of at most this many patterns (coding dummies
+# counted), union state width K·S at most this (mrbayes_tpu/mcmc/
+# engine.py:941-963)
+STACK_MAX_PATTERNS = 256
+STACK_MAX_WIDTH = 96
+# ascertainment coding names of the settings -> division_loglik's
+# (reference SetModelDefaults defaults standard data to variable,
+# src/model.c:18562-18576)
+_CODING = {"all": "all", "variable": "variable",
+           "noabsencesites": "noabsence", "nopresencesites": "nopresence"}
 
 
 @dataclass
@@ -100,6 +124,7 @@ class DivCfg:
     pinvar_group: int = -1
     n_cats: int = 1
     fixed_pi: np.ndarray | None = None
+    coding: str = "all"         # resolved ascertainment coding
 
 
 def _scalar_prior_lpdf(prior: Prior, x):
@@ -133,6 +158,11 @@ def _scalar_prior_lpdf(prior: Prior, x):
     raise ValueError(f"unsupported scalar prior {k}")
 
 
+def _switch(env: str, value: bool | None) -> bool:
+    """A kernel-path switch: ``value``, or the environment when None."""
+    return os.environ.get(env, "0") == "1" if value is None else bool(value)
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to mrbayes_tpu_torch yet (ROADMAP Queue 1 "
@@ -149,13 +179,15 @@ class Engine:
                  tree_settings: TreeSettings | None = None,
                  mcmc: McmcSettings | None = None,
                  links: dict[str, list[int]] | None = None,
-                 device=None, multiwalk: bool | None = None):
+                 device=None, multiwalk: bool | None = None,
+                 wavefront: bool | None = None, stacked: bool | None = None):
         self.device = resolve_device(device)
-        # the kernel-path switch is read once, here (the JAX package reads
-        # its MB_TPU_* flags at trace time, which made a JAX test depend
-        # on test order)
-        self.multiwalk = (os.environ.get("MB_TPU_MULTIWALK", "0") == "1"
-                          if multiwalk is None else bool(multiwalk))
+        # the kernel-path switches are read once, here (the JAX package
+        # reads its MB_TPU_* flags at trace time, which made a JAX test
+        # depend on test order)
+        self.multiwalk = _switch("MB_TPU_MULTIWALK", multiwalk)
+        self.wavefront = _switch("MB_TPU_WAVEFRONT", wavefront)
+        self.stacked = _switch("MB_TPU_STACKED", stacked)
         # fp32 throughout, no TF32: the JAX package pins matmul precision
         # to HIGHEST (mrbayes_tpu/__init__.py) because reduced-precision
         # passes bias per-pattern lnL by about 1e-2, and TF32 keeps only
@@ -199,11 +231,20 @@ class Engine:
             raise _not_ported("built or perturbed starting trees",
                               "item 14")
         for div, s in zip(self.data.divisions, div_settings):
-            if div.dtype not in (DataType.DNA, DataType.RNA):
+            if div.dtype is DataType.STANDARD:
+                if div.ctype != "unordered":
+                    raise _not_ported(f"{div.ctype} standard characters "
+                                      f"(ctype)", "item 15")
+                sp = s.symdirihyperpr
+                if sp.kind != "fixed" or (sp.params
+                                          and float(sp.params[0]) > 0.0):
+                    raise _not_ported("symdirihyperpr (sampled standard "
+                                      "state frequencies)", "item 13")
+            elif div.dtype not in (DataType.DNA, DataType.RNA):
                 raise _not_ported(f"{div.dtype.value} data", "items 12-13")
-            if s.nucmodel != "4by4":
+            elif s.nucmodel != "4by4":
                 raise _not_ported(f"nucmodel={s.nucmodel}", "item 12")
-            if s.nst not in ("1", "2", "6", "mixed"):
+            elif s.nst not in ("1", "2", "6", "mixed"):
                 raise ValueError(f"nst={s.nst} is not a nucleotide model")
             if s.rates not in ("equal", "gamma", "propinv", "invgamma"):
                 raise _not_ported(f"rates={s.rates}", "item 13")
@@ -225,9 +266,14 @@ class Engine:
             if links and param in links:
                 key = (param, links[param][d])
             else:
-                dim = (self.data.divisions[d].n_states if param == "pi"
-                       else 0)
-                key = (param, "nuc", dim, signature)
+                # default linking needs the same datatype class (DNA and
+                # RNA are one), and for state-sized parameters the same
+                # state count (reference IsModelSame, src/model.c:13827)
+                dv = self.data.divisions[d]
+                dclass = ("nuc" if dv.dtype in (DataType.DNA, DataType.RNA)
+                          else dv.dtype.value)
+                dim = dv.n_states if param == "pi" else 0
+                key = (param, dclass, dim, signature)
             store = counters.setdefault(param, {})
             if key not in store:
                 store[key] = len(store)
@@ -237,7 +283,12 @@ class Engine:
             cfg = DivCfg(div=div, settings=s)
             fixed_params = (s.statefreqpr.kind == "fixed"
                             and s.statefreqpr.params)
-            if s.statefreqpr.kind == "dirichlet":
+            if div.dtype is DataType.STANDARD:
+                # plain Mk: equal, fixed state frequencies and the
+                # ascertainment coding (variable unless set)
+                cfg.fixed_pi = np.full(div.n_states, 1.0 / div.n_states)
+                cfg.coding = _CODING.get(s.coding or "variable", "all")
+            elif s.statefreqpr.kind == "dirichlet":
                 cfg.pi_group = group_of("pi", d, repr(s.statefreqpr))
             elif fixed_params and s.statefreqpr.params[0] == "empirical":
                 cfg.fixed_pi = self._empirical_freqs(div)
@@ -246,12 +297,13 @@ class Engine:
                 cfg.fixed_pi = np.asarray(s.statefreqpr.params)
             else:
                 cfg.fixed_pi = np.full(div.n_states, 1.0 / div.n_states)
-            if s.nst in ("6", "mixed"):
+            nuc = div.dtype is not DataType.STANDARD
+            if nuc and s.nst in ("6", "mixed"):
                 cfg.revmat_group = group_of("revmat", d,
                                             repr(s.revmatpr) + s.nst)
                 if s.nst == "mixed":
                     self._mixed_rev.add(cfg.revmat_group)
-            if s.nst == "2":
+            if nuc and s.nst == "2":
                 cfg.tratio_group = group_of("tratio", d, repr(s.tratiopr))
             if s.rates in ("gamma", "invgamma"):
                 cfg.shape_group = group_of("shape", d, repr(s.shapepr))
@@ -291,21 +343,31 @@ class Engine:
                     cfg.n_cats, device=dev)
         self.tip_partials, self.weights, self.const_masks = [], [], []
         self._fixed_pi = []
-        self._pruners: list[PruningCuda] = []
+        self._pruners: list = []
         masks, factors = [], []
         v_typ = 0.03    # reference default tuningParam[2] (model.c:22598)
         for cfg in self.div_cfg:
             d = cfg.div
             tp = d.tip_partials()
+            cmask = constant_state_mask(d.patterns, d.n_states)
+            wts = np.asarray(d.weights, np.float32).copy()
+            if cfg.coding != "all":
+                # the reference excludes characters the coding rules out
+                # (CheckCharCodingType + AddDummyChars, src/model.c:314-
+                # 400); a zero weight excludes the pattern exactly
+                # (mrbayes_tpu/mcmc/engine.py:866-884)
+                bad = {"variable": cmask.any(axis=1),
+                       "noabsence": cmask[:, 0] > 0,
+                       "nopresence": cmask[:, 1] > 0}[cfg.coding]
+                wts[bad] = 0.0
             self.tip_partials.append(torch.as_tensor(tp, device=dev))
-            self.weights.append(torch.as_tensor(
-                np.asarray(d.weights, np.float32), device=dev))
-            self.const_masks.append(torch.as_tensor(
-                constant_state_mask(d.patterns, d.n_states), device=dev))
+            self.weights.append(torch.as_tensor(wts, device=dev))
+            self.const_masks.append(torch.as_tensor(cmask, device=dev))
             self._fixed_pi.append(
                 None if cfg.fixed_pi is None else torch.as_tensor(
                     np.asarray(cfg.fixed_pi, np.float32)[None], device=dev))
-            self._pruners.append(PruningCuda(tp, cfg.n_cats, dev))
+            self._pruners.append(make_pruner(tp, cfg.n_cats, dev, cfg.coding,
+                                             self.wavefront))
             # bit-coded state sets for parsimony-guided proposals
             # (reference InitParsSets src/mcmc.c:6834)
             S = max(2, min(d.n_states, 32))
@@ -320,6 +382,13 @@ class Engine:
         w = np.array([float(c.div.weights.sum()) for c in self.div_cfg])
         self.div_char_frac = w / w.sum()   # ratemult weighting
         self._build_multiwalk_pruners()
+        self._build_stacked_pruners()
+
+    def _coded_tips(self, i) -> np.ndarray:
+        """Division i's tip partials [n, P_d, S] with its coding dummies:
+        the operand every pruner of the division is built from."""
+        cfg = self.div_cfg[i]
+        return coding_tips(cfg.div.tip_partials(), cfg.coding)
 
     def _build_multiwalk_pruners(self):
         """Group the divisions into multiwalk launches when the switch is
@@ -347,7 +416,8 @@ class Engine:
             cur, scratch = [], 0
             for i in idxs:
                 cfg = self.div_cfg[i]
-                need = C * n_int * cfg.n_cats * S * cfg.div.npat
+                need = (C * n_int * cfg.n_cats * S
+                        * self._coded_tips(i).shape[1])
                 if cur and (scratch + need > MULTIWALK_SCRATCH_CAP
                             or (len(cur) + 1) * C > 65535):
                     groups.append(cur)
@@ -358,10 +428,42 @@ class Engine:
         for g in groups:
             if len(g) < 2:
                 continue
-            specs = [(self.div_cfg[i].div.tip_partials(),
-                      self.div_cfg[i].n_cats) for i in g]
+            specs = [(self._coded_tips(i), self.div_cfg[i].n_cats)
+                     for i in g]
             self._multiwalk_pruners.append(
                 (g, PruningCudaMultiwalk(specs, self.device)))
+
+    def _build_stacked_pruners(self):
+        """Group divisions into stacked launches when the switch is on
+        (port of mrbayes_tpu/mcmc/engine.py:903-986): divisions of at most
+        ``STACK_MAX_PATTERNS`` patterns (coding dummies counted), in order,
+        split greedily where the union width K·S would pass
+        ``STACK_MAX_WIDTH``; groups of one division keep their own
+        pruner.  The JAX package also splits where its TPU kernel's VMEM
+        estimate (``kernel_vmem_bytes``) would overflow; that test has no
+        meaning for the CUDA kernel, whose partials live in global
+        memory."""
+        self._stacked_pruners: list = []
+        if not self.stacked:
+            return
+        groups, cur, width = [], [], 0
+        for i, cfg in enumerate(self.div_cfg):
+            if self._coded_tips(i).shape[1] > STACK_MAX_PATTERNS:
+                continue
+            ks = cfg.n_cats * cfg.div.n_states
+            if cur and width + ks > STACK_MAX_WIDTH:
+                groups.append(cur)
+                cur, width = [], 0
+            cur.append(i)
+            width += ks
+        groups.append(cur)
+        for g in groups:
+            if len(g) < 2:
+                continue
+            specs = [(self._coded_tips(i), self.div_cfg[i].n_cats)
+                     for i in g]
+            self._stacked_pruners.append(
+                (g, PruningCudaStacked(specs, self.device)))
 
     def _build_moves(self):
         """The unrooted non-clock move set (mrbayes_tpu engine.py:1479-
@@ -527,6 +629,18 @@ class Engine:
                     (k,), float(a), device=dev)
         if self.ratemult_on:
             self._ratemult_alpha = torch.ones(self.n_div, device=dev)
+        # a standard division's Q is fixed (Mk, equal frequencies): its
+        # eigensystem is computed once here, in float64 (Mk's eigenvalue
+        # repeated S - 1 times costs the float32 Jacobi up to 2e-6 in P(t)
+        # at S = 8), and never refreshed, where the JAX engine recomputes
+        # it in float32 with every refresh
+        self._const_eigs = {}
+        for i, c in enumerate(self.div_cfg):
+            if c.div.dtype is DataType.STANDARD:
+                pi = self._fixed_pi[i].double()                 # [1, S]
+                self._const_eigs[i] = tuple(
+                    x.float() for x in eigh_reversible(
+                        mk_q(c.div.n_states, pi), pi))
 
     # ------------------------------------------------------------------
     # state
@@ -630,7 +744,9 @@ class Engine:
         cfg = self.div_cfg[i]
         pi = self._division_pi(state, i)
         nst = cfg.settings.nst
-        if nst == "1":
+        if cfg.div.dtype is DataType.STANDARD:
+            Q = mk_q(cfg.div.n_states, pi)
+        elif nst == "1":
             Q = nuc_q_nst1(pi)
         elif nst == "2":
             Q = nuc_q_nst2(state["tratio"][:, cfg.tratio_group], pi)
@@ -649,6 +765,8 @@ class Engine:
         src/likelihood.c:10476)."""
         out = dict(state)
         for i in range(self.n_div):
+            if i in self._const_eigs:
+                continue
             lam, U, Uinv = self._division_eig(state, i)
             out[f"eigL{i}"], out[f"eigU{i}"], out[f"eigV{i}"] = lam, U, Uinv
         return out
@@ -656,6 +774,11 @@ class Engine:
     def _division_eig_cached(self, state, i):
         if f"eigL{i}" in state:
             return state[f"eigL{i}"], state[f"eigU{i}"], state[f"eigV{i}"]
+        if i in self._const_eigs:
+            C = state["blen"].shape[0]
+            lam, U, Uinv = self._const_eigs[i]
+            return lam.expand(C, -1), U.expand(C, -1, -1), \
+                Uinv.expand(C, -1, -1)
         return self._division_eig(state, i)
 
     def log_likelihood(self, state):
@@ -666,7 +789,11 @@ class Engine:
         blen = state["blen"]
         total = 0.0
         grouped = set()
-        for idxs, gpruner in self._multiwalk_pruners:
+        # multiwalk groups first, then stacked groups that share no
+        # division with them (mrbayes_tpu/mcmc/engine.py:2394-2406)
+        for idxs, gpruner in self._multiwalk_pruners + self._stacked_pruners:
+            if grouped.intersection(idxs):
+                continue
             total = total + self._group_lnl(state, blen, idxs, gpruner)
             grouped.update(idxs)
         for i in range(self.n_div):
@@ -675,31 +802,43 @@ class Engine:
         return total
 
     def _group_lnl(self, state, blen, idxs, gpruner):
-        """One multiwalk launch for a group of divisions sharing the tree,
-        then each division's root reduction (mrbayes_tpu/mcmc/engine.py:
-        2413-2474), with each division's own K_d, S and P_d."""
+        """One launch for a group of divisions sharing the tree (multiwalk
+        or stacked), then each division's root reduction with its coding
+        correction (mrbayes_tpu/mcmc/engine.py:2413-2474), with each
+        division's own K_d, S_d and P_d."""
         P_list, metas = [], []
         for i in idxs:
-            pi, _, lam, U, Uinv, rates, pinv, cmask, mult = \
+            pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \
                 self._generic_div_params(state, i)
             P_list.append(branch_tiprobs(
                 blen, lam, U, Uinv, rates,
                 pinv if cmask is not None else 0.0, mult))
-            metas.append((pi, pinv, cmask))
+            metas.append((pi, coding, pinv, cmask))
         order = postorder_internal(state["parent"], self.n_tips)
         root, ls = gpruner(order, state["left"], state["right"], P_list)
         total = 0.0
         for gi, i in enumerate(idxs):
-            pi, pinv, cmask = metas[gi]
+            pi, coding, pinv, cmask = metas[gi]
             r, ls_d = gpruner.div_view(root, ls, gi)      # [C,K,S,P], [C,P]
+            S = r.shape[2]
+            if coding != "all" and cmask is not None:
+                # the dummy patterns are constant, one per state
+                cmask = torch.cat([cmask, torch.eye(
+                    S, dtype=cmask.dtype, device=cmask.device)], 0)
             ln_site = site_loglik_from_root(r.permute(0, 3, 1, 2), ls_d, pi,
                                             pinv, cmask)
-            total = total + (self.weights[i] * ln_site).sum(-1)
+            if coding == "all":
+                total = total + (self.weights[i] * ln_site).sum(-1)
+            else:
+                total = total + coding_total(ln_site[:, :-S],
+                                              ln_site[:, -S:],
+                                              self.weights[i], coding)
         return total
 
     def _generic_div_params(self, state, i):
         """(pi, coding, lam, U, Uinv, rates, pinv, cmask, mult) of a
-        division — the inputs division_loglik needs beyond the tree."""
+        division — the inputs division_loglik needs beyond the tree, with
+        the division's resolved ascertainment coding."""
         cfg = self.div_cfg[i]
         pi = self._division_pi(state, i)
         lam, U, Uinv = self._division_eig_cached(state, i)
@@ -719,7 +858,7 @@ class Engine:
             # the stored simplex is weighted by the character fractions;
             # the branch-length multiplier has mean 1 over characters
             mult = state["ratemult"][:, i] / float(self.div_char_frac[i])
-        return pi, "all", lam, U, Uinv, rates, pinv, cmask, mult
+        return pi, cfg.coding, lam, U, Uinv, rates, pinv, cmask, mult
 
     def _division_lnL(self, state, i, blen):
         pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \

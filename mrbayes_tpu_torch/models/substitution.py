@@ -46,3 +46,15 @@ def nuc_q_gtr(revmat: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
     """GTR: 6 exchangeabilities (scale is irrelevant after
     normalization)."""
     return reversible_q(revmat, pi)
+
+
+def mk_q(n_states: int, pi: torch.Tensor | None = None, device=None,
+         dtype=torch.float32) -> torch.Tensor:
+    """Lewis Mk model for standard (morphology) data: equal rates between
+    every pair of states; ``pi`` [..., n_states] defaults to equal
+    frequencies."""
+    if pi is None:
+        pi = torch.full((n_states,), 1.0 / n_states, dtype=dtype,
+                        device=device)
+    return reversible_q(pi.new_ones(pi.shape[:-1]
+                                    + (n_states * (n_states - 1) // 2,)), pi)

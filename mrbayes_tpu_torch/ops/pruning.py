@@ -18,10 +18,40 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .pruning_cuda import PruningCuda
 from .tiprobs import transition_probs
 from .traversal import postorder_internal
+from .wavefront_cuda import W_DEFAULT, PruningCudaWavefront
 
 _TINY = 1e-30
+
+
+def coding_tips(tip_partials, coding: str = "all") -> np.ndarray:
+    """Tip partials [n, P, S] with, under an ascertainment coding other
+    than "all", the S dummy constant patterns appended (one-hot columns,
+    one per state; reference AddDummyChars, src/model.c:176)."""
+    tp = np.asarray(tip_partials, np.float32)
+    if coding == "all":
+        return tp
+    n, _, s = tp.shape
+    dummy = np.broadcast_to(np.eye(s, dtype=np.float32), (n, s, s))
+    return np.concatenate([tp, dummy], axis=1)
+
+
+def make_pruner(tip_partials, n_cats: int, device, coding: str = "all",
+                wavefront: bool = False):
+    """The per-division pruning wiring (mrbayes_tpu/ops/pruning.py:27-59):
+    the level-batched ``PruningCudaWavefront`` when the wavefront switch is
+    on and the tree has at least 24 tips with K·S <= 32 (the JAX package's
+    rule, with its W = 8), else the fused ``PruningCuda``.  The rule picks
+    a path; neither is a fallback for the other.  ``coding`` other than
+    "all" gives the pruner the dummy patterns ``division_loglik``
+    expects."""
+    tp = coding_tips(tip_partials, coding)
+    n_tips, _, S = tp.shape
+    if wavefront and n_tips >= 24 and n_cats * S <= 32:
+        return PruningCudaWavefront(tp, n_cats, device, W=W_DEFAULT)
+    return PruningCuda(tp, n_cats, device)
 
 
 def branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult=1.0):
@@ -75,13 +105,14 @@ def root_partials(left, right, parent, blen, tip_partials, lam, U, Uinv,
 def root_clv(left, right, parent, blen, tip_partials, lam, U, Uinv,
              cat_rates, pinv, n_tips: int, rate_mult=1.0, pruner=None):
     """Root conditional likelihoods [C, P, K, S] and per-pattern log
-    rescale sums [C, P].  With a ``PruningCuda`` wiring the pass goes
-    through it (the CUDA kernel for CUDA tensors, its plain version for
-    CPU tensors); otherwise through ``root_partials``."""
+    rescale sums [C, P].  With a pruning wiring (``make_pruner``) the pass
+    goes through it (the CUDA kernel for CUDA tensors, its plain version
+    for CPU tensors); otherwise through ``root_partials``."""
     if pruner is not None:
         P = branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult)
         order = postorder_internal(parent, n_tips)
-        root, ls = pruner(order, left, right, P)       # [C, K, S, P]
+        root, ls = pruner(order, left, right, P,
+                          parent=parent)               # [C, K, S, P]
         return root.permute(0, 3, 1, 2), ls
     partials, logscale = root_partials(
         left, right, parent, blen, tip_partials, lam, U, Uinv,
@@ -160,10 +191,10 @@ def division_loglik(left, right, parent, blen, tip_partials, weights,
         pruner=pruner)
     if coding == "all":
         return (weights * ln_site).sum(-1)
-    return _coding_total(ln_site[:, :-s], ln_site[:, -s:], weights, coding)
+    return coding_total(ln_site[:, :-s], ln_site[:, -s:], weights, coding)
 
 
-def _coding_total(ln_real, ln_dummy, weights, coding: str):
+def coding_total(ln_real, ln_dummy, weights, coding: str):
     """Σ_p w_p ln L_p - Σ_p w_p log(1 - P(unobservable)), per chain."""
     if coding == "variable":
         p_unobs = torch.exp(ln_dummy).sum(-1)

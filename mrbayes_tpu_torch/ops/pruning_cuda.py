@@ -17,8 +17,12 @@ Differences from the TPU layout, all deliberate:
   * one grid slice per chain (no walk interleaving).
 
 The kernel library is built together with the multiwalk kernel's
-(``csrc/multiwalk.cu``, wired by ``ops/multiwalk_cuda.py``): ``build``
-starts one ``nvcc`` per source at once.
+(``csrc/multiwalk.cu``, wired by ``ops/multiwalk_cuda.py``) and the
+wavefront kernel's (``csrc/wavefront.cu``, wired by
+``ops/wavefront_cuda.py``): ``build`` starts one ``nvcc`` per source at
+once.  The stacked-division path (``ops/stacked_cuda.py``) launches this
+kernel at K = 1 and S = the union width of its divisions, which the
+runtime-S path takes up to ``MAX_RUNTIME_S``.
 
 ``pruning_down`` launches the kernel and takes CUDA tensors only;
 ``pruning_down_plain`` is its plain PyTorch version, the same function on
@@ -44,9 +48,12 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           os.pardir, "_build")
 # one shared library per source, all compiled at once; every source
 # includes the shared per-thread walk
-SOURCES = {"pruning": "pruning.cu", "multiwalk": "multiwalk.cu"}
+SOURCES = {"pruning": "pruning.cu", "multiwalk": "multiwalk.cu",
+           "wavefront": "wavefront.cu"}
 _HEADERS = ("down_pass.cuh",)
-MAX_RUNTIME_S = 64
+# the runtime-S path keeps no per-S arrays, so its cap is only a sanity
+# bound; it must take the stacked path's union width (up to 96 at K = 1)
+MAX_RUNTIME_S = 128
 MAX_RUNTIME_K = 16
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -54,6 +61,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
     "pruning": ("mb_pruning_down", [_PTR] * 6 + [_INT] * 7 + [_PTR]),
     "multiwalk": ("mb_multiwalk_down", [_PTR] * 7 + [_INT] * 7 + [_PTR]),
+    "wavefront": ("mb_wavefront_down", [_PTR] * 10 + [_INT] * 9 + [_PTR]),
 }
 
 
@@ -142,7 +150,8 @@ def libraries(verbose: bool = False) -> dict[str, KernelBuild]:
 
 
 def library(name: str = "pruning") -> KernelBuild:
-    """One loaded kernel library (``pruning`` or ``multiwalk``)."""
+    """One loaded kernel library (``pruning``, ``multiwalk`` or
+    ``wavefront``)."""
     return _LIBRARIES.get()[name]
 
 
@@ -263,7 +272,8 @@ class PruningCuda:
 
     Built once per (division, engine) from the constant tip partials
     [n_tips, P, S]; calling it maps each chain's (postorder, left, right,
-    P-tensor) to (root partials [C, K, S, P], logscale [C, P]).
+    P-tensor) to (root partials [C, K, S, P], logscale [C, P]); ``parent``
+    is taken for the wavefront wiring's sake and not needed here.
     ``launches`` counts kernel launches (never plain-version calls).
     """
 
@@ -284,7 +294,7 @@ class PruningCuda:
         pstep = torch.stack([Pmat[rows, lch], Pmat[rows, rch]], 2)
         return lr, pstep.contiguous()
 
-    def __call__(self, order, left, right, Pmat):
+    def __call__(self, order, left, right, Pmat, parent=None):
         lr, pstep = self.operands(order, left, right, Pmat)
         if self.tips.is_cuda:
             root, ls = pruning_down(lr, pstep, self.tips)
