@@ -152,8 +152,7 @@ def parts(eng, states, dev, reps):
                           postorder_internal(states["parent"], eng.n_tips)),
             reps),
         "pruner_call_ms": _ms_per_call(
-            dev, lambda: pr(order, states["left"], states["right"], P,
-                            parent=states["parent"]), reps),
+            dev, lambda: pr(order, states["left"], states["right"], P), reps),
     }
     pr.launches = launches          # these launches are not the main path's
     return out

@@ -786,26 +786,44 @@ class Engine:
         if not self.mcmc.use_data:
             # mcmc data=no: prior-only sampling
             return state["blen"].new_zeros(state["blen"].shape[0])
-        blen = state["blen"]
         total = 0.0
-        grouped = set()
-        # multiwalk groups first, then stacked groups that share no
-        # division with them (mrbayes_tpu/mcmc/engine.py:2394-2406)
-        for idxs, gpruner in self._multiwalk_pruners + self._stacked_pruners:
-            if grouped.intersection(idxs):
-                continue
-            total = total + self._group_lnl(state, blen, idxs, gpruner)
-            grouped.update(idxs)
-        for i in range(self.n_div):
-            if i not in grouped:
-                total = total + self._division_lnL(state, i, blen)
+        for term in self._division_terms(state, self.weights):
+            total = total + term
         return total
 
-    def _group_lnl(self, state, blen, idxs, gpruner):
+    def division_lnls(self, state):
+        """lnL [C, n_div] float64 of every chain and data division, each
+        division through the path ``log_likelihood`` takes for it.  The
+        weighted sums over patterns are taken in float64 (float64 weights
+        promote them), so two paths compare below float32's spacing of a
+        large division's total."""
+        return torch.stack(self._division_terms(
+            state, [w.double() for w in self.weights]), -1)
+
+    def _division_terms(self, state, weights):
+        """Each data division's lnL [C] under the pattern ``weights``, in
+        division order: multiwalk groups first, then stacked groups that
+        share no division with them (mrbayes_tpu/mcmc/engine.py:2394-2406),
+        then every other division through its own pruner."""
+        blen = state["blen"]
+        terms = [None] * self.n_div
+        for idxs, gpruner in self._multiwalk_pruners + self._stacked_pruners:
+            if any(terms[i] is not None for i in idxs):
+                continue
+            for i, term in zip(idxs, self._group_lnl(state, blen, idxs,
+                                                     gpruner, weights)):
+                terms[i] = term
+        for i in range(self.n_div):
+            if terms[i] is None:
+                terms[i] = self._division_lnL(state, i, blen, weights[i])
+        return terms
+
+    def _group_lnl(self, state, blen, idxs, gpruner, weights):
         """One launch for a group of divisions sharing the tree (multiwalk
         or stacked), then each division's root reduction with its coding
         correction (mrbayes_tpu/mcmc/engine.py:2413-2474), with each
-        division's own K_d, S_d and P_d."""
+        division's own K_d, S_d and P_d: the members' lnL [C] in group
+        order."""
         P_list, metas = [], []
         for i in idxs:
             pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \
@@ -816,7 +834,7 @@ class Engine:
             metas.append((pi, coding, pinv, cmask))
         order = postorder_internal(state["parent"], self.n_tips)
         root, ls = gpruner(order, state["left"], state["right"], P_list)
-        total = 0.0
+        terms = []
         for gi, i in enumerate(idxs):
             pi, coding, pinv, cmask = metas[gi]
             r, ls_d = gpruner.div_view(root, ls, gi)      # [C,K,S,P], [C,P]
@@ -828,12 +846,11 @@ class Engine:
             ln_site = site_loglik_from_root(r.permute(0, 3, 1, 2), ls_d, pi,
                                             pinv, cmask)
             if coding == "all":
-                total = total + (self.weights[i] * ln_site).sum(-1)
+                terms.append((weights[i] * ln_site).sum(-1))
             else:
-                total = total + coding_total(ln_site[:, :-S],
-                                              ln_site[:, -S:],
-                                              self.weights[i], coding)
-        return total
+                terms.append(coding_total(ln_site[:, :-S], ln_site[:, -S:],
+                                          weights[i], coding))
+        return terms
 
     def _generic_div_params(self, state, i):
         """(pi, coding, lam, U, Uinv, rates, pinv, cmask, mult) of a
@@ -860,12 +877,12 @@ class Engine:
             mult = state["ratemult"][:, i] / float(self.div_char_frac[i])
         return pi, cfg.coding, lam, U, Uinv, rates, pinv, cmask, mult
 
-    def _division_lnL(self, state, i, blen):
+    def _division_lnL(self, state, i, blen, weights):
         pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \
             self._generic_div_params(state, i)
         return division_loglik(
             state["left"], state["right"], state["parent"], blen,
-            self.tip_partials[i], self.weights[i], lam, U, Uinv, pi, rates,
+            self.tip_partials[i], weights, lam, U, Uinv, pi, rates,
             pinv, cmask, self.n_tips, rate_mult=mult, coding=coding,
             pruner=self._pruners[i])
 

@@ -111,8 +111,7 @@ def root_clv(left, right, parent, blen, tip_partials, lam, U, Uinv,
     if pruner is not None:
         P = branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult)
         order = postorder_internal(parent, n_tips)
-        root, ls = pruner(order, left, right, P,
-                          parent=parent)               # [C, K, S, P]
+        root, ls = pruner(order, left, right, P)       # [C, K, S, P]
         return root.permute(0, 3, 1, 2), ls
     partials, logscale = root_partials(
         left, right, parent, blen, tip_partials, lam, U, Uinv,

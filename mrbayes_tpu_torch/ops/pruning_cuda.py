@@ -272,8 +272,7 @@ class PruningCuda:
 
     Built once per (division, engine) from the constant tip partials
     [n_tips, P, S]; calling it maps each chain's (postorder, left, right,
-    P-tensor) to (root partials [C, K, S, P], logscale [C, P]); ``parent``
-    is taken for the wavefront wiring's sake and not needed here.
+    P-tensor) to (root partials [C, K, S, P], logscale [C, P]).
     ``launches`` counts kernel launches (never plain-version calls).
     """
 
@@ -294,7 +293,7 @@ class PruningCuda:
         pstep = torch.stack([Pmat[rows, lch], Pmat[rows, rch]], 2)
         return lr, pstep.contiguous()
 
-    def __call__(self, order, left, right, Pmat, parent=None):
+    def __call__(self, order, left, right, Pmat):
         lr, pstep = self.operands(order, left, right, Pmat)
         if self.tips.is_cuda:
             root, ls = pruning_down(lr, pstep, self.tips)

@@ -37,6 +37,18 @@ W_DEFAULT = 8        # row width, as mrbayes_tpu/ops/pruning.py:48
 MAX_W = 16           # blockDim.y of the kernel
 
 
+def parent_from_children(left, right, n_tips: int):
+    """parent [C, n_nodes] (-1 at the root) from left/right [C, n_nodes]:
+    one scatter per side over the internal nodes, on the device."""
+    n = left.shape[-1]
+    ids = torch.arange(n_tips, n, dtype=left.dtype,
+                       device=left.device).expand(left.shape[0], -1)
+    parent = torch.full_like(left, -1)
+    parent.scatter_(1, left[:, n_tips:], ids)
+    parent.scatter_(1, right[:, n_tips:], ids)
+    return parent
+
+
 def wavefront_schedule(order, left, right, parent, n_tips: int, W: int):
     """The rows of every chain's tree, on the device.
 
@@ -174,9 +186,10 @@ def wavefront_down_plain(nrows, row_lr, row_out, bidx, wmask, pstep, tips,
 class PruningCudaWavefront(PruningCuda):
     """Per-division wiring of the wavefront pass: the counterpart of
     ``PruningPallasWavefront``.  Calling it maps each chain's (postorder,
-    left, right, P-tensor, parent) to (root partials [C, K, S, P],
-    logscale [C, P]), like ``PruningCuda``; the schedule needs ``parent``.
-    ``launches`` counts kernel launches (never plain-version calls)."""
+    left, right, P-tensor) to (root partials [C, K, S, P], logscale
+    [C, P]), like ``PruningCuda``; the schedule's node depths come from
+    the parent array that left/right imply.  ``launches`` counts kernel
+    launches (never plain-version calls)."""
 
     def __init__(self, tips, n_cats: int, device, W: int = W_DEFAULT):
         super().__init__(tips, n_cats, device)
@@ -184,11 +197,10 @@ class PruningCudaWavefront(PruningCuda):
             raise ValueError(f"row width W must be in [1, {MAX_W}]")
         self.W = W
 
-    def operands(self, order, left, right, Pmat, parent=None):
+    def operands(self, order, left, right, Pmat):
         """(nrows, row_lr, row_out, bidx, wmask, pstep [C, n_int + 1, 2,
         K, S, S]) from the chains' trees and Pmat [C, n_nodes, K, S, S]."""
-        if parent is None:
-            raise ValueError("the wavefront schedule needs parent")
+        parent = parent_from_children(left, right, self.n_tips)
         nrows, row_lr, row_out, bidx, wmask, lch, rch = wavefront_schedule(
             order, left, right, parent, self.n_tips, self.W)
         C, n_int = order.shape
@@ -198,8 +210,8 @@ class PruningCudaWavefront(PruningCuda):
         pstep[:, :n_int, 1] = Pmat[rows, rch]
         return nrows, row_lr, row_out, bidx, wmask, pstep
 
-    def __call__(self, order, left, right, Pmat, parent=None):
-        ops = self.operands(order, left, right, Pmat, parent)
+    def __call__(self, order, left, right, Pmat):
+        ops = self.operands(order, left, right, Pmat)
         if self.tips.is_cuda:
             out = wavefront_down(*ops, self.tips, self.W)
             self.launches += 1

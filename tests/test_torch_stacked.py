@@ -10,7 +10,8 @@
   engine's (``MB_TPU_STACKED=1``): one group, divisions [0, 1, 2, 3, 5];
 * the engine's lnL with the stacked switch on (and with the wavefront and
   multiwalk switches) equals the switches-off lnL within 1e-3 (float32
-  sums of the same per-pattern terms in another order).
+  sums of the same per-pattern terms in another order), in total and
+  division by division (``Engine.division_lnls``).
 
 The launch itself is ``csrc/pruning.cu`` at K = 1; ``chip_smoke.py`` holds
 it to the plain version and to per-division launches on the card."""
@@ -151,3 +152,12 @@ def test_switches_leave_the_lnl_unchanged(port_interp, switches):
     np.testing.assert_allclose(on.log_likelihood(st).numpy(),
                                off.log_likelihood(st).numpy(), rtol=0,
                                atol=1e-3)
+    # each division alone, through the path the engine takes for it
+    per_div = on.division_lnls(st)
+    assert per_div.shape == (2, on.n_div)
+    np.testing.assert_allclose(per_div.numpy(),
+                               off.division_lnls(st).numpy(), rtol=0,
+                               atol=1e-3)
+    assert per_div.dtype == torch.float64
+    np.testing.assert_allclose(per_div.sum(-1).numpy(),
+                               on.log_likelihood(st).numpy(), rtol=1e-6)

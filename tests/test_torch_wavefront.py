@@ -113,8 +113,7 @@ def _port(tree, tips, Pm, K, W, n_tips):
     pruner = WF.PruningCudaWavefront(tips, K, "cpu", W=W)
     t = {f: torch.as_tensor(v) for f, v in tree.items()}
     order = postorder_internal(t["parent"], n_tips)
-    root, ls = pruner(order, t["left"], t["right"], torch.as_tensor(Pm),
-                      parent=t["parent"])
+    root, ls = pruner(order, t["left"], t["right"], torch.as_tensor(Pm))
     assert pruner.launches == 0          # CPU tensors: the plain version
     return root.numpy(), ls.numpy()
 
@@ -215,16 +214,29 @@ def test_wavefront_down_takes_cuda_tensors_only():
     pruner = WF.PruningCudaWavefront(tips, 2, "cpu")
     t = {f: torch.as_tensor(v) for f, v in tree.items()}
     order = postorder_internal(t["parent"], 24)
-    ops = pruner.operands(order, t["left"], t["right"], torch.as_tensor(Pm),
-                          t["parent"])
+    ops = pruner.operands(order, t["left"], t["right"], torch.as_tensor(Pm))
     assert ops[5].shape == (2, 24, 2, 2, 4, 4)
     assert not ops[5][:, -1].any()            # the padded entries' operator
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         WF.wavefront_down(*ops, pruner.tips)
     with pytest.raises(TypeError):
         WF.wavefront_down_plain(ops[0].long(), *ops[1:], pruner.tips)
-    with pytest.raises(ValueError, match="needs parent"):
-        pruner(order, t["left"], t["right"], torch.as_tensor(Pm))
+
+
+@pytest.mark.parametrize("shape", ["random", "caterpillar", "balanced"])
+def test_parent_from_children(shape):
+    """The wiring's parent array, scattered from left/right, is the
+    tree's own (-1 at the root)."""
+    n_tips = 32
+    rng = np.random.default_rng(5)
+    make = {"random": lambda: random_unrooted(n_tips, rng, mean_blen=0.1),
+            "caterpillar": lambda: _caterpillar(n_tips),
+            "balanced": lambda: _balanced(n_tips)}[shape]
+    ts = [make() for _ in range(3)]
+    t = {f: torch.as_tensor(np.stack([getattr(x, f) for x in ts])).long()
+         for f in ("left", "right", "parent")}
+    got = WF.parent_from_children(t["left"], t["right"], n_tips)
+    assert torch.equal(got, t["parent"])
 
 
 @pytest.fixture
@@ -244,8 +256,7 @@ def test_kernel_matches_plain_on_gpu(cuda_device, n_tips, P, S, K, W, C):
     t = {f: torch.as_tensor(v, device=cuda_device) for f, v in tree.items()}
     order = postorder_internal(t["parent"], n_tips)
     ops = pruner.operands(order, t["left"], t["right"],
-                          torch.as_tensor(Pm, device=cuda_device),
-                          t["parent"])
+                          torch.as_tensor(Pm, device=cuda_device))
     k = WF.wavefront_down(*ops, pruner.tips, W)
     p = WF.wavefront_down_plain(*ops, pruner.tips, W)
     a = _site_lnl(*(x.cpu().numpy() for x in k), pi)
