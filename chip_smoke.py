@@ -5,6 +5,10 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
     python3 chip_smoke.py [--test1-gens N] [--primates-blocks N]
                           [--cynmix-gens N] [--switch-blocks N]
 
+(defaults 20,000, 3, 600 and 2; the last three were 5, 2,000 and 3
+before the sharded phases came, and were cut to keep the script within
+600 s).  Each phase's end is logged with the seconds since the start.
+
 Phases, each fatal on failure:
   1. device: the card's name, count, and name/power limit from nvidia-smi;
   2. build: compile every csrc/*.cu with nvcc for sm_90a (-Xptxas -v), one
@@ -33,9 +37,10 @@ Phases, each fatal on failure:
   9. golden partitioned: the primates_part2_unlinked_gtr_g rows of
      tests/golden_extra.json through the port's CLI and engine;
  10. golden cynmix: the cynmix_mkv_f81 rows of tests/golden_primates.json
-     with every kernel-path switch off, and with the wavefront, stacked and
-     multiwalk paths: each path's total within 0.25 of the reference, and
-     each division's lnL within 1e-3 of the other paths';
+     with every kernel-path switch off, with the wavefront, stacked and
+     multiwalk paths, and over 4 site shards of the card: each path's
+     total within 0.25 of the reference, and each division's lnL within
+     1e-3 of the other paths';
  11. cynmix: cynmix.nex's favored total-evidence model (Mk + four genes,
      8 divisions, 2 runs x 4 chains) through cli.Interpreter.execute_file
      with the wavefront and stacked switches on: carried versus recomputed
@@ -43,7 +48,21 @@ Phases, each fatal on failure:
      the written files, sump and sumt;
  12. cynmix switch: gens/s with the switches off and on, in turns, and a
      block and one generation of each move type with host synchronisation
-     made an error, switches on.
+     made an error, switches on;
+ 13. sharded kernels: the pattern-sharded pruning launch
+     (ops/sharded_cuda.py over pruning.cu) at primates' shape, C = 4 and
+     32, over 1, 2 and 4 shards of the card, each shard against its plain
+     version and its slice of one unsharded launch, with times;
+ 14. sharded primates: GTR+I+G, 4 chains, over 4 shards through Engine:
+     lnL against the unsharded engine, gens/s of both in turns, one launch
+     per shard and generation, carried versus recomputed scores, no host
+     sync in any move type;
+ 15. sharded cynmix: the favored model over 4 shards: each division's lnL
+     against the unsharded engine, launches (4 x 8 divisions plus 4 dummy
+     passes per generation), carried versus recomputed, no host sync;
+ 16. the product path, parallel/dryrun.py's dryrun_sites over 4 shards;
+     on a machine with several cards, the kernel check, primates and the
+     dry run again over distinct cards.
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -97,9 +116,14 @@ CYNMIX_SHAPES = [(32, 537, 4, 4, 8), (32, 125, 4, 4, 8), (32, 203, 4, 4, 8),
 WAVEFRONT_CASES = CYNMIX_SHAPES + [(24, 137, 4, 4, 8), (40, 300, 4, 1, 8),
                                    (24, 64, 2, 4, 4)]
 WARM_GENS, BLOCK_GENS, SYNC_GENS = 50, 200, 50
+# the sites mesh axis: shard counts of the kernel check, timed blocks of
+# the sharded primates engine
+SHARD_COUNTS, SHARD_BLOCKS = (1, 2, 4), 3
 DEV = "cuda"
 TEST1_GENS = 20000
-CYNMIX_GENS = 2000
+# enough for sump/sumt samples (7 per run at samplefreq 100); cut from
+# 2,000 to make room for the sharded phases within 600 s
+CYNMIX_GENS = 600
 # one division's lnL between kernel paths on one state (the float32 total
 # of 8 divisions near -36,117 is compared with the reference only: one
 # float32 spacing there is 0.0039)
@@ -209,7 +233,8 @@ def site_lnl(torch, root, ls, pi):
 
 def compare(torch, a, b, what):
     err = (a - b).abs()
-    bad = (err > ATOL + RTOL * b.abs()).sum().item()
+    # a NaN or inf on either side counts as a mismatch
+    bad = (~(err <= ATOL + RTOL * b.abs())).sum().item()
     log(f"{what}: max |dlnL| {err.max().item():.3e} (lnL range "
         f"{b.min().item():.1f}..{b.max().item():.1f}) "
         f"{'OK' if bad == 0 else 'MISMATCH'}")
@@ -280,13 +305,6 @@ def phase_kernels(torch):
             **bound(4 * (lr.numel() + pstep.numel() + tips.numel()
                          + root.numel() + ls.numel()),
                     2 * C * n_int * 2 * K * S * S * P)}
-        # the still unported sharded launch (PruningPallasSharded, the
-        # pattern axis over 4 devices): one device's bound, lr and the
-        # operators replicated, its pattern quarter of the rest
-        quarter = (tips.numel() + root.numel() + ls.numel()) / 4
-        timing[C]["sharded_4_devices_bound"] = bound(
-            4 * (lr.numel() + pstep.numel() + quarter),
-            2 * C * n_int * 2 * K * S * S * P / 4)
         log(f"pruning_down timing primates C={C}: {json.dumps(timing[C])}")
     return worst, timing
 
@@ -800,9 +818,10 @@ def phase_stacked(torch):
     return worst, out
 
 
-def phase_golden_cynmix(torch):
+def phase_golden_cynmix(torch, shard_devices):
     """The cynmix_mkv_f81 golden rows (Mkv on the standard buckets, F81 on
-    the DNA) through every kernel path: each path's total within 0.25 of
+    the DNA) through every kernel path, the site-sharded one over
+    ``shard_devices`` included: each path's total within 0.25 of
     reference MrBayes (tests/test_golden.py's limit), each division's lnL
     within GOLDEN_PATH_TOL of the other paths', each path's kernel
     launched."""
@@ -814,6 +833,7 @@ def phase_golden_cynmix(torch):
     from mrbayes_tpu_torch.nexus.datatypes import DataType
     from mrbayes_tpu_torch.nexus.parser import read_nexus_file
     from mrbayes_tpu_torch.ops.wavefront_cuda import PruningCudaWavefront
+    from mrbayes_tpu_torch.parallel.mesh import make_mesh, shard_engine_data
     from mrbayes_tpu_torch.trees import parse_newick
     rows = [r for r in json.load(open(GOLDEN))
             if r["model"] == "cynmix_mkv_f81"]
@@ -826,10 +846,13 @@ def phase_golden_cynmix(torch):
             for d in ds.divisions]
     off = dict(multiwalk=False, wavefront=False, stacked=False)
     lnl, per_div = {}, {}
-    for path in ("off", "wavefront", "stacked", "multiwalk"):
+    for path in ("off", "wavefront", "stacked", "multiwalk", "sharded"):
         eng = Engine(ds, sets, mcmc=McmcSettings(nruns=1, nchains=1),
-                     device=DEV, **{**off, **({path: True}
-                                              if path != "off" else {})})
+                     device=DEV, **{**off, **({path: True} if path in (
+                         "wavefront", "stacked", "multiwalk") else {})})
+        if path == "sharded":
+            shard_engine_data(eng, make_mesh(1, len(shard_devices),
+                                             shard_devices))
         lnl[path], per_div[path] = [], []
         for rec in rows:
             st = tree_state(torch, parse_newick(rec["newick"], ds.taxa))
@@ -842,7 +865,10 @@ def phase_golden_cynmix(torch):
                 "wavefront": [p for p in eng._pruners
                               if isinstance(p, PruningCudaWavefront)],
                 "stacked": [p for _, p in eng._stacked_pruners],
-                "multiwalk": [p for _, p in eng._multiwalk_pruners]}[path]
+                "multiwalk": [p for _, p in eng._multiwalk_pruners],
+                "sharded": eng._pruners + [
+                    p.dummy for p in eng._pruners
+                    if getattr(p, "dummy", None) is not None]}[path]
         if not used or min(p.launches for p in used) < 2 * len(rows):
             raise AssertionError(f"golden cynmix, {path} path: its kernel "
                                  f"was not launched for every row")
@@ -951,12 +977,310 @@ def phase_cynmix_switch(torch, it, blocks, power_line):
     return out
 
 
+def shard_site_lnl(torch, root, ls, pi):
+    """Per-pattern lnL [C, P] of one shard's root [C, K, S, P] and ls
+    [C, P] under pi [S], with the engine's floor (padded patterns, whose
+    root partials are 0, stay finite)."""
+    from mrbayes_tpu_torch.ops.pruning import site_loglik_from_root
+    pi = pi.to(root.device).expand(root.shape[0], -1)
+    return site_loglik_from_root(root, ls, pi, 0.0, None)
+
+
+def phase_sharded_kernels(torch, devices_for, shard_counts=SHARD_COUNTS):
+    """``PruningCudaSharded`` at primates' shape (n_tips 12, P 413, S 4,
+    K 4) at C = 4 and 32 over each shard count k (413 patterns pad to 414
+    and 416 at k = 2 and 4), on ``devices_for(k)``: every shard against its
+    plain version and against its slice of one unsharded pruning.cu
+    launch; times of the k raw launches, of one, of the wrapper's call and
+    of the plain version, beside the bound of the unsharded work with lr
+    and the operators sent to each shard (``bound``)."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    from mrbayes_tpu_torch.ops.sharded_cuda import PruningCudaSharded
+    from mrbayes_tpu_torch.parallel.mesh import _pad_to_multiple
+    n_tips, P, S, K = 12, 413, 4, 4
+    n_int = n_tips - 1
+    worst, timing = 0.0, {}
+    for C in (4, 32):
+        rng = np.random.default_rng(400 + C)
+        walk = random_walks(torch, rng, n_tips, C)
+        tips, Pm, pi = random_operands(rng, n_tips, P, S, K, C)
+        Pm, pi = (torch.as_tensor(x, device=DEV) for x in (Pm, pi))
+        single = PC.PruningCuda(tips, K, torch.device(DEV))
+        ref = site_lnl(torch, *single(*walk, Pm), pi)          # [C, P]
+        for k in shard_counts:
+            devs = devices_for(k)
+            tp, pad = _pad_to_multiple(tips, 1, k)
+            sh = PruningCudaSharded(tp, K, devs, DEV)
+            outs = sh(*walk, Pm)
+            torch.cuda.synchronize()
+            if sh.launches != k:
+                raise AssertionError(f"{sh.launches} launches for {k} "
+                                     f"shards")
+            lr, pstep = sh.operands(*walk, Pm)
+            Pk = tp.shape[1] // k
+            ops = []
+            for j, ((r, l), t, dev) in enumerate(zip(outs, sh.tips,
+                                                     sh.devices)):
+                lr_d, pst_d = lr.to(dev), pstep.to(dev)
+                a = shard_site_lnl(torch, r, l, pi)
+                worst = max(worst, compare(
+                    torch, a, shard_site_lnl(
+                        torch, *PC.pruning_down_plain(lr_d, pst_d, t), pi),
+                    f"sharded_down k={k} ({pad} padded) shard {j} on {dev} "
+                    f"C={C} vs plain"))
+                lo, hi = j * Pk, min((j + 1) * Pk, P)
+                worst = max(worst, compare(
+                    torch, a[:, :hi - lo].to(DEV), ref[:, lo:hi],
+                    f"sharded_down k={k} shard {j} C={C} vs its slice of "
+                    f"the unsharded pruning_down"))
+                ops.append((lr_d, pst_d, t, dev,
+                            torch.empty((C, n_int, K, S, Pk), device=dev),
+                            torch.empty((C, K, S, Pk), device=dev),
+                            torch.empty((C, Pk), device=dev)))
+            lib = PC.library("pruning").lib
+
+            def raw(shards):
+                for l_, p_, t_, d_, sc, rt, ls_ in shards:
+                    lib.mb_pruning_down(
+                        l_.data_ptr(), p_.data_ptr(), t_.data_ptr(),
+                        sc.data_ptr(), rt.data_ptr(), ls_.data_ptr(), C,
+                        n_tips, n_int, K, S, Pk, d_.index,
+                        torch.cuda.current_stream(d_).cuda_stream)
+
+            def plain():
+                for l_, p_, t_, *_ in ops:
+                    PC.pruning_down_plain(l_, p_, t_)
+
+            timing[(C, k)] = {
+                "ms": time_events(torch, lambda: raw(ops), 300),
+                "per_shard_ms": time_events(torch, lambda: raw(ops[:1]),
+                                            300),
+                "wrapper_ms": time_events(torch, lambda: sh(*walk, Pm),
+                                          200),
+                "plain_ms": time_events(torch, plain, 5),
+                "padded_patterns": pad,
+                **bound(4 * (k * (lr.numel() + pstep.numel())
+                             + n_tips * S * P + C * K * S * P + C * P),
+                        2 * C * n_int * 2 * K * S * S * P)}
+            log(f"sharded_down timing primates C={C} k={k} on "
+                f"{[str(d) for d in devs]}: {json.dumps(timing[(C, k)])}")
+    return worst, timing
+
+
+def phase_sharded_cynmix_kernels(torch, devices):
+    """``PruningCudaSharded`` at every shape the sharded cynmix path gives
+    it: the favored model's engine sharded over ``devices`` (the four
+    genes, 537/125/203/330 patterns at S 4, and the morphology buckets of
+    122/31/6/1 real patterns at S 2/3/4/8, padded to a multiple of the
+    shard count, so that some shards hold padding only), each division's
+    own sharded pruner on random trees of 32 tips and random operators at
+    C = 8 and 32.  Every shard against the plain version on the same
+    operands, and each coded division's dummy pass (``PruningCuda`` over
+    [32, S, S]) against its plain version; the wrapper's time at C = 8."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    from mrbayes_tpu_torch.parallel.mesh import make_mesh, shard_engine_data
+    eng = cynmix_interpreter().build_engine()
+    shard_engine_data(eng, make_mesh(1, len(devices), devices))
+    worst, shapes = 0.0, {}
+    for i, pr in enumerate(eng._pruners):
+        n_tips, S, K = pr.n_tips, pr.S, pr.K
+        Pk = pr.P // len(devices)
+        real = eng.div_cfg[i].div.npat
+        for C in (8, 32):
+            rng = np.random.default_rng(500 + 10 * i + C)
+            walk = random_walks(torch, rng, n_tips, C)
+            Pm = rng.random((C, 2 * n_tips - 1, K, S, S)).astype(
+                np.float32) + 0.05
+            Pm = torch.as_tensor(Pm / Pm.sum(-1, keepdims=True), device=DEV)
+            pi = rng.random(S).astype(np.float32) + 0.2
+            pi = torch.as_tensor(pi / pi.sum(), device=DEV)
+            lr, pstep = pr.operands(*walk, Pm)
+            before = pr.launches
+            outs = pr(*walk, Pm)
+            if pr.launches - before != len(devices):
+                raise AssertionError(f"division {i}: {pr.launches - before} "
+                                     f"launches for {len(devices)} shards")
+            for j, ((r, l), t, dev) in enumerate(zip(outs, pr.tips,
+                                                     pr.devices)):
+                held = max(0, min(Pk, real - j * Pk))     # real patterns
+                worst = max(worst, compare(
+                    torch, shard_site_lnl(torch, r, l, pi),
+                    shard_site_lnl(torch, *PC.pruning_down_plain(
+                        lr.to(dev), pstep.to(dev), t), pi),
+                    f"sharded_down cynmix division {i} (S={S}, {real} "
+                    f"patterns, {held} of {Pk} real) shard {j} C={C} vs "
+                    f"plain"))
+            if pr.dummy is not None:
+                d_lr, d_pstep = pr.dummy.operands(*walk, Pm)
+                worst = max(worst, compare(
+                    torch, shard_site_lnl(torch, *pr.dummy(*walk, Pm), pi),
+                    shard_site_lnl(torch, *PC.pruning_down_plain(
+                        d_lr, d_pstep, pr.dummy.tips), pi),
+                    f"cynmix division {i} dummy pass (n_tips={n_tips}, "
+                    f"S={S}) C={C} vs plain"))
+            if C == 8:
+                shapes[f"div{i}"] = {
+                    "S": S, "K": K, "patterns": real, "padded": pr.P,
+                    "wrapper_ms": time_events(torch, lambda: pr(*walk, Pm),
+                                              50)}
+    log(f"sharded_down at the cynmix shapes over {len(devices)} shards: "
+        f"{json.dumps(shapes)}")
+    return worst, shapes
+
+
+def phase_sharded_primates(torch, ds, devices, blocks, power_line):
+    """Primates GTR+I+G, 1 run x 4 chains, over a sites mesh of
+    ``devices``: lnL at identical states against the unsharded engine
+    (5e-3), gens/s of the sharded and the unsharded engine in turns, the
+    sharded pruner's launches over the sharded blocks (one per shard and
+    generation), carried = recomputed, and no host sync in a block or in
+    any move type."""
+    from mrbayes_tpu_torch.mcmc.engine import SCORE_KEYS, Engine
+    from mrbayes_tpu_torch.mcmc.settings import (DivisionSettings,
+                                                 McmcSettings)
+    from mrbayes_tpu_torch.parallel.mesh import make_mesh, shard_engine_data
+    k = len(devices)
+    engines = {sh: Engine(ds, [DivisionSettings(nst="6", rates="invgamma")],
+                          mcmc=McmcSettings(nruns=1, nchains=4, seed=3),
+                          device=DEV) for sh in (False, True)}
+    shard_engine_data(engines[True], make_mesh(1, k, devices))
+    runs = {sh: list(eng.init_chains()) for sh, eng in engines.items()}
+    st = {key: v for key, v in runs[True][0].items()
+          if key not in SCORE_KEYS}
+    diff = (engines[True].log_likelihood(st)
+            - engines[False].log_likelihood(st)).abs().max().item()
+    if diff > 5e-3:
+        raise AssertionError(f"sharded lnL {diff} from the unsharded one")
+    for sh, eng in engines.items():
+        runs[sh] = list(eng.run_block(*runs[sh], WARM_GENS))
+    torch.cuda.synchronize()
+    pruner = engines[True]._pruners[0]
+    pruner.launches = 0                     # the sharded run starts
+    rates = {False: [], True: []}
+    for b in range(blocks):
+        for sh in ((True, False) if b % 2 == 0 else (False, True)):
+            t0 = time.perf_counter()
+            runs[sh] = list(engines[sh].run_block(*runs[sh], BLOCK_GENS))
+            torch.cuda.synchronize()
+            rates[sh].append(BLOCK_GENS / (time.perf_counter() - t0))
+    launches = pruner.launches              # ... and ends here
+    gens = blocks * BLOCK_GENS
+    if launches != k * gens:
+        raise AssertionError(f"{launches} sharded launches for {gens} "
+                             f"generations over {k} shards")
+    eng = engines[True]
+    states, bk = sync_checked(torch, eng, *runs[True], SYNC_GENS)
+    cold = assert_carried(eng, states, bk)
+    out = {"shards": k, "devices": [str(d) for d in devices],
+           "lnl_diff_identical_states": diff,
+           "gens_per_s": float(np.median(rates[True])),
+           "gens_per_s_unsharded": float(np.median(rates[False])),
+           "gens_per_s_blocks": rates[True],
+           "gens_per_s_unsharded_blocks": rates[False],
+           "launches": launches, "gens": gens,
+           "launches_per_gen": launches / gens,
+           "cold_lnL": states["lnL"][cold].item()}
+    log(f"primates GTR+I+G 4 chains over {k} site shards: "
+        f"{json.dumps(out)}; no host sync in a {SYNC_GENS}-gen block or in "
+        f"any of the {len(eng.moves)} move types; card {power_line}")
+    return out
+
+
+def phase_sharded_cynmix(torch, devices, power_line):
+    """cynmix's favored model (2 runs x 4 chains) over a sites mesh of
+    ``devices``: each division's lnL (float64 sums) against the unsharded
+    engine (1e-3), gens/s of both in turns, the launches over the sharded
+    blocks (shards x 8 divisions, plus one dummy pass for each of the four
+    coded standard buckets, per generation), carried = recomputed, and no
+    host sync in a block or in any move type."""
+    from mrbayes_tpu_torch.mcmc.engine import SCORE_KEYS
+    from mrbayes_tpu_torch.parallel.mesh import make_mesh, shard_engine_data
+    k = len(devices)
+    it = cynmix_interpreter()
+    engines = {sh: it.build_engine() for sh in (False, True)}
+    eng = engines[True]
+    shard_engine_data(eng, make_mesh(1, k, devices))
+    runs = {sh: list(e.init_chains()) for sh, e in engines.items()}
+    st = {key: v for key, v in runs[True][0].items()
+          if key not in SCORE_KEYS}
+    diff = (eng.division_lnls(st)
+            - engines[False].division_lnls(st)).abs().max().item()
+    if diff > GOLDEN_PATH_TOL:
+        raise AssertionError(f"sharded division lnL {diff} from the "
+                             f"unsharded one")
+    for sh, e in engines.items():
+        runs[sh] = list(e.run_block(*runs[sh], WARM_GENS))
+    torch.cuda.synchronize()
+    dummies = [p.dummy for p in eng._pruners if p.dummy is not None]
+    for p in eng._pruners + dummies:
+        p.launches = 0                      # the sharded run starts
+    gens_block = BLOCK_GENS // 2
+    rates = {False: [], True: []}
+    for b in range(2):
+        for sh in ((True, False) if b % 2 == 0 else (False, True)):
+            t0 = time.perf_counter()
+            runs[sh] = list(engines[sh].run_block(*runs[sh], gens_block))
+            torch.cuda.synchronize()
+            rates[sh].append(gens_block / (time.perf_counter() - t0))
+    launches = sum(p.launches for p in eng._pruners)
+    dummy = sum(p.launches for p in dummies)   # ... and ends here
+    gens = 2 * gens_block
+    if launches != k * eng.n_div * gens or dummy != len(dummies) * gens \
+            or len(dummies) != 4:
+        raise AssertionError(f"cynmix sharded launches {launches}, dummy "
+                             f"{dummy} for {gens} generations")
+    states, bk = sync_checked(torch, eng, *runs[True], SYNC_GENS)
+    assert_carried(eng, states, bk)
+    out = {"shards": k, "max_division_lnl_diff": diff,
+           "gens_per_s": float(np.median(rates[True])),
+           "gens_per_s_unsharded": float(np.median(rates[False])),
+           "gens_per_s_blocks": rates[True],
+           "gens_per_s_unsharded_blocks": rates[False],
+           "launches": launches, "dummy_launches": dummy, "gens": gens,
+           "launches_per_gen": (launches + dummy) / gens}
+    log(f"cynmix over {k} site shards: {json.dumps(out)}; no host sync in "
+        f"a {SYNC_GENS}-gen block or in any of the {len(eng.moves)} move "
+        f"types; card {power_line}")
+    return out
+
+
+def phase_sharded(torch, ds, count, power_line):
+    """The sites mesh axis: the sharded launch against its plain version,
+    primates and cynmix over 4 shards of the first card, the product-path
+    dry run; over distinct cards too where the machine has them."""
+    from mrbayes_tpu_torch.parallel.dryrun import dryrun_sites
+    one_card = [f"{DEV}:0"] * 4
+    err, timing = phase_sharded_kernels(torch, lambda k: one_card[:k])
+    err_c, cyn_shapes = phase_sharded_cynmix_kernels(torch, one_card)
+    err = max(err, err_c)
+    prim = phase_sharded_primates(torch, ds, one_card, SHARD_BLOCKS,
+                                  power_line)
+    cyn = phase_sharded_cynmix(torch, one_card, power_line)
+    dry = dryrun_sites(4, one_card, workdir=os.path.join(OUT, "dryrun"),
+                       log=log)
+    cards = {}
+    if count >= 2:
+        devs = [f"{DEV}:{i}" for i in range(min(count, 4))]
+        e2, t2 = phase_sharded_kernels(torch, lambda k: devs[:k],
+                                       (len(devs),))
+        err = max(err, e2)
+        cards = {"devices": devs,
+                 "kernel": {f"c{C}": t for (C, _), t in t2.items()},
+                 "primates": phase_sharded_primates(torch, ds, devs, 1,
+                                                    power_line),
+                 "dryrun": dryrun_sites(len(devs), devs, log=log)}
+    else:
+        log("sharded: one card, so every shard ran on cuda:0; times over "
+            "distinct cards not measured")
+    return err, timing, cyn_shapes, prim, cyn, dry, cards
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--test1-gens", type=int, default=TEST1_GENS)
-    ap.add_argument("--primates-blocks", type=int, default=5)
+    ap.add_argument("--primates-blocks", type=int, default=3)
     ap.add_argument("--cynmix-gens", type=int, default=CYNMIX_GENS)
-    ap.add_argument("--switch-blocks", type=int, default=3,
+    ap.add_argument("--switch-blocks", type=int, default=2,
                     help="blocks per setting in each switch timing")
     args = ap.parse_args(argv)
     import torch
@@ -988,6 +1312,7 @@ def main(argv=None) -> int:
     err_mw, t_mw = phase_multiwalk_kernels(torch)
     err_wf, t_wf = phase_wavefront_kernels(torch)
     err_st, t_st = phase_stacked(torch)
+    log(f"[{time.perf_counter() - t_start:.1f} s] kernels phases done")
 
     # 4.-5. primates, the first slice's main path
     ds = primates_dataset()
@@ -995,17 +1320,25 @@ def main(argv=None) -> int:
     runs = {C: phase_primates(torch, ds, C, args.primates_blocks, power_line)
             for C in (4, 32)}
     phase_golden(torch, ds)
+    log(f"[{time.perf_counter() - t_start:.1f} s] primates phases done")
 
-    # 6.-9. test1, this slice's main path
+    # 6.-9. test1, the second slice's main path
     it, t1 = phase_test1(torch, args.test1_gens, power_line)
     switch = phase_switch(torch, it, args.switch_blocks, power_line)
     phase_golden_partitioned(torch)
+    log(f"[{time.perf_counter() - t_start:.1f} s] test1 phases done")
 
-    # 10.-12. cynmix, this slice's main path
-    golden_cyn = phase_golden_cynmix(torch)
+    # 10.-12. cynmix, the third slice's main path
+    golden_cyn = phase_golden_cynmix(torch, [f"{DEV}:0"] * 4)
     it_c, cyn = phase_cynmix(torch, args.cynmix_gens, power_line)
     cswitch = phase_cynmix_switch(torch, it_c, args.switch_blocks,
                                   power_line)
+    log(f"[{time.perf_counter() - t_start:.1f} s] cynmix phases done")
+
+    # 13.-16. the sites mesh axis, the fourth slice's main path
+    err_sh, t_sh, sh_cyn_shapes, sh_prim, sh_cyn, sh_dry, sh_cards = \
+        phase_sharded(torch, ds, count, power_line)
+    log(f"[{time.perf_counter() - t_start:.1f} s] sharded phases done")
 
     keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [{
@@ -1028,8 +1361,6 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shape": "primates n_tips=12 P=413 K=4 S=4 C=4",
         "c32": {k: t_pd[32][k] for k in keys},
-        "sharded_4_devices_bound": {
-            f"c{C}": t_pd[C]["sharded_4_devices_bound"] for C in (4, 32)},
         "gens_per_s": {f"primates_c{C}": r["gens_per_s"]
                        for C, r in runs.items()},
         "gens_per_s_blocks": {f"primates_c{C}": r["gens_per_s_blocks"]
@@ -1097,6 +1428,41 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shape": "cynmix divisions 0,1,2,3,5 stacked: n_tips=32 K=1 S=84 "
                  "P=302 C=8",
+        "card": power_line,
+    }, {
+        "name": "sharded_down",
+        "route": "cuda",
+        "source": "mrbayes_tpu_torch/csrc/pruning.cu + "
+                  "mrbayes_tpu_torch/ops/sharded_cuda.py",
+        "replaces": "mrbayes_tpu/ops/pruning_pallas.py:456",
+        "launches": sh_prim["launches"] + sh_cyn["launches"],
+        "launches_per_run": {"primates_c4": sh_prim["launches"],
+                             "cynmix": sh_cyn["launches"],
+                             "cynmix_dummy_passes": sh_cyn["dummy_launches"]},
+        "gens_per_run": {"primates_c4": sh_prim["gens"],
+                         "cynmix": sh_cyn["gens"]},
+        "shards": 4,
+        "devices": sh_prim["devices"],
+        "max_abs_err": err_sh,
+        **{k: t_sh[(4, 4)][k] for k in ("ms", "per_shard_ms", "wrapper_ms",
+                                        "plain_ms", "bound_ms", "bound_by",
+                                        "padded_patterns")},
+        "library_ms": None,
+        "shape": "primates n_tips=12 P=413 (416 padded) K=4 S=4 C=4 over 4 "
+                 "shards of one card",
+        "by_shape": {f"c{C}_k{k}": {key: v for key, v in t.items()
+                                    if key not in ("bytes", "flops")}
+                     for (C, k), t in t_sh.items()},
+        "cynmix_shapes_k4": sh_cyn_shapes,
+        "primates": {k: sh_prim[k] for k in (
+            "gens_per_s", "gens_per_s_unsharded", "launches_per_gen",
+            "lnl_diff_identical_states")},
+        "cynmix": {k: sh_cyn[k] for k in (
+            "gens_per_s", "gens_per_s_unsharded", "launches_per_gen",
+            "max_division_lnl_diff")},
+        "golden_cynmix_max_err": golden_cyn[0],
+        "dryrun_sites": sh_dry,
+        "distinct_cards": sh_cards or None,
         "card": power_line,
     }]
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")

@@ -8,7 +8,8 @@ raises ``CommandError`` naming the ROADMAP item that brings it.  Batch
 mode: ``python -m mrbayes_tpu_torch.cli file.nex`` (on the GPU; add
 ``--device cpu`` to run on the CPU, and ``--multiwalk``, ``--wavefront``
 or ``--stacked`` to turn on a kernel path, see ``Engine``); interactive
-without arguments.
+without arguments.  On a host with several CUDA devices, ``MB_AUTOSHARD=1``
+shards each mcmc run's patterns over them (``_analysis_mesh``).
 """
 from __future__ import annotations
 
@@ -598,10 +599,30 @@ class Interpreter:
     def do_mcmcp(self, args, base_dir):
         self._set_mcmc_params(args)
 
+    def _analysis_mesh(self):
+        """Device mesh for a run (mrbayes_tpu/cli.py:1123-1135): on a host
+        with more than one CUDA device and ``MB_AUTOSHARD=1``, ``auto_mesh``
+        over every CUDA device; otherwise none.  A mesh of more than one
+        chain shard is not ported yet (ROADMAP Queue 1 item 11b)."""
+        import torch
+        if self.device.type != "cuda" or torch.cuda.device_count() <= 1 \
+                or os.environ.get("MB_AUTOSHARD", "0") != "1":
+            return None
+        from .parallel.mesh import auto_mesh
+        try:
+            return auto_mesh(self.env.mcmc.n_chains_total)
+        except NotImplementedError as e:
+            raise CommandError(f"MB_AUTOSHARD=1: {e}") from e
+
     def do_mcmc(self, args, base_dir):
         from .mcmc.run import McmcRunner
         self._set_mcmc_params(args)
-        runner = McmcRunner(self.build_engine(), log=self.log)
+        eng = self.build_engine()
+        mesh = self._analysis_mesh()
+        if mesh is not None:
+            from .parallel.mesh import shard_engine_data
+            shard_engine_data(eng, mesh)
+        runner = McmcRunner(eng, log=self.log, mesh=mesh)
         runner.run()
         self._last_runner = runner
 

@@ -7,12 +7,15 @@ Usage (from the repository root, on a machine with a CUDA GPU):
     python -m mrbayes_tpu_torch.engine_profile --config test1 [--multiwalk]
     python -m mrbayes_tpu_torch.engine_profile --config cynmix \
         [--wavefront] [--stacked] [--multiwalk]
+    python -m mrbayes_tpu_torch.engine_profile [--config ...] --sites 4
 
 ``--config primates`` (the default) is primates GTR+I+G, 1 run;
 ``--config test1`` is test1's partitioned model and ``--config cynmix``
 cynmix's favored total-evidence model (each built through the CLI's
 commands, ``envelope.BATCHES``), 2 runs, with the kernel-path switches as
-given.  ``--chains`` is the chain count per run.  It builds the engine,
+given.  ``--chains`` is the chain count per run; ``--sites k`` shards
+the engine's patterns over k site shards of its device
+(``parallel.mesh``).  It builds the engine,
 warms it up, and then measures, each on the device it runs on:
 
   * ``run_block`` under ``torch.profiler``: wall time, the device's busy
@@ -200,6 +203,8 @@ def main(argv=None) -> int:
     ap.add_argument("--stacked", action="store_true",
                     help="cynmix: stack the small divisions into one "
                          "launch")
+    ap.add_argument("--sites", type=int, default=1,
+                    help="site shards, all on the engine's device")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     eng, config = build_engine(args.config, args.chains, args.device,
@@ -207,6 +212,10 @@ def main(argv=None) -> int:
                                wavefront=args.wavefront,
                                stacked=args.stacked)
     dev = eng.device
+    if args.sites > 1:
+        from .parallel.mesh import make_mesh, shard_engine_data
+        shard_engine_data(eng, make_mesh(1, args.sites, [dev] * args.sites))
+        config += f", over {args.sites} site shards of one device"
     states, bk = eng.init_chains()
     states, bk = eng.run_block(states, bk, 50)
     block, states, bk = profile_block(eng, states, bk, args.gens, dev)

@@ -45,6 +45,14 @@ launch on a union state axis (``ops/stacked_cuda.py``, grouped by
 ``_build_stacked_pruners``).  The likelihood takes multiwalk groups
 first, then stacked groups, and every remaining division through its own
 pruner.
+
+Under a ``sites`` mesh (``parallel/mesh.py:shard_engine_data``, the JAX
+engine's ``_site_sharded`` routing) each division's pattern data is cut
+into one slice per shard and goes through a ``PruningCudaSharded``: one
+``pruning.cu`` launch per shard, the root reduction on each shard's
+device, the [C] partial sums added on the engine's device.  A coded
+division's dummy patterns take a pass of their own inside that pruner,
+and the multiwalk and stacked groups are cleared.
 """
 from __future__ import annotations
 
@@ -843,8 +851,7 @@ class Engine:
                 # the dummy patterns are constant, one per state
                 cmask = torch.cat([cmask, torch.eye(
                     S, dtype=cmask.dtype, device=cmask.device)], 0)
-            ln_site = site_loglik_from_root(r.permute(0, 3, 1, 2), ls_d, pi,
-                                            pinv, cmask)
+            ln_site = site_loglik_from_root(r, ls_d, pi, pinv, cmask)
             if coding == "all":
                 terms.append((weights[i] * ln_site).sum(-1))
             else:

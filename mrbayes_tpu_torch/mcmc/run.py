@@ -10,8 +10,12 @@ checkpoints.  File formats follow the reference (PreparePrintFiles
 src/mcmc.c:10427, PrintStatesToFiles :13186), so the reference's own
 sump/sumt can read them.
 
-Not ported yet: the ``report`` command's extra columns (ROADMAP Queue 1
-item 14) and the multi-GPU branch (item 11).
+With a mesh (``parallel/mesh.py``) the engine's data is sharded over the
+``sites`` axis in this one process (Queue 1 item 11a); the states stay
+whole on the engine's device.  Not ported yet: the ``report`` command's
+extra columns (ROADMAP Queue 1 item 14) and the ``chains`` axis over
+processes (item 11b: ``torch.distributed``, a generator per rank, the
+swap all-gather of (lnL, lnP), the gather to rank 0).
 """
 from __future__ import annotations
 
@@ -102,10 +106,11 @@ def host_states(states: dict, bk: dict) -> dict:
 
 class McmcRunner:
     def __init__(self, engine: Engine, file_prefix: str | None = None,
-                 log=print):
+                 log=print, mesh=None):
         self.eng = engine
         self.mc = engine.mcmc
         self.prefix = file_prefix or self.mc.filename
+        self.mesh = mesh
         self.log = log
         self.cols = param_columns(engine)
         self.splits = SplitCounter(self.mc.nruns)
@@ -328,6 +333,11 @@ class McmcRunner:
             self.log(f"   Resuming from checkpoint at generation {start_gen}")
         else:
             states, bk = eng.init_chains()
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_chains
+            states, bk = shard_chains(eng, self.mesh, states, bk)
+            self.log(f"   Sharding over mesh {self.mesh.shape} "
+                     f"(1 process(es))")
         self._open_files(append=start_gen > 0, start_gen=start_gen)
         host = host_states(states, bk)
         self.log(f"   Running Markov chain ( {mc.nruns} runs x {mc.nchains} "

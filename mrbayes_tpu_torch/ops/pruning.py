@@ -104,19 +104,19 @@ def root_partials(left, right, parent, blen, tip_partials, lam, U, Uinv,
 
 def root_clv(left, right, parent, blen, tip_partials, lam, U, Uinv,
              cat_rates, pinv, n_tips: int, rate_mult=1.0, pruner=None):
-    """Root conditional likelihoods [C, P, K, S] and per-pattern log
-    rescale sums [C, P].  With a pruning wiring (``make_pruner``) the pass
-    goes through it (the CUDA kernel for CUDA tensors, its plain version
-    for CPU tensors); otherwise through ``root_partials``."""
+    """Root conditional likelihoods in the kernels' layout [C, K, S, P] and
+    per-pattern log rescale sums [C, P].  With a pruning wiring
+    (``make_pruner``) the pass goes through it (the CUDA kernel for CUDA
+    tensors, its plain version for CPU tensors); otherwise through
+    ``root_partials``."""
     if pruner is not None:
         P = branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult)
         order = postorder_internal(parent, n_tips)
-        root, ls = pruner(order, left, right, P)       # [C, K, S, P]
-        return root.permute(0, 3, 1, 2), ls
+        return pruner(order, left, right, P)
     partials, logscale = root_partials(
         left, right, parent, blen, tip_partials, lam, U, Uinv,
         cat_rates, pinv, n_tips, rate_mult)
-    return partials[:, 2 * n_tips - 2], logscale
+    return partials[:, 2 * n_tips - 2].permute(0, 2, 3, 1), logscale
 
 
 def division_site_loglik(left, right, parent, blen, tip_partials,
@@ -138,18 +138,21 @@ def division_site_loglik(left, right, parent, blen, tip_partials,
                                  cat_weights)
 
 
-def site_loglik_from_root(root_cl, logscale, pi, pinv, const_mask,
+def site_loglik_from_root(root, logscale, pi, pinv, const_mask,
                           cat_weights=None) -> torch.Tensor:
     """The root reduction: per-pattern log-likelihoods [C, P] from root
-    conditional likelihoods [C, P, K, S] and log rescale sums [C, P],
-    with the proportion-of-invariable-sites mixture when ``const_mask``
-    is given.  Shared by the per-division and the grouped passes, so a
-    division's lnL is the same function of its root partials either way.
-    """
-    k = root_cl.shape[2]
+    conditional likelihoods in the kernels' layout [C, K, S, P] and log
+    rescale sums [C, P], with the proportion-of-invariable-sites mixture
+    when ``const_mask`` is given.  Shared by every path (per division,
+    grouped, per shard), so a division's lnL is the same function of its
+    root partials on each.  The state and category sums are two batched
+    products: a three-operand ``torch.einsum`` searches its contraction
+    path on every call, about 0.2 ms of host time."""
+    k = root.shape[1]
     if cat_weights is None:
-        cat_weights = root_cl.new_full((k,), 1.0 / k)
-    site_l = torch.einsum("cpks,k,cs->cp", root_cl, cat_weights, pi)
+        cat_weights = root.new_full((k,), 1.0 / k)
+    pi4 = pi.reshape(-1, 1, 1, pi.shape[-1])                   # [C|1,1,1,S]
+    site_l = torch.matmul(cat_weights, torch.matmul(pi4, root)[:, :, 0])
     ln_var = torch.log(torch.clamp_min(site_l, _TINY)) + logscale
     if const_mask is None:
         return ln_var
@@ -174,7 +177,20 @@ def division_loglik(left, right, parent, blen, tip_partials, weights,
     coding: "all" (none) | "variable" | "noabsence" | "nopresence".  With
     a correction, ``tip_partials`` (and the pruner's tips) carry the S
     dummy constant patterns appended after the real ones.
+
+    A pattern-sharded pruner (``ops/sharded_cuda.py``, installed by
+    ``parallel.mesh.shard_engine_data``) has a ``loglik`` of its own: it
+    holds the real patterns only, ``weights`` and ``const_mask`` are its
+    ``Shards``, it reduces each shard on the shard's device and applies
+    the coding correction from a pass over the dummy patterns
+    (mrbayes_tpu/ops/pruning.py:288-303); ``tip_partials`` is not read.
     """
+    if hasattr(pruner, "loglik"):
+        P = branch_tiprobs(blen, lam, U, Uinv, cat_rates,
+                           pinv if const_mask is not None else 0.0, rate_mult)
+        order = postorder_internal(parent, n_tips)
+        return pruner.loglik(order, left, right, P, pi, pinv, const_mask,
+                             weights, cat_weights)
     s = tip_partials.shape[-1]
     if coding != "all" and pruner is None:
         dummy = torch.eye(s, dtype=tip_partials.dtype,
@@ -193,8 +209,9 @@ def division_loglik(left, right, parent, blen, tip_partials, weights,
     return coding_total(ln_site[:, :-s], ln_site[:, -s:], weights, coding)
 
 
-def coding_total(ln_real, ln_dummy, weights, coding: str):
-    """Σ_p w_p ln L_p - Σ_p w_p log(1 - P(unobservable)), per chain."""
+def coding_correction(ln_dummy, weight_total, coding: str):
+    """Σ_p w_p log(1 - P(unobservable)) per chain, from the dummy
+    patterns' per-pattern lnL [C, S] and the pattern-weight total."""
     if coding == "variable":
         p_unobs = torch.exp(ln_dummy).sum(-1)
     elif coding == "noabsence":
@@ -203,9 +220,13 @@ def coding_total(ln_real, ln_dummy, weights, coding: str):
         p_unobs = torch.exp(ln_dummy[:, -1])
     else:
         raise ValueError(f"unknown coding {coding!r}")
-    correction = weights.sum() * torch.log1p(
-        -torch.clamp_max(p_unobs, 1.0 - 1e-7))
-    return (weights * ln_real).sum(-1) - correction
+    return weight_total * torch.log1p(-torch.clamp_max(p_unobs, 1.0 - 1e-7))
+
+
+def coding_total(ln_real, ln_dummy, weights, coding: str):
+    """Σ_p w_p ln L_p - Σ_p w_p log(1 - P(unobservable)), per chain."""
+    return (weights * ln_real).sum(-1) - coding_correction(
+        ln_dummy, weights.sum(), coding)
 
 
 def constant_state_mask(patterns, n_states: int):

@@ -1,7 +1,8 @@
 """The port stands alone: importing ``mrbayes_tpu_torch`` (the engine, the
 CLI, the run driver, the summaries, the native tree reader and the
-envelope run) and running CPU ``Engine`` blocks, single-division and
-partitioned through the multiwalk wiring, loads neither JAX nor any
+envelope run) and running CPU ``Engine`` blocks, single-division,
+partitioned through the multiwalk wiring and sharded over the ``sites``
+mesh axis (``parallel.mesh``, ``parallel.dryrun``), loads neither JAX nor any
 module of the JAX package (``mrbayes_tpu``), and ``chip_smoke.py``
 imports neither.  Checked in a
 fresh interpreter, since this test process has JAX loaded already."""
@@ -43,6 +44,11 @@ for line in ["execute " + sys.argv[1], "partition p = 2: 1-400, 401-.",
     it.run_line(line)
 eng = it.build_engine()
 assert eng._multiwalk_pruners
+states, bk = eng.run_block(*eng.init_chains(), 3)
+# the same engine sharded over the sites axis
+import mrbayes_tpu_torch.parallel.dryrun
+from mrbayes_tpu_torch.parallel.mesh import make_mesh, shard_engine_data
+shard_engine_data(eng, make_mesh(1, 2, ["cpu"] * 2))
 states, bk = eng.run_block(*eng.init_chains(), 3)
 print(" ".join(sorted(sys.modules)))
 """

@@ -122,7 +122,8 @@ def test_twin_and_wiring_match_jax(n_tips, P, S, K, C):
     np.testing.assert_allclose(ln_twin, ln_j, rtol=2e-5, atol=2e-5)
     pruner = PC.PruningCuda(tips, K, "cpu")
     root, ls2 = TP.root_clv(*args, 0.0, n_tips, pruner=pruner)
-    ln_wired = _site_lnl(root.numpy(), ls2.numpy(), pi)
+    # root_clv gives the kernels' layout [C, K, S, P]
+    ln_wired = _site_lnl(root.permute(0, 3, 1, 2).numpy(), ls2.numpy(), pi)
     np.testing.assert_allclose(ln_wired, ln_j, rtol=2e-5, atol=2e-5)
     assert pruner.launches == 0          # CPU tensors: the plain version
 
@@ -157,8 +158,9 @@ def test_wiring_matches_jax_pallas_interpret():
     args = _torch_args(tree, tips, lam, U, V, cat)
     root, ls = TP.root_clv(*args, 0.0, n_tips,
                            pruner=PC.PruningCuda(tips, K, "cpu"))
-    np.testing.assert_allclose(_site_lnl(root.numpy(), ls.numpy(), pi),
-                               ln_pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        _site_lnl(root.permute(0, 3, 1, 2).numpy(), ls.numpy(), pi),
+        ln_pallas, rtol=2e-5, atol=2e-5)
 
 
 def test_pruning_down_takes_cuda_tensors_only():
