@@ -14,10 +14,14 @@ Phases, each fatal on failure:
   2. build: compile every csrc/*.cu with nvcc for sm_90a (-Xptxas -v), one
      nvcc per source, all started together;
   3. kernels: the single-division pruning kernel, the multiwalk kernel, the
-     wavefront kernel and the stacked launch against their plain PyTorch
+     wavefront kernel and the stacked kernel against their plain PyTorch
      versions on the card, at the test shapes, primates', test1's and
      cynmix's, and their times (the wavefront beside pruning.cu for the
-     same work, the stacked launch beside one launch per division);
+     same work, the stacked kernel beside one launch per division and
+     against each member's own launch, and on a group whose members take
+     each walk); for every pruning.cu case and the stacked kernel, the
+     walk the size rule chose (csrc/onchip_walk.cuh) and the old
+     global-scratch walk's time on the same operands (before_ms);
   4. primates: GTR+I+G Metropolis-coupled MCMC at 4 and 32 chains through
      the library entry points (Engine, init_chains, run_block): the
      pruning kernel's launches over the timed blocks, max lnL, carried
@@ -89,22 +93,6 @@ OUT = os.path.join(HERE, "runs")           # run outputs (gitignored)
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 RTOL = ATOL = 2e-5               # per-pattern lnL, kernel vs plain version
-# (n_tips, P, S, K, C) of tests/test_pallas.py and tests/test_torch_pruning.py,
-# the S = 2 and runtime-S paths, and primates
-KERNEL_CASES = [(8, 137, 4, 4, C) for C in (1, 4, 8)] \
-    + [(12, 434, 4, 1, C) for C in (1, 4, 8)] \
-    + [(6, 40, 20, 2, C) for C in (1, 4, 8)] \
-    + [(24, 64, 2, 4, 4), (6, 40, 61, 3, 4), (9, 70, 32, 16, 2)] \
-    + [(12, 413, 4, 4, C) for C in (4, 32)]
-# multiwalk groups (n_tips, P_d, K_d, S, C): test1 at 8 and 32 chains, a
-# group mixing K = 1 and K = 4, three divisions, and the S = 20 and
-# runtime-S paths.  One group shares one S (the engine groups by S).
-TEST1_SHAPE = (12, (199, 258), (4, 4), 4)
-MULTIWALK_CASES = [TEST1_SHAPE + (8,), TEST1_SHAPE + (32,),
-                   (12, (199, 258), (1, 4), 4, 8),
-                   (12, (137, 40, 300), (4, 2, 1), 4, 4),
-                   (6, (40, 64), (2, 1), 20, 4),
-                   (6, (40, 23), (3, 1), 61, 2)]
 # wavefront cases (n_tips, P, S, K, W): every cynmix division (P with the
 # coding dummies: the four genes, then the morphology buckets S = 2, 3, 8;
 # S = 4's 10 patterns are covered by its neighbours) and
@@ -113,6 +101,39 @@ MULTIWALK_CASES = [TEST1_SHAPE + (8,), TEST1_SHAPE + (32,),
 CYNMIX_SHAPES = [(32, 537, 4, 4, 8), (32, 125, 4, 4, 8), (32, 203, 4, 4, 8),
                  (32, 330, 4, 4, 8), (32, 124, 2, 4, 8), (32, 34, 3, 4, 8),
                  (32, 9, 8, 4, 8)]
+# multiwalk groups (n_tips, P_d, K_d, S, C): test1 at 8 and 32 chains, a
+# group mixing K = 1 and K = 4, three divisions, and the S = 20 and
+# runtime-S paths.  One group shares one S (the engine groups by S).
+TEST1_SHAPE = (12, (199, 258), (4, 4), 4)
+# pruning.cu cases (n_tips, P, S, K, C): those of tests/test_pallas.py and
+# tests/test_torch_pruning.py, the S = 2 and runtime-S paths, primates,
+# every cynmix division at 2 runs x 4 chains (the S 4 bucket's 10
+# patterns included) and test1's two divisions at 8 chains (each the shape
+# of a launch with the kernel-path switches off), and S = 20 at 32 tips.
+# The size rule (csrc/onchip_walk.cuh) gives S = 20 and (6, 40, 61, 3)
+# their operators staged a step ahead and (9, 70, 32, 16) the
+# global-scratch walk; every other case the whole on-chip walk.
+KERNEL_CASES = [(8, 137, 4, 4, C) for C in (1, 4, 8)] \
+    + [(12, 434, 4, 1, C) for C in (1, 4, 8)] \
+    + [(6, 40, 20, 2, C) for C in (1, 4, 8)] \
+    + [(24, 64, 2, 4, 4), (6, 40, 61, 3, 4), (9, 70, 32, 16, 2)] \
+    + [(12, 413, 4, 4, C) for C in (4, 32)] \
+    + [(32, 34, 3, 4, 8), (32, 9, 8, 4, 8), (32, 100, 20, 4, 4)]
+KERNEL_CASES += [(n, P, S, K, 8) for n, P, S, K, _ in CYNMIX_SHAPES
+                 if (n, P, S, K, 8) not in KERNEL_CASES] \
+    + [(32, 10, 4, 4, 8)] \
+    + [(TEST1_SHAPE[0], P, TEST1_SHAPE[3], K, 8)
+       for P, K in zip(*TEST1_SHAPE[1:3])]
+KERNEL_WALKS = {(6, 40, 61, 3): "staged", (9, 70, 32, 16): "global",
+                (32, 100, 20, 4): "staged"}
+# a stacked group on 9 tips, C = 4, whose members (P, S, K) take the
+# global-scratch, staged and whole walks
+STACKED_MIXED = ((70, 32, 16), (30, 61, 3), (40, 4, 4))
+MULTIWALK_CASES = [TEST1_SHAPE + (8,), TEST1_SHAPE + (32,),
+                   (12, (199, 258), (1, 4), 4, 8),
+                   (12, (137, 40, 300), (4, 2, 1), 4, 4),
+                   (6, (40, 64), (2, 1), 20, 4),
+                   (6, (40, 23), (3, 1), 61, 2)]
 WAVEFRONT_CASES = CYNMIX_SHAPES + [(24, 137, 4, 4, 8), (40, 300, 4, 1, 8),
                                    (24, 64, 2, 4, 4)]
 WARM_GENS, BLOCK_GENS, SYNC_GENS = 50, 200, 50
@@ -258,6 +279,30 @@ def time_events(torch, fn, n):
     return start.elapsed_time(stop) / n
 
 
+def time_graph(torch, fn, n=100, reps=5):
+    """ms per call of ``fn`` (raw kernel launches that read the current
+    stream when called) from CUDA events around replays of one CUDA graph
+    of n calls: the device's time for back-to-back launches, with no host
+    time between them (a Python loop of ctypes launches can take longer
+    to enqueue a short kernel than the kernel takes to run)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * n)
+
+
 def bound(nbytes, flops):
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = flops / H100_FP32_FLOPS * 1e3
@@ -266,52 +311,105 @@ def bound(nbytes, flops):
             "bytes": nbytes, "flops": flops}
 
 
+def old_walk(torch, lr, pstep, tips):
+    """The global-scratch walk of down_pass.cuh on the same operands: a raw
+    multiwalk.cu launch at D = 1 (that kernel keeps the old walk) on
+    preallocated outputs, for the time the old walk takes."""
+    from mrbayes_tpu_torch.ops import multiwalk_cuda as MW
+    C, n_int, _, K, S = pstep.shape[:5]
+    n_tips, _, P = tips.shape
+    dev = lr.device
+    lay = MW.MultiwalkLayout(n_tips, S, [K], [P])
+    table = lay.table(C, dev)
+    total = lay.offsets(C)[-1]
+    out = [torch.empty(int(n), device=dev) for n in total[4:7]]
+    lib = MW.library("multiwalk").lib
+
+    def raw():
+        lib.mb_multiwalk_down(lr.data_ptr(), pstep.data_ptr(),
+                              tips.data_ptr(), *(x.data_ptr() for x in out),
+                              table.data_ptr(), 1, C, n_tips, n_int, S, P,
+                              dev.index,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    return raw
+
+
+def new_walk(torch, lr, pstep, tips):
+    """A raw pruning.cu launch on preallocated outputs on the operands'
+    device (scratch only where the size rule gives the global-scratch
+    walk), the rule's plan and the outputs."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    C, n_int, _, K, S = pstep.shape[:5]
+    n_tips, _, P = tips.shape
+    dev = lr.device
+    plan = PC.pruning_plan(C, n_tips, K, S, P, dev)
+    scratch = torch.empty((C, n_int, K, S, P), device=dev) \
+        if plan["walk"] == "global" else None
+    root = torch.empty((C, K, S, P), device=dev)
+    ls = torch.empty((C, P), device=dev)
+
+    def raw():
+        PC.pruning_launch(lr, pstep, tips, scratch, root, ls, plan)
+    return raw, plan, root, ls
+
+
 def phase_kernels(torch):
+    """pruning.cu against its plain version at every case, the walk and
+    block the size rule gave it, and its time beside the old walk's
+    (before_ms) and the bound; at primates' shape also the wrapper's and
+    the plain version's times."""
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
     worst = 0.0
-    timing = {}
+    timing, cases = {}, {}
     for i, (n_tips, P, S, K, C) in enumerate(KERNEL_CASES):
         lr, pstep, tips, pi = kernel_case(torch, n_tips, P, S, K, C, 100 + i)
         root_k, ls_k = PC.pruning_down(lr, pstep, tips)
         torch.cuda.synchronize()
         root_p, ls_p = PC.pruning_down_plain(lr, pstep, tips)
-        worst = max(worst, compare(
+        raw, plan, root, ls = new_walk(torch, lr, pstep, tips)
+        expect = KERNEL_WALKS.get((n_tips, P, S, K), "whole")
+        err = compare(
             torch, site_lnl(torch, root_k, ls_k, pi),
             site_lnl(torch, root_p, ls_p, pi),
-            f"pruning_down n_tips={n_tips} P={P} S={S} K={K} C={C}"))
+            f"pruning_down n_tips={n_tips} P={P} S={S} K={K} C={C} "
+            f"({plan['walk']} walk, {plan['threads']} threads for {plan['T']} "
+            f"patterns, {plan['lanes']} lanes a pattern, {plan['smem_bytes']} "
+            f"B of shared memory)")
+        worst = max(worst, err)
+        if plan["walk"] != expect:
+            raise AssertionError(f"pruning_down n_tips={n_tips} S={S} K={K}: "
+                                 f"{plan['walk']} walk, expected {expect}")
+        flops = 2 * C * (n_tips - 1) * 2 * K * S * S * P
+        nbytes = 4 * (lr.numel() + pstep.numel() + tips.numel()
+                      + root.numel() + ls.numel())
+        before = old_walk(torch, lr, pstep, tips)
+        cases[f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"] = {
+            **plan, "max_abs_err": err,
+            "ms": time_graph(torch, raw),
+            "before_ms": time_graph(torch, before),
+            "loop_ms": time_events(torch, raw, 200),
+            "before_loop_ms": time_events(torch, before, 200),
+            **{k: v for k, v in bound(nbytes, flops).items()
+               if k in ("bound_ms", "bound_by")}}
+        log(f"pruning_down timing n_tips={n_tips} P={P} S={S} K={K} C={C}: "
+            f"{json.dumps(cases[f'n{n_tips}_P{P}_S{S}_K{K}_C{C}'])}")
         if (n_tips, P, S, K) != (12, 413, 4, 4):
             continue
-        # raw launches on preallocated outputs (kernel time), the wrapper
-        # (operand checks + allocation + launch) and the plain version
-        lib = PC.library("pruning").lib
-        n_int = n_tips - 1
-        scratch = torch.empty((C, n_int, K, S, P), device=DEV)
-        root = torch.empty((C, K, S, P), device=DEV)
-        ls = torch.empty((C, P), device=DEV)
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def raw():
-            lib.mb_pruning_down(lr.data_ptr(), pstep.data_ptr(),
-                                tips.data_ptr(), scratch.data_ptr(),
-                                root.data_ptr(), ls.data_ptr(), C, n_tips,
-                                n_int, K, S, P, 0, stream)
-
+        # the wrapper (operand checks + allocation + launch) and the plain
+        # version at primates' shape
         timing[C] = {
-            "ms": time_events(torch, raw, 500),
+            **cases[f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"],
             "wrapper_ms": time_events(
                 torch, lambda: PC.pruning_down(lr, pstep, tips), 200),
             "plain_ms": time_events(
                 torch, lambda: PC.pruning_down_plain(lr, pstep, tips), 20),
-            **bound(4 * (lr.numel() + pstep.numel() + tips.numel()
-                         + root.numel() + ls.numel()),
-                    2 * C * n_int * 2 * K * S * S * P)}
+            **bound(nbytes, flops)}
         log(f"pruning_down timing primates C={C}: {json.dumps(timing[C])}")
-    return worst, timing
+    return worst, timing, cases
 
 
 def phase_multiwalk_kernels(torch):
     from mrbayes_tpu_torch.ops import multiwalk_cuda as MW
-    from mrbayes_tpu_torch.ops import pruning_cuda as PC
     worst = 0.0
     timing = {}
     log("multiwalk: mixed S in one group is not a case: the engine groups "
@@ -332,7 +430,6 @@ def phase_multiwalk_kernels(torch):
         if (n_tips, Ps, Ks, S) != TEST1_SHAPE:
             continue
         lib = MW.library("multiwalk").lib
-        pr_lib = PC.library("pruning").lib
         n_int = n_tips - 1
         total = lay.offsets(C)[-1]
         table = lay.table(C, lr.device)
@@ -350,21 +447,13 @@ def phase_multiwalk_kernels(torch):
                 stream)
 
         # the same work as one single-division launch per division
-        per_div = []
-        for d in range(lay.D):
-            pst, tp = lay.div_operands(pstep, tips, C, d)
-            K, P = lay.ks[d], lay.ps[d]
-            per_div.append((pst, tp, K, P,
-                            torch.empty((C, n_int, K, S, P), device=DEV),
-                            torch.empty((C, K, S, P), device=DEV),
-                            torch.empty((C, P), device=DEV)))
+        per_div = [new_walk(torch, lr, *(x.contiguous() for x in
+                                         lay.div_operands(pstep, tips, C, d)))
+                   for d in range(lay.D)]
 
         def per_division():
-            for pst, tp, K, P, sc, rt, l_ in per_div:
-                pr_lib.mb_pruning_down(lr.data_ptr(), pst.data_ptr(),
-                                       tp.data_ptr(), sc.data_ptr(),
-                                       rt.data_ptr(), l_.data_ptr(), C,
-                                       n_tips, n_int, K, S, P, 0, stream)
+            for fn, *_ in per_div:
+                fn()
 
         flops = sum(2 * C * n_int * 2 * K * S * S * P
                     for K, P in zip(lay.ks, lay.ps))
@@ -636,7 +725,6 @@ def wavefront_timing(torch, pruner, ops, walk, Pm, tips_host, W):
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
     from mrbayes_tpu_torch.ops import wavefront_cuda as WF
     lib = PC.library("wavefront").lib
-    pr_lib = PC.library("pruning").lib
     nrows, row_lr, row_out, bidx, wmask, pstep = ops
     tips = pruner.tips
     C, n_int, K, S = (pstep.shape[0], pstep.shape[1] - 1, pstep.shape[3],
@@ -645,9 +733,9 @@ def wavefront_timing(torch, pruner, ops, walk, Pm, tips_host, W):
     stream = torch.cuda.current_stream().cuda_stream
     out = [torch.empty(sh, device=DEV) for sh in
            ((C, n_int, K, S, P), (C, K, S, P), (C, P))]
-    out2 = [torch.empty_like(x) for x in out]
     single = PC.PruningCuda(tips_host, K, torch.device(DEV))
     lr, pst = single.operands(*walk, Pm)
+    raw_pruning = new_walk(torch, lr, pst, single.tips)[0]
 
     def raw():
         lib.mb_wavefront_down(
@@ -655,12 +743,6 @@ def wavefront_timing(torch, pruner, ops, walk, Pm, tips_host, W):
             bidx.data_ptr(), wmask.data_ptr(), pstep.data_ptr(),
             tips.data_ptr(), *(x.data_ptr() for x in out), C, n_tips, n_int,
             n_int, W, K, S, P, 0, stream)
-
-    def raw_pruning():
-        pr_lib.mb_pruning_down(lr.data_ptr(), pst.data_ptr(),
-                               single.tips.data_ptr(),
-                               *(x.data_ptr() for x in out2), C, n_tips,
-                               n_int, K, S, P, 0, stream)
 
     rows_run = int(nrows.sum())
     # bytes: nrows, the rows run (5 words per entry), the live operators,
@@ -723,19 +805,78 @@ def cynmix_interpreter(chains=4, seed=7):
     return it
 
 
+def dense_union(torch, stack, pstep, tips, C):
+    """The old stacked launch's operands, built here only to time it: the
+    members' operators on the diagonal of one block-diagonal
+    [ΣK_d·S_d]² operator per step at K = 1, and their tips on one union
+    state axis.  Returns (pstep [C, n_int, 2, 1, KS, KS], tips
+    [n_tips, KS, ΣP_d])."""
+    lay = stack.layout
+    KS = sum(k * s for k, s in zip(lay.ks, lay.ss))
+    P = sum(lay.ps)
+    upst = torch.zeros((C, lay.n_int, 2, 1, KS, KS), device=DEV)
+    utips = torch.zeros((lay.n_tips, KS, P), device=DEV)
+    b = p0 = 0
+    for d, (k, S, Pd) in enumerate(zip(lay.ks, lay.ss, lay.ps)):
+        pst, tp = lay.div_operands(pstep, tips, C, d)
+        for c in range(k):
+            o = b + c * S
+            upst[:, :, :, 0, o:o + S, o:o + S] = pst[:, :, :, c]
+            utips[:, o:o + S, p0:p0 + Pd] = tp
+        b, p0 = b + k * S, p0 + Pd
+    return upst, utips
+
+
+def stacked_mixed(torch):
+    """A synthetic stacked group (STACKED_MIXED) whose members take the
+    global-scratch, staged and whole walks in one launch, each member
+    against the plain version: (max |dlnL|, the walks)."""
+    from mrbayes_tpu_torch.ops import stacked_cuda as SC
+    rng = np.random.default_rng(600)
+    walk = random_walks(torch, rng, 9, 4)
+    specs, P_list, pis = [], [], []
+    for P, S, K in STACKED_MIXED:
+        tips, Pm, pi = random_operands(rng, 9, P, S, K, 4)
+        specs.append((tips, K))
+        P_list.append(torch.as_tensor(Pm, device=DEV))
+        pis.append(torch.as_tensor(pi, device=DEV))
+    group = SC.PruningCudaStacked(specs, torch.device(DEV))
+    lay = group.layout
+    lr, pstep = group.operands(*walk, P_list)
+    root_k, ls_k = SC.stacked_down(lr, pstep, group.tips, lay)
+    torch.cuda.synchronize()
+    root_p, ls_p = SC.stacked_down_plain(lr, pstep, group.tips, lay)
+    walks = lay.plan(4, lr.device)["walks"]
+    if walks != ["global", "staged", "whole"]:
+        raise AssertionError(f"stacked mixed group walks {walks}")
+    worst = 0.0
+    for d, (P, S, K) in enumerate(STACKED_MIXED):
+        worst = max(worst, compare(
+            torch, site_lnl(torch, *lay.div_view(root_k, ls_k, d), pis[d]),
+            site_lnl(torch, *lay.div_view(root_p, ls_p, d), pis[d]),
+            f"stacked_down mixed group member {d} (P={P} S={S} K={K}, "
+            f"{walks[d]} walk) vs plain"))
+    return worst, walks
+
+
 def phase_stacked(torch):
-    """The stacked launch of cynmix's group [0, 1, 2, 3, 5] at 2 runs x 4
-    chains (union K·S = 84, 302 patterns) against its plain version and
-    against one pruning.cu launch per division, with times."""
+    """The stacked kernel (csrc/stacked.cu) on cynmix's group [0, 1, 2, 3,
+    5] at 2 runs x 4 chains against its plain version and against each
+    member's own pruning.cu launch, per division; its time beside five
+    pruning.cu launches, its plain version's, and the old dense-union
+    launch's (before_ms: the union assembled here and run through the old
+    walk, multiwalk.cu at D = 1)."""
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    from mrbayes_tpu_torch.ops import stacked_cuda as SC
     from mrbayes_tpu_torch.ops.pruning import branch_tiprobs
     from mrbayes_tpu_torch.ops.traversal import postorder_internal
     eng = cynmix_interpreter().build_engine(stacked=True)
     (g, stack), = eng._stacked_pruners
-    if g != [0, 1, 2, 3, 5] or (stack.KS, stack.P) != (84, 302):
-        raise AssertionError(f"cynmix stacked group {g} K·S {stack.KS} "
-                             f"P {stack.P}, expected [0, 1, 2, 3, 5], 84, "
-                             f"302")
+    lay = stack.layout
+    if g != [0, 1, 2, 3, 5] or list(zip(lay.ks, lay.ss, lay.ps)) != [
+            (4, 2, 124), (4, 3, 34), (4, 4, 10), (4, 8, 9), (4, 4, 125)]:
+        raise AssertionError(f"cynmix stacked group {g}: (K, S, P) "
+                             f"{list(zip(lay.ks, lay.ss, lay.ps))}")
     states = eng.refresh_eigs(eng.init_chains()[0])
     P_list, pis = [], []
     for i in g:
@@ -748,73 +889,75 @@ def phase_stacked(torch):
     walk = (postorder_internal(states["parent"], eng.n_tips),
             states["left"], states["right"])
     lr, pstep = stack.operands(*walk, P_list)
-    root_k, ls_k = PC.pruning_down(lr, pstep, stack.tips)
+    root_k, ls_k = SC.stacked_down(lr, pstep, stack.tips, lay)
     torch.cuda.synchronize()
-    root_p, ls_p = PC.pruning_down_plain(lr, pstep, stack.tips)
+    root_p, ls_p = SC.stacked_down_plain(lr, pstep, stack.tips, lay)
+    C, n_int = lr.shape[:2]
+    n_tips = eng.n_tips
+    plan = lay.plan(C, lr.device)
     worst = 0.0
     singles = []
     for d, i in enumerate(g):
-        a = site_lnl(torch, *stack.div_view(root_k, ls_k, d), pis[d])
+        a = site_lnl(torch, *lay.div_view(root_k, ls_k, d), pis[d])
         worst = max(worst, compare(
-            torch, a, site_lnl(torch, *stack.div_view(root_p, ls_p, d),
-                               pis[d]),
-            f"stacked launch (pruning_down K=1 S=84) division {i} vs plain"))
+            torch, a, site_lnl(torch, *lay.div_view(root_p, ls_p, d), pis[d]),
+            f"stacked_down division {i} (K={lay.ks[d]} S={lay.ss[d]} "
+            f"P={lay.ps[d]}, {plan['walks'][d]} walk, T={plan['T'][d]}) vs "
+            f"plain"))
         single = eng._pruners[i]
         lr1, pst1 = single.operands(*walk, P_list[d])
         root1, ls1 = PC.pruning_down(lr1, pst1, single.tips)
-        compare(torch, a, site_lnl(torch, root1, ls1, pis[d]),
-                f"stacked launch division {i} vs its own pruning_down launch")
-        singles.append((lr1, pst1, single, root1, ls1))
-    lib = PC.library("pruning").lib
-    stream = torch.cuda.current_stream().cuda_stream
-    C, n_int = lr.shape[:2]
-    n_tips = eng.n_tips
-    scr = torch.empty((C, n_int, 1, stack.KS, stack.P), device=DEV)
+        worst = max(worst, compare(
+            torch, a, site_lnl(torch, root1, ls1, pis[d]),
+            f"stacked_down division {i} vs its own pruning_down launch"))
+        singles.append(new_walk(torch, lr1, pst1, single.tips)[0])
+    err_mixed, mixed_walks = stacked_mixed(torch)
+    worst = max(worst, err_mixed)
+    lib = SC.library("stacked").lib
+    table, tiles = plan["table"], plan["tiles"]
+    scr = torch.empty(plan["scratch"], device=DEV) if plan["scratch"] \
+        else None
 
     def raw():
-        lib.mb_pruning_down(lr.data_ptr(), pstep.data_ptr(),
-                            stack.tips.data_ptr(), scr.data_ptr(),
-                            root_k.data_ptr(), ls_k.data_ptr(), C, n_tips,
-                            n_int, 1, stack.KS, stack.P, 0, stream)
-
-    scratch1 = [torch.empty((C, n_int) + tuple(r.shape[1:]), device=DEV)
-                for _, _, _, r, _ in singles]
+        lib.mb_stacked_down(lr.data_ptr(), pstep.data_ptr(),
+                            stack.tips.data_ptr(),
+                            None if scr is None else scr.data_ptr(),
+                            root_k.data_ptr(),
+                            ls_k.data_ptr(), table.data_ptr(),
+                            tiles.data_ptr(), plan["n_onchip"],
+                            plan["n_global"], C, n_tips,
+                            n_int, plan["threads"], plan["smem_bytes"], 0,
+                            torch.cuda.current_stream().cuda_stream)
 
     def per_division():
-        for (l1, p1, sg, r1, s1), sc in zip(singles, scratch1):
-            lib.mb_pruning_down(l1.data_ptr(), p1.data_ptr(),
-                                sg.tips.data_ptr(), sc.data_ptr(),
-                                r1.data_ptr(), s1.data_ptr(), C, n_tips,
-                                n_int, sg.K, sg.S, sg.P, 0, stream)
+        for fn in singles:
+            fn()
 
-    # the function's own work: each division's blocks, not the dense
-    # union the launch runs (printed apart as dense_work_done)
-    divs = [(k, S, P) for (_, _, k, S), (_, P) in zip(stack.block,
-                                                      stack.prange)]
-    own = bound(4 * (lr.numel()
-                     + C * n_int * 2 * sum(k * S * S for k, S, _ in divs)
-                     + n_tips * sum(S * P for _, S, P in divs)
-                     + C * sum(k * S * P for k, S, P in divs) + C * stack.P),
+    upst, utips = dense_union(torch, stack, pstep, stack.tips, C)
+    divs = list(zip(lay.ks, lay.ss, lay.ps))
+    own = bound(4 * (lr.numel() + pstep.numel() + stack.tips.numel()
+                     + root_k.numel() + ls_k.numel()),
                 2 * C * n_int * 2 * sum(k * S * S * P for k, S, P in divs))
-    KS, P = stack.KS, stack.P
-    out = {"ms": time_events(torch, raw, 200),
+    out = {"mixed_walks": mixed_walks,
+           "threads": plan["threads"], "T": plan["T"],
+           "lanes": plan["lanes"], "smem_bytes": plan["smem_bytes"],
+           "walks": plan["walks"],
+           "tiles": int(tiles.shape[0]),
+           "ms": time_graph(torch, raw),
+           "before_ms": time_graph(torch, old_walk(torch, lr, upst, utips),
+                                   10, 2),
+           "loop_ms": time_events(torch, raw, 500),
            "operands_ms": time_events(
-               torch, lambda: stack.operands(*walk, P_list), 100),
+               torch, lambda: stack.operands(*walk, P_list), 200),
            "plain_ms": time_events(
-               torch, lambda: PC.pruning_down_plain(lr, pstep, stack.tips),
-               10),
-           "pruning_down_per_division_ms": time_events(
-               torch, per_division, 200),
+               torch, lambda: SC.stacked_down_plain(lr, pstep, stack.tips,
+                                                    lay), 10),
+           "pruning_down_per_division_ms": time_graph(torch, per_division),
            "per_division_operands_ms": time_events(
-               torch, lambda: [sg.operands(*walk, P_list[d])
-                               for d, (_, _, sg, _, _) in
-                               enumerate(singles)], 100),
-           **own,
-           "dense_work_done": bound(
-               4 * (lr.numel() + pstep.numel() + stack.tips.numel()
-                    + C * KS * P + C * P),
-               2 * C * n_int * 2 * KS * KS * P)}
-    log(f"stacked launch timing cynmix group {g} C={C}: {json.dumps(out)}")
+               torch, lambda: [eng._pruners[i].operands(*walk, P_list[d])
+                               for d, i in enumerate(g)], 100),
+           **own}
+    log(f"stacked_down timing cynmix group {g} C={C}: {json.dumps(out)}")
     return worst, out
 
 
@@ -1033,19 +1176,12 @@ def phase_sharded_kernels(torch, devices_for, shard_counts=SHARD_COUNTS):
                     torch, a[:, :hi - lo].to(DEV), ref[:, lo:hi],
                     f"sharded_down k={k} shard {j} C={C} vs its slice of "
                     f"the unsharded pruning_down"))
-                ops.append((lr_d, pst_d, t, dev,
-                            torch.empty((C, n_int, K, S, Pk), device=dev),
-                            torch.empty((C, K, S, Pk), device=dev),
-                            torch.empty((C, Pk), device=dev)))
-            lib = PC.library("pruning").lib
+                ops.append((lr_d, pst_d, t,
+                            new_walk(torch, lr_d, pst_d, t)[0]))
 
             def raw(shards):
-                for l_, p_, t_, d_, sc, rt, ls_ in shards:
-                    lib.mb_pruning_down(
-                        l_.data_ptr(), p_.data_ptr(), t_.data_ptr(),
-                        sc.data_ptr(), rt.data_ptr(), ls_.data_ptr(), C,
-                        n_tips, n_int, K, S, Pk, d_.index,
-                        torch.cuda.current_stream(d_).cuda_stream)
+                for *_, fn in shards:
+                    fn()
 
             def plain():
                 for l_, p_, t_, *_ in ops:
@@ -1053,8 +1189,10 @@ def phase_sharded_kernels(torch, devices_for, shard_counts=SHARD_COUNTS):
 
             timing[(C, k)] = {
                 "ms": time_events(torch, lambda: raw(ops), 300),
-                "per_shard_ms": time_events(torch, lambda: raw(ops[:1]),
-                                            300),
+                "per_shard_ms": time_graph(torch, lambda: raw(ops[:1])),
+                "per_shard_before_ms": time_graph(
+                    torch, old_walk(torch, *ops[0][:3])),
+                "walk": PC.pruning_plan(C, n_tips, K, S, Pk, devs[0]),
                 "wrapper_ms": time_events(torch, lambda: sh(*walk, Pm),
                                           200),
                 "plain_ms": time_events(torch, plain, 5),
@@ -1308,7 +1446,7 @@ def main(argv=None) -> int:
         log(f"build {nm}: {kb.path} in {kb.seconds:.2f} s\n{kb.log.strip()}")
 
     # 3. kernels
-    err_pd, t_pd = phase_kernels(torch)
+    err_pd, t_pd, pd_cases = phase_kernels(torch)
     err_mw, t_mw = phase_multiwalk_kernels(torch)
     err_wf, t_wf = phase_wavefront_kernels(torch)
     err_st, t_st = phase_stacked(torch)
@@ -1353,14 +1491,13 @@ def main(argv=None) -> int:
                          for C, r in runs.items()},
         "launches_test1_switch_off": switch["pruning_down_launches_off"],
         "max_abs_err": err_pd,
-        "ms": t_pd[4]["ms"],
-        "wrapper_ms": t_pd[4]["wrapper_ms"],
-        "plain_ms": t_pd[4]["plain_ms"],
-        "bound_ms": t_pd[4]["bound_ms"],
-        "bound_by": t_pd[4]["bound_by"],
+        **{k: t_pd[4][k] for k in keys + ("before_ms", "walk", "threads",
+                                           "T", "lanes")},
         "library_ms": None,
         "shape": "primates n_tips=12 P=413 K=4 S=4 C=4",
-        "c32": {k: t_pd[32][k] for k in keys},
+        "c32": {k: t_pd[32][k] for k in keys + ("before_ms", "walk",
+                                                 "threads", "T", "lanes")},
+        "cases": pd_cases,
         "gens_per_s": {f"primates_c{C}": r["gens_per_s"]
                        for C, r in runs.items()},
         "gens_per_s_blocks": {f"primates_c{C}": r["gens_per_s_blocks"]
@@ -1415,19 +1552,20 @@ def main(argv=None) -> int:
     }, {
         "name": "stacked_down",
         "route": "cuda",
-        "source": "mrbayes_tpu_torch/csrc/pruning.cu (K=1, S=84, operator "
-                  "assembly in mrbayes_tpu_torch/ops/stacked_cuda.py)",
+        "source": "mrbayes_tpu_torch/csrc/stacked.cu",
         "replaces": "mrbayes_tpu/ops/pruning_pallas.py:767",
         "launches": cyn["stacked_launches"],
         "gens": args.cynmix_gens,
         "max_abs_err": err_st,
-        **{k: t_st[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "operands_ms",
+        **{k: t_st[k] for k in ("ms", "before_ms", "plain_ms", "bound_ms",
+                                "bound_by", "operands_ms",
                                 "pruning_down_per_division_ms",
-                                "per_division_operands_ms")},
+                                "per_division_operands_ms", "threads", "T",
+                                "lanes", "smem_bytes", "mixed_walks",
+                                "walks", "tiles")},
         "library_ms": None,
-        "shape": "cynmix divisions 0,1,2,3,5 stacked: n_tips=32 K=1 S=84 "
-                 "P=302 C=8",
+        "shape": "cynmix divisions 0,1,2,3,5 stacked: n_tips=32 (K, S, P) = "
+                 "(4,2,124) (4,3,34) (4,4,10) (4,8,9) (4,4,125), C=8",
         "card": power_line,
     }, {
         "name": "sharded_down",
@@ -1444,7 +1582,9 @@ def main(argv=None) -> int:
         "shards": 4,
         "devices": sh_prim["devices"],
         "max_abs_err": err_sh,
-        **{k: t_sh[(4, 4)][k] for k in ("ms", "per_shard_ms", "wrapper_ms",
+        **{k: t_sh[(4, 4)][k] for k in ("ms", "per_shard_ms",
+                                        "per_shard_before_ms", "walk",
+                                        "wrapper_ms",
                                         "plain_ms", "bound_ms", "bound_by",
                                         "padded_patterns")},
         "library_ms": None,

@@ -1,7 +1,11 @@
-// One thread's Felsenstein down-pass over a whole postorder: the body that
-// the single-division kernel (pruning.cu) and the multiwalk kernel
-// (multiwalk.cu) share; its step (combine_step) is also the wavefront
-// kernel's (wavefront.cu).
+// One thread's Felsenstein down-pass over a whole postorder, with the
+// partials in global memory: the global-scratch walk.  The multiwalk kernel
+// (multiwalk.cu) runs it, and so do pruning.cu and stacked.cu for a shape
+// whose slots do not fit in shared memory (the size rule of
+// onchip_walk.cuh); its step (combine_step) is also the wavefront kernel's
+// (wavefront.cu).  Every other pruning.cu and stacked.cu launch takes the
+// on-chip walk of onchip_walk.cuh, which computes the same arithmetic in
+// the same order.
 //
 // For one walk (one chain of one division) and one pattern p, for each
 // postorder step i with child slots (l, r) = lr[i]:
@@ -15,9 +19,13 @@
 // The last slot is the root, copied to root[K, S, P].  A thread reads
 // back only the column it wrote itself, so no barrier is needed.
 //
-// S in {2, 4, 20} (and 3 and 8 in the wavefront kernel) is a template
-// parameter (child columns in registers); S_T = 0 takes S from S_rt at run
-// time and keeps no per-S arrays, so any S the wrappers admit fits.
+// What bounds it on an H100: latency through L2.  Each step writes its
+// partial to global scratch, reads it back to normalise it and writes it
+// again, and the parent step reads it once more: about 3.8 us a step,
+// whatever P is.  S in {2, 4, 20} (and 3 and 8 in the wavefront kernel)
+// is a template parameter (child columns in registers); S_T = 0 takes S
+// from S_rt at run time and keeps no per-S arrays, so any S the wrappers
+// admit fits.
 
 #pragma once
 

@@ -11,38 +11,41 @@
 // Slots below n_tips are the tips, shared by all chains (tips[slot,s,p],
 // the same for every rate category k).  The last slot is the root.
 //
-// Design (a simple one that is right; the redesign comes later):
-//   * grid (ceil(P/128), C), one thread per (chain, pattern).  Every chain
-//     is its own slice of the grid: no walk interleaving, no block-diagonal
-//     folding of the K categories, no padding of P or K*S (the ragged
-//     pattern edge is masked).
-//   * the per-category S x S operators of a step are the same for every
-//     thread of a block, so they are read through the read-only cache
-//     (__ldg), where the warp's loads of one address are broadcast.
-//   * partials of internal slots live in a global scratch tensor
-//     [C, n_int, K, S, P] with patterns contiguous, so the warp's accesses
-//     coalesce.  Primates at C = 32 keeps about 9.3 MB there, which the
-//     50 MB L2 holds; a block's 227 KB of shared memory cannot hold every
-//     slot of larger trees.  A thread only ever reads back the column it
-//     wrote itself, so no __syncthreads is needed.
-//   * S in {2, 4, 20} is a template parameter (child columns in
-//     registers); other S up to 64 with K <= 16 take the runtime-S path.
-//   * the per-thread walk is mb::down_pass (down_pass.cuh), which the
-//     multiwalk kernel (multiwalk.cu) shares.
+// Design:
+//   * the on-chip walk (onchip_walk.cuh): grid (ceil(P/T), C), one block
+//     per (chain, tile of T patterns), G lanes per pattern (K*S rounded up
+//     to a power of two, at most 32), each lane a few entries (k, s) of
+//     the step in registers and the step's max a shuffle over the G
+//     lanes; every partial in the block's shared memory (at most
+//     n_tips / 2 live slots), the chain's operators and the tile's tips
+//     copied there asynchronously; templates for S in {2, 3, 4, 8, 20};
+//     only the root column and the log-scales are written to global
+//     memory.  No padding of P or K*S (the ragged pattern edge is
+//     masked), per-category S x S operators (no block-diagonal folding of
+//     the K categories).
+//   * the size rule in onchip_walk.cuh picks the walk and the block: the
+//     whole chain's operators on chip, or staged a step ahead, or, for a
+//     shape whose slots do not fit in a block of 32 threads (large n_tips
+//     or K*S) or whose K*S needs more than 8 entries a lane (S = 32 with
+//     16 categories), the global-scratch walk of down_pass.cuh
+//     (grid (ceil(P/128), C), partials in a scratch tensor
+//     [C, n_int, K, S, P]); the multiwalk and wavefront kernels still use
+//     that walk.
 //
-// What bounds it on an H100: latency.  The n_int-step dependent chain (each
-// step waits on the previous step's global writes through L2) plus the
-// launch.  At primates C = 4 (n_tips 12, P 413, K 4, S 4) the work is about
-// 4.7 MFLOP (under 0.1 us at 67 TFLOP/s fp32) and about 0.21 MB of
-// compulsory traffic (under 0.1 us at 3.35 TB/s), so the FLOP and byte
-// bounds are each far below the measured time.  The later redesign must
-// attack that latency: keep a chain's walk on chip (shared memory or
-// registers across a cooperative block), overlap chains, or fold the
-// generation loop into a graph.
+// What bounds it on an H100: latency.  The n_int-step dependent chain,
+// each step a few S-long dot products per lane on shared-memory operands,
+// log2(G) shuffles and a division, plus the block start (the operator and
+// tip copies and thread 0's slot map) and the launch.
+// At primates C = 4 (n_tips 12, P 413, K 4, S 4) the work is about 4.7
+// MFLOP (under 0.1 us at 67 TFLOP/s fp32) and about 0.21 MB of compulsory
+// traffic (under 0.1 us at 3.35 TB/s), so the FLOP and byte bounds are
+// each far below the measured time.  The sharded path (sharded_cuda.py)
+// launches this kernel once per shard.
 
 #include <cuda_runtime.h>
 
 #include "down_pass.cuh"
+#include "onchip_walk.cuh"
 
 namespace {
 
@@ -69,21 +72,75 @@ pruning_down_kernel(const int* __restrict__ lr,        // [C, n_int, 2]
                      ls + (long long)c * P + p, n_tips, n_int, K, S, P);
 }
 
+template <int S_T>
+__global__ void __launch_bounds__(256)
+pruning_onchip_kernel(const int* __restrict__ lr,      // [C, n_int, 2]
+                      const float* __restrict__ pstep, // [C, n_int, 2, K, S, S]
+                      const float* __restrict__ tips,  // [n_tips, S, P]
+                      float* __restrict__ root,        // [C, K, S, P]
+                      float* __restrict__ ls,          // [C, P]
+                      int n_tips, int n_int, int K, int S_rt, int P, int G,
+                      int staged) {
+  extern __shared__ float4 smem4[];
+  const int S = S_T > 0 ? S_T : S_rt;
+  const int c = blockIdx.y;
+  mb::onchip_walk<S_T>(lr + (long long)c * n_int * 2,
+                       pstep + (long long)c * n_int * 2 * K * S * S, tips,
+                       root + (long long)c * K * S * P, ls + (long long)c * P,
+                       n_tips, n_int, K, S, P, blockIdx.x * (blockDim.x / G),
+                       G, staged != 0, reinterpret_cast<float*>(smem4));
+}
+
+template <int S_T>
+cudaError_t launch_onchip(const mb::DeviceLimits& lim, int device, dim3 grid,
+                          int T, int bytes, cudaStream_t st, const int* a,
+                          const float* b, const float* t, float* r, float* l,
+                          int n_tips, int n_int, int K, int S, int P, int G,
+                          int staged) {
+  static bool done[64] = {};
+  cudaError_t err = mb::allow_smem(pruning_onchip_kernel<S_T>, device, bytes,
+                                   done, lim);
+  if (err != cudaSuccess) return err;
+  pruning_onchip_kernel<S_T><<<grid, T, bytes, st>>>(
+      a, b, t, r, l, n_tips, n_int, K, S, P, G, staged);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream` (a cudaStream_t from PyTorch) on device `device`.
-// Returns the cudaGetLastError() code after the launch (0 = success); the
-// kernel itself runs asynchronously.
+// The size rule's choice for one launch (onchip_walk.cuh): out[0] the walk
+// (0 whole, 1 staged, 2 global scratch), out[1] the threads of a block,
+// out[2] its dynamic shared memory in bytes, out[3] its patterns, out[4]
+// the lanes of a pattern.  Returns a CUDA error code (0 = success).
+int mb_pruning_plan(int C, int n_tips, int K, int S, int P, int device,
+                    int* out) {
+  mb::DeviceLimits lim;
+  cudaError_t err = mb::device_limits(device, &lim);
+  if (err != cudaSuccess) return (int)err;
+  mb::onchip_plan(1, &K, &S, &P, C, n_tips, lim, out + 4, out, out + 3,
+                  out + 1, out + 2);
+  if (out[0] == mb::kWalkGlobal) {     // down_pass.cuh's own launch
+    out[1] = out[3] = kThreads;
+    out[2] = 0;
+  }
+  return 0;
+}
+
+// Launch on `stream` (a cudaStream_t from PyTorch) on device `device` as
+// mb_pruning_plan chose for this shape and device: its walk, threads of a
+// block, shared-memory bytes, patterns a block and lanes a pattern.
+// `scratch` [C, n_int, K, S, P] is read only by the global-scratch walk and
+// may be null otherwise.  Returns the cudaGetLastError() code after the
+// launch (0 = success); the kernel itself runs asynchronously.
 int mb_pruning_down(const void* lr, const void* pstep, const void* tips,
                     void* scratch, void* root, void* ls, int C, int n_tips,
-                    int n_int, int K, int S, int P, int device,
+                    int n_int, int K, int S, int P, int walk, int threads,
+                    int bytes, int patterns, int lanes, int device,
                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((P + kThreads - 1) / kThreads, C);
-  const dim3 block(kThreads);
   cudaStream_t st = (cudaStream_t)stream;
   const int* a = (const int*)lr;
   const float* b = (const float*)pstep;
@@ -91,25 +148,65 @@ int mb_pruning_down(const void* lr, const void* pstep, const void* tips,
   float* sc = (float*)scratch;
   float* r = (float*)root;
   float* l = (float*)ls;
-  switch (S) {
+  if (walk == mb::kWalkGlobal) {
+    if (sc == nullptr) return (int)cudaErrorInvalidValue;
+    const dim3 grid((P + kThreads - 1) / kThreads, C);
+    const dim3 block(kThreads);
+    switch (S) {
+      case 2:
+        pruning_down_kernel<2><<<grid, block, 0, st>>>(
+            a, b, t, sc, r, l, n_tips, n_int, K, S, P);
+        break;
+      case 4:
+        pruning_down_kernel<4><<<grid, block, 0, st>>>(
+            a, b, t, sc, r, l, n_tips, n_int, K, S, P);
+        break;
+      case 20:
+        pruning_down_kernel<20><<<grid, block, 0, st>>>(
+            a, b, t, sc, r, l, n_tips, n_int, K, S, P);
+        break;
+      default:
+        pruning_down_kernel<0><<<grid, block, 0, st>>>(
+            a, b, t, sc, r, l, n_tips, n_int, K, S, P);
+        break;
+    }
+    return (int)cudaGetLastError();
+  }
+  mb::DeviceLimits lim;
+  err = mb::device_limits(device, &lim);
+  if (err != cudaSuccess) return (int)err;
+  const int T = threads;
+  const int G = lanes;
+  const dim3 grid((P + patterns - 1) / patterns, C);
+  const int staged = walk == mb::kWalkStaged;
+  const int s_t = mb::onchip_templated(S) ? S : 0;
+  switch (s_t) {
     case 2:
-      pruning_down_kernel<2><<<grid, block, 0, st>>>(a, b, t, sc, r, l,
-                                                     n_tips, n_int, K, S, P);
+      err = launch_onchip<2>(lim, device, grid, T, bytes, st, a, b, t, r, l,
+                             n_tips, n_int, K, S, P, G, staged);
+      break;
+    case 3:
+      err = launch_onchip<3>(lim, device, grid, T, bytes, st, a, b, t, r, l,
+                             n_tips, n_int, K, S, P, G, staged);
       break;
     case 4:
-      pruning_down_kernel<4><<<grid, block, 0, st>>>(a, b, t, sc, r, l,
-                                                     n_tips, n_int, K, S, P);
+      err = launch_onchip<4>(lim, device, grid, T, bytes, st, a, b, t, r, l,
+                             n_tips, n_int, K, S, P, G, staged);
+      break;
+    case 8:
+      err = launch_onchip<8>(lim, device, grid, T, bytes, st, a, b, t, r, l,
+                             n_tips, n_int, K, S, P, G, staged);
       break;
     case 20:
-      pruning_down_kernel<20><<<grid, block, 0, st>>>(a, b, t, sc, r, l,
-                                                      n_tips, n_int, K, S, P);
+      err = launch_onchip<20>(lim, device, grid, T, bytes, st, a, b, t, r, l,
+                              n_tips, n_int, K, S, P, G, staged);
       break;
     default:
-      pruning_down_kernel<0><<<grid, block, 0, st>>>(a, b, t, sc, r, l,
-                                                     n_tips, n_int, K, S, P);
+      err = launch_onchip<0>(lim, device, grid, T, bytes, st, a, b, t, r, l,
+                             n_tips, n_int, K, S, P, G, staged);
       break;
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }
 
 const char* mb_cuda_error_string(int code) {

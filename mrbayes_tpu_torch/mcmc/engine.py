@@ -41,10 +41,10 @@ read once when the engine is built: ``wavefront`` (``MB_TPU_WAVEFRONT``)
 gives a division of a tree with at least 24 tips and K·S <= 32 the
 level-batched pruner (``ops/wavefront_cuda.py``), and ``stacked``
 (``MB_TPU_STACKED``) puts divisions of at most 256 patterns into one
-launch on a union state axis (``ops/stacked_cuda.py``, grouped by
-``_build_stacked_pruners``).  The likelihood takes multiwalk groups
-first, then stacked groups, and every remaining division through its own
-pruner.
+launch of the stacked kernel, one block per (division, chain, pattern
+tile) (``ops/stacked_cuda.py``, grouped by ``_build_stacked_pruners``).
+The likelihood takes multiwalk groups first, then stacked groups, and
+every remaining division through its own pruner.
 
 Under a ``sites`` mesh (``parallel/mesh.py:shard_engine_data``, the JAX
 engine's ``_site_sharded`` routing) each division's pattern data is cut
@@ -449,8 +449,9 @@ class Engine:
         ``STACK_MAX_WIDTH``; groups of one division keep their own
         pruner.  The JAX package also splits where its TPU kernel's VMEM
         estimate (``kernel_vmem_bytes``) would overflow; that test has no
-        meaning for the CUDA kernel, whose partials live in global
-        memory."""
+        meaning for the CUDA kernel, which sizes each member's shared
+        memory by itself and gives a member that does not fit the
+        global-scratch walk."""
         self._stacked_pruners: list = []
         if not self.stacked:
             return

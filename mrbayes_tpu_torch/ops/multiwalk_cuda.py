@@ -7,13 +7,15 @@ The kernel source is ``csrc/multiwalk.cu``; its header comment records
 what bounds it on an H100 and what its design does about that.  It is
 built with the single-division kernel by ``pruning_cuda.build``.
 
-The group's operands live in flat buffers laid out by ``MultiwalkLayout``:
-division d keeps its own rate-category count K_d and pattern count P_d,
-with no padding of either.  For C chains the buffers hold, division after
-division, operators ``[C, n_int, 2, K_d, S, S]``, tips ``[n_tips, S, P_d]``
-(once for all chains), root partials ``[C, K_d, S, P_d]`` and log-scales
-``[C, P_d]``; ``div_view`` slices one division's outputs back out.  All
-divisions of a group share the state count S (see ``multiwalk.cu``).
+The group's operands live in flat buffers laid out by ``MultiwalkLayout``
+(a ``pruning_cuda.DivisionLayout`` whose divisions share S; the stacked
+path's layout is another): division d keeps its own rate-category count K_d and
+pattern count P_d, with no padding of either.  For C chains the buffers
+hold, division after division, operators ``[C, n_int, 2, K_d, S, S]``,
+tips ``[n_tips, S, P_d]`` (once for all chains), root partials
+``[C, K_d, S, P_d]`` and log-scales ``[C, P_d]``; ``div_view`` slices
+one division's outputs back out.  All divisions of a group share the
+state count S (see ``multiwalk.cu``).
 
 ``multiwalk_down`` launches the kernel and takes CUDA tensors only;
 ``multiwalk_down_plain`` is its plain PyTorch version, the same function
@@ -26,39 +28,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .pruning_cuda import (check_cuda_operands, check_kernel_shape,
-                           launch_error, library, pruning_down_plain,
-                           slot_operands)
+from .pruning_cuda import (DivisionLayout, check_cuda_operands,
+                           check_kernel_shape, device_index, launch_error,
+                           library, pruning_down_plain, slot_operands)
 
 
-class MultiwalkLayout:
-    """Where each division's operands and outputs sit in the flat buffers
-    of a group, for any chain count C."""
+class MultiwalkLayout(DivisionLayout):
+    """The layout of a multiwalk group, whose divisions share the state
+    count S, and the kernel's table."""
 
     def __init__(self, n_tips: int, S: int, ks, ps):
-        self.n_tips, self.n_int, self.S = n_tips, n_tips - 1, S
-        self.ks, self.ps = [int(k) for k in ks], [int(p) for p in ps]
-        self.D = len(self.ks)
+        super().__init__(n_tips, ks, [S] * len(ks), ps)
+        self.S = S
         self.P_max = max(self.ps)
-        self._offsets: dict = {}
         self._tables: dict = {}
-
-    def offsets(self, C: int) -> np.ndarray:
-        """[D + 1, 7] int64: per division d, K_d, P_d and the element
-        offsets of its operators, tips, scratch, root partials and
-        log-scales; the last row holds the buffer sizes."""
-        if C not in self._offsets:
-            self._offsets[C] = self._make_offsets(C)
-        return self._offsets[C]
-
-    def _make_offsets(self, C: int) -> np.ndarray:
-        S, n_int, rows = self.S, self.n_int, []
-        at = np.zeros(5, np.int64)
-        for K, P in zip(self.ks, self.ps):
-            rows.append([K, P, *at])
-            at += [C * n_int * 2 * K * S * S, self.n_tips * S * P,
-                   C * n_int * K * S * P, C * K * S * P, C * P]
-        return np.asarray(rows + [[0, 0, *at]], np.int64)
 
     def table(self, C: int, device) -> torch.Tensor:
         """The kernel's [D, 7] table on ``device``, made once per C."""
@@ -67,42 +50,6 @@ class MultiwalkLayout:
             self._tables[key] = torch.as_tensor(self.offsets(C)[:-1],
                                                 device=device)
         return self._tables[key]
-
-    def check(self, lr, pstep, tips) -> int:
-        """Raise unless the operands fit this layout; returns C."""
-        if lr.dtype != torch.int32:
-            raise TypeError(f"lr must be int32, got {lr.dtype}")
-        if pstep.dtype != torch.float32 or tips.dtype != torch.float32:
-            raise TypeError("pstep and tips must be float32")
-        if lr.ndim != 3 or lr.shape[1:] != (self.n_int, 2):
-            raise ValueError(f"lr must be [C, {self.n_int}, 2], got "
-                             f"{tuple(lr.shape)}")
-        C = lr.shape[0]
-        total = self.offsets(C)[-1]
-        if pstep.ndim != 1 or pstep.numel() != total[2]:
-            raise ValueError(f"pstep must be flat with {total[2]} elements, "
-                             f"got {tuple(pstep.shape)}")
-        if tips.ndim != 1 or tips.numel() != total[3]:
-            raise ValueError(f"tips must be flat with {total[3]} elements, "
-                             f"got {tuple(tips.shape)}")
-        return C
-
-    def div_view(self, root, ls, d: int):
-        """(root [C, K_d, S, P_d], ls [C, P_d]) of division d from the flat
-        outputs."""
-        C = ls.numel() // sum(self.ps)
-        o = self.offsets(C)
-        K, P = self.ks[d], self.ps[d]
-        r = root[o[d, 5]:o[d + 1, 5]].view(C, K, self.S, P)
-        return r, ls[o[d, 6]:o[d + 1, 6]].view(C, P)
-
-    def div_operands(self, pstep, tips, C: int, d: int):
-        """Division d's (pstep [C, n_int, 2, K_d, S, S], tips
-        [n_tips, S, P_d]) views of the flat operands."""
-        o = self.offsets(C)
-        K, P, S = self.ks[d], self.ps[d], self.S
-        return (pstep[o[d, 2]:o[d + 1, 2]].view(C, self.n_int, 2, K, S, S),
-                tips[o[d, 3]:o[d + 1, 3]].view(self.n_tips, S, P))
 
 
 def multiwalk_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor,
@@ -130,8 +77,7 @@ def multiwalk_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor,
         lr.data_ptr(), pstep.data_ptr(), tips.data_ptr(), scratch.data_ptr(),
         root.data_ptr(), ls.data_ptr(), table.data_ptr(), layout.D, C,
         layout.n_tips, layout.n_int, layout.S, layout.P_max,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        stream)
+        device_index(dev), stream)
     if err != 0:
         raise launch_error(lib, err, "multiwalk_down")
     return root, ls

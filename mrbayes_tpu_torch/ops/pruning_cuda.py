@@ -6,8 +6,17 @@ header comment records what bounds it on an H100 (latency: the
 n_int-step dependent chain plus the launch) and what its design does
 about that.  It is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``_build/`` beside this package (listed in ``.gitignore``) and loaded with
-``ctypes`` through a plain C interface.  The per-thread walk is shared
-with the multiwalk kernel (``csrc/down_pass.cuh``).
+``ctypes`` through a plain C interface.
+
+The kernel runs the on-chip walk of ``csrc/onchip_walk.cuh``: one block
+per (chain, tile of T patterns), the K·S entries of a step spread over up
+to 32 lanes of a pattern, every partial in shared memory, at most
+n_tips / 2 live slots (``live_slot_map`` is the Python twin of the
+kernel's slot allocator).  The header's size rule picks the walk and the
+block; ``pruning_plan`` reports its choice.  A shape that does not fit a
+block of 32 threads takes the global-scratch walk of
+``csrc/down_pass.cuh``, which the multiwalk and wavefront kernels still
+use.
 
 Differences from the TPU layout, all deliberate:
   * per-category S×S operators ``Pstep [C, n_int, 2, K, S, S]`` instead of
@@ -17,12 +26,11 @@ Differences from the TPU layout, all deliberate:
   * one grid slice per chain (no walk interleaving).
 
 The kernel library is built together with the multiwalk kernel's
-(``csrc/multiwalk.cu``, wired by ``ops/multiwalk_cuda.py``) and the
+(``csrc/multiwalk.cu``, wired by ``ops/multiwalk_cuda.py``), the
 wavefront kernel's (``csrc/wavefront.cu``, wired by
-``ops/wavefront_cuda.py``): ``build`` starts one ``nvcc`` per source at
-once.  The stacked-division path (``ops/stacked_cuda.py``) launches this
-kernel at K = 1 and S = the union width of its divisions, which the
-runtime-S path takes up to ``MAX_RUNTIME_S``.
+``ops/wavefront_cuda.py``) and the stacked kernel's (``csrc/stacked.cu``,
+wired by ``ops/stacked_cuda.py``): ``build`` starts one ``nvcc`` per
+source at once.
 
 ``pruning_down`` launches the kernel and takes CUDA tensors only;
 ``pruning_down_plain`` is its plain PyTorch version, the same function on
@@ -32,6 +40,7 @@ tensor to the plain version; there is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -47,21 +56,28 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           os.pardir, "_build")
 # one shared library per source, all compiled at once; every source
-# includes the shared per-thread walk
+# includes the shared walks
 SOURCES = {"pruning": "pruning.cu", "multiwalk": "multiwalk.cu",
-           "wavefront": "wavefront.cu"}
-_HEADERS = ("down_pass.cuh",)
-# the runtime-S path keeps no per-S arrays, so its cap is only a sanity
-# bound; it must take the stacked path's union width (up to 96 at K = 1)
-MAX_RUNTIME_S = 128
+           "wavefront": "wavefront.cu", "stacked": "stacked.cu"}
+_HEADERS = ("down_pass.cuh", "onchip_walk.cuh")
+# state counts with a template in the on-chip walk (csrc/onchip_walk.cuh)
+TEMPLATED_S = (2, 3, 4, 8, 20)
+# the runtime-S paths keep no per-S arrays, so this cap is only a sanity
+# bound (the largest data type, codons, has 61 states)
+MAX_RUNTIME_S = 64
 MAX_RUNTIME_K = 16
+# the walks of the size rule in csrc/onchip_walk.cuh, by its codes
+WALKS = ("whole", "staged", "global")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ENTRY_POINTS = {
-    "pruning": ("mb_pruning_down", [_PTR] * 6 + [_INT] * 7 + [_PTR]),
-    "multiwalk": ("mb_multiwalk_down", [_PTR] * 7 + [_INT] * 7 + [_PTR]),
-    "wavefront": ("mb_wavefront_down", [_PTR] * 10 + [_INT] * 9 + [_PTR]),
+    "pruning": {"mb_pruning_down": [_PTR] * 6 + [_INT] * 12 + [_PTR],
+                "mb_pruning_plan": [_INT] * 6 + [_PTR]},
+    "multiwalk": {"mb_multiwalk_down": [_PTR] * 7 + [_INT] * 7 + [_PTR]},
+    "wavefront": {"mb_wavefront_down": [_PTR] * 10 + [_INT] * 9 + [_PTR]},
+    "stacked": {"mb_stacked_down": [_PTR] * 8 + [_INT] * 8 + [_PTR],
+                "mb_stacked_plan": [_PTR] + [_INT] * 4 + [_PTR]},
 }
 
 
@@ -118,9 +134,9 @@ def build(verbose: bool = False) -> dict[str, KernelBuild]:
     for name in SOURCES:
         path = _library_path(name)
         lib = ctypes.CDLL(path)
-        fn_name, argtypes = _ENTRY_POINTS[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        for fn_name, argtypes in _ENTRY_POINTS[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib.mb_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mb_cuda_error_string.restype = ctypes.c_char_p
         out[name] = KernelBuild(lib, path, seconds.get(name, 0.0),
@@ -150,8 +166,8 @@ def libraries(verbose: bool = False) -> dict[str, KernelBuild]:
 
 
 def library(name: str = "pruning") -> KernelBuild:
-    """One loaded kernel library (``pruning``, ``multiwalk`` or
-    ``wavefront``)."""
+    """One loaded kernel library (``pruning``, ``multiwalk``,
+    ``wavefront`` or ``stacked``)."""
     return _LIBRARIES.get()[name]
 
 
@@ -162,11 +178,11 @@ def launch_error(lib, err: int, what: str) -> RuntimeError:
 
 def check_kernel_shape(S: int, K: int, what: str):
     """Raise unless the kernels take S states with K rate categories."""
-    if S not in (2, 4, 20) and not (
+    if S not in TEMPLATED_S and not (
             S <= MAX_RUNTIME_S and K <= MAX_RUNTIME_K):
-        raise ValueError(f"{what} supports S in (2, 4, 20) or S <= "
-                         f"{MAX_RUNTIME_S} with K <= {MAX_RUNTIME_K}; got "
-                         f"S={S}, K={K}")
+        raise ValueError(f"{what} supports the templated S in {TEMPLATED_S} "
+                         f"or S <= {MAX_RUNTIME_S} with K <= "
+                         f"{MAX_RUNTIME_K}; got S={S}, K={K}")
 
 
 def check_cuda_operands(what: str, **tensors):
@@ -205,6 +221,50 @@ def _check_operands(lr, pstep, tips):
     return C, n_int, K, S, n_tips, P
 
 
+def device_index(dev: torch.device) -> int:
+    """The CUDA device number of ``dev`` (the current one for "cuda")."""
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def pruning_plan(C: int, n_tips: int, K: int, S: int, P: int,
+                 device) -> dict:
+    """The size rule's choice for one ``pruning_down`` launch
+    (``csrc/onchip_walk.cuh``), asked of the kernel library once per
+    shape and device: ``walk`` ("whole", "staged" or "global"), the
+    ``threads`` of a block, the patterns ``T`` it covers, the ``lanes`` of
+    a pattern and the block's dynamic shared memory ``smem_bytes``, which
+    ``pruning_launch`` passes to the kernel library as they are."""
+    return _plan(C, n_tips, K, S, P, device_index(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(C, n_tips, K, S, P, dev):
+    lib = library("pruning").lib
+    out = (ctypes.c_int * 5)()
+    err = lib.mb_pruning_plan(C, n_tips, K, S, P, dev, out)
+    if err != 0:
+        raise launch_error(lib, err, "pruning_plan")
+    return {"walk": WALKS[out[0]], "threads": out[1], "T": out[3],
+            "lanes": out[4], "smem_bytes": out[2]}
+
+
+def pruning_launch(lr, pstep, tips, scratch, root, ls, plan) -> int:
+    """One launch of ``csrc/pruning.cu`` on preallocated outputs (scratch
+    ``[C, n_int, K, S, P]`` on the global walk, else None) as ``plan``
+    (``pruning_plan``) says, on the current stream of the operands'
+    device.  Returns the CUDA error code (0 = success)."""
+    C, n_int = lr.shape[:2]
+    K, S = pstep.shape[3:5]
+    n_tips, _, P = tips.shape
+    dev = lr.device
+    return library("pruning").lib.mb_pruning_down(
+        lr.data_ptr(), pstep.data_ptr(), tips.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), root.data_ptr(),
+        ls.data_ptr(), C, n_tips, n_int, K, S, P, WALKS.index(plan["walk"]),
+        plan["threads"], plan["smem_bytes"], plan["T"], plan["lanes"],
+        device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+
+
 def pruning_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor):
     """Launch the CUDA down-pass.  lr int32 [C, n_int, 2] child slots per
     step; pstep f32 [C, n_int, 2, K, S, S]; tips f32 [n_tips, S, P].
@@ -213,20 +273,16 @@ def pruning_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor):
     C, n_int, K, S, n_tips, P = _check_operands(lr, pstep, tips)
     check_cuda_operands("pruning_down", lr=lr, pstep=pstep, tips=tips)
     check_kernel_shape(S, K, "pruning_down")
-    lib = library("pruning").lib
     dev = lr.device
+    plan = pruning_plan(C, n_tips, K, S, P, dev)
+    # only the global-scratch walk keeps partials in device memory
     scratch = torch.empty((C, n_int, K, S, P), dtype=torch.float32,
-                          device=dev)
+                          device=dev) if plan["walk"] == "global" else None
     root = torch.empty((C, K, S, P), dtype=torch.float32, device=dev)
     ls = torch.empty((C, P), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.mb_pruning_down(
-        lr.data_ptr(), pstep.data_ptr(), tips.data_ptr(), scratch.data_ptr(),
-        root.data_ptr(), ls.data_ptr(), C, n_tips, n_int, K, S, P,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        stream)
+    err = pruning_launch(lr, pstep, tips, scratch, root, ls, plan)
     if err != 0:
-        raise launch_error(lib, err, "pruning_down")
+        raise launch_error(library("pruning").lib, err, "pruning_down")
     return root, ls
 
 
@@ -264,6 +320,92 @@ def slot_operands(order, left, right, n_tips: int):
     rch = right.gather(1, order)
     lr = torch.stack([slot.gather(1, lch), slot.gather(1, rch)], -1)
     return lr.to(torch.int32), lch, rch
+
+
+def live_slot_map(lr, n_tips: int) -> np.ndarray:
+    """The Python twin of the on-chip walk's live-slot allocator
+    (``csrc/onchip_walk.cuh:build_slot_map``), for one chain's child slots
+    lr [n_int, 2] (slots below n_tips are tips, slot n_tips + j is step j's
+    output).  Walking the steps in order, it frees the slot of each
+    internal child and then takes the lowest free slot for the step.
+    Returns step i's shared-memory slot [n_int] int64; at most
+    n_tips // 2 slots are used."""
+    lr = np.asarray(lr)
+    slot = np.empty(lr.shape[0], np.int64)
+    free = [True] * (n_tips // 2)
+    for i, children in enumerate(lr):
+        for c in children:
+            if c >= n_tips:
+                free[slot[c - n_tips]] = True
+        slot[i] = free.index(True)
+        free[slot[i]] = False
+    return slot
+
+
+class DivisionLayout:
+    """Where each division's operands and outputs sit in the flat buffers
+    of a group of divisions that share one tree, division d with its own
+    K_d, S_d and P_d, for any chain count C."""
+
+    def __init__(self, n_tips: int, ks, ss, ps):
+        self.n_tips, self.n_int = n_tips, n_tips - 1
+        self.ks, self.ss, self.ps = ([int(v) for v in x]
+                                     for x in (ks, ss, ps))
+        self.D = len(self.ks)
+        self._offsets: dict = {}
+
+    def offsets(self, C: int) -> np.ndarray:
+        """[D + 1, 7] int64: per division d, K_d, P_d and the element
+        offsets of its operators, tips, scratch, root partials and
+        log-scales; the last row holds the buffer sizes."""
+        if C not in self._offsets:
+            self._offsets[C] = self._make_offsets(C)
+        return self._offsets[C]
+
+    def _make_offsets(self, C: int) -> np.ndarray:
+        n_int, rows = self.n_int, []
+        at = np.zeros(5, np.int64)
+        for K, S, P in zip(self.ks, self.ss, self.ps):
+            rows.append([K, P, *at])
+            at += [C * n_int * 2 * K * S * S, self.n_tips * S * P,
+                   C * n_int * K * S * P, C * K * S * P, C * P]
+        return np.asarray(rows + [[0, 0, *at]], np.int64)
+
+    def check(self, lr, pstep, tips) -> int:
+        """Raise unless the operands fit this layout; returns C."""
+        if lr.dtype != torch.int32:
+            raise TypeError(f"lr must be int32, got {lr.dtype}")
+        if pstep.dtype != torch.float32 or tips.dtype != torch.float32:
+            raise TypeError("pstep and tips must be float32")
+        if lr.ndim != 3 or lr.shape[1:] != (self.n_int, 2):
+            raise ValueError(f"lr must be [C, {self.n_int}, 2], got "
+                             f"{tuple(lr.shape)}")
+        C = lr.shape[0]
+        total = self.offsets(C)[-1]
+        if pstep.ndim != 1 or pstep.numel() != total[2]:
+            raise ValueError(f"pstep must be flat with {total[2]} elements, "
+                             f"got {tuple(pstep.shape)}")
+        if tips.ndim != 1 or tips.numel() != total[3]:
+            raise ValueError(f"tips must be flat with {total[3]} elements, "
+                             f"got {tuple(tips.shape)}")
+        return C
+
+    def div_view(self, root, ls, d: int):
+        """(root [C, K_d, S_d, P_d], ls [C, P_d]) of division d from the
+        flat outputs."""
+        C = ls.numel() // sum(self.ps)
+        o = self.offsets(C)
+        K, S, P = self.ks[d], self.ss[d], self.ps[d]
+        r = root[o[d, 5]:o[d + 1, 5]].view(C, K, S, P)
+        return r, ls[o[d, 6]:o[d + 1, 6]].view(C, P)
+
+    def div_operands(self, pstep, tips, C: int, d: int):
+        """Division d's (pstep [C, n_int, 2, K_d, S_d, S_d], tips
+        [n_tips, S_d, P_d]) views of the flat operands."""
+        o = self.offsets(C)
+        K, S, P = self.ks[d], self.ss[d], self.ps[d]
+        return (pstep[o[d, 2]:o[d + 1, 2]].view(C, self.n_int, 2, K, S, S),
+                tips[o[d, 3]:o[d + 1, 3]].view(self.n_tips, S, P))
 
 
 class PruningCuda:

@@ -28,8 +28,8 @@ from __future__ import annotations
 import torch
 
 from .pruning_cuda import (PruningCuda, check_cuda_operands,
-                           check_kernel_shape, launch_error, library,
-                           slot_operands)
+                           check_kernel_shape, device_index, launch_error,
+                           library, slot_operands)
 from .traversal import node_depths
 
 _TINY = 1e-30
@@ -144,7 +144,7 @@ def wavefront_down(nrows, row_lr, row_out, bidx, wmask, pstep, tips,
         bidx.data_ptr(), wmask.data_ptr(), pstep.data_ptr(),
         tips.data_ptr(), scratch.data_ptr(), root.data_ptr(), ls.data_ptr(),
         C, n_tips, n_int, n_int, W, K, S, P,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        device_index(dev),
         stream)
     if err != 0:
         raise launch_error(lib, err, "wavefront_down")

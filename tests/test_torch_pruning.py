@@ -187,8 +187,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# primates; the cynmix morphology buckets S = 3 and 8 (whole on-chip walk);
+# S = 20 at 32 tips and S = 61 (operators staged a step ahead) and S = 32
+# with 16 categories (the global-scratch walk), each at C = 4
+GPU_CASES = CASES + [(12, 413, 4, 4), (32, 34, 3, 4), (32, 9, 8, 4),
+                     (32, 100, 20, 4), (6, 40, 61, 3), (9, 70, 32, 16)]
+WALK = {(32, 100, 20, 4): "staged", (6, 40, 61, 3): "staged",
+        (9, 70, 32, 16): "global"}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_tips,P,S,K", CASES + [(12, 413, 4, 4)])
+@pytest.mark.parametrize("n_tips,P,S,K", GPU_CASES)
 def test_kernel_matches_plain_on_gpu(cuda_device, n_tips, P, S, K):
     tree, tips, lam, U, V, pi, cat = _case(n_tips, P, S, K, 4, seed=5)
     args = [a.to(cuda_device) for a in _torch_args(tree, tips, lam, U, V,
@@ -205,6 +214,8 @@ def test_kernel_matches_plain_on_gpu(cuda_device, n_tips, P, S, K):
     b = _site_lnl(root_p.permute(0, 3, 1, 2).cpu().numpy(), ls_p.cpu().numpy(),
                   pi)
     np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5)
+    plan = PC.pruning_plan(4, n_tips, K, S, P, cuda_device)
+    assert plan["walk"] == WALK.get((n_tips, P, S, K), "whole"), plan
 
 
 @pytest.fixture(scope="module")
