@@ -16,12 +16,16 @@ Phases, each fatal on failure:
   3. kernels: the single-division pruning kernel, the multiwalk kernel, the
      wavefront kernel and the stacked kernel against their plain PyTorch
      versions on the card, at the test shapes, primates', test1's and
-     cynmix's, and their times (the wavefront beside pruning.cu for the
-     same work, the stacked kernel beside one launch per division and
-     against each member's own launch, and on a group whose members take
-     each walk); for every pruning.cu case and the stacked kernel, the
-     walk the size rule chose (csrc/onchip_walk.cuh) and the old
-     global-scratch walk's time on the same operands (before_ms);
+     cynmix's, and their times from CUDA-graph replays (a Python loop's
+     beside): the multiwalk group beside pruning.cu once per division and
+     the same group through stacked.cu, the wavefront beside pruning.cu
+     on the same operands (and its root partials against pruning.cu's),
+     the stacked kernel beside one launch per division and against each
+     member's own launch, and on a group whose members take each walk;
+     for every pruning.cu case, the multiwalk and wavefront kernels and
+     the stacked kernel, the walk or plan chosen and the old
+     global-scratch walk's time on the same operands (before_ms); the
+     ptxas registers and spills of every kernel;
   4. primates: GTR+I+G Metropolis-coupled MCMC at 4 and 32 chains through
      the library entry points (Engine, init_chains, run_block): the
      pruning kernel's launches over the timed blocks, max lnL, carried
@@ -161,6 +165,38 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log_text):
+    """[(kernel, registers, spill stores, spill loads)] per kernel
+    instantiation in an ``nvcc -Xptxas -v`` log, a mangled name in a
+    namespace cut to its identifier and template argument
+    (``wavefront_kernel<4>``)."""
+    import re
+    out, name, spill = [], None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            ns = re.match(r"_ZN(\d+)", name)
+            if ns:
+                rest = name[ns.end() + int(ns.group(1)):]
+                ident = re.match(r"(\d+)", rest)
+                n = int(ident.group(1))
+                targ = re.match(r"ILi(\d+)E", rest[ident.end() + n:])
+                name = rest[ident.end():ident.end() + n] + (
+                    f"<{targ.group(1)}>" if targ else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0)
+    return out
 
 
 def tree_walks(torch, trees):
@@ -311,27 +347,36 @@ def bound(nbytes, flops):
             "bytes": nbytes, "flops": flops}
 
 
-def old_walk(torch, lr, pstep, tips):
-    """The global-scratch walk of down_pass.cuh on the same operands: a raw
-    multiwalk.cu launch at D = 1 (that kernel keeps the old walk) on
-    preallocated outputs, for the time the old walk takes."""
-    from mrbayes_tpu_torch.ops import multiwalk_cuda as MW
-    C, n_int, _, K, S = pstep.shape[:5]
-    n_tips, _, P = tips.shape
-    dev = lr.device
-    lay = MW.MultiwalkLayout(n_tips, S, [K], [P])
-    table = lay.table(C, dev)
+def group_walk(torch, lay, lr, pstep, tips, walk=None):
+    """A raw launch of a group's kernels (csrc/stacked.cu or
+    csrc/multiwalk.cu through ``lay``, a GroupLayout) on preallocated flat
+    outputs as ``lay.plan`` gives it (``walk="global"``: every division on
+    the kept global-scratch kernel): the launch, the plan and the
+    outputs."""
+    C, dev = lr.shape[0], lr.device
+    plan = lay.plan(C, dev, walk)
     total = lay.offsets(C)[-1]
-    out = [torch.empty(int(n), device=dev) for n in total[4:7]]
-    lib = MW.library("multiwalk").lib
+    scratch = torch.empty(plan["scratch"], device=dev) \
+        if plan["scratch"] else None
+    root = torch.empty(int(total[5]), device=dev)
+    ls = torch.empty(int(total[6]), device=dev)
 
     def raw():
-        lib.mb_multiwalk_down(lr.data_ptr(), pstep.data_ptr(),
-                              tips.data_ptr(), *(x.data_ptr() for x in out),
-                              table.data_ptr(), 1, C, n_tips, n_int, S, P,
-                              dev.index,
-                              torch.cuda.current_stream(dev).cuda_stream)
-    return raw
+        lay.launch(lr, pstep, tips, plan, scratch, root, ls)
+    return raw, plan, root, ls
+
+
+def old_walk(torch, lr, pstep, tips):
+    """The global-scratch walk of down_pass.cuh on the same operands, for
+    the time the old walk takes: a raw multiwalk.cu launch at D = 1 whose
+    plan forces its kept global-scratch kernel (one thread a pattern, the
+    kernel of every multiwalk launch before the on-chip one)."""
+    from mrbayes_tpu_torch.ops import multiwalk_cuda as MW
+    K, S = pstep.shape[3:5]
+    n_tips, _, P = tips.shape
+    lay = MW.MultiwalkLayout(n_tips, S, [K], [P])
+    return group_walk(torch, lay, lr, pstep.reshape(-1), tips.reshape(-1),
+                      "global")[0]
 
 
 def new_walk(torch, lr, pstep, tips):
@@ -409,7 +454,13 @@ def phase_kernels(torch):
 
 
 def phase_multiwalk_kernels(torch):
+    """multiwalk.cu against its plain version at every case and division,
+    with the walk the plan gave each division; at test1's shape its time
+    beside pruning.cu once per division, the same group through stacked.cu
+    and the old walk (before_ms: the kept global-scratch kernel, forced by
+    the plan), CUDA-graph timed, with the Python loop's times beside."""
     from mrbayes_tpu_torch.ops import multiwalk_cuda as MW
+    from mrbayes_tpu_torch.ops.stacked_cuda import StackedLayout
     worst = 0.0
     timing = {}
     log("multiwalk: mixed S in one group is not a case: the engine groups "
@@ -421,31 +472,24 @@ def phase_multiwalk_kernels(torch):
         root_k, ls_k = MW.multiwalk_down(lr, pstep, group.tips, lay)
         torch.cuda.synchronize()
         root_p, ls_p = MW.multiwalk_down_plain(lr, pstep, group.tips, lay)
+        plan = lay.plan(C, lr.device)
         for d in range(lay.D):
             worst = max(worst, compare(
                 torch, site_lnl(torch, *lay.div_view(root_k, ls_k, d), pis[d]),
                 site_lnl(torch, *lay.div_view(root_p, ls_p, d), pis[d]),
                 f"multiwalk_down n_tips={n_tips} P={Ps} K={Ks} S={S} C={C} "
-                f"division {d}"))
+                f"division {d} ({plan['walks'][d]} walk, {plan['threads']} "
+                f"threads for {plan['T'][d]} patterns, {plan['lanes'][d]} "
+                f"lanes a pattern, {plan['smem_bytes']} B)"))
         if (n_tips, Ps, Ks, S) != TEST1_SHAPE:
             continue
-        lib = MW.library("multiwalk").lib
         n_int = n_tips - 1
-        total = lay.offsets(C)[-1]
-        table = lay.table(C, lr.device)
-        scratch = torch.empty(int(total[4]), device=DEV)
-        root = torch.empty(int(total[5]), device=DEV)
-        ls = torch.empty(int(total[6]), device=DEV)
-        stream = torch.cuda.current_stream().cuda_stream
         tips = group.tips
-
-        def raw():
-            lib.mb_multiwalk_down(
-                lr.data_ptr(), pstep.data_ptr(), tips.data_ptr(),
-                scratch.data_ptr(), root.data_ptr(), ls.data_ptr(),
-                table.data_ptr(), lay.D, C, n_tips, n_int, S, lay.P_max, 0,
-                stream)
-
+        raw, _, root, ls = group_walk(torch, lay, lr, pstep, tips)
+        before = group_walk(torch, lay, lr, pstep, tips, "global")[0]
+        stacked = group_walk(torch, StackedLayout(n_tips, lay.ks, lay.ss,
+                                                  lay.ps),
+                             lr, pstep, tips)[0]
         # the same work as one single-division launch per division
         per_div = [new_walk(torch, lr, *(x.contiguous() for x in
                                          lay.div_operands(pstep, tips, C, d)))
@@ -458,17 +502,24 @@ def phase_multiwalk_kernels(torch):
         flops = sum(2 * C * n_int * 2 * K * S * S * P
                     for K, P in zip(lay.ks, lay.ps))
         timing[C] = {
-            "ms": time_events(torch, raw, 500),
+            **{k: plan[k] for k in ("walks", "threads", "T", "lanes",
+                                    "smem_bytes")},
+            "ms": time_graph(torch, raw),
+            "loop_ms": time_events(torch, raw, 500),
+            "before_ms": time_graph(torch, before),
+            "stacked_same_work_ms": time_graph(torch, stacked),
+            "pruning_down_per_division_ms": time_graph(torch, per_division),
+            "pruning_down_per_division_loop_ms": time_events(
+                torch, per_division, 500),
             "wrapper_ms": time_events(
                 torch, lambda: MW.multiwalk_down(lr, pstep, tips, lay), 200),
             "plain_ms": time_events(
                 torch, lambda: MW.multiwalk_down_plain(lr, pstep, tips, lay),
                 20),
-            "pruning_down_per_division_ms": time_events(
-                torch, per_division, 500),
             **bound(4 * (lr.numel() + pstep.numel() + tips.numel()
-                         + root.numel() + ls.numel()) + 8 * table.numel(),
-                    flops)}
+                         + root.numel() + ls.numel()
+                         + plan["tiles"].numel())
+                    + 8 * plan["table"].numel(), flops)}
         log(f"multiwalk_down timing test1 C={C}: {json.dumps(timing[C])}")
     return worst, timing
 
@@ -703,9 +754,9 @@ def phase_golden_partitioned(torch):
 
 
 def wavefront_case(torch, shape, n_tips, P, S, K, W, C, seed):
-    """One wavefront call from a seed: its wiring, its operands, the
-    chains' (order, left, right) and operators Pm, the tips
-    [n_tips, P, S] (host) and a pi."""
+    """One wavefront call from a seed: its wiring, its operands (lr, pstep:
+    PruningCuda's), the chains' (order, left, right) and operators Pm, and
+    a pi."""
     from mrbayes_tpu_torch.ops.wavefront_cuda import PruningCudaWavefront
     rng = np.random.default_rng(seed)
     walk = tree_walks(torch, [shaped_tree(shape, n_tips, rng)
@@ -713,82 +764,113 @@ def wavefront_case(torch, shape, n_tips, P, S, K, W, C, seed):
     tips, Pm, pi = random_operands(rng, n_tips, P, S, K, C)
     pruner = PruningCudaWavefront(tips, K, torch.device(DEV), W=W)
     Pm = torch.as_tensor(Pm, device=DEV)
-    ops = pruner.operands(*walk, Pm)
-    return pruner, ops, walk, Pm, tips, torch.as_tensor(pi, device=DEV)
+    lr, pstep = pruner.operands(*walk, Pm)
+    return pruner, lr, pstep, walk, Pm, tips, torch.as_tensor(pi, device=DEV)
 
 
-def wavefront_timing(torch, pruner, ops, walk, Pm, tips_host, W):
-    """The wavefront kernel's time (raw launches on preallocated outputs),
-    its wrapper's, its schedule and operands', its plain version's, and
-    pruning.cu's for the same work (same trees, operators and tips),
-    beside the bound of this call's work (the rows it runs)."""
+def rows_mean(lr, n_tips, W):
+    """The mean row count of the chains' schedules (the kernel's, through
+    its twin row_schedule)."""
+    from mrbayes_tpu_torch.ops.wavefront_cuda import row_schedule
+    return float(np.mean([len(row_schedule(x, n_tips, W)[1]) - 1
+                          for x in lr.cpu().numpy()]))
+
+
+def wavefront_timing(torch, pruner, lr, pstep, walk, Pm, tips_host, W, plan):
+    """The wavefront kernel's time (raw launches on preallocated outputs,
+    CUDA graph and loop), pruning.cu's on the same operands, the old walk's
+    (before_ms), the wrapper's, the operands' (the wavefront wiring's and
+    PruningCuda's: the same function now that the kernel builds its rows)
+    and the plain version's, beside the bound of this call's work."""
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
     from mrbayes_tpu_torch.ops import wavefront_cuda as WF
-    lib = PC.library("wavefront").lib
-    nrows, row_lr, row_out, bidx, wmask, pstep = ops
     tips = pruner.tips
-    C, n_int, K, S = (pstep.shape[0], pstep.shape[1] - 1, pstep.shape[3],
-                      pstep.shape[4])
+    C, n_int, _, K, S = pstep.shape[:5]
     n_tips, _, P = tips.shape
-    stream = torch.cuda.current_stream().cuda_stream
-    out = [torch.empty(sh, device=DEV) for sh in
-           ((C, n_int, K, S, P), (C, K, S, P), (C, P))]
+    root = torch.empty((C, K, S, P), device=DEV)
+    ls = torch.empty((C, P), device=DEV)
     single = PC.PruningCuda(tips_host, K, torch.device(DEV))
-    lr, pst = single.operands(*walk, Pm)
-    raw_pruning = new_walk(torch, lr, pst, single.tips)[0]
+    raw_pruning = new_walk(torch, lr, pstep, tips)[0]
 
     def raw():
-        lib.mb_wavefront_down(
-            nrows.data_ptr(), row_lr.data_ptr(), row_out.data_ptr(),
-            bidx.data_ptr(), wmask.data_ptr(), pstep.data_ptr(),
-            tips.data_ptr(), *(x.data_ptr() for x in out), C, n_tips, n_int,
-            n_int, W, K, S, P, 0, stream)
+        WF.wavefront_launch(lr, pstep, tips, root, ls, W, plan)
 
-    rows_run = int(nrows.sum())
-    # bytes: nrows, the rows run (5 words per entry), the live operators,
-    # the tips, root and log-scales
-    nbytes = 4 * (C + 5 * rows_run * W + C * n_int * 2 * K * S * S
-                  + tips.numel() + C * K * S * P + C * P)
-    return {"ms": time_events(torch, raw, 500),
+    nbytes = 4 * (lr.numel() + pstep.numel() + tips.numel() + root.numel()
+                  + ls.numel())
+    return {**plan,
+            "ms": time_graph(torch, raw),
+            "loop_ms": time_events(torch, raw, 500),
+            "pruning_down_same_work_ms": time_graph(torch, raw_pruning),
+            "pruning_down_same_work_loop_ms": time_events(torch, raw_pruning,
+                                                          500),
+            "before_ms": time_graph(torch, old_walk(torch, lr, pstep, tips)),
             "wrapper_ms": time_events(
-                torch, lambda: WF.wavefront_down(*ops, tips, W), 200),
+                torch, lambda: WF.wavefront_down(lr, pstep, tips, W), 200),
             "schedule_and_operands_ms": time_events(
                 torch, lambda: pruner.operands(*walk, Pm), 200),
+            "pruning_operands_ms": time_events(
+                torch, lambda: single.operands(*walk, Pm), 200),
             "plain_ms": time_events(
-                torch, lambda: WF.wavefront_down_plain(*ops, tips, W), 10),
-            "pruning_down_same_work_ms": time_events(torch, raw_pruning, 500),
-            "rows_mean": rows_run / C, "n_int": n_int,
+                torch, lambda: WF.wavefront_down_plain(lr, pstep, tips, W),
+                10),
+            "rows_mean": rows_mean(lr, n_tips, W), "n_int": n_int,
             **bound(nbytes, 2 * C * n_int * 2 * K * S * S * P)}
 
 
 def phase_wavefront_kernels(torch):
     """The wavefront kernel against its plain version at every case, C and
-    tree shape; times at cynmix's division shapes (C = 8, random trees)."""
+    tree shape (and its root partials against pruning.cu's on the same
+    operands, which the same arithmetic should give bit for bit); times
+    at cynmix's division shapes (C = 8, random trees)."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
     from mrbayes_tpu_torch.ops import wavefront_cuda as WF
-    worst, timing, seed = 0.0, {}, 300
+    worst, root_diff, timing, seed = 0.0, 0.0, {}, 300
     for n_tips, P, S, K, W in WAVEFRONT_CASES:
         for C in (8, 32):
             for shape in ("random", "caterpillar", "balanced"):
                 seed += 1
-                pruner, ops, walk, Pm, tips, pi = wavefront_case(
+                pruner, lr, pstep, walk, Pm, tips, pi = wavefront_case(
                     torch, shape, n_tips, P, S, K, W, C, seed)
-                root_k, ls_k = WF.wavefront_down(*ops, pruner.tips, W)
+                root_k, ls_k = WF.wavefront_down(lr, pstep, pruner.tips, W)
                 torch.cuda.synchronize()
-                root_p, ls_p = WF.wavefront_down_plain(*ops, pruner.tips, W)
-                nr = ops[0]
+                root_p, ls_p = WF.wavefront_down_plain(lr, pstep, pruner.tips,
+                                                       W)
+                root_s, _ = PC.pruning_down(lr, pstep, pruner.tips)
+                diff = (root_k - root_s).abs().max().item()
+                root_diff = max(root_diff, diff)
+                plan = WF.wavefront_plan(C, n_tips, K, S, P, W, lr.device)
                 worst = max(worst, compare(
                     torch, site_lnl(torch, root_k, ls_k, pi),
                     site_lnl(torch, root_p, ls_p, pi),
                     f"wavefront_down {shape} n_tips={n_tips} P={P} S={S} "
-                    f"K={K} W={W} C={C}: nrows {int(nr.min())}.."
-                    f"{int(nr.max())} of n_int {n_tips - 1}"))
+                    f"K={K} W={W} C={C}: {rows_mean(lr, n_tips, W):.1f} rows "
+                    f"of n_int {n_tips - 1} ({plan['walk']} walk, "
+                    f"{plan['threads']} threads in {plan['groups']} groups "
+                    f"for {plan['T']} patterns, {plan['lanes']} lanes a "
+                    f"pattern, {plan['smem_bytes']} B); root vs pruning.cu "
+                    f"max |d| {diff:.3e}"))
                 if shape == "random" and C == 8 \
                         and (n_tips, P, S, K, W) in CYNMIX_SHAPES:
-                    timing[P] = wavefront_timing(torch, pruner, ops, walk,
-                                                 Pm, tips, W)
+                    timing[P] = wavefront_timing(torch, pruner, lr, pstep,
+                                                 walk, Pm, tips, W, plan)
                     log(f"wavefront_down timing cynmix P={P} S={S} K={K} "
                         f"C={C}: {json.dumps(timing[P])}")
-    return worst, timing
+                elif P == 537:
+                    # COI's other trees and chain count, beside pruning.cu
+                    root = torch.empty_like(root_k)
+                    ls = torch.empty_like(ls_k)
+                    timing[f"P={P} C={C} {shape}"] = {
+                        **plan, "rows_mean": rows_mean(lr, n_tips, W),
+                        "ms": time_graph(torch, lambda: WF.wavefront_launch(
+                            lr, pstep, pruner.tips, root, ls, W, plan)),
+                        "pruning_down_same_work_ms": time_graph(
+                            torch, new_walk(torch, lr, pstep,
+                                            pruner.tips)[0])}
+                    log(f"wavefront_down timing cynmix P={P} C={C} {shape}: "
+                        f"{json.dumps(timing[f'P={P} C={C} {shape}'])}")
+    log(f"wavefront_down: root partials against pruning.cu's on the same "
+        f"operands, max |d| {root_diff:.3e} over every case")
+    return worst, timing, root_diff
 
 
 def cynmix_interpreter(chains=4, seed=7):
@@ -893,7 +975,6 @@ def phase_stacked(torch):
     torch.cuda.synchronize()
     root_p, ls_p = SC.stacked_down_plain(lr, pstep, stack.tips, lay)
     C, n_int = lr.shape[:2]
-    n_tips = eng.n_tips
     plan = lay.plan(C, lr.device)
     worst = 0.0
     singles = []
@@ -913,21 +994,8 @@ def phase_stacked(torch):
         singles.append(new_walk(torch, lr1, pst1, single.tips)[0])
     err_mixed, mixed_walks = stacked_mixed(torch)
     worst = max(worst, err_mixed)
-    lib = SC.library("stacked").lib
-    table, tiles = plan["table"], plan["tiles"]
-    scr = torch.empty(plan["scratch"], device=DEV) if plan["scratch"] \
-        else None
-
-    def raw():
-        lib.mb_stacked_down(lr.data_ptr(), pstep.data_ptr(),
-                            stack.tips.data_ptr(),
-                            None if scr is None else scr.data_ptr(),
-                            root_k.data_ptr(),
-                            ls_k.data_ptr(), table.data_ptr(),
-                            tiles.data_ptr(), plan["n_onchip"],
-                            plan["n_global"], C, n_tips,
-                            n_int, plan["threads"], plan["smem_bytes"], 0,
-                            torch.cuda.current_stream().cuda_stream)
+    raw = group_walk(torch, lay, lr, pstep, stack.tips)[0]
+    tiles = plan["tiles"]
 
     def per_division():
         for fn in singles:
@@ -1442,13 +1510,18 @@ def main(argv=None) -> int:
     builds = PC.libraries(verbose=True)
     log(f"build: {len(builds)} libraries in {time.perf_counter() - t0:.2f} "
         f"s wall")
+    ptxas = {}
     for nm, kb in builds.items():
         log(f"build {nm}: {kb.path} in {kb.seconds:.2f} s\n{kb.log.strip()}")
+        ptxas[nm] = ptxas_summary(kb.log)
+        for kname, regs, st, ld in ptxas[nm]:
+            log(f"ptxas {nm}: {kname} {regs} registers, {st} B spill stores, "
+                f"{ld} B spill loads")
 
     # 3. kernels
     err_pd, t_pd, pd_cases = phase_kernels(torch)
     err_mw, t_mw = phase_multiwalk_kernels(torch)
-    err_wf, t_wf = phase_wavefront_kernels(torch)
+    err_wf, t_wf, wf_root_diff = phase_wavefront_kernels(torch)
     err_st, t_st = phase_stacked(torch)
     log(f"[{time.perf_counter() - t_start:.1f} s] kernels phases done")
 
@@ -1511,17 +1584,18 @@ def main(argv=None) -> int:
         "launches": t1["multiwalk_launches"],
         "gens": args.test1_gens,
         "max_abs_err": err_mw,
-        "ms": t_mw[8]["ms"],
-        "wrapper_ms": t_mw[8]["wrapper_ms"],
-        "plain_ms": t_mw[8]["plain_ms"],
-        "pruning_down_per_division_ms":
-            t_mw[8]["pruning_down_per_division_ms"],
-        "bound_ms": t_mw[8]["bound_ms"],
-        "bound_by": t_mw[8]["bound_by"],
+        **{k: t_mw[8][k] for k in keys + (
+            "loop_ms", "before_ms", "stacked_same_work_ms",
+            "pruning_down_per_division_ms",
+            "pruning_down_per_division_loop_ms", "walks", "threads", "T",
+            "lanes", "smem_bytes")},
         "library_ms": None,
         "shape": "test1 D=2 n_tips=12 P=199,258 K=4 S=4 C=8",
-        "c32": {k: t_mw[32][k] for k in keys
-                + ("pruning_down_per_division_ms",)},
+        "c32": {k: t_mw[32][k] for k in keys + (
+            "loop_ms", "before_ms", "stacked_same_work_ms",
+            "pruning_down_per_division_ms", "walks", "threads", "T",
+            "lanes")},
+        "ptxas": ptxas["multiwalk"],
         "test1": {k: t1[k] for k in ("best_lnl", "tl_mean", "asdsf",
                                      "avg_psrf", "run_s", "gens_per_s")},
         "test1_gens_per_s_switch": {"off": switch["off"],
@@ -1535,14 +1609,19 @@ def main(argv=None) -> int:
         "launches": cyn["wavefront_launches"],
         "gens": args.cynmix_gens,
         "max_abs_err": err_wf,
+        "root_vs_pruning_max_abs": wf_root_diff,
         **{k: t_wf[537][k] for k in keys + (
-            "schedule_and_operands_ms", "pruning_down_same_work_ms",
-            "rows_mean", "n_int")},
+            "loop_ms", "before_ms", "pruning_down_same_work_ms",
+            "pruning_down_same_work_loop_ms", "schedule_and_operands_ms",
+            "pruning_operands_ms", "rows_mean", "n_int", "walk", "threads",
+            "groups", "T", "lanes", "smem_bytes")},
         "library_ms": None,
         "shape": "cynmix COI n_tips=32 P=537 K=4 S=4 W=8 C=8",
-        "cynmix_shapes": {f"P={P}": {k: v for k, v in t.items()
-                                     if k not in ("bytes", "flops")}
+        "cynmix_shapes": {P if isinstance(P, str) else f"P={P}":
+                          {k: v for k, v in t.items()
+                           if k not in ("bytes", "flops")}
                           for P, t in t_wf.items()},
+        "ptxas": ptxas["wavefront"],
         "cynmix": {k: cyn[k] for k in ("best_lnl", "tl_mean", "asdsf",
                                        "avg_psrf", "run_s", "gens_per_s")},
         "cynmix_gens_per_s_switches": {"off": cswitch["off"],

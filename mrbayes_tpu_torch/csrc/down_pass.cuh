@@ -1,11 +1,9 @@
 // One thread's Felsenstein down-pass over a whole postorder, with the
-// partials in global memory: the global-scratch walk.  The multiwalk kernel
-// (multiwalk.cu) runs it, and so do pruning.cu and stacked.cu for a shape
-// whose slots do not fit in shared memory (the size rule of
-// onchip_walk.cuh); its step (combine_step) is also the wavefront kernel's
-// (wavefront.cu).  Every other pruning.cu and stacked.cu launch takes the
-// on-chip walk of onchip_walk.cuh, which computes the same arithmetic in
-// the same order.
+// partials in global memory: the global-scratch walk.  pruning.cu,
+// stacked.cu and multiwalk.cu run it for a shape whose slots do not fit in
+// shared memory (the size rule of onchip_walk.cuh), and multiwalk.cu for
+// the old walk's time; every other launch takes the on-chip walk of
+// onchip_walk.cuh, which computes the same arithmetic in the same order.
 //
 // For one walk (one chain of one division) and one pattern p, for each
 // postorder step i with child slots (l, r) = lr[i]:
@@ -22,8 +20,7 @@
 // What bounds it on an H100: latency through L2.  Each step writes its
 // partial to global scratch, reads it back to normalise it and writes it
 // again, and the parent step reads it once more: about 3.8 us a step,
-// whatever P is.  S in {2, 4, 20} (and 3 and 8 in the wavefront kernel)
-// is a template parameter (child columns in registers); S_T = 0 takes S
+// whatever P is.  S in {2, 4, 20} is a template parameter (child columns in registers); S_T = 0 takes S
 // from S_rt at run time and keeps no per-S arrays, so any S the wrappers
 // admit fits.
 
@@ -40,9 +37,7 @@ constexpr float kTiny = 1e-30f;
 // (category strides kl and kr: 0 for a tip, S * P for an internal slot)
 // through the per-category operators opl and opr [K, S, S]; writes the
 // unnormalised x[k, s] to out[k * S * P + s * P] and returns
-// max(max_{k,s} x, 1e-30).  Shared by every down-pass kernel.  The child
-// columns are plain (coherent) loads: in the wavefront kernel another
-// thread of the block wrote them, before a __syncthreads().
+// max(max_{k,s} x, 1e-30).
 template <int S_T>
 __device__ __forceinline__ float combine_step(
     const float* bl, long long kl, const float* br, long long kr,

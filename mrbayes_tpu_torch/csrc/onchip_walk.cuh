@@ -1,6 +1,8 @@
 // One block's Felsenstein down-pass with the partials in shared memory: the
-// walk that the single-division kernel (pruning.cu) and the stacked kernel
-// (stacked.cu) launch.  It computes what mb::down_pass (down_pass.cuh)
+// walk that the single-division kernel (pruning.cu) and the group kernels
+// (stacked.cu, multiwalk.cu, through group_walk.cuh) launch; the wavefront
+// kernel (wavefront.cu) runs its step (step_products, step_store) row by
+// row.  It computes what mb::down_pass (down_pass.cuh)
 // computes, with the same arithmetic in the same order, so the two agree
 // bit for bit:
 //     w_l[k,s] = sum_j op[i,0,k,s,j] * CL[l][k,j,p]   (likewise w_r)
@@ -250,20 +252,19 @@ __device__ __forceinline__ float group_max(float m, int G) {
   return m;
 }
 
-// One step for this lane's entries ks = g + G*q: x in registers, the max
-// over the pattern's K*S entries, then x/m to dst[ks * drs] (nullptr: no
-// write).  opl, opr: the step's operators [K, S, S], row ks at ks * S.
-// Every lane of the warp calls it (the shuffle and __syncwarp take the
-// full warp; a block is a whole number of warps).
+// The read half of one step for this lane's entries ks = g + G*q: x in
+// registers and the max m over the pattern's K*S entries (floored at
+// kTiny), reading the children l, r and the step's operators opl, opr
+// [K, S, S] (row ks at ks * S).  Every lane of the warp calls it (the
+// shuffle takes the full warp; a block is a whole number of warps).
 template <int S_T>
-__device__ __forceinline__ float onchip_step(Child l, Child r,
-                                             const float* opl,
-                                             const float* opr, float* dst,
-                                             long long drs, int K, int S_rt,
-                                             int G, int g) {
+__device__ __forceinline__ float step_products(Child l, Child r,
+                                               const float* opl,
+                                               const float* opr,
+                                               float (&x)[kMaxItems], int K,
+                                               int S_rt, int G, int g) {
   const int S = S_T > 0 ? S_T : S_rt;
   const int KS = K * S;
-  float x[kMaxItems];
   float m = 0.f;
 #pragma unroll
   for (int q = 0; q < kMaxItems; ++q) {
@@ -294,15 +295,38 @@ __device__ __forceinline__ float onchip_step(Child l, Child r,
       m = fmaxf(m, x[q]);
     }
   }
-  m = fmaxf(group_max(m, G), kTiny);
-  __syncwarp();     // every child read before dst (maybe a child) is written
-  if (dst != nullptr) {
+  return fmaxf(group_max(m, G), kTiny);
+}
+
+// The write half: x/m to dst[ks * drs] (nullptr: no write).
+__device__ __forceinline__ void step_store(const float (&x)[kMaxItems],
+                                           float m, float* dst,
+                                           long long drs, int KS, int G,
+                                           int g) {
+  if (dst == nullptr) return;
 #pragma unroll
-    for (int q = 0; q < kMaxItems; ++q) {
-      const int ks = g + G * q;
-      if (ks < KS) dst[ks * drs] = x[q] / m;
-    }
+  for (int q = 0; q < kMaxItems; ++q) {
+    const int ks = g + G * q;
+    if (ks < KS) dst[ks * drs] = x[q] / m;
   }
+}
+
+// One step of a pattern's G lanes: the read half, then the write half to
+// dst, which may be a child's slot.  Two __syncwarp() order the lanes'
+// shared-memory accesses (a shuffle converges the lanes but orders no
+// memory): one after the shuffle that gives m, so every lane of the
+// pattern has read its children before any lane overwrites one, and one
+// after the stores, so the next step reads what this one wrote.
+template <int S_T>
+__device__ __forceinline__ float onchip_step(Child l, Child r,
+                                             const float* opl,
+                                             const float* opr, float* dst,
+                                             long long drs, int K, int S_rt,
+                                             int G, int g) {
+  float x[kMaxItems];
+  const float m = step_products<S_T>(l, r, opl, opr, x, K, S_rt, G, g);
+  __syncwarp();     // every child read before dst (maybe a child) is written
+  step_store(x, m, dst, drs, K * (S_T > 0 ? S_T : S_rt), G, g);
   __syncwarp();     // dst written before the next step reads it
   return m;
 }

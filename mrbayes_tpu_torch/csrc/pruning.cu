@@ -29,8 +29,7 @@
 //     or K*S) or whose K*S needs more than 8 entries a lane (S = 32 with
 //     16 categories), the global-scratch walk of down_pass.cuh
 //     (grid (ceil(P/128), C), partials in a scratch tensor
-//     [C, n_int, K, S, P]); the multiwalk and wavefront kernels still use
-//     that walk.
+//     [C, n_int, K, S, P]).
 //
 // What bounds it on an H100: latency.  The n_int-step dependent chain,
 // each step a few S-long dot products per lane on shared-memory operands,

@@ -1,21 +1,26 @@
 """The multiwalk down-pass as a hand-written CUDA kernel: one launch for
-every (division, chain) walk of the divisions that share a tree.
+every (division, chain) walk of the divisions that share a tree and a
+state count.
 
 Counterpart of ``mrbayes_tpu/ops/pruning_pallas.py`` ``_kernel_w``
 (launched by ``_pallas_multiwalk``, wired by ``PruningPallasMultiwalk``).
 The kernel source is ``csrc/multiwalk.cu``; its header comment records
 what bounds it on an H100 and what its design does about that.  It is
-built with the single-division kernel by ``pruning_cuda.build``.
+built with the other kernels by ``pruning_cuda.build``.
 
-The group's operands live in flat buffers laid out by ``MultiwalkLayout``
-(a ``pruning_cuda.DivisionLayout`` whose divisions share S; the stacked
-path's layout is another): division d keeps its own rate-category count K_d and
-pattern count P_d, with no padding of either.  For C chains the buffers
-hold, division after division, operators ``[C, n_int, 2, K_d, S, S]``,
-tips ``[n_tips, S, P_d]`` (once for all chains), root partials
-``[C, K_d, S, P_d]`` and log-scales ``[C, P_d]``; ``div_view`` slices
-one division's outputs back out.  All divisions of a group share the
-state count S (see ``multiwalk.cu``).
+The launch is the group launch of ``csrc/group_walk.cuh``, shared with
+the stacked kernel: one block per (chain, pattern tile of one division),
+found through a tile map, each running its division's on-chip walk
+(``csrc/onchip_walk.cuh``) in a kernel templated on the group's S; a
+division whose slots do not fit takes the global-scratch walk in a second
+kernel of the same call.  ``MultiwalkLayout`` (a
+``pruning_cuda.GroupLayout`` whose divisions share S) lays the operands
+out and plans the launch: division d keeps its own rate-category count
+K_d and pattern count P_d, with no padding of either.  For C chains the
+flat buffers hold, division after division, operators ``[C, n_int, 2,
+K_d, S, S]``, tips ``[n_tips, S, P_d]`` (once for all chains), root
+partials ``[C, K_d, S, P_d]`` and log-scales ``[C, P_d]``; ``div_view``
+slices one division's outputs back out.
 
 ``multiwalk_down`` launches the kernel and takes CUDA tensors only;
 ``multiwalk_down_plain`` is its plain PyTorch version, the same function
@@ -28,28 +33,47 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .pruning_cuda import (DivisionLayout, check_cuda_operands,
-                           check_kernel_shape, device_index, launch_error,
-                           library, pruning_down_plain, slot_operands)
+from .pruning_cuda import GroupLayout, slot_operands
 
 
-class MultiwalkLayout(DivisionLayout):
+class MultiwalkLayout(GroupLayout):
     """The layout of a multiwalk group, whose divisions share the state
-    count S, and the kernel's table."""
+    count S, its launch plan and its launch (``GroupLayout``; the kernel
+    is instantiated for S)."""
+
+    library_name = "multiwalk"
 
     def __init__(self, n_tips: int, S: int, ks, ps):
         super().__init__(n_tips, ks, [S] * len(ks), ps)
         self.S = S
-        self.P_max = max(self.ps)
-        self._tables: dict = {}
 
-    def table(self, C: int, device) -> torch.Tensor:
-        """The kernel's [D, 7] table on ``device``, made once per C."""
-        key = (C, str(device))
-        if key not in self._tables:
-            self._tables[key] = torch.as_tensor(self.offsets(C)[:-1],
-                                                device=device)
-        return self._tables[key]
+    def plan(self, C: int, device, walk: str | None = None) -> dict:
+        """``GroupLayout.plan`` plus the global-scratch kernel's own table
+        ``global_table`` [Dg, 7] (K_d, P_d and the offsets of the
+        operators, tips, scratch, root and log-scales of each division on
+        that walk; None when there is none) and ``global_P_max``."""
+        plan = super().plan(C, device, walk)
+        if "global_table" not in plan:
+            o = self.offsets(C)
+            rows, scratch = [], 0
+            for d, w in enumerate(plan["walks"]):
+                if w == "global":
+                    rows.append([o[d, 0], o[d, 1], o[d, 2], o[d, 3], scratch,
+                                 o[d, 5], o[d, 6]])
+                    scratch += C * self.n_int * self.ks[d] * self.S * self.ps[d]
+            if len(rows) * C > 65535:
+                raise ValueError(f"multiwalk_down takes at most 65535 "
+                                 f"global-scratch walks, got {len(rows) * C}")
+            plan["global_table"] = torch.as_tensor(
+                np.asarray(rows, np.int64), device=plan["table"].device) \
+                if rows else None
+            plan["global_P_max"] = max((r[1] for r in rows), default=0)
+        return plan
+
+    def launch_args(self, plan) -> list:
+        g = plan["global_table"]
+        return [None if g is None else g.data_ptr(), plan["n_onchip"],
+                0 if g is None else g.shape[0], plan["global_P_max"], self.S]
 
 
 def multiwalk_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor,
@@ -58,29 +82,7 @@ def multiwalk_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor,
     slots per chain, shared by the group's divisions; pstep and tips flat
     f32 in ``layout``.  Returns flat (root, ls).  Raises on anything the
     kernel does not take, and when the launch is refused."""
-    C = layout.check(lr, pstep, tips)
-    check_cuda_operands("multiwalk_down", lr=lr, pstep=pstep, tips=tips)
-    for K in layout.ks:
-        check_kernel_shape(layout.S, K, "multiwalk_down")
-    if layout.D * C > 65535:
-        raise ValueError(f"multiwalk_down takes at most 65535 walks, got "
-                         f"{layout.D * C}")
-    lib = library("multiwalk").lib
-    dev = lr.device
-    total = layout.offsets(C)[-1]
-    table = layout.table(C, dev)
-    scratch = torch.empty(int(total[4]), dtype=torch.float32, device=dev)
-    root = torch.empty(int(total[5]), dtype=torch.float32, device=dev)
-    ls = torch.empty(int(total[6]), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.mb_multiwalk_down(
-        lr.data_ptr(), pstep.data_ptr(), tips.data_ptr(), scratch.data_ptr(),
-        root.data_ptr(), ls.data_ptr(), table.data_ptr(), layout.D, C,
-        layout.n_tips, layout.n_int, layout.S, layout.P_max,
-        device_index(dev), stream)
-    if err != 0:
-        raise launch_error(lib, err, "multiwalk_down")
-    return root, ls
+    return layout.down(lr, pstep, tips)
 
 
 def multiwalk_down_plain(lr: torch.Tensor, pstep: torch.Tensor,
@@ -88,14 +90,7 @@ def multiwalk_down_plain(lr: torch.Tensor, pstep: torch.Tensor,
     """The plain PyTorch version of ``multiwalk_down``: same operands,
     same flat results, on any device (each division's walks through the
     plain single-division pass)."""
-    C = layout.check(lr, pstep, tips)
-    roots, lss = [], []
-    for d in range(layout.D):
-        pst, tp = layout.div_operands(pstep, tips, C, d)
-        r, l_ = pruning_down_plain(lr, pst.contiguous(), tp.contiguous())
-        roots.append(r.reshape(-1))
-        lss.append(l_.reshape(-1))
-    return torch.cat(roots), torch.cat(lss)
+    return layout.down_plain(lr, pstep, tips)
 
 
 class PruningCudaMultiwalk:

@@ -15,8 +15,7 @@ n_tips / 2 live slots (``live_slot_map`` is the Python twin of the
 kernel's slot allocator).  The header's size rule picks the walk and the
 block; ``pruning_plan`` reports its choice.  A shape that does not fit a
 block of 32 threads takes the global-scratch walk of
-``csrc/down_pass.cuh``, which the multiwalk and wavefront kernels still
-use.
+``csrc/down_pass.cuh``.
 
 Differences from the TPU layout, all deliberate:
   * per-category S×S operators ``Pstep [C, n_int, 2, K, S, S]`` instead of
@@ -30,7 +29,9 @@ The kernel library is built together with the multiwalk kernel's
 wavefront kernel's (``csrc/wavefront.cu``, wired by
 ``ops/wavefront_cuda.py``) and the stacked kernel's (``csrc/stacked.cu``,
 wired by ``ops/stacked_cuda.py``): ``build`` starts one ``nvcc`` per
-source at once.
+source at once.  The stacked and multiwalk kernels share the group launch
+of ``csrc/group_walk.cuh`` (a tile map and a per-division table), laid
+out and planned by ``GroupLayout``.
 
 ``pruning_down`` launches the kernel and takes CUDA tensors only;
 ``pruning_down_plain`` is its plain PyTorch version, the same function on
@@ -59,7 +60,7 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # includes the shared walks
 SOURCES = {"pruning": "pruning.cu", "multiwalk": "multiwalk.cu",
            "wavefront": "wavefront.cu", "stacked": "stacked.cu"}
-_HEADERS = ("down_pass.cuh", "onchip_walk.cuh")
+_HEADERS = ("down_pass.cuh", "onchip_walk.cuh", "group_walk.cuh")
 # state counts with a template in the on-chip walk (csrc/onchip_walk.cuh)
 TEMPLATED_S = (2, 3, 4, 8, 20)
 # the runtime-S paths keep no per-S arrays, so this cap is only a sanity
@@ -68,16 +69,21 @@ MAX_RUNTIME_S = 64
 MAX_RUNTIME_K = 16
 # the walks of the size rule in csrc/onchip_walk.cuh, by its codes
 WALKS = ("whole", "staged", "global")
+# threads a block of the global-scratch walk (kThreads, csrc/down_pass.cuh)
+GLOBAL_THREADS = 128
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_GROUP_PLAN = [_PTR] + [_INT] * 4 + [_PTR]
 _ENTRY_POINTS = {
     "pruning": {"mb_pruning_down": [_PTR] * 6 + [_INT] * 12 + [_PTR],
                 "mb_pruning_plan": [_INT] * 6 + [_PTR]},
-    "multiwalk": {"mb_multiwalk_down": [_PTR] * 7 + [_INT] * 7 + [_PTR]},
-    "wavefront": {"mb_wavefront_down": [_PTR] * 10 + [_INT] * 9 + [_PTR]},
+    "multiwalk": {"mb_multiwalk_down": [_PTR] * 9 + [_INT] * 10 + [_PTR],
+                  "mb_group_plan": _GROUP_PLAN},
+    "wavefront": {"mb_wavefront_down": [_PTR] * 5 + [_INT] * 14 + [_PTR],
+                  "mb_wavefront_plan": [_INT] * 7 + [_PTR]},
     "stacked": {"mb_stacked_down": [_PTR] * 8 + [_INT] * 8 + [_PTR],
-                "mb_stacked_plan": [_PTR] + [_INT] * 4 + [_PTR]},
+                "mb_group_plan": _GROUP_PLAN},
 }
 
 
@@ -199,7 +205,7 @@ def check_cuda_operands(what: str, **tensors):
         dev = t.device
 
 
-def _check_operands(lr, pstep, tips):
+def check_step_operands(lr, pstep, tips):
     if lr.dtype != torch.int32:
         raise TypeError(f"lr must be int32, got {lr.dtype}")
     if pstep.dtype != torch.float32 or tips.dtype != torch.float32:
@@ -270,7 +276,7 @@ def pruning_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor):
     step; pstep f32 [C, n_int, 2, K, S, S]; tips f32 [n_tips, S, P].
     Returns (root [C, K, S, P], ls [C, P]).  Raises on anything the kernel
     does not take, and when the launch is refused."""
-    C, n_int, K, S, n_tips, P = _check_operands(lr, pstep, tips)
+    C, n_int, K, S, n_tips, P = check_step_operands(lr, pstep, tips)
     check_cuda_operands("pruning_down", lr=lr, pstep=pstep, tips=tips)
     check_kernel_shape(S, K, "pruning_down")
     dev = lr.device
@@ -290,7 +296,7 @@ def pruning_down_plain(lr: torch.Tensor, pstep: torch.Tensor,
                        tips: torch.Tensor):
     """The plain PyTorch version of ``pruning_down``: same operands, same
     results, on any device."""
-    C, n_int, K, S, n_tips, P = _check_operands(lr, pstep, tips)
+    C, n_int, K, S, n_tips, P = check_step_operands(lr, pstep, tips)
     rows = torch.arange(C, device=lr.device)
     cl = tips.new_empty((C, n_tips + n_int, K, S, P))
     cl[:, :n_tips] = tips[None, :, None]
@@ -406,6 +412,144 @@ class DivisionLayout:
         K, S, P = self.ks[d], self.ss[d], self.ps[d]
         return (pstep[o[d, 2]:o[d + 1, 2]].view(C, self.n_int, 2, K, S, S),
                 tips[o[d, 3]:o[d + 1, 3]].view(self.n_tips, S, P))
+
+
+class GroupLayout(DivisionLayout):
+    """The layout of a group of divisions launched together through the
+    tile map and per-division table of ``csrc/group_walk.cuh`` (the
+    stacked and multiwalk kernels), the launch plan per (C, device) and
+    the launch.  ``library_name`` names the kernel library; a subclass's
+    ``launch_args`` are the arguments its launch takes after the tile
+    map."""
+
+    library_name = ""
+
+    def __init__(self, n_tips: int, ks, ss, ps):
+        super().__init__(n_tips, ks, ss, ps)
+        self._plans: dict = {}
+
+    def launch_args(self, plan) -> list:
+        """The launch's arguments between the tile map and the chain
+        count: here the on-chip and global tile counts."""
+        return [plan["n_onchip"], plan["n_global"]]
+
+    def plan(self, C: int, device, walk: str | None = None) -> dict:
+        """The kernels' launch plan on ``device``, asked of the kernel
+        library once per C: the size rule's ``threads`` a block and its
+        shared memory ``smem_bytes``, each member's ``walks``, patterns a
+        block ``T`` and ``lanes`` a pattern; the kernels' ``table``
+        [D, 10] (K_d, S_d, P_d, the offsets of operators, tips, root, ls
+        and scratch, the walk, the lanes) and tile map ``tiles``
+        [n_tiles, 2] (member, first pattern) on the device: the
+        ``n_onchip`` tiles of the on-chip walks, the costliest members
+        first, then the ``n_global`` tiles of the global-scratch walk; and
+        the ``scratch`` floats of the members that take that walk.
+        ``walk="global"`` puts every member on the global-scratch walk,
+        the old walk, which ``chip_smoke.py`` times beside the on-chip
+        one."""
+        dev = torch.device(device)
+        key = (C, device_index(dev), walk)
+        if key not in self._plans:
+            lib = library(self.library_name).lib
+            kps = np.ascontiguousarray(
+                np.stack([self.ks, self.ss, self.ps], 1), np.int32)
+            D = self.D
+            out = (ctypes.c_int * (2 + 3 * D))()
+            err = lib.mb_group_plan(kps.ctypes.data, D, C, self.n_tips,
+                                    key[1], out)
+            if err != 0:
+                raise launch_error(lib, err, f"{self.library_name}_plan")
+            walks, T, G = (list(out[2 + j * D:2 + (j + 1) * D])
+                           for j in range(3))
+            if walk == "global":
+                walks = [WALKS.index("global")] * D
+                T, G = [GLOBAL_THREADS] * D, [1] * D
+            o = self.offsets(C)
+            table, scratch = [], 0
+            for d, (K, S, P) in enumerate(zip(self.ks, self.ss, self.ps)):
+                table.append([K, S, P, *o[d, [2, 3, 5, 6]], scratch,
+                              walks[d], G[d]])
+                if WALKS[walks[d]] == "global":
+                    scratch += C * self.n_int * K * S * P
+            names = [WALKS[w] for w in walks]
+            tiles, n_onchip = self.tile_map(names, T)
+            self._plans[key] = {
+                "threads": out[0], "smem_bytes": out[1],
+                "walks": names, "T": T, "lanes": G,
+                "table": torch.as_tensor(np.asarray(table, np.int64),
+                                         device=dev),
+                "tiles": torch.as_tensor(tiles, device=dev),
+                "n_onchip": n_onchip, "n_global": len(tiles) - n_onchip,
+                "scratch": scratch}
+        return self._plans[key]
+
+    def tile_map(self, walks, T):
+        """The tile map for members' ``walks`` (names) and patterns a block
+        ``T``: int32 [n_tiles, 2] (member, first pattern), the on-chip
+        kernel's tiles first, the costliest members' (K_d * S_d^2 a step
+        and pattern) leading so that their walks start first, then the
+        global-scratch kernel's; and the count of on-chip tiles."""
+        costly = sorted(range(self.D),
+                        key=lambda d: -self.ks[d] * self.ss[d] ** 2)
+        onchip = [(d, p0) for d in costly if walks[d] != "global"
+                  for p0 in range(0, self.ps[d], T[d])]
+        tiles = onchip + [(d, p0) for d in range(self.D)
+                          if walks[d] == "global"
+                          for p0 in range(0, self.ps[d], T[d])]
+        if len(tiles) > 65535:
+            raise ValueError(f"{self.library_name}_down takes at most 65535 "
+                             f"pattern tiles, got {len(tiles)}")
+        return np.asarray(tiles, np.int32).reshape(-1, 2), len(onchip)
+
+    def launch(self, lr, pstep, tips, plan, scratch, root, ls) -> int:
+        """One launch of the group's kernels on preallocated flat outputs
+        (scratch with ``plan["scratch"]`` floats, or None when it is 0) as
+        ``plan`` says, on the current stream of the operands' device.
+        Returns the CUDA error code (0 = success)."""
+        dev = lr.device
+        fn = getattr(library(self.library_name).lib,
+                     f"mb_{self.library_name}_down")
+        return fn(
+            lr.data_ptr(), pstep.data_ptr(), tips.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), root.data_ptr(),
+            ls.data_ptr(), plan["table"].data_ptr(), plan["tiles"].data_ptr(),
+            *self.launch_args(plan), lr.shape[0], self.n_tips, self.n_int,
+            plan["threads"], plan["smem_bytes"], device_index(dev),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def down(self, lr, pstep, tips):
+        """Check the operands, allocate the flat outputs and launch.
+        Returns flat (root, ls).  Raises on anything the kernels do not
+        take, and when the launch is refused."""
+        what = f"{self.library_name}_down"
+        C = self.check(lr, pstep, tips)
+        check_cuda_operands(what, lr=lr, pstep=pstep, tips=tips)
+        for K, S in zip(self.ks, self.ss):
+            check_kernel_shape(S, K, what)
+        dev = lr.device
+        plan = self.plan(C, dev)
+        total = self.offsets(C)[-1]
+        scratch = torch.empty(plan["scratch"], dtype=torch.float32,
+                              device=dev) if plan["scratch"] else None
+        root = torch.empty(int(total[5]), dtype=torch.float32, device=dev)
+        ls = torch.empty(int(total[6]), dtype=torch.float32, device=dev)
+        err = self.launch(lr, pstep, tips, plan, scratch, root, ls)
+        if err != 0:
+            raise launch_error(library(self.library_name).lib, err, what)
+        return root, ls
+
+    def down_plain(self, lr, pstep, tips):
+        """The plain PyTorch version of ``down``: same operands, same flat
+        results, on any device (each member's walks through
+        ``pruning_down_plain``)."""
+        C = self.check(lr, pstep, tips)
+        roots, lss = [], []
+        for d in range(self.D):
+            pst, tp = self.div_operands(pstep, tips, C, d)
+            r, l_ = pruning_down_plain(lr, pst.contiguous(), tp.contiguous())
+            roots.append(r.reshape(-1))
+            lss.append(l_.reshape(-1))
+        return torch.cat(roots), torch.cat(lss)
 
 
 class PruningCuda:

@@ -10,9 +10,12 @@ the JAX engine's padded-width bucketing does not apply), under
 CPU tensors (its plain version).  Each division's per-pattern lnL from
 ``div_view`` agrees within rtol/atol 2e-5 (float32 products summed in a
 different order), at test1's shapes cut to 2 chains and at a group that
-mixes K = 1 and K = 4.  The CUDA kernel itself runs only on a GPU:
-``test_kernel_matches_plain_on_gpu`` carries the ``gpu`` marker and skips
-here; ``chip_smoke.py`` holds it to the plain version on the card."""
+mixes K = 1 and K = 4.  The launch's tile map
+(``MultiwalkLayout.tile_map``, shared with the stacked path) covers every
+(division, pattern) once, the on-chip tiles first.  The CUDA kernel
+itself runs only on a GPU: ``test_kernel_matches_plain_on_gpu`` carries
+the ``gpu`` marker and skips here; ``chip_smoke.py`` holds it to the plain
+version on the card."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -143,6 +146,30 @@ def test_multiwalk_takes_cuda_tensors_and_one_state_count():
         MW.PruningCudaMultiwalk(specs[:1] + specs2, "cpu")
 
 
+@pytest.mark.parametrize("walks,T", [
+    (["whole"] * 3, [16, 16, 32]),
+    (["global", "staged", "whole"], [128, 8, 16]),
+    (["global"] * 3, [128] * 3)], ids=["whole", "mixed", "global"])
+def test_tile_map_covers_every_pattern_once(walks, T):
+    """Every (division, pattern) in exactly one tile of T_d patterns, the
+    on-chip kernel's tiles first, the costliest divisions' (K_d, as the
+    group shares S) leading, then the global-scratch kernel's."""
+    _, specs, _, _ = _group((137, 40, 300), (4, 2, 1), C=1, seed=2)
+    lay = MW.PruningCudaMultiwalk(specs, "cpu").layout
+    tiles, n_onchip = lay.tile_map(walks, T)
+    assert tiles.dtype == np.int32 and tiles.shape[1] == 2
+    covered = {}
+    for m, p0 in tiles.tolist():
+        for p in range(p0, min(p0 + T[m], lay.ps[m])):
+            covered[(m, p)] = covered.get((m, p), 0) + 1
+    assert covered == {(d, p): 1 for d in range(3) for p in range(lay.ps[d])}
+    assert n_onchip == sum(walks[m] != "global" for m in tiles[:, 0])
+    assert all(walks[m] != "global" for m in tiles[:n_onchip, 0])
+    assert all(walks[m] == "global" for m in tiles[n_onchip:, 0])
+    ks = [lay.ks[m] for m in tiles[:n_onchip, 0]]
+    assert ks == sorted(ks, reverse=True)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -153,18 +180,29 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,C", [(TEST1, 8), (TEST1, 32), (MIXED_K, 8)])
-def test_kernel_matches_plain_on_gpu(cuda_device, shape, C):
+@pytest.mark.parametrize("walk", [None, "global"], ids=["plan", "global"])
+def test_kernel_matches_plain_on_gpu(cuda_device, shape, C, walk):
+    """The on-chip kernel as the plan gives it (every test1 division
+    whole), and the global-scratch kernel where a plan forces it."""
     tree, specs, Pms, pis = _group(*shape, C=C, seed=7)
     g = MW.PruningCudaMultiwalk(specs, cuda_device)
+    lay = g.layout
     t = {f: torch.as_tensor(v, device=cuda_device) for f, v in tree.items()}
     order = postorder_internal(t["parent"], N_TIPS)
     lr, pstep = g.operands(order, t["left"], t["right"],
                            [torch.as_tensor(Pm, device=cuda_device)
                             for Pm in Pms])
-    k = MW.multiwalk_down(lr, pstep, g.tips, g.layout)
-    p = MW.multiwalk_down_plain(lr, pstep, g.tips, g.layout)
+    plan = lay.plan(C, cuda_device, walk)
+    assert plan["walks"] == [walk or "whole"] * lay.D
+    total = lay.offsets(C)[-1]
+    root = torch.empty(int(total[5]), device=cuda_device)
+    ls = torch.empty(int(total[6]), device=cuda_device)
+    scratch = torch.empty(plan["scratch"], device=cuda_device) \
+        if plan["scratch"] else None
+    assert lay.launch(lr, pstep, g.tips, plan, scratch, root, ls) == 0
+    p = MW.multiwalk_down_plain(lr, pstep, g.tips, lay)
     for d, pi in enumerate(pis):
-        a = [x.cpu().numpy() for x in g.div_view(*k, d)]
+        a = [x.cpu().numpy() for x in g.div_view(root, ls, d)]
         b = [x.cpu().numpy() for x in g.div_view(*p, d)]
         np.testing.assert_allclose(_site_lnl(*a, pi), _site_lnl(*b, pi),
                                    **TOL)

@@ -8,6 +8,14 @@ through its Python twin ``ops/pruning_cuda.py:live_slot_map``.
   order of a balanced tree of 2^k tips needs all n_tips // 2.
 * A plain walk that keeps its partials in those slots equals
   ``pruning_down_plain`` exactly (the same products on the same inputs).
+* The wavefront kernel's slot map (``csrc/wavefront.cu``, its twin
+  ``ops/wavefront_cuda.py:chain_slot_map``: a slot a cherry, every other
+  step writing its first internal child's) uses as many slots as the
+  tree has cherries, at most n_tips // 2, on random, caterpillar and
+  balanced trees of 4-128 tips; over the rows of ``row_schedule`` every
+  read finds its child, no write overwrites a live partial, and no step
+  writes a slot that another step of its row reads or writes, so the
+  kernel needs no block barrier inside a row.
 
 The kernel's own allocator runs only on a GPU; ``chip_smoke.py`` and the
 ``gpu``-marked tests of ``test_torch_pruning.py`` hold its results to the
@@ -17,6 +25,7 @@ import pytest
 import torch
 
 from mrbayes_tpu_torch.ops import pruning_cuda as PC
+from mrbayes_tpu_torch.ops import wavefront_cuda as WF
 from mrbayes_tpu_torch.ops.traversal import postorder_internal
 from mrbayes_tpu_torch.trees import random_unrooted
 
@@ -79,6 +88,64 @@ def test_slot_map_on_random_trees(n_tips):
 @pytest.mark.parametrize("shape", ["caterpillar", "balanced"])
 def test_slot_map_on_level_order(n_tips, shape):
     used = _check_map(_level_lr(n_tips, shape), n_tips)
+    if shape == "caterpillar":
+        assert used == 1
+    elif n_tips & (n_tips - 1) == 0:
+        assert used == n_tips // 2          # the bound is tight
+
+
+def _check_row_map(lr, n_tips, W):
+    """The wavefront's slot map against the live partials, row by row,
+    each step reading its children and then writing its slot.  Returns
+    (slots used, rows in which a step writes a slot that another step of
+    the row reads or writes)."""
+    seq, rowbeg = WF.row_schedule(lr, n_tips, W)
+    slot = WF.chain_slot_map(lr, n_tips)
+    n_int = len(seq)
+    assert slot[n_int - 1] == -1                 # the root's own output
+    live, clashes = {}, 0
+    for a, b in zip(rowbeg[:-1], rowbeg[1:]):
+        row = seq[a:b]
+        reads = {}
+        for i in row:
+            for c in lr[i]:
+                if c >= n_tips:
+                    j = int(c - n_tips)
+                    assert live.get(slot[j]) == j, "a read found no child"
+                    reads[slot[j]] = i
+        writes = {}
+        for i in row:
+            if i != n_int - 1:
+                clashes += slot[i] in writes or reads.get(slot[i], i) != i
+                writes[slot[i]] = i
+        for s in reads:
+            del live[s]
+        for s, i in writes.items():
+            assert s not in live, "a live slot was overwritten"
+            live[s] = i
+    used = int(slot.max()) + 1
+    cherries = sum(c0 < n_tips and c1 < n_tips for c0, c1 in lr)
+    assert used == cherries <= n_tips // 2
+    return used, clashes
+
+
+@pytest.mark.parametrize("n_tips", [4, 5, 12, 32, 33, 64, 127, 128])
+@pytest.mark.parametrize("W", [1, 8, 16])
+def test_row_slot_map_on_random_trees(n_tips, W):
+    lr = _engine_lr(n_tips, C=6, seed=n_tips + W)
+    for c in range(lr.shape[0]):
+        used, clashes = _check_row_map(lr[c], n_tips, W)
+        assert clashes == 0
+
+
+@pytest.mark.parametrize("n_tips", [4, 7, 16, 32, 100, 128])
+@pytest.mark.parametrize("shape", ["caterpillar", "balanced"])
+def test_row_slot_map_on_level_order(n_tips, shape):
+    used, clashes = _check_row_map(_level_lr(n_tips, shape), n_tips, 8)
+    # a step writes only the slot of its own first internal child, so no
+    # row needs a barrier between its reads and its writes: the warp
+    # barrier inside the step orders the step's own
+    assert clashes == 0
     if shape == "caterpillar":
         assert used == 1
     elif n_tips & (n_tips - 1) == 0:
