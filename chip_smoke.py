@@ -5,9 +5,12 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
     python3 chip_smoke.py [--test1-gens N] [--primates-blocks N]
                           [--cynmix-gens N] [--switch-blocks N]
 
-(defaults 20,000, 3, 600 and 2; the last three were 5, 2,000 and 3
-before the sharded phases came, and were cut to keep the script within
-600 s).  Each phase's end is logged with the seconds since the start.
+(defaults 4,000, 3, 600 and 2; primates blocks, cynmix generations and
+switch blocks were 5, 2,000 and 3 before the sharded phases came, and
+test1's generations 20,000 before test2's came: each was cut to keep the
+script within 600 s, and test1's 20,000-generation envelope is checked by
+``--test1-gens 20000``; test2 always runs the envelope's 20,000).  Each
+phase's end is logged with the seconds since the start.
 
 Phases, each fatal on failure:
   1. device: the card's name, count, and name/power limit from nvidia-smi;
@@ -33,11 +36,11 @@ Phases, each fatal on failure:
      type with host synchronisation made an error;
   5. golden gtr_ig: the tests/golden_primates.json rows on the card;
   6. test1: testing/test1.nex (two partitions, nst=mixed, invgamma,
-     unlinked parameters, ratepr=variable, 2 runs x 4 chains, 20,000
-     generations) through cli.Interpreter.execute_file with the multiwalk
-     switch on: the reference's envelope on the written files, the
-     multiwalk kernel's launches, carried versus recomputed scores, and
-     the sump and sumt tables;
+     unlinked parameters, ratepr=variable, 2 runs x 4 chains) through
+     cli.Interpreter.execute_file with the multiwalk switch on: the
+     reference's envelope on the written files at 20,000 generations (a
+     best lnL above -5800 below that), the multiwalk kernel's launches,
+     carried versus recomputed scores, and the sump and sumt tables;
   7. switch: the same test1 engine with the multiwalk switch off and on,
      3 blocks of 200 generations each, in turns;
   8. sync: a block and one generation of each test1 move type with host
@@ -70,7 +73,30 @@ Phases, each fatal on failure:
      passes per generation), carried versus recomputed, no host sync;
  16. the product path, parallel/dryrun.py's dryrun_sites over 4 shards;
      on a machine with several cards, the kernel check, primates and the
-     dry run again over distinct cards.
+     dry run again over distinct cards;
+ 17. clock-tree kernels (run with phase 3): pruning.cu and multiwalk.cu
+     against their plain versions on seeded random clock trees with
+     IGR-spread branch lengths (about 1e-6 to tens of substitutions, the
+     root at node 2n-2 with a zero-length branch) at test2's division
+     shapes, C = 8 and 32, with each walk and its CUDA-graph time;
+ 18. golden clock: the clock_uniform_gtr_g rows of
+     tests/golden_primates.json on the card (lnL within 0.2, lnPrior
+     within 0.01 of the reference);
+ 19. test2: testing/test2.nex (test1's data and model on an IGR relaxed
+     clock, brlenspr=clock:uniform clockratepr=exp(1), 2 runs x 4 chains,
+     20,000 generations) through the CLI with the multiwalk switch on: the
+     envelope, the multiwalk launches, carried versus recomputed scores,
+     sump and sumt, complete .p/.t files with [&R] trees; then its engine
+     with the switch off and on in turns (pruning.cu's launches with the
+     switch off) and a block and one generation of every clock move type
+     with host synchronisation made an error;
+ 20. prior-only: mcmc data=no on a uniform clock with IGR rates and
+     clockratepr=exp(1), 32 runs x 1 chain, at two seeds: the mean root
+     age, clock rate and branch rate each within 4 batch-means standard
+     errors of 1, and statistics of the internal ages and the topology
+     (the second-oldest and the mean internal age over the root age, the
+     number of cherries, the smaller root clade) within 4 standard errors
+     of a direct sample of the same prior (the moves' Hastings ratios).
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -145,7 +171,19 @@ WARM_GENS, BLOCK_GENS, SYNC_GENS = 50, 200, 50
 # the sharded primates engine
 SHARD_COUNTS, SHARD_BLOCKS = (1, 2, 4), 3
 DEV = "cuda"
-TEST1_GENS = 20000
+# the reference's envelope runs 20,000 generations; test1's default run is
+# cut to leave room for test2's within 600 s (its 20,000-generation
+# envelope is a separate call: --test1-gens 20000)
+ENVELOPE_GENS = 20000
+TEST1_GENS = 4000
+TEST2_GENS = ENVELOPE_GENS
+# the clock-tree kernel cases: test2's divisions (test1's, on a clock
+# tree) at 8 and 32 chains
+CLOCK_CHAINS = (8, 32)
+# the prior-only clock check: runs x 1 chain, generations, the seeds of
+# its two runs, and the draws of the direct sample it is held against
+PRIOR_RUNS, PRIOR_GENS, PRIOR_SEEDS = 32, 3000, (11, 12)
+PRIOR_DRAWS = 100000
 # enough for sump/sumt samples (7 per run at samplefreq 100); cut from
 # 2,000 to make room for the sharded phases within 600 s
 CYNMIX_GENS = 600
@@ -635,20 +673,22 @@ def tree_state(torch, t):
     return st
 
 
-def phase_test1(torch, ngen, power_line):
-    """test1 through the CLI with the multiwalk switch on.  The engine is
-    built inside ``execute_file``, so its launch counts start at 0 there
-    and are read when the run is over."""
+def phase_test1(torch, ngen, power_line, name="test1"):
+    """test1 (or test2, its relaxed-clock twin) through the CLI with the
+    multiwalk switch on.  The engine is built inside ``execute_file``, so
+    its launch counts start at 0 there and are read when the run is over.
+    Below 20,000 generations the envelope gives way to a best lnL above
+    -5800."""
     from mrbayes_tpu_torch.envelope import envelope_errors, run_batch
-    workdir = os.path.join(OUT, "test1")
+    workdir = os.path.join(OUT, name)
     shutil.rmtree(workdir, ignore_errors=True)
-    it, stats, lines = run_batch("test1", workdir, ngen, device=DEV,
+    it, stats, lines = run_batch(name, workdir, ngen, device=DEV,
                                  multiwalk=True)
     runner = it._last_runner
     eng = runner.eng
     groups = eng._multiwalk_pruners
     if len(groups) != 1 or groups[0][0] != [0, 1]:
-        raise AssertionError(f"expected test1's two divisions in one "
+        raise AssertionError(f"expected {name}'s two divisions in one "
                              f"multiwalk group, got "
                              f"{[g for g, _ in groups]}")
     mw_launches = groups[0][1].launches
@@ -663,33 +703,36 @@ def phase_test1(torch, ngen, power_line):
         if not any(phrase in ln for ln in lines):
             raise AssertionError(f"sump/sumt printed no {phrase!r}")
     n_rows = []
+    rooting = "[&R]" if eng.tree_settings.clock else "[&U]"
     for r in (1, 2):
-        with open(os.path.join(workdir, f"test1.run{r}.p")) as f:
+        with open(os.path.join(workdir, f"{name}.run{r}.p")) as f:
             n_rows.append(sum(1 for ln in f if ln[:1].isdigit()))
-        with open(os.path.join(workdir, f"test1.run{r}.t")) as f:
+        with open(os.path.join(workdir, f"{name}.run{r}.t")) as f:
             text = f.read()
         if not text.rstrip().endswith("end;") \
-                or text.count("tree gen.") != n_rows[-1]:
-            raise AssertionError(f"incomplete test1.run{r}.t")
+                or text.count("tree gen.") != n_rows[-1] \
+                or text.count(f"= {rooting} (") != n_rows[-1]:
+            raise AssertionError(f"incomplete {name}.run{r}.t")
     expect_rows = ngen // eng.mcmc.samplefreq + 1
     if n_rows != [expect_rows] * 2:
         raise AssertionError(f".p rows {n_rows}, expected {expect_rows}")
-    if ngen >= TEST1_GENS:
+    if ngen >= ENVELOPE_GENS:
         errors = envelope_errors(stats)
     else:
         errors = ([] if stats["best_lnl"] > -5800.0 else
                   [f"best lnL {stats['best_lnl']:.2f} <= -5800"])
-    log(f"test1 through the CLI, multiwalk on: {json.dumps(stats)}; "
+    log(f"{name} through the CLI, multiwalk on: {json.dumps(stats)}; "
         f"multiwalk launches {mw_launches}, pruning_down launches "
         f"{pd_launches}, for {ngen} gens; card {power_line}")
     if errors:
-        raise AssertionError(f"test1 outside its envelope: {errors}")
+        raise AssertionError(f"{name} outside its envelope: {errors}")
     return it, {**stats, "multiwalk_launches": mw_launches,
                 "pruning_down_launches": pd_launches}
 
 
-def phase_switch(torch, it, blocks, power_line):
-    """gens/s of the test1 engine with the switch off and on, in turns."""
+def phase_switch(torch, it, blocks, power_line, name="test1"):
+    """gens/s of the test1 (or test2) engine with the switch off and on,
+    in turns, and the sync check of every move type, switch on."""
     engines = {sw: it.build_engine(multiwalk=sw) for sw in (False, True)}
     runs = {}
     for sw, eng in engines.items():
@@ -715,12 +758,12 @@ def phase_switch(torch, it, blocks, power_line):
            "on": float(np.median(rates[True])),
            "off_blocks": rates[False], "on_blocks": rates[True],
            "pruning_down_launches_off": off_launches}
-    log(f"test1 switch off/on, {blocks} blocks of {BLOCK_GENS} gens each, "
+    log(f"{name} switch off/on, {blocks} blocks of {BLOCK_GENS} gens each, "
         f"in turns: {json.dumps(out)}; card {power_line}")
     eng = engines[True]
     sync_checked(torch, eng, *runs[True], SYNC_GENS)
     names = ", ".join(m.name for m in eng.moves)
-    log(f"test1: no host sync in a {SYNC_GENS}-gen block or in any of the "
+    log(f"{name}: no host sync in a {SYNC_GENS}-gen block or in any of the "
         f"{len(eng.moves)} move types ({names})")
     return out
 
@@ -1481,6 +1524,299 @@ def phase_sharded(torch, ds, count, power_line):
     return err, timing, cyn_shapes, prim, cyn, dry, cards
 
 
+def clock_walks(torch, rng, n_tips, C):
+    """C seeded random clock trees on the card with IGR-spread branch
+    lengths: (order, left, right, blen [C, n_nodes]).  Each chain's branch
+    rates are lognormal with mean 1 and a variance drawn from [1, 10] and
+    its clock rate log-uniform in [1, 100], so that lengths run from about
+    1e-6 to tens of substitutions; blen[root] = 0 and the root is node
+    2n-2."""
+    from mrbayes_tpu_torch.mcmc.clock import clock_blens
+    from mrbayes_tpu_torch.trees import random_clock_tree
+    trees = [random_clock_tree(n_tips, rng, mean_age=0.1) for _ in range(C)]
+    order, left, right = tree_walks(torch, [t for t, _ in trees])
+    s2 = np.log1p(rng.uniform(1.0, 10.0, (C, 1)))
+    state = {
+        "parent": torch.as_tensor(np.stack([t.parent for t, _ in trees]),
+                                  device=DEV).long(),
+        "age": torch.as_tensor(np.stack([a for _, a in trees]),
+                               dtype=torch.float32, device=DEV),
+        "clockrate": torch.as_tensor(10.0 ** rng.uniform(0.0, 2.0, (C, 1)),
+                                     dtype=torch.float32, device=DEV),
+        "brate": torch.as_tensor(np.exp(rng.normal(
+            -0.5 * s2, np.sqrt(s2), (C, 2 * n_tips - 1))),
+            dtype=torch.float32, device=DEV)}
+    return order, left, right, clock_blens(state, n_tips, "igr")
+
+
+def clock_operators(torch, rng, blen, K):
+    """Operators [C, n_nodes, K, S=4, S] of the branch lengths under a
+    random GTR model a chain and gamma rates (shape 0.3-2), and the
+    chains' stationary frequencies [C, 4]."""
+    from mrbayes_tpu_torch.models.rates import GammaRateTable
+    from mrbayes_tpu_torch.models.substitution import nuc_q_gtr
+    from mrbayes_tpu_torch.ops.pruning import branch_tiprobs
+    from mrbayes_tpu_torch.ops.tiprobs import eigh_reversible
+    C = blen.shape[0]
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=DEV)
+
+    pi = dev(rng.dirichlet(np.ones(4) * 5, C))
+    lam, U, Uinv = eigh_reversible(
+        nuc_q_gtr(dev(rng.dirichlet(np.ones(6) * 2, C)), pi), pi)
+    rates = GammaRateTable(K, device=DEV)(dev(rng.uniform(0.3, 2.0, C)))
+    return branch_tiprobs(blen, lam, U, Uinv, rates, 0.0), pi
+
+
+def phase_clock_kernels(torch):
+    """pruning.cu and multiwalk.cu on clock trees against their plain
+    versions: test2's two division shapes (C = 8 and 32, K = 4, S = 4,
+    P = 199 and 258) alone and as the multiwalk group, on seeded random
+    clock trees with IGR-spread branch lengths (so P(t) runs from near the
+    identity to near the stationary matrix and the per-pattern rescaling
+    works at both ends), with the walk and block each took and its
+    CUDA-graph time beside the bound."""
+    from mrbayes_tpu_torch.ops import multiwalk_cuda as MW
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    n_tips, Ps, Ks, S = TEST1_SHAPE
+    worst = {"pruning_down": 0.0, "multiwalk_down": 0.0}
+    out = {"pruning_down": {}, "multiwalk_down": {}}
+    for i, C in enumerate(CLOCK_CHAINS):
+        rng = np.random.default_rng(700 + i)
+        order, left, right, blen = clock_walks(torch, rng, n_tips, C)
+        pos = blen[blen > 0]
+        spread = {"blen_min": pos.min().item(), "blen_max": pos.max().item(),
+                  "root_blen": blen[:, -1].abs().max().item()}
+        specs, P_list, pis = [], [], []
+        for P, K in zip(Ps, Ks):
+            tips, _, _ = random_operands(rng, n_tips, P, S, K, 1)
+            Pm, pi = clock_operators(torch, rng, blen, K)
+            specs.append((tips, K))
+            P_list.append(Pm)
+            pis.append(pi)
+            pruner = PC.PruningCuda(tips, K, torch.device(DEV))
+            lr, pstep = pruner.operands(order, left, right, Pm)
+            root_k, ls_k = PC.pruning_down(lr, pstep, pruner.tips)
+            torch.cuda.synchronize()
+            root_p, ls_p = PC.pruning_down_plain(lr, pstep, pruner.tips)
+            raw, plan, root, ls = new_walk(torch, lr, pstep, pruner.tips)
+            err = compare(
+                torch, site_lnl(torch, root_k, ls_k, pi),
+                site_lnl(torch, root_p, ls_p, pi),
+                f"pruning_down clock tree n_tips={n_tips} P={P} S={S} K={K} "
+                f"C={C} ({plan['walk']} walk, {plan['threads']} threads for "
+                f"{plan['T']} patterns, {plan['lanes']} lanes a pattern; "
+                f"branch lengths {spread['blen_min']:.2e}.."
+                f"{spread['blen_max']:.2e}, log-scales "
+                f"{ls_k.min().item():.1f}..{ls_k.max().item():.1f})")
+            worst["pruning_down"] = max(worst["pruning_down"], err)
+            flops = 2 * C * (n_tips - 1) * 2 * K * S * S * P
+            nbytes = 4 * (lr.numel() + pstep.numel() + pruner.tips.numel()
+                          + root.numel() + ls.numel())
+            out["pruning_down"][f"P{P}_C{C}"] = {
+                **{k: plan[k] for k in ("walk", "threads", "T", "lanes")},
+                "max_abs_err": err, "ms": time_graph(torch, raw),
+                **spread, **{k: v for k, v in bound(nbytes, flops).items()
+                             if k in ("bound_ms", "bound_by")}}
+            log(f"pruning_down clock timing P={P} C={C}: "
+                f"{json.dumps(out['pruning_down'][f'P{P}_C{C}'])}")
+        group = MW.PruningCudaMultiwalk(specs, torch.device(DEV))
+        lay = group.layout
+        lr, pstep = group.operands(order, left, right, P_list)
+        root_k, ls_k = MW.multiwalk_down(lr, pstep, group.tips, lay)
+        torch.cuda.synchronize()
+        root_p, ls_p = MW.multiwalk_down_plain(lr, pstep, group.tips, lay)
+        plan = lay.plan(C, lr.device)
+        errs = [compare(
+            torch, site_lnl(torch, *lay.div_view(root_k, ls_k, d), pis[d]),
+            site_lnl(torch, *lay.div_view(root_p, ls_p, d), pis[d]),
+            f"multiwalk_down clock tree n_tips={n_tips} P={Ps} K={Ks} S={S} "
+            f"C={C} division {d} ({plan['walks'][d]} walk, "
+            f"{plan['threads']} threads for {plan['T'][d]} patterns, "
+            f"{plan['lanes'][d]} lanes a pattern)") for d in range(lay.D)]
+        worst["multiwalk_down"] = max([worst["multiwalk_down"]] + errs)
+        raw, _, root, ls = group_walk(torch, lay, lr, pstep, group.tips)
+        flops = sum(2 * C * (n_tips - 1) * 2 * K * S * S * P
+                    for K, P in zip(lay.ks, lay.ps))
+        out["multiwalk_down"][f"C{C}"] = {
+            **{k: plan[k] for k in ("walks", "threads", "T", "lanes")},
+            "max_abs_err": max(errs), "ms": time_graph(torch, raw),
+            **{k: v for k, v in bound(
+                4 * (lr.numel() + pstep.numel() + group.tips.numel()
+                     + root.numel() + ls.numel() + plan["tiles"].numel())
+                + 8 * plan["table"].numel(), flops).items()
+               if k in ("bound_ms", "bound_by")}}
+        log(f"multiwalk_down clock timing test2 C={C}: "
+            f"{json.dumps(out['multiwalk_down'][f'C{C}'])}")
+    return worst, out
+
+
+def phase_golden_clock(torch, ds):
+    """The clock_uniform_gtr_g rows of tests/golden_primates.json on the
+    card: lnL within 0.2 and lnPrior within 0.01 of the reference
+    (tests/test_clock.py:37-53).  Returns the worst gaps and the
+    pruning.cu launches they made."""
+    from mrbayes_tpu_torch.mcmc.engine import Engine
+    from mrbayes_tpu_torch.mcmc.settings import (DivisionSettings,
+                                                 McmcSettings, TreeSettings)
+    from mrbayes_tpu_torch.trees import parse_newick
+    rows = [r for r in json.load(open(GOLDEN))
+            if r["model"] == "clock_uniform_gtr_g"]
+    eng = Engine(ds, [DivisionSettings(nst="6", rates="gamma")],
+                 tree_settings=TreeSettings(clock=True, clockpr="uniform"),
+                 mcmc=McmcSettings(nruns=1, nchains=1), device=DEV)
+    worst = [0.0, 0.0]
+    for rec in rows:
+        t = parse_newick(rec["newick"], ds.taxa, rooted=True)
+        ages = np.zeros(t.n_nodes)
+        for v in t.postorder():
+            ages[v] = max(ages[t.left[v]] + t.blen[t.left[v]],
+                          ages[t.right[v]] + t.blen[t.right[v]])
+        st = {k: torch.as_tensor(np.asarray(getattr(t, k))[None],
+                                 device=DEV).long()
+              for k in ("left", "right", "parent")}
+        st["age"] = torch.tensor(ages[None], dtype=torch.float32, device=DEV)
+        for k, f in (("pi", "pi"), ("revmat", "revmat")):
+            st[k] = torch.tensor([[rec[f]]], dtype=torch.float32, device=DEV)
+        st["shape"] = torch.tensor([[rec["alpha"]]], device=DEV)
+        st = eng.refresh_eigs(st)
+        lnl = eng.log_likelihood(st)[0].item()
+        lnp = eng.log_prior(st)[0].item()
+        worst = [max(worst[0], abs(lnl - rec["lnL"])),
+                 max(worst[1], abs(lnp - rec["lnPrior"]))]
+        if abs(lnl - rec["lnL"]) >= 0.2 or abs(lnp - rec["lnPrior"]) >= 0.01:
+            raise AssertionError(
+                f"golden clock_uniform_gtr_g: lnL {lnl} / lnPrior {lnp} vs "
+                f"reference {rec['lnL']} / {rec['lnPrior']}")
+    launches = eng._pruners[0].launches
+    if launches < len(rows):
+        raise AssertionError(f"{launches} pruning_down launches for "
+                             f"{len(rows)} golden clock rows")
+    log(f"golden clock_uniform_gtr_g: {len(rows)} rows, max |lnL - "
+        f"reference| {worst[0]:.4f} (limit 0.2), max |lnPrior - reference| "
+        f"{worst[1]:.5f} (limit 0.01), {launches} pruning_down launches")
+    return worst, launches
+
+
+def clock_tree_stats(left, right, parent, age, n_tips):
+    """Statistics of rooted clock trees in the port's layout (root at
+    node 2n-2), over the leading axes of [..., 2n-1] arrays: the
+    second-oldest and the mean non-root internal age over the root age,
+    the number of cherries and the tip count of the smaller root clade."""
+    n, root = n_tips, 2 * n_tips - 2
+    inner = age[..., n:root] / age[..., root:root + 1]
+    cur = np.broadcast_to(np.arange(n), age.shape[:-1] + (n,)).copy()
+    for _ in range(n - 1):                  # climb to the root's child
+        p = np.take_along_axis(parent, cur, -1)
+        cur = np.where(p == root, cur, p)
+    size = (cur == left[..., root:root + 1]).sum(-1)
+    return {"age2_over_root": inner.max(-1),
+            "mean_age_over_root": inner.mean(-1),
+            "cherries": ((left[..., n:] < n)
+                         & (right[..., n:] < n)).sum(-1).astype(float),
+            "root_minor_clade": np.minimum(size, n - size).astype(float)}
+
+
+def uniform_clock_draws(n_tips, draws, rng):
+    """Direct draws of the uniform clock prior given the root age (the
+    density (n-1) log 2 - log n! - log(n-1) - (n-2) log t1 of reference
+    src/mcmc.c:9494): the n - 2 non-root internal ages iid uniform below
+    the root (age 1), the ranked topology uniform, i.e. each internal
+    node, youngest first, joins a uniform pair of the lineages then
+    present.  Returns left, right, parent, age as [draws, 2n-1] arrays."""
+    n, nn = n_tips, 2 * n_tips - 1
+    left = np.full((draws, nn), -1)
+    right = np.full((draws, nn), -1)
+    parent = np.full((draws, nn), -1)
+    age = np.zeros((draws, nn))
+    age[:, n:nn - 1] = np.sort(rng.uniform(size=(draws, n - 2)), -1)
+    age[:, nn - 1] = 1.0
+    active = np.tile(np.arange(n), (draws, 1))   # first k columns live
+    rows = np.arange(draws)
+    for i in range(n - 1):
+        k, node = n - i, n + i
+        a = rng.integers(0, k, draws)
+        b = rng.integers(0, k - 1, draws)
+        b = b + (b >= a)
+        na, nb = active[rows, a], active[rows, b]
+        left[:, node], right[:, node] = na, nb
+        parent[rows, na] = parent[rows, nb] = node
+        # the new node takes column a, the last live column fills b
+        active[rows, a] = node
+        active[rows, b] = np.where(b == k - 1, active[rows, b],
+                                   active[rows, k - 1])
+    return left, right, parent, age
+
+
+def phase_prior_only(torch, ds, seed, power_line):
+    """mcmc data=no on a uniform clock with IGR rates and clockratepr=
+    exp(1), PRIOR_RUNS runs x 1 chain from ``seed``: over the second half
+    of PRIOR_GENS generations, the mean root age (treeagepr gamma(1, 1):
+    the uniform clock's root age has exactly that marginal), the mean
+    clock rate and the mean branch rate must each lie within 4 batch-means
+    standard errors (one batch a run) of 1, and each of clock_tree_stats'
+    means within 4 standard errors (the runs' and the direct sample's
+    together) of its mean over PRIOR_DRAWS direct draws of the prior.
+    This holds the clock moves' Hastings ratios on the ages and on the
+    topology."""
+    from mrbayes_tpu_torch.mcmc.engine import Engine
+    from mrbayes_tpu_torch.mcmc.settings import (DivisionSettings,
+                                                 McmcSettings, Prior,
+                                                 TreeSettings)
+    eng = Engine(ds, [DivisionSettings(nst="1")],
+                 tree_settings=TreeSettings(
+                     clock=True, clockvarpr="igr",
+                     clockratepr=Prior("exponential", (1.0,))),
+                 mcmc=McmcSettings(nruns=PRIOR_RUNS, nchains=1, seed=seed,
+                                   use_data=False), device=DEV)
+    states, bk = eng.init_chains()
+    n, root = eng.n_tips, eng.n_nodes - 1
+    rec, trees = [], []
+    t0 = time.perf_counter()
+    for _ in range(PRIOR_GENS // 10):
+        states, bk = eng.run_block(states, bk, 10)
+        rec.append(torch.stack([states["age"][:, root],
+                                states["clockrate"][:, 0],
+                                states["brate"][:, :root].mean(1)], 1))
+        trees.append((torch.stack([states[k] for k in (
+            "left", "right", "parent")]), states["age"].clone()))
+    x = torch.stack(rec).cpu().numpy()                   # [recs, runs, 3]
+    rate = PRIOR_GENS / (time.perf_counter() - t0)
+    half = x.shape[0] // 2
+    topo = torch.stack([t for t, _ in trees[half:]]).cpu().numpy()
+    ages = torch.stack([a for _, a in trees[half:]]).double().cpu().numpy()
+    stats = clock_tree_stats(topo[:, 0], topo[:, 1], topo[:, 2], ages, n)
+    direct = clock_tree_stats(*uniform_clock_draws(
+        n, PRIOR_DRAWS, np.random.default_rng(seed)), n)
+    out = {"seed": seed, "gens": PRIOR_GENS, "runs": PRIOR_RUNS,
+           "gens_per_s": rate}
+    bad = []
+
+    def hold(nm, means, target, target_se):
+        mu = float(means.mean())
+        se = float(np.hypot(means.std(ddof=1) / np.sqrt(PRIOR_RUNS),
+                            target_se))
+        out[nm] = {"mean": mu, "prior": target, "se": se,
+                   "z": (mu - target) / se}
+        if abs(mu - target) > 4.0 * se:
+            bad.append(nm)
+
+    for i, nm in enumerate(("root_age", "clockrate", "brate")):
+        hold(nm, x[half:, :, i].mean(0), 1.0, 0.0)
+    for nm, v in stats.items():
+        d = direct[nm]
+        hold(nm, v.mean(0), float(d.mean()),
+             float(d.std(ddof=1) / np.sqrt(PRIOR_DRAWS)))
+    log(f"prior-only clock (data=no, uniform, IGR, clockratepr=exp(1)), "
+        f"seed {seed}, {PRIOR_RUNS} runs x 1 chain, {PRIOR_GENS} gens: "
+        f"{json.dumps(out)}; card {power_line}")
+    if bad:
+        raise AssertionError(f"prior-only marginals off their prior means "
+                             f"(seed {seed}): {bad}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--test1-gens", type=int, default=TEST1_GENS)
@@ -1523,6 +1859,7 @@ def main(argv=None) -> int:
     err_mw, t_mw = phase_multiwalk_kernels(torch)
     err_wf, t_wf, wf_root_diff = phase_wavefront_kernels(torch)
     err_st, t_st = phase_stacked(torch)
+    err_ck, t_ck = phase_clock_kernels(torch)
     log(f"[{time.perf_counter() - t_start:.1f} s] kernels phases done")
 
     # 4.-5. primates, the first slice's main path
@@ -1551,19 +1888,37 @@ def main(argv=None) -> int:
         phase_sharded(torch, ds, count, power_line)
     log(f"[{time.perf_counter() - t_start:.1f} s] sharded phases done")
 
+    # 17.-20. clock trees and test2, the seventh slice's main path
+    golden_clock, golden_clock_launches = phase_golden_clock(torch, ds)
+    it2, t2 = phase_test1(torch, TEST2_GENS, power_line, name="test2")
+    switch2 = phase_switch(torch, it2, args.switch_blocks, power_line,
+                           name="test2")
+    prior = [phase_prior_only(torch, ds, seed, power_line)
+             for seed in PRIOR_SEEDS]
+    log(f"[{time.perf_counter() - t_start:.1f} s] clock phases done")
+
     keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
+    # each kernel's launches are the sum of its runs' counts, each count
+    # set to 0 just before its run and read just after
+    pd_launches = {
+        **{f"primates_c{C}": r["launches"] for C, r in runs.items()},
+        "test1_switch_off": switch["pruning_down_launches_off"],
+        "test2_switch_off": switch2["pruning_down_launches_off"],
+        "golden_clock_rows": golden_clock_launches}
+    mw_launches = {"test1": t1["multiwalk_launches"],
+                   "test2": t2["multiwalk_launches"]}
     kernels = [{
         "name": "pruning_down",
         "route": "cuda",
         "source": "mrbayes_tpu_torch/csrc/pruning.cu",
         "replaces": "mrbayes_tpu/ops/pruning_pallas.py:94",
-        "launches": sum(r["launches"] for r in runs.values()),
-        "launches_per_run": {f"primates_c{C}": r["launches"]
-                             for C, r in runs.items()},
-        "gens_per_run": {f"primates_c{C}": r["gens"]
-                         for C, r in runs.items()},
-        "launches_test1_switch_off": switch["pruning_down_launches_off"],
-        "max_abs_err": err_pd,
+        "launches": sum(pd_launches.values()),
+        "launches_per_run": pd_launches,
+        "gens_per_run": {
+            **{f"primates_c{C}": r["gens"] for C, r in runs.items()},
+            "test1_switch_off": args.switch_blocks * BLOCK_GENS,
+            "test2_switch_off": args.switch_blocks * BLOCK_GENS},
+        "max_abs_err": max(err_pd, err_ck["pruning_down"]),
         **{k: t_pd[4][k] for k in keys + ("before_ms", "walk", "threads",
                                            "T", "lanes")},
         "library_ms": None,
@@ -1571,6 +1926,7 @@ def main(argv=None) -> int:
         "c32": {k: t_pd[32][k] for k in keys + ("before_ms", "walk",
                                                  "threads", "T", "lanes")},
         "cases": pd_cases,
+        "clock_cases": t_ck["pruning_down"],
         "gens_per_s": {f"primates_c{C}": r["gens_per_s"]
                        for C, r in runs.items()},
         "gens_per_s_blocks": {f"primates_c{C}": r["gens_per_s_blocks"]
@@ -1581,9 +1937,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "mrbayes_tpu_torch/csrc/multiwalk.cu",
         "replaces": "mrbayes_tpu/ops/pruning_pallas.py:144",
-        "launches": t1["multiwalk_launches"],
-        "gens": args.test1_gens,
-        "max_abs_err": err_mw,
+        "launches": sum(mw_launches.values()),
+        "launches_per_run": mw_launches,
+        "gens_per_run": {"test1": args.test1_gens, "test2": TEST2_GENS},
+        "max_abs_err": max(err_mw, err_ck["multiwalk_down"]),
         **{k: t_mw[8][k] for k in keys + (
             "loop_ms", "before_ms", "stacked_same_work_ms",
             "pruning_down_per_division_ms",
@@ -1600,6 +1957,13 @@ def main(argv=None) -> int:
                                      "avg_psrf", "run_s", "gens_per_s")},
         "test1_gens_per_s_switch": {"off": switch["off"],
                                     "on": switch["on"]},
+        "clock_cases": t_ck["multiwalk_down"],
+        "test2": {k: t2[k] for k in ("best_lnl", "tl_mean", "asdsf",
+                                     "avg_psrf", "run_s", "gens_per_s")},
+        "test2_gens_per_s_switch": {"off": switch2["off"],
+                                    "on": switch2["on"]},
+        "golden_clock_max_err": golden_clock,
+        "prior_only": prior,
         "card": power_line,
     }, {
         "name": "wavefront_down",

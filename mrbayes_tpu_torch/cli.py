@@ -76,7 +76,7 @@ PARAM_ALIASES = {
 
 # commands of mrbayes_tpu/cli.py not carried yet -> their ROADMAP item
 NOT_PORTED = {
-    **dict.fromkeys(("constraint", "calibrate"), "Queue 1 item 10"),
+    **dict.fromkeys(("constraint", "calibrate"), "Queue 1 item 10b"),
     **dict.fromkeys(("pairs",), "Queue 1 item 12"),
     **dict.fromkeys(("report", "ss", "ssp", "sumss", "comparetree",
                      "compareref", "plot", "propset", "startvals",
@@ -91,12 +91,9 @@ NOT_PORTED = {
 }
 # prset parameters not carried yet -> their ROADMAP item
 PRSET_NOT_PORTED = {
-    **dict.fromkeys(("clockvarpr", "clockratepr", "treeagepr", "igrvarpr",
-                     "ilnvarpr", "tk02varpr", "wnvarpr", "mixedvarpr",
-                     "cppratepr", "cppmultdevpr", "speciationpr",
-                     "extinctionpr", "popsizepr", "growthpr", "sampleprob",
-                     "samplestrat", "fossilizationpr", "nodeagepr",
-                     "topologypr"), "Queue 1 item 10"),
+    **dict.fromkeys(("mixedvarpr", "cppratepr", "cppmultdevpr",
+                     "fossilizationpr", "nodeagepr", "topologypr"),
+                    "Queue 1 item 10b"),
     **dict.fromkeys(("omegapr", "ny98omega1pr", "ny98omega3pr",
                      "codoncatfreqpr", "m3omegapr", "m10betapr",
                      "m10gammapr", "aamodelpr", "aarevmatpr"),
@@ -428,8 +425,14 @@ class Interpreter:
                             "stationary|directional|mixed")
                     s.statefreqmodel = v
 
+    # the clock's prset keys (mrbayes_tpu cli.py:686, :780-787), which
+    # set TreeSettings fields of the same name
+    CLOCK_KEYS = ("clockvarpr", "clockratepr", "treeagepr", "igrvarpr",
+                  "ilnvarpr", "tk02varpr", "wnvarpr", "speciationpr",
+                  "extinctionpr", "popsizepr", "growthpr", "sampleprob",
+                  "samplestrat")
     PRSET_KEYS = ("applyto", "statefreqpr", "revmatpr", "tratiopr",
-                  "shapepr", "pinvarpr", "ratepr", "brlenspr",
+                  "shapepr", "pinvarpr", "ratepr", "brlenspr", *CLOCK_KEYS,
                   *PRSET_NOT_PORTED)
 
     def do_prset(self, args, base_dir):
@@ -445,6 +448,9 @@ class Interpreter:
                 self._set_brlenspr(val)
                 continue
             prior = self._parse_prior(val)
+            if key in self.CLOCK_KEYS:
+                self._set_clock_key(key, prior)
+                continue
             for d in targets:
                 s = self.env.div_settings[d]
                 if key == "ratepr":
@@ -471,10 +477,37 @@ class Interpreter:
             else:
                 raise CommandError(f"brlenspr {text!r} not supported")
         elif text.startswith("clock"):
-            raise _not_ported("clock trees (brlenspr=clock)",
-                              "Queue 1 item 10")
+            sub = text.split(":", 1)[1] if ":" in text else "uniform"
+            kind = sub.split("(")[0]
+            if kind in ("fossilization", "speciestree",
+                        "speciestreecoalescence"):
+                raise _not_ported(f"brlenspr=clock:{kind}",
+                                  "Queue 1 item 10b" if kind ==
+                                  "fossilization" else "Queue 1 item 14")
+            if kind not in ("uniform", "birthdeath", "coalescence"):
+                raise CommandError(f"unknown clock prior {kind!r}")
+            ts.clock = True
+            ts.clockpr = kind
         else:
             raise CommandError(f"brlenspr {text!r} not supported")
+
+    def _set_clock_key(self, key, prior):
+        """A clock prset key (mrbayes_tpu cli.py:780-830)."""
+        ts = self.env.tree_settings
+        if key == "clockvarpr":
+            if prior.kind in ("cpp", "mixed"):
+                raise _not_ported(f"clockvarpr={prior.kind}",
+                                  "Queue 1 item 10b")
+            ts.clockvarpr = prior.kind
+        elif key == "sampleprob":
+            ts.sampleprob = float(prior.params[0] if prior.params
+                                  else prior.kind)
+        elif key == "samplestrat":
+            if prior.kind == "fossiltip":
+                raise _not_ported("samplestrat=fossiltip", "Queue 1 item 10b")
+            ts.samplestrat = prior.kind
+        else:
+            setattr(ts, key, prior)
 
     def do_link(self, args, base_dir):
         self._link_unlink(args, link=True)

@@ -5,13 +5,15 @@ Usage (from the repository root, on a machine with a CUDA GPU):
 
     python -m mrbayes_tpu_torch.engine_profile --chains 4 --gens 100
     python -m mrbayes_tpu_torch.engine_profile --config test1 [--multiwalk]
+    python -m mrbayes_tpu_torch.engine_profile --config test2 [--multiwalk]
     python -m mrbayes_tpu_torch.engine_profile --config cynmix \
         [--wavefront] [--stacked] [--multiwalk]
     python -m mrbayes_tpu_torch.engine_profile [--config ...] --sites 4
 
 ``--config primates`` (the default) is primates GTR+I+G, 1 run;
-``--config test1`` is test1's partitioned model and ``--config cynmix``
-cynmix's favored total-evidence model (each built through the CLI's
+``--config test1`` is test1's partitioned model, ``--config test2`` the
+same on test2's IGR relaxed clock, and ``--config cynmix`` cynmix's
+favored total-evidence model (each built through the CLI's
 commands, ``envelope.BATCHES``), 2 runs, with the kernel-path switches as
 given.  ``--chains`` is the chain count per run; ``--sites k`` shards
 the engine's patterns over k site shards of its device
@@ -141,7 +143,8 @@ def parts(eng, states, dev, reps):
     pr = eng._pruners[0]
     _, _, lam, U, Uinv, rates, pinv, _, _ = eng._generic_div_params(
         states, 0)
-    P = branch_tiprobs(states["blen"], lam, U, Uinv, rates, pinv)
+    blen = eng.branch_lengths(states)
+    P = branch_tiprobs(blen, lam, U, Uinv, rates, pinv)
     order = postorder_internal(states["parent"], eng.n_tips)
     launches = pr.launches
     out = {
@@ -150,8 +153,8 @@ def parts(eng, states, dev, reps):
         "refresh_eigs_ms": _ms_per_call(
             dev, lambda: eng.refresh_eigs(states), reps),
         "tiprobs_and_postorder_ms": _ms_per_call(
-            dev, lambda: (branch_tiprobs(states["blen"], lam, U, Uinv,
-                                         rates, pinv),
+            dev, lambda: (branch_tiprobs(eng.branch_lengths(states), lam,
+                                         U, Uinv, rates, pinv),
                           postorder_internal(states["parent"], eng.n_tips)),
             reps),
         "pruner_call_ms": _ms_per_call(
@@ -192,10 +195,12 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a CUDA device)")
-    ap.add_argument("--config", choices=("primates", "test1", "cynmix"),
+    ap.add_argument("--config",
+                    choices=("primates", "test1", "test2", "cynmix"),
                     default="primates")
     ap.add_argument("--multiwalk", action="store_true",
-                    help="test1, cynmix: group the divisions of one state "
+                    help="test1, test2, cynmix: group the divisions of "
+                         "one state "
                          "count into one multiwalk launch")
     ap.add_argument("--wavefront", action="store_true",
                     help="cynmix: the level-batched pruner for every "

@@ -1,10 +1,15 @@
-"""The test1 envelope run: MrBayes' own CI check (testing/test1.nex with
-testing/runtests.sh.in:82-161's statistics) through the port's CLI.
+"""The test1 and test2 envelope runs: MrBayes' own CI checks
+(testing/test1.nex and testing/test2.nex with testing/runtests.sh.in:82-
+161's statistics) through the port's CLI.
 
 test1 is primates.nex split into two partitions (1-400, 401-.) under
 nst=mixed rates=invgamma with state frequencies, exchangeabilities,
-pinvar and shape unlinked and ratepr=variable, 2 runs x 4 chains.  The
-run must land in the reference's envelope:
+pinvar and shape unlinked and ratepr=variable, 2 runs x 4 chains.  test2
+is the same data and substitution model on a clock tree: a uniform
+clock, an exponential(1) clock rate and IGR relaxed branch rates
+(``brlenspr=clock:uniform clockratepr=exp(1) clockvarpr=igr``), with the
+default (fixed) rate multipliers.  Either run must land in the
+reference's envelope (the same for both, tests/envelope_check.py):
 
   * cold-chain best lnL    in [-5715, -5700]
   * posterior mean TL      in [2.2, 4.5] (the reference binary's own
@@ -14,8 +19,8 @@ run must land in the reference's envelope:
 
 Usage (on the GPU; ``--device cpu`` for the CPU):
 
-    python -m mrbayes_tpu_torch.envelope [--ngen 20000] [--multiwalk]
-        [--workdir runs/envelope]
+    python -m mrbayes_tpu_torch.envelope [--config test1|test2]
+        [--ngen 20000] [--multiwalk] [--workdir runs/envelope]
 
 prints one ``ENVELOPE {...}`` JSON line and exits 1 outside the envelope.
 ``run_batch`` also runs cynmix's favored model the same way (``chip_smoke.py``
@@ -44,6 +49,13 @@ TEST1_MODEL = ("partition test = 2: 1-400, 401-.",
                "lset applyto=(all) nst=mixed rates=invgamma",
                "unlink statefreq=(all) revmat=(all) pinvar=(all) shape=(all)",
                "prset applyto=(all) ratepr=variable")
+# test2's model commands, after its execute (tests/envelope_check.py:41-56)
+TEST2_MODEL = ("partition test = 2: 1-400, 401-.",
+               "set partition=test",
+               "lset applyto=(all) nst=mixed rates=invgamma",
+               "unlink statefreq=(all) revmat=(all) pinvar=(all) shape=(all)",
+               "prset brlenspr=clock:uniform clockratepr=exp(1) "
+               "clockvarpr=igr")
 # cynmix's favored partition under the model of the MrBayes manual's
 # partitioned tutorial (the commented-out block of cynmix.nex): Mk with
 # gamma rates on the morphology, GTR+I+G on each of the four genes, every
@@ -55,7 +67,8 @@ CYNMIX_MODEL = ("set partition=favored",
                 "statefreq=(all)",
                 "prset applyto=(all) ratepr=variable")
 # the batch runs: name -> (data file, model commands after its execute)
-BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "cynmix": (CYNMIX, CYNMIX_MODEL)}
+BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "test2": (PRIMATES, TEST2_MODEL),
+           "cynmix": (CYNMIX, CYNMIX_MODEL)}
 BATCH = """#NEXUS
 begin mrbayes;
     set autoclose=yes nowarn=yes;
@@ -70,7 +83,8 @@ end;
 
 def write_batch(name: str, workdir: str, ngen: int = 20000,
                 samplefreq: int = 100, diagnfreq: int = 2000) -> str:
-    """Write the batch file of run ``name`` (test1 or cynmix: its data, its
+    """Write the batch file of run ``name`` (test1, test2 or cynmix: its
+    data, its
     model, an mcmc of 2 runs x 4 chains, sump and sumt) into ``workdir``;
     returns its path."""
     data, model = BATCHES[name]
@@ -163,13 +177,16 @@ def envelope_errors(stats: dict) -> list[str]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m mrbayes_tpu_torch.envelope")
+    ap.add_argument("--config", choices=("test1", "test2"),
+                    default="test1")
     ap.add_argument("--ngen", type=int, default=20000)
     ap.add_argument("--workdir", default=os.path.join("runs", "envelope"))
     ap.add_argument("--device", default=None)
     ap.add_argument("--multiwalk", action="store_true",
                     help="group the divisions into one multiwalk launch")
     args = ap.parse_args(argv)
-    _, stats, _ = run_batch("test1", args.workdir, args.ngen, args.device,
+    _, stats, _ = run_batch(args.config, args.workdir, args.ngen,
+                            args.device,
                             multiwalk=True if args.multiwalk else None)
     errors = envelope_errors(stats)
     print("ENVELOPE " + json.dumps({**stats, "errors": errors}), flush=True)

@@ -19,9 +19,15 @@ The port carries nucleotide data under nst 1/2/6/mixed and standard
 ascertainment coding (``coding=variable`` by default), each with equal,
 gamma, propinv or invgamma rates; any number of divisions (partitions)
 with linked or unlinked parameters and fixed or variable rate
-multipliers, one unrooted non-clock tree with the default priors, and
-any number of runs and chains.  Every other setting raises
+multipliers, one unrooted non-clock tree with the default priors or one
+clock tree (``mcmc/clock.py``: uniform, birth-death or coalescent node
+ages; strict, IGR, ILN, WN or TK02 branch rates; a fixed or sampled clock
+rate), and any number of runs and chains.  Every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
+
+A clock state has no ``blen``: its branch lengths are derived from the
+ages and rates, and ``branch_lengths`` is the one place the likelihood,
+the pruners and the outputs read them from.
 
 Divisions that share the tree can go through one multiwalk kernel launch
 (``ops/multiwalk_cuda.py``) instead of one launch each.  The switch keeps
@@ -77,7 +83,8 @@ from ..ops.pruning_cuda import check_kernel_shape
 from ..ops.stacked_cuda import PruningCudaStacked
 from ..ops.traversal import postorder_internal
 from ..ops.tiprobs import eigh_reversible
-from ..trees import Tree, random_unrooted
+from ..trees import Tree, random_clock_tree, random_unrooted
+from . import clock as CL
 from . import mixed_gtr as MG
 from . import moves as M
 from .priors import (beta_lpdf, brlens_exponential_lpdf, brlens_gammadir_lpdf,
@@ -221,13 +228,20 @@ class Engine:
     def _check_slice(self, div_settings, links):
         """Raise for every setting this slice of the port does not carry."""
         ts, mc = self.tree_settings, self.mcmc
-        if ts.clock or ts.constraints or ts.tip_calibrations:
-            raise _not_ported("clock trees, dating and constraints",
-                              "item 10")
         if ts.speciestree:
             raise _not_ported("the multispecies coalescent (BEST)",
                               "item 14")
-        if ts.brlenspr.kind not in ("gammadir", "exponential", "uniform"):
+        if ts.constraints or ts.tip_calibrations:
+            raise _not_ported("constraints, calibrations and dated tips",
+                              "item 10b")
+        if ts.clock:
+            if ts.clockpr not in ("uniform", "birthdeath", "coalescence"):
+                raise _not_ported(f"clockpr={ts.clockpr}", "item 10b")
+            if ts.clockvarpr not in ("strict",) + CL.RELAXED:
+                raise _not_ported(f"clockvarpr={ts.clockvarpr}", "item 10b")
+            if ts.treeage_calibrated:
+                raise _not_ported("a root calibration", "item 10b")
+        elif ts.brlenspr.kind not in ("gammadir", "exponential", "uniform"):
             raise ValueError(f"brlenspr {ts.brlenspr.kind} not supported")
         if links and (any(links.get("topology", ()))
                       or any(links.get("brlens", ()))):
@@ -476,13 +490,17 @@ class Engine:
 
     def _build_moves(self):
         """The unrooted non-clock move set (mrbayes_tpu engine.py:1479-
-        1540), then the substitution-parameter moves."""
+        1540) or the clock move set, then the substitution-parameter
+        moves."""
         n = self.n_tips
-        mk = []
 
         def wrap(base):
             return partial(base, n_tips=n)
 
+        if self.tree_settings.clock:
+            self._finish_moves(self._clock_moves(wrap))
+            return
+        mk = []
         mk.append(MoveSpec("nni", wrap(M.move_nni), 5.0, 0.0,
                            tunable=False))
         mk.append(MoveSpec("spr", wrap(M.move_spr), 5.0, 0.0,
@@ -514,6 +532,71 @@ class Engine:
         mk.append(MoveSpec("treelen_mult", wrap(M.move_treelen_multiplier),
                            2.0, 2.0 * np.log(1.6), 0.25, 1, 1e-3, 10.0))
         self._finish_moves(mk)
+
+    def _clock_moves(self, wrap):
+        """The clock tree's moves with the JAX package's weights, tunings
+        and bounds (mrbayes_tpu engine.py:1292-1388, without CPP, mixed and
+        fossilization), then the clock rate, the branch rates and the
+        tree-process parameters.  Every one of them changes only inputs
+        of ``log_prior_tree``: registered before ``_finish_moves``' split,
+        they take the tree scope."""
+        ts = self.tree_settings
+        lam = 2.0 * np.log(1.6)
+        mk = [
+            MoveSpec("nni_clock", wrap(CL.move_nni_clock), 5.0, 0.0,
+                     tunable=False),
+            MoveSpec("subtree_swap_clock", wrap(CL.move_subtree_swap_clock),
+                     3.0, 0.0, tunable=False),
+            MoveSpec("node_slider_clock", wrap(CL.move_node_slider_clock),
+                     5.0, 0.05, 0.25, 1, 1e-5, 10.0),
+            MoveSpec("local_clock", wrap(CL.move_local_clock), 3.0, 0.0,
+                     tunable=False),
+            MoveSpec("pars_spr_clock", wrap(CL.make_pars_spr_clock_move(
+                self._pars_masks, self._pars_factors)),
+                5.0, 0.1, 0.25, -1, 0.01, 1.0),
+            MoveSpec("spr_clock", wrap(CL.move_spr_clock), 5.0, 0.0,
+                     tunable=False),
+            MoveSpec("age_slider", wrap(CL.move_age_slider), 15.0, 0.0,
+                     tunable=False),
+            MoveSpec("tree_stretch", wrap(CL.move_tree_stretch), 3.0,
+                     2.0 * np.log(1.1), 0.25, 1, 1e-4, 5.0),
+            MoveSpec("root_age", wrap(CL.move_root_age), 3.0,
+                     2.0 * np.log(1.2), 0.25, 1, 1e-4, 10.0)]
+        if ts.clockratepr.kind != "fixed":
+            mk.append(MoveSpec(
+                "clockrate_mult",
+                wrap(M.make_multiplier_move("clockrate", 1e-10, 1e6)), 3.0,
+                2.0 * np.log(1.5), 0.25, 1, 1e-4, 10.0))
+        if ts.clockvarpr != "strict":
+            mk.append(MoveSpec("brate_mult",
+                               wrap(CL.make_brate_multiplier(self.n_tips)),
+                               10.0, lam, 0.25, 1, 1e-3, 20.0))
+            mk.append(MoveSpec(
+                "clockvar_mult",
+                wrap(M.make_multiplier_move("clockvar", 1e-6, 1e4)), 2.0,
+                lam, 0.25, 1, 1e-3, 20.0))
+        if ts.clockpr == "birthdeath":
+            mk.append(MoveSpec(
+                "speciation_mult",
+                wrap(M.make_multiplier_move("speciation", 1e-6, 1e4)), 1.5,
+                lam, 0.25, 1, 1e-3, 20.0))
+            mk.append(MoveSpec(
+                "extinction_slider",
+                wrap(M.make_slider_move("extinction", 0.0, 1.0)), 1.5, 0.2,
+                0.25, 1, 1e-3, 1.0))
+        if ts.clockpr == "coalescence":
+            mk.append(MoveSpec(
+                "popsize_mult",
+                wrap(M.make_multiplier_move("popsize", 1e-6, 1e8)), 1.5,
+                lam, 0.25, 1, 1e-3, 20.0))
+            if ts.growthpr.kind != "fixed":
+                # the sampled exponential-growth rate (reference
+                # Move_Growth, src/proposal.c:5650)
+                mk.append(MoveSpec(
+                    "growth_slider",
+                    wrap(M.make_slider_move("growth", -1e3, 1e3)), 1.5,
+                    1.0, 0.25, 1, 1e-3, 100.0))
+        return mk
 
     def _finish_moves(self, mk):
         """Append the substitution-parameter moves and finalize weights
@@ -657,7 +740,10 @@ class Engine:
     def init_state(self, rng: np.random.Generator, tree: Tree | None = None):
         """One chain's starting state (host numpy values): ``tree``, or a
         random unrooted tree drawn from ``rng`` (the same draws as the JAX
-        package's init_state), plus the substitution-parameter defaults."""
+        package's init_state), plus the substitution-parameter defaults.
+        A clock model starts from a random clock tree instead."""
+        if self.tree_settings.clock:
+            return self._init_substitution_state(self._init_clock_state(rng))
         t = tree if tree is not None else random_unrooted(
             self.n_tips, rng, mean_blen=0.1)
         st = {"left": np.asarray(t.left, np.int64),
@@ -665,6 +751,40 @@ class Engine:
               "parent": np.asarray(t.parent, np.int64),
               "blen": np.clip(t.blen, 0.0, M.BRLEN_MAX).astype(np.float32)}
         return self._init_substitution_state(st)
+
+    def _init_clock_state(self, rng):
+        """A random clock tree with its ages, and the clock's starting
+        values (mrbayes_tpu engine.py:1952-2010, the same rng draws)."""
+        ts = self.tree_settings
+        t, ages = random_clock_tree(self.n_tips, rng, mean_age=0.1)
+        st = {"left": np.asarray(t.left, np.int64),
+              "right": np.asarray(t.right, np.int64),
+              "parent": np.asarray(t.parent, np.int64),
+              "age": np.asarray(ages, np.float32)}
+
+        def one(x):
+            return np.asarray([x], np.float32)
+
+        if ts.clockratepr.kind != "fixed":
+            p = ts.clockratepr.params
+            st["clockrate"] = one({
+                "normal": lambda: p[0],
+                "lognormal": lambda: float(np.exp(p[0])),
+                "gamma": lambda: p[0] / p[1],
+                "exponential": lambda: 1.0 / p[0],
+                "uniform": lambda: 0.5 * (p[0] + p[1])}[
+                    ts.clockratepr.kind]())
+        if ts.clockvarpr != "strict":
+            st["brate"] = np.ones(self.n_nodes, np.float32)
+            st["clockvar"] = one(0.1)
+        if ts.clockpr == "birthdeath":
+            st["speciation"] = one(0.1)
+            st["extinction"] = one(0.5)
+        if ts.clockpr == "coalescence":
+            st["popsize"] = one(1.0)
+            if ts.growthpr.kind != "fixed":
+                st["growth"] = one(0.0)
+        return st
 
     def _init_substitution_state(self, st):
         """Starting values for the sampled substitution parameters (role
@@ -745,7 +865,7 @@ class Engine:
         cfg = self.div_cfg[i]
         if cfg.pi_group >= 0:
             return state[cfg.pi_field][:, cfg.pi_group]
-        return self._fixed_pi[i].expand(state["blen"].shape[0], -1)
+        return self._fixed_pi[i].expand(state["parent"].shape[0], -1)
 
     def _division_q_pi(self, state, i):
         """(Q, pi) of division i for every chain (reference SetNucQMatrix
@@ -784,7 +904,7 @@ class Engine:
         if f"eigL{i}" in state:
             return state[f"eigL{i}"], state[f"eigU{i}"], state[f"eigV{i}"]
         if i in self._const_eigs:
-            C = state["blen"].shape[0]
+            C = state["parent"].shape[0]
             lam, U, Uinv = self._const_eigs[i]
             return lam.expand(C, -1), U.expand(C, -1, -1), \
                 Uinv.expand(C, -1, -1)
@@ -794,7 +914,7 @@ class Engine:
         """lnL [C] of every chain."""
         if not self.mcmc.use_data:
             # mcmc data=no: prior-only sampling
-            return state["blen"].new_zeros(state["blen"].shape[0])
+            return self._zeros(state)
         total = 0.0
         for term in self._division_terms(state, self.weights):
             total = total + term
@@ -814,7 +934,7 @@ class Engine:
         division order: multiwalk groups first, then stacked groups that
         share no division with them (mrbayes_tpu/mcmc/engine.py:2394-2406),
         then every other division through its own pruner."""
-        blen = state["blen"]
+        blen = self.branch_lengths(state)
         terms = [None] * self.n_div
         for idxs, gpruner in self._multiwalk_pruners + self._stacked_pruners:
             if any(terms[i] is not None for i in idxs):
@@ -902,9 +1022,26 @@ class Engine:
         """Prior over the substitution-model parameter groups."""
         return self._grouped_params_prior(state)
 
+    def _zeros(self, state):
+        """float32 zeros [C], one per chain of ``state``."""
+        return torch.zeros(state["parent"].shape[0],
+                           device=state["parent"].device)
+
+    def branch_lengths(self, state):
+        """Substitution-unit branch lengths [C, n_nodes]: the sampled
+        ``blen``, or on a clock tree the lengths its ages and rates give
+        (mrbayes_tpu engine.py:2374-2378)."""
+        ts = self.tree_settings
+        if ts.clock:
+            return CL.clock_blens(state, self.n_tips, ts.clockvarpr)
+        return state["blen"]
+
     def log_prior_tree(self, state):
         """Prior over the branch lengths of the unrooted tree (the
-        uniform topology prior is a constant and dropped)."""
+        uniform topology prior is a constant and dropped), or over a
+        clock tree's ages, rates and tree-process parameters."""
+        if self.tree_settings.clock:
+            return self._log_prior_clock(state)
         bp = self.tree_settings.brlenspr
         blen = state["blen"]
         if bp.kind == "gammadir":
@@ -918,8 +1055,50 @@ class Engine:
         return brlens_uniform_lpdf(blen, self._blen_mask, bp.params[0],
                                    bp.params[1])
 
+    def _log_prior_clock(self, state):
+        """A clock tree's prior (mrbayes_tpu engine.py:2976-3045, without
+        the FBD, dated-tip, CPP, calibration and constraint terms): the
+        tree prior on the ages with its parameters' priors, the clock
+        rate's, the branch rates' with their variance's, and -inf where a
+        parent is not older than its child."""
+        ts = self.tree_settings
+        n = self.n_tips
+        age = state["age"]
+
+        def treeage_lpdf(t1):
+            return _scalar_prior_lpdf(ts.treeagepr, t1)
+
+        cr = state["clockrate"][:, 0] if "clockrate" in state else 1.0
+        if ts.clockpr == "uniform":
+            lp = CL.ln_uniform_clock(age, n, treeage_lpdf)
+        elif ts.clockpr == "birthdeath":
+            strat = (ts.samplestrat if ts.samplestrat in
+                     ("random", "diversity", "cluster") else "random")
+            sp, ex = state["speciation"][:, 0], state["extinction"][:, 0]
+            lp = (CL.ln_birthdeath_strat(age, n, sp, ex, ts.sampleprob,
+                                         treeage_lpdf, strategy=strat)
+                  + _scalar_prior_lpdf(ts.speciationpr, sp)
+                  + _scalar_prior_lpdf(ts.extinctionpr, ex))
+        else:
+            theta = state["popsize"][:, 0]
+            if "growth" in state:
+                growth = state["growth"][:, 0]
+                lp = _scalar_prior_lpdf(ts.growthpr, growth)
+            else:
+                growth = ts.growthpr.params[0] if ts.growthpr.params else 0.0
+                lp = self._zeros(state)
+            lp = (lp + CL.ln_coalescence(age, n, theta, growth, cr)
+                  + _scalar_prior_lpdf(ts.popsizepr, theta))
+        if "clockrate" in state:
+            lp = lp + _scalar_prior_lpdf(ts.clockratepr, cr)
+        if ts.clockvarpr != "strict":
+            var = state["clockvar"][:, 0]
+            lp = (lp + CL.ln_branch_rates_prior(state, n, ts.clockvarpr, var)
+                  + _scalar_prior_lpdf(ts.clockvar_prior(), var))
+        return torch.where(CL.ages_ordered(state), lp, NEG_INF)
+
     def _grouped_params_prior(self, state):
-        lp = state["blen"].new_zeros(state["blen"].shape[0])
+        lp = self._zeros(state)
         for (param, gid), pr in self.group_priors.items():
             x = state[param][:, gid]
             if param == "revmat" and gid in self._mixed_rev:
@@ -1103,17 +1282,27 @@ class Engine:
         return [int(r * nc + np.argmin(tid[r * nc:(r + 1) * nc]))
                 for r in range(self.mcmc.nruns)]
 
+    def effective_blens(self, states, slot: int) -> np.ndarray:
+        """One chain's substitution-unit branch lengths, float64 on the
+        host (``states`` tensors or host arrays); a clock tree's are
+        computed from its ages and rates in float32, as on the device."""
+        if not self.tree_settings.clock:
+            return _host(states["blen"][slot]).astype(np.float64)
+        one = {k: torch.as_tensor(_host(states[k][slot]))[None]
+               for k in ("parent", "age", "clockrate", "brate")
+               if k in states}
+        return self.branch_lengths(one)[0].double().numpy()
+
     def extract_tree(self, states, slot: int) -> Tree:
         """One chain's tree as a host ``Tree`` (``states`` tensors or
-        host arrays)."""
+        host arrays), rooted for a clock model."""
         def host(k):
-            return _host(states[k][slot])
+            return _host(states[k][slot]).astype(np.int32)
 
-        return Tree(parent=host("parent").astype(np.int32),
-                    left=host("left").astype(np.int32),
-                    right=host("right").astype(np.int32),
-                    blen=host("blen").astype(np.float64),
-                    n_tips=self.n_tips, rooted=False)
+        return Tree(parent=host("parent"), left=host("left"),
+                    right=host("right"),
+                    blen=self.effective_blens(states, slot),
+                    n_tips=self.n_tips, rooted=self.tree_settings.clock)
 
 
 def _host(x) -> np.ndarray:

@@ -51,7 +51,8 @@ def param_columns(eng: Engine):
         return "{" + ",".join(map(str, divs)) + "}"
 
     cols.append(("TL" + ("{all}" if multi else ""),
-                 lambda st, s: float(np.sum(st["blen"][s], dtype=np.float64))))
+                 lambda st, s: float(np.sum(eng.effective_blens(st, s)))))
+    cols += _clock_columns(eng, multi)
     for gid in range(eng.n_groups.get("revmat", 0)):
         for k, nm in enumerate(_REV_NAMES):
             cols.append((f"r({nm})" + suffix("revmat", gid),
@@ -85,6 +86,36 @@ def param_columns(eng: Engine):
     return cols
 
 
+def _clock_columns(eng: Engine, multi: bool):
+    """A clock model's columns after TL (mrbayes_tpu run.py:72-104): the
+    tree height in substitutions, the sampled clock rate, the branch-rate
+    variance and the tree-process parameters."""
+    ts = eng.tree_settings
+    if not ts.clock:
+        return []
+    root = eng.n_nodes - 1
+
+    def field(name):
+        return lambda st, s: float(st[name][s, 0])
+
+    cols = [("TH" + ("{all}" if multi else ""),
+             lambda st, s: float(st["age"][s, root])
+             * (float(st["clockrate"][s, 0]) if "clockrate" in st else 1.0))]
+    if ts.clockratepr.kind != "fixed":
+        cols.append(("clockrate", field("clockrate")))
+    if ts.clockvarpr != "strict":
+        cols.append((f"{ts.clockvarpr}var" + ("{all}" if multi else ""),
+                     field("clockvar")))
+    if ts.clockpr == "birthdeath":
+        cols += [("net_speciation", field("speciation")),
+                 ("relative_extinction", field("extinction"))]
+    if ts.clockpr == "coalescence":
+        cols.append(("theta", field("popsize")))
+        if ts.growthpr.kind != "fixed":
+            cols.append(("growthRate", field("growth")))
+    return cols
+
+
 def host_states(states: dict, bk: dict) -> dict:
     """Every chain-state tensor plus ``temp_id`` on the host, with ONE
     device->host copy: the tensors are packed as float64 into one buffer
@@ -102,6 +133,11 @@ def host_states(states: dict, bk: dict) -> dict:
         out[k] = buf[at:at + n].reshape(tuple(t.shape)).astype(dtype)
         at += n
     return out
+
+
+def _rooting(t) -> str:
+    """The reference's rooting comment of a tree line."""
+    return "[&R]" if t.rooted else "[&U]"
 
 
 class McmcRunner:
@@ -210,7 +246,7 @@ class McmcRunner:
                 f"{gen}\t{lnL:.6e}\t{lnP:.6e}\t"
                 + "\t".join(f"{v:.6e}" for v in vals) + "\n")
             t = self.eng.extract_tree(host, slot)
-            self.tf[r].write(f"   tree gen.{gen} = [&U] "
+            self.tf[r].write(f"   tree gen.{gen} = {_rooting(t)} "
                              + to_newick(t, numbers=True) + "\n")
             self.splits.add(r, t)
             self.param_samples[r].append(
@@ -253,7 +289,7 @@ class McmcRunner:
             r, c = slot // nc, slot % nc
             t = self.eng.extract_tree(host, slot)
             lines.append(f"   tree gen.{gen}$run={r + 1}.chain={c + 1}"
-                         f".heat={int(tid[slot])} = [&U] "
+                         f".heat={int(tid[slot])} = {_rooting(t)} "
                          + to_newick(t, numbers=True))
         lines += ["end;", "begin mbtpu_state;", f"   generation {gen};"]
 

@@ -306,3 +306,38 @@ def random_unrooted(n_tips: int, rng: np.random.Generator,
         edges.extend([tip, mid])
     t.check()
     return t
+
+
+def random_clock_tree(n_tips: int, rng: np.random.Generator,
+                      mean_age: float = 1.0):
+    """Random rooted topology with coalescent-style node ages.
+
+    Returns (Tree, ages[2n-1]) with the tips at age 0 and the root (node
+    2n-2) oldest.  Branch 'lengths' in the Tree are the age differences.
+    Each step joins a uniform pair of the active lineages after an
+    exponential wait of mean 2 * mean_age / (k (k - 1)).
+    """
+    n = n_tips
+    t = Tree(parent=np.full(2 * n - 1, -1, np.int32),
+             left=np.full(2 * n - 1, -1, np.int32),
+             right=np.full(2 * n - 1, -1, np.int32),
+             blen=np.zeros(2 * n - 1), n_tips=n, rooted=True)
+    ages = np.zeros(2 * n - 1)
+    active = list(range(n))
+    age = 0.0
+    for i in range(n - 1):
+        k = len(active)
+        age += rng.exponential(2.0 * mean_age / (k * (k - 1)))
+        a, b = rng.choice(k, 2, replace=False)
+        node = n + i
+        na, nb = active[a], active[b]
+        t.left[node], t.right[node] = na, nb
+        t.parent[na] = t.parent[nb] = node
+        ages[node] = age
+        active = [x for j, x in enumerate(active) if j not in (a, b)]
+        active.append(node)
+    for v in range(2 * n - 2):
+        t.blen[v] = ages[t.parent[v]] - ages[v]
+    t.blen[t.root] = 0.0
+    t.check()
+    return t, ages

@@ -1,8 +1,9 @@
 """The port stands alone: importing ``mrbayes_tpu_torch`` (the engine, the
 CLI, the run driver, the summaries, the native tree reader and the
 envelope run) and running CPU ``Engine`` blocks, single-division,
-partitioned through the multiwalk wiring and sharded over the ``sites``
-mesh axis (``parallel.mesh``, ``parallel.dryrun``), loads neither JAX nor any
+partitioned through the multiwalk wiring, sharded over the ``sites``
+mesh axis (``parallel.mesh``, ``parallel.dryrun``) and on a clock tree
+(``mcmc.clock``, test2's relaxed clock), loads neither JAX nor any
 module of the JAX package (``mrbayes_tpu``), and ``chip_smoke.py``
 imports neither.  Checked in a
 fresh interpreter, since this test process has JAX loaded already."""
@@ -50,6 +51,16 @@ import mrbayes_tpu_torch.parallel.dryrun
 from mrbayes_tpu_torch.parallel.mesh import make_mesh, shard_engine_data
 shard_engine_data(eng, make_mesh(1, 2, ["cpu"] * 2))
 states, bk = eng.run_block(*eng.init_chains(), 3)
+# a clock engine: test2's IGR relaxed clock, with its rooted tree
+it = Interpreter(log=lambda m: None, device="cpu")
+for line in ["execute " + sys.argv[1], "partition p = 2: 1-400, 401-.",
+             "set partition=p", "lset nst=mixed rates=invgamma",
+             "prset brlenspr=clock:uniform clockratepr=exp(1) "
+             "clockvarpr=igr", "mcmcp nruns=1 nchains=2"]:
+    it.run_line(line)
+eng = it.build_engine()
+states, bk = eng.run_block(*eng.init_chains(), 3)
+assert "age" in states and eng.extract_tree(states, 0).rooted
 print(" ".join(sorted(sys.modules)))
 """
 
