@@ -96,7 +96,35 @@ Phases, each fatal on failure:
      errors of 1, and statistics of the internal ages and the topology
      (the second-oldest and the mean internal age over the root age, the
      number of cherries, the smaller root clade) within 4 standard errors
-     of a direct sample of the same prior (the moves' Hastings ratios).
+     of a direct sample of the same prior (the moves' Hastings ratios);
+ 21. eigh kernel (run with phase 3): csrc/eigh.cu, the batched S > 8
+     eigensolver, against its plain version (torch.linalg.eigh in float64)
+     at [8, 20, 20], [32, 20, 20], [24, 61, 61] and [96, 61, 61] seeded
+     reversible generators, Poisson's among them: reconstruction and P(t)
+     at four branch lengths within 1e-10 (a float32 solve misses it by
+     three orders), with the sweeps taken, its
+     CUDA-graph time, torch.linalg.eigh's (library_ms), the bound and the
+     ptxas registers; pruning.cu at the avian (S 20, K 1 and 4) and
+     replicase (S 61, K 1 and 3) shapes at C = 8 and 32 runs with phase 3;
+ 22. golden protein and codon: the protein_jones_g and codon_m0 rows of
+     tests/golden_primates.json and the replicase_ny98 rows of
+     tests/golden_extra.json on the card (within 0.05, 0.6 and 1.0);
+ 23. avian: avian_ovomucoids.nex under the manual's aamodelpr=mixed
+     through the CLI, 2 runs x 4 chains, 1,000 generations: one pruning.cu
+     launch a likelihood, one eigh.cu launch at the engine's build (the 11
+     models' fixed eigensystems as one batch) and none in the loop,
+     carried versus recomputed scores, the files, sump
+     and sumt, each model's posterior share;
+ 24. avian aamodelpr=fixed(gtr) and mixed: a block and one generation of
+     every move type with host synchronisation made an error, eigh.cu
+     once per Q move under gtr and never under mixed;
+ 25. replicase NY98: replicase.nex under lset nucmodel=codon omegavar=ny98
+     through the CLI, 2 runs x 4 chains, 2,000 generations, with phase 23's
+     checks and eigh.cu once per refresh; then the sync check of phase 24;
+ 26. prior-only protein and codon: mcmc data=no from draws of the prior,
+     32 runs x 1 chain, 2,000 generations: each amino-acid model's share,
+     M0's omega/(1+omega), NY98's omega1, omega3 and class frequencies
+     within 4 batch-means standard errors of their prior means.
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -122,6 +150,7 @@ GOLDEN_EXTRA = os.path.join(HERE, "tests", "golden_extra.json")
 OUT = os.path.join(HERE, "runs")           # run outputs (gitignored)
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+H100_FP64_FLOPS = 67e12          # fp64 on the tensor cores (data sheet)
 RTOL = ATOL = 2e-5               # per-pattern lnL, kernel vs plain version
 # wavefront cases (n_tips, P, S, K, W): every cynmix division (P with the
 # coding dummies: the four genes, then the morphology buckets S = 2, 3, 8;
@@ -154,8 +183,17 @@ KERNEL_CASES += [(n, P, S, K, 8) for n, P, S, K, _ in CYNMIX_SHAPES
     + [(32, 10, 4, 4, 8)] \
     + [(TEST1_SHAPE[0], P, TEST1_SHAPE[3], K, 8)
        for P, K in zip(*TEST1_SHAPE[1:3])]
+# the protein and codon main paths' shapes (n_tips, P, S, K): avian under
+# a gamma model (89 taxa, 88 patterns; the manual's aamodelpr=mixed run
+# has K = 1, whose launches the CLI phase counts), replicase under M0 and
+# NY98 (9 taxa, 239 codon patterns); each at 2 runs x 4 chains and at 32
+# chains, all with their operators staged a step ahead
+AA_CODON_SHAPES = [(89, 88, 20, 4), (89, 88, 20, 1), (9, 239, 61, 1),
+                   (9, 239, 61, 3)]
+KERNEL_CASES += [shape + (C,) for shape in AA_CODON_SHAPES for C in (8, 32)]
 KERNEL_WALKS = {(6, 40, 61, 3): "staged", (9, 70, 32, 16): "global",
-                (32, 100, 20, 4): "staged"}
+                (32, 100, 20, 4): "staged",
+                **{shape: "staged" for shape in AA_CODON_SHAPES}}
 # a stacked group on 9 tips, C = 4, whose members (P, S, K) take the
 # global-scratch, staged and whole walks
 STACKED_MIXED = ((70, 32, 16), (30, 61, 3), (40, 4, 4))
@@ -191,6 +229,17 @@ CYNMIX_GENS = 600
 # of 8 divisions near -36,117 is compared with the reference only: one
 # float32 spacing there is 0.0039)
 GOLDEN_PATH_TOL = 1e-3
+AVIAN = os.path.join(EXAMPLES, "avian_ovomucoids.nex")
+REPLICASE = os.path.join(EXAMPLES, "replicase.nex")
+# eigh.cu's batches (matrices, S): avian's 8 and 32 chains, replicase
+# NY98's 8 and 32 chains x 3 omega classes; its tolerance on
+# |A - V diag(w) V^T| / |A| and on P(t) against the plain version
+EIGH_CASES = [(8, 20), (32, 20), (24, 61), (96, 61)]
+EIGH_TOL = 1e-10
+# the protein and codon runs through the CLI (2 runs x 4 chains), and
+# their prior-only check: runs x 1 chain, generations, seed
+AA_GENS, CODON_GENS = 1000, 2000
+AA_PRIOR_RUNS, AA_PRIOR_GENS, AA_PRIOR_SEED = 32, 2000, 13
 
 
 def log(msg):
@@ -377,9 +426,9 @@ def time_graph(torch, fn, n=100, reps=5):
     return start.elapsed_time(stop) / (reps * n)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=H100_FP32_FLOPS):
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = flops / H100_FP32_FLOPS * 1e3
+    ops_ms = flops / flops_per_s * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "flops": flops}
@@ -474,6 +523,9 @@ def phase_kernels(torch):
             "before_loop_ms": time_events(torch, before, 200),
             **{k: v for k, v in bound(nbytes, flops).items()
                if k in ("bound_ms", "bound_by")}}
+        if (n_tips, P, S, K) in AA_CODON_SHAPES:
+            cases[f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"]["plain_ms"] = time_events(
+                torch, lambda: PC.pruning_down_plain(lr, pstep, tips), 5)
         log(f"pruning_down timing n_tips={n_tips} P={P} S={S} K={K} C={C}: "
             f"{json.dumps(cases[f'n{n_tips}_P{P}_S{S}_K{K}_C{C}'])}")
         if (n_tips, P, S, K) != (12, 413, 4, 4):
@@ -1817,6 +1869,366 @@ def phase_prior_only(torch, ds, seed, power_line):
     return out
 
 
+def reversible_batch(torch, rng, B, S):
+    """B seeded symmetrised reversible generators D^1/2 Q D^-1/2 [B, S, S]
+    (float64, on the card): every fourth Poisson's (equal rates and
+    frequencies: one eigenvalue S - 1 times), the others gamma(1)
+    exchangeabilities and Dirichlet(2) frequencies."""
+    out = []
+    for i in range(B):
+        poisson = i % 4 == 0
+        pi = np.full(S, 1.0 / S) if poisson else rng.dirichlet(np.ones(S) * 2)
+        ex = (np.ones(S * (S - 1) // 2) if poisson
+              else rng.gamma(1.0, 1.0, S * (S - 1) // 2))
+        R = np.zeros((S, S))
+        R[np.triu_indices(S, 1)] = ex
+        Q = (R + R.T) * pi[None]
+        np.fill_diagonal(Q, -Q.sum(1))
+        Q /= -(pi * np.diag(Q)).sum()
+        sq = np.sqrt(pi)
+        A = Q * (sq[:, None] / sq[None, :])
+        out.append(0.5 * (A + A.T))
+    return torch.tensor(np.stack(out), dtype=torch.float64, device=DEV)
+
+
+def eigh_flops(S):
+    """Float64 operations of one symmetric S x S eigendecomposition with
+    eigenvectors, whatever the method: about 9 S^3 (the symmetric QR
+    algorithm's count, Golub and Van Loan 8.3), not the Jacobi sweeps
+    eigh.cu takes."""
+    return 9 * S ** 3
+
+
+def phase_eigh(torch):
+    """eigh.cu against its plain version (torch.linalg.eigh in float64) at
+    the batches the main path gives it, seeded reversible generators with
+    Poisson's among them: A = V diag(w) V^T within EIGH_TOL of |A| and
+    P(t) within EIGH_TOL of the plain version's at four branch lengths;
+    the sweeps taken, the kernel's CUDA-graph time, the plain version's
+    and torch.linalg.eigh's (library_ms) on the same batch, and the
+    bound."""
+    from mrbayes_tpu_torch.ops import eigh_cuda as E
+    rng = np.random.default_rng(300)
+    cases = {}
+    for B, S in EIGH_CASES:
+        A = reversible_batch(torch, rng, B, S)
+        w, V, sw = E.eigh_cuda(A, with_sweeps=True)
+        torch.cuda.synchronize()
+        wp, Vp = E.eigh_plain(A)
+        A64 = A.double()
+        rec = ((V @ torch.diag_embed(w) @ V.transpose(-1, -2) - A64).norm(
+            dim=(1, 2)) / A64.norm(dim=(1, 2))).max().item()
+        p_err = 0.0
+        for t in (0.01, 0.1, 1.0, 10.0):
+            P = V @ torch.diag_embed(torch.exp(w * t)) @ V.transpose(-1, -2)
+            Pp = Vp @ torch.diag_embed(torch.exp(wp * t)) @ \
+                Vp.transpose(-1, -2)
+            p_err = max(p_err, (P - Pp).abs().max().item())
+        sweeps = sw.cpu().numpy()
+        log(f"eigh_cuda B={B} S={S}: |A - V diag(w) V^T| / |A| {rec:.3e}, "
+            f"max |P(t) - plain| {p_err:.3e} (limit {EIGH_TOL}), sweeps "
+            f"{int(sweeps.min())}-{int(sweeps.max())}")
+        if not (rec <= EIGH_TOL and p_err <= EIGH_TOL):
+            raise AssertionError(f"eigh_cuda B={B} S={S} disagrees with its "
+                                 f"plain version")
+        w_o, V_o = torch.empty_like(w), torch.empty_like(V)
+
+        def raw():
+            E.eigh_launch(A, w_o, V_o, None)
+        nbytes = 8 * (A.numel() + w.numel() + V.numel())
+        flops = B * eigh_flops(S)
+        cases[f"B{B}_S{S}"] = {
+            "max_abs_err": p_err, "reconstruction": rec,
+            "sweeps_min": int(sweeps.min()), "sweeps_max": int(sweeps.max()),
+            "sweeps_mean": float(sweeps.mean()),
+            "ms": time_graph(torch, raw, n=20, reps=3),
+            "wrapper_ms": time_events(torch, lambda: E.eigh_cuda(A), 20),
+            "plain_ms": time_events(torch, lambda: E.eigh_plain(A), 5),
+            "library_ms": time_events(torch, lambda: torch.linalg.eigh(A), 5),
+            **{k: v for k, v in bound(nbytes, flops, H100_FP64_FLOPS).items()
+               if k in ("bound_ms", "bound_by")}}
+        log(f"eigh_cuda timing B={B} S={S}: {json.dumps(cases[f'B{B}_S{S}'])}")
+    return cases
+
+
+def aa_codon_engine(torch, data, lines, nruns=1, nchains=1, seed=3):
+    """The port's engine for ``data`` (an examples file) under the CLI
+    ``lines``, on the card."""
+    from mrbayes_tpu_torch.cli import Interpreter
+    it = Interpreter(log=lambda m: None, device=DEV)
+    for ln in [f"execute {data}", *lines,
+               f"mcmcp nruns={nruns} nchains={nchains} seed={seed}"]:
+        it.run_line(ln)
+    return it, it.build_engine()
+
+
+def phase_golden_aa_codon(torch):
+    """The protein_jones_g and codon_m0 rows of tests/golden_primates.json
+    and the replicase_ny98 rows of tests/golden_extra.json on the card,
+    at the CPU tests' tolerances (0.05, 0.6 and each row's tol).  Returns
+    the worst gap of each and the pruning.cu and eigh.cu launches they
+    made."""
+    from mrbayes_tpu_torch.ops import eigh_cuda as E
+    from mrbayes_tpu_torch.trees import parse_newick
+    gold = json.load(open(GOLDEN))
+    sets = [("protein_jones_g", AVIAN, ["lset rates=gamma",
+                                        "prset aamodelpr=fixed(jones)"],
+             [r for r in gold if r["model"] == "protein_jones_g"]),
+            ("codon_m0", REPLICASE, ["lset nucmodel=codon"],
+             [r for r in gold if r["model"] == "codon_m0"]),
+            ("replicase_ny98", REPLICASE,
+             ["lset nucmodel=codon omegavar=ny98"],
+             [r for r in json.load(open(GOLDEN_EXTRA))
+              if r["name"] == "replicase_ny98"])]
+    tol = {"protein_jones_g": 0.05, "codon_m0": 0.6}
+    out, launches = {}, {"pruning_down": 0, "eigh": 0}
+    E.EIGH.launches = 0
+    for name, data, lines, rows in sets:
+        _, eng = aa_codon_engine(torch, data, lines)
+        worst = 0.0
+        for rec in rows:
+            st = tree_state(torch, parse_newick(rec["newick"], eng.data.taxa))
+            state = rec.get("state", {
+                "shape": [rec["alpha"]] if "alpha" in rec else None,
+                "pi61": [rec["pi61"]] if "pi61" in rec else None,
+                "omega": [rec["omega"]] if "omega" in rec else None})
+            for k, v in state.items():
+                if v is not None:
+                    st[k] = torch.tensor([v], dtype=torch.float32,
+                                         device=DEV)
+            lnl = eng.log_likelihood(eng.refresh_eigs(st))[0].item()
+            worst = max(worst, abs(lnl - rec["lnL"]))
+            if abs(lnl - rec["lnL"]) >= tol.get(name, rec.get("tol")):
+                raise AssertionError(f"golden {name}@{rec.get('gen')}: lnL "
+                                     f"{lnl} vs reference {rec['lnL']}")
+        out[name] = worst
+        launches["pruning_down"] += eng._pruners[0].launches
+        log(f"golden {name}: {len(rows)} rows, max |lnL - reference| "
+            f"{worst:.4f} (limit {tol.get(name, rows[0].get('tol'))}), "
+            f"{eng._pruners[0].launches} pruning_down launches")
+    launches["eigh"] = E.EIGH.launches
+    if launches["eigh"] < len(sets[1][3]) + len(sets[2][3]):
+        raise AssertionError(f"{launches['eigh']} eigh_cuda launches for "
+                             f"the codon rows")
+    return out, launches
+
+
+def solver_q_generations(eng, bk):
+    """Generations of the run in ``bk`` that changed a Q matrix, plus the
+    initial refresh: the eigh.cu launches predicted for an engine whose
+    eigensystems go through the solver (one launch a refresh: every
+    chain's and class's matrices in one batch)."""
+    tries = bk["tries_total"][0].cpu().numpy()
+    return 1 + int(sum(tries[m] for m, spec in enumerate(eng.moves)
+                       if spec.updates_q))
+
+
+def build_eigh_launches(eng):
+    """The eigh.cu launches of an engine's build: one per division whose
+    fixed eigensystem has more than 8 states, and one for the stack of
+    aamodelpr=mixed's 11 models."""
+    return (sum(1 for i in eng._const_eigs if eng.div_cfg[i].div.n_states > 8)
+            + (1 if eng.n_groups.get("aamodel") else 0))
+
+
+def phase_aa_codon_cli(torch, name, ngen, solver, power_line):
+    """avian (aamodelpr=mixed) or replicase under NY98 through the CLI, 2
+    runs x 4 chains: one pruning.cu launch per likelihood (ngen + 1: no
+    division groups), eigh.cu once per fixed eigensystem at the engine's
+    build (``build_eigh_launches``) and once per refresh where the
+    division's Q goes through the solver (``solver``),
+    carried versus recomputed scores, complete files, sump and sumt; for
+    avian the posterior share of each amino-acid model.  The engine is
+    built inside ``execute_file``: its counts start at 0 there, eigh.cu's
+    is set to 0 just before, and both are read when the run is over."""
+    from mrbayes_tpu_torch.envelope import run_batch
+    from mrbayes_tpu_torch.mcmc.engine import AA_MIXED_ORDER
+    from mrbayes_tpu_torch.ops import eigh_cuda as E
+    from mrbayes_tpu_torch.ops.pruning_cuda import PruningCuda
+    workdir = os.path.join(OUT, name)
+    shutil.rmtree(workdir, ignore_errors=True)
+    E.EIGH.launches = 0                       # the main path's run starts
+    it, stats, lines = run_batch(name, workdir, ngen, device=DEV,
+                                 diagnfreq=min(1000, ngen))
+    eigh_launches = E.EIGH.launches           # ... and ends here
+    runner = it._last_runner
+    eng = runner.eng
+    if eng._multiwalk_pruners or eng._stacked_pruners \
+            or type(eng._pruners[0]) is not PruningCuda:
+        raise AssertionError(f"{name}: expected one pruning.cu division")
+    calls = ngen + 1
+    launches = eng._pruners[0].launches
+    expect_eigh = build_eigh_launches(eng) + (
+        solver_q_generations(eng, runner.final_bk) if solver else 0)
+    if launches != calls or eigh_launches != expect_eigh:
+        raise AssertionError(f"{name} launches: pruning_down {launches}, "
+                             f"eigh {eigh_launches}; predicted {calls} and "
+                             f"{expect_eigh}")
+    assert_carried(eng, runner.final_states, runner.final_bk)
+    for phrase in ("Average PSRF for parameter values",
+                   "Credible sets of trees", "Consensus tree written to"):
+        if not any(phrase in ln for ln in lines):
+            raise AssertionError(f"sump/sumt printed no {phrase!r}")
+    expect_rows = ngen // eng.mcmc.samplefreq + 1
+    first, idx = [], []
+    for r in (1, 2):
+        with open(os.path.join(workdir, f"{name}.run{r}.p")) as f:
+            f.readline()
+            header = f.readline().rstrip("\n").split("\t")
+            rows = [ln.split("\t") for ln in f if ln[:1].isdigit()]
+        with open(os.path.join(workdir, f"{name}.run{r}.t")) as f:
+            text = f.read()
+        if len(rows) != expect_rows or not text.rstrip().endswith("end;") \
+                or text.count("tree gen.") != expect_rows:
+            raise AssertionError(f"{name}.run{r}: {len(rows)} .p rows, "
+                                 f"expected {expect_rows}, or incomplete .t")
+        first.append(float(rows[0][1]))
+        if "aamodel" in header:
+            col = header.index("aamodel")
+            idx += [int(float(x[col])) for x in rows[len(rows) // 4:]]
+    if not stats["best_lnl"] > max(first):
+        raise AssertionError(f"{name} best lnL {stats['best_lnl']} did not "
+                             f"climb from the start {first}")
+    shares = ({m: idx.count(k) / len(idx)
+               for k, m in enumerate(AA_MIXED_ORDER)} if idx else None)
+    log(f"{name} through the CLI: {json.dumps(stats)}; start lnL {first}; "
+        f"pruning_down launches {launches}, eigh launches {eigh_launches} for "
+        f"{ngen} gens; posterior model shares {json.dumps(shares)}; card "
+        f"{power_line}")
+    return it, {**stats, "pruning_down_launches": launches,
+                "eigh_launches": eigh_launches, "aamodel_shares": shares}
+
+
+def phase_aa_codon_sync(torch, name, eng, power_line, solver=True):
+    """A block and one generation of every move type of ``eng`` with host
+    synchronisation made an error, and eigh.cu's launches over them
+    against the prediction: one a Q-move generation where the division's
+    Q goes through the solver (``solver``), none where it does not."""
+    from mrbayes_tpu_torch.ops import eigh_cuda as E
+    states, bk = eng.init_chains()
+    torch.cuda.synchronize()
+    before = bk["tries_total"][0].clone()
+    E.EIGH.launches = 0
+    states, bk = sync_checked(torch, eng, states, bk, SYNC_GENS)
+    launches = E.EIGH.launches
+    q = [m for m, spec in enumerate(eng.moves) if spec.updates_q]
+    expect = (int((bk["tries_total"][0] - before)[q].sum()) + len(q)
+              if solver else 0)
+    if launches != expect:
+        raise AssertionError(f"{name}: {launches} eigh launches, predicted "
+                             f"{expect}")
+    log(f"{name}: no host sync in a {SYNC_GENS}-gen block or in any of the "
+        f"{len(eng.moves)} move types ({', '.join(m.name for m in eng.moves)})"
+        f"; eigh launches {launches} ({len(q)} Q move types); card "
+        f"{power_line}")
+    return launches
+
+
+def prior_start(torch, eng, states, rng):
+    """The chains' amino-acid model and codon parameters drawn from the
+    prior the engine samples (the moves' bounds included), so that a
+    prior-only run is at its target from the first generation and needs
+    no burn-in: the model index uniform, omega/(1+omega) uniform on the
+    omega multiplier's [1e-4, 1e3], omega1 uniform, omega3 1 + Exp(1), the
+    class and codon frequencies flat Dirichlet.  Returns rescored
+    states."""
+    from mrbayes_tpu_torch.mcmc.engine import SCORE_KEYS
+    n = states["parent"].shape[0]
+    lo, hi = 1e-4 / (1 + 1e-4), 1e3 / (1 + 1e3)
+    draws = {"aamodel_idx": lambda: rng.integers(0, 11, (n, 1)),
+             "omega": lambda: (lambda x: x / (1 - x))(
+                 rng.uniform(lo, hi, (n, 1))),
+             "omega1": lambda: rng.uniform(size=(n, 1)),
+             "omega3": lambda: 1.0 + rng.exponential(size=(n, 1)),
+             "omegaprobs": lambda: rng.dirichlet(np.ones(3), (n, 1)),
+             "pi61": lambda: rng.dirichlet(np.ones(61), (n, 1))}
+    st = {k: v for k, v in states.items() if k not in SCORE_KEYS}
+    for k, draw in draws.items():
+        if k in st:
+            st[k] = torch.as_tensor(draw(), dtype=st[k].dtype,
+                                    device=DEV).reshape(st[k].shape)
+    return eng.score(eng.refresh_eigs(st))
+
+
+def phase_aa_codon_prior(torch, seed, power_line):
+    """mcmc data=no, AA_PRIOR_RUNS runs x 1 chain from ``seed``, each run
+    started from a draw of the prior (``prior_start``), over AA_PRIOR_GENS
+    generations: avian under aamodelpr=mixed, each model's share within 4
+    batch-means standard errors (one batch a run) of 1/11; replicase under
+    M0, omega/(1+omega) (Beta(1,1) under omegapr=dirichlet(1,1), on the
+    multiplier's bounds: mean 0.49955) within 4 of its mean; under NY98,
+    omega1 (Beta(1,1)) within 4 of 1/2, omega3 (exponential(1) on the
+    move's [1, 1000]) within 4 of 2 and each class frequency (Dirichlet(1,
+    1,1)) within 4 of 1/3.  A wrong Hastings ratio of aamodel_jump or of
+    an omega move drifts the runs off these means."""
+    from mrbayes_tpu_torch.mcmc.engine import Engine
+    from mrbayes_tpu_torch.mcmc.settings import (DivisionSettings,
+                                                 McmcSettings, Prior)
+    from mrbayes_tpu_torch.data import DataSet, make_divisions
+    from mrbayes_tpu_torch.nexus.parser import read_nexus_file
+
+    def dataset(path):
+        nf = read_nexus_file(path)
+        return DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar,
+                       divisions=make_divisions(nf.matrix))
+
+    def stats_mixed(st):
+        idx = st["aamodel_idx"][:, 0]
+        return torch.stack([(idx == k).float() for k in range(11)], 1)
+
+    def stats_m0(st):
+        w = st["omega"][:, 0]
+        return (w / (1.0 + w))[:, None]
+
+    def stats_ny98(st):
+        return torch.cat([st["omega1"], st["omega3"],
+                          st["omegaprobs"][:, 0]], 1)
+
+    runs = [("avian mixed", AVIAN, DivisionSettings(
+                aamodelpr=Prior("mixed", ())), stats_mixed,
+             [(f"share({m})", 1.0 / 11) for m in range(11)]),
+            ("replicase M0", REPLICASE, DivisionSettings(nucmodel="codon"),
+             stats_m0, [("omega/(1+omega)",
+                         0.5 * (1e-4 / (1 + 1e-4) + 1e3 / (1 + 1e3)))]),
+            ("replicase NY98", REPLICASE, DivisionSettings(
+                nucmodel="codon", omegavar="ny98"), stats_ny98,
+             [("omega1", 0.5), ("omega3", 2.0), ("pi(-)", 1.0 / 3),
+              ("pi(N)", 1.0 / 3), ("pi(+)", 1.0 / 3)])]
+    out, bad = {"seed": seed, "gens": AA_PRIOR_GENS,
+                "runs": AA_PRIOR_RUNS}, []
+    rng = np.random.default_rng(seed)
+    for what, data, setts, fn, targets in runs:
+        eng = Engine(dataset(data), [setts], mcmc=McmcSettings(
+            nruns=AA_PRIOR_RUNS, nchains=1, seed=seed, use_data=False),
+            device=DEV)
+        states, bk = eng.init_chains()
+        states = prior_start(torch, eng, states, rng)
+        rec = []
+        t0 = time.perf_counter()
+        for _ in range(AA_PRIOR_GENS // 10):
+            states, bk = eng.run_block(states, bk, 10)
+            rec.append(fn(states))
+        x = torch.stack(rec).cpu().numpy()            # [recs, runs, stats]
+        rate = AA_PRIOR_GENS / (time.perf_counter() - t0)
+        means = x.mean(0)                             # [runs, stats]
+        res = {"gens_per_s": rate}
+        for j, (nm, target) in enumerate(targets):
+            mu = float(means[:, j].mean())
+            se = float(means[:, j].std(ddof=1) / np.sqrt(AA_PRIOR_RUNS))
+            z = (mu - target) / se if se > 0 else float("inf")
+            res[nm] = {"mean": mu, "prior": target, "se": se, "z": z}
+            if not abs(z) <= 4.0:
+                bad.append(f"{what} {nm}")
+        out[what] = res
+    log(f"prior-only amino-acid and codon models (data=no), seed {seed}, "
+        f"{AA_PRIOR_RUNS} runs x 1 chain, {AA_PRIOR_GENS} gens: "
+        f"{json.dumps(out)}; card {power_line}")
+    if bad:
+        raise AssertionError(f"prior-only marginals off their prior means "
+                             f"(seed {seed}): {bad}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--test1-gens", type=int, default=TEST1_GENS)
@@ -1860,6 +2272,7 @@ def main(argv=None) -> int:
     err_wf, t_wf, wf_root_diff = phase_wavefront_kernels(torch)
     err_st, t_st = phase_stacked(torch)
     err_ck, t_ck = phase_clock_kernels(torch)
+    eigh_cases = phase_eigh(torch)
     log(f"[{time.perf_counter() - t_start:.1f} s] kernels phases done")
 
     # 4.-5. primates, the first slice's main path
@@ -1897,6 +2310,30 @@ def main(argv=None) -> int:
              for seed in PRIOR_SEEDS]
     log(f"[{time.perf_counter() - t_start:.1f} s] clock phases done")
 
+    # 21.-26. the amino-acid and codon models, the eighth slice's main path
+    golden_aa, golden_aa_launches = phase_golden_aa_codon(torch)
+    log(f"[{time.perf_counter() - t_start:.1f} s] golden protein and codon "
+        f"rows done")
+    _, avian = phase_aa_codon_cli(torch, "avian", AA_GENS, False, power_line)
+    log(f"[{time.perf_counter() - t_start:.1f} s] avian done")
+    _, gtr_eng = aa_codon_engine(torch, AVIAN, ["prset aamodelpr=fixed(gtr)"],
+                                 nchains=4)
+    gtr_sync = phase_aa_codon_sync(torch, "avian aamodelpr=fixed(gtr)",
+                                   gtr_eng, power_line)
+    _, mixed_eng = aa_codon_engine(torch, AVIAN, ["prset aamodelpr=mixed"],
+                                   nchains=4)
+    mixed_sync = phase_aa_codon_sync(torch, "avian aamodelpr=mixed",
+                                     mixed_eng, power_line, solver=False)
+    log(f"[{time.perf_counter() - t_start:.1f} s] avian sync checks done")
+    it_r, ny98 = phase_aa_codon_cli(torch, "replicase_ny98", CODON_GENS, True,
+                                    power_line)
+    ny98_sync = phase_aa_codon_sync(torch, "replicase NY98",
+                                    it_r.build_engine(), power_line)
+    log(f"[{time.perf_counter() - t_start:.1f} s] replicase NY98 done")
+    aa_prior = phase_aa_codon_prior(torch, AA_PRIOR_SEED, power_line)
+    log(f"[{time.perf_counter() - t_start:.1f} s] protein and codon phases "
+        f"done")
+
     keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     # each kernel's launches are the sum of its runs' counts, each count
     # set to 0 just before its run and read just after
@@ -1904,7 +2341,18 @@ def main(argv=None) -> int:
         **{f"primates_c{C}": r["launches"] for C, r in runs.items()},
         "test1_switch_off": switch["pruning_down_launches_off"],
         "test2_switch_off": switch2["pruning_down_launches_off"],
-        "golden_clock_rows": golden_clock_launches}
+        "golden_clock_rows": golden_clock_launches,
+        "golden_protein_codon_rows": golden_aa_launches["pruning_down"],
+        "avian_cli": avian["pruning_down_launches"],
+        "replicase_ny98_cli": ny98["pruning_down_launches"]}
+    eigh_launches = {"golden_codon_rows": golden_aa_launches["eigh"],
+                     "avian_cli": avian["eigh_launches"],
+                     "avian_gtr_sync": gtr_sync,
+                     "avian_mixed_sync": mixed_sync,
+                     "replicase_ny98_cli": ny98["eigh_launches"],
+                     "replicase_ny98_sync": ny98_sync}
+    aa_keys = ("best_lnl", "tl_mean", "asdsf", "avg_psrf", "run_s",
+               "gens_per_s")
     mw_launches = {"test1": t1["multiwalk_launches"],
                    "test2": t2["multiwalk_launches"]}
     kernels = [{
@@ -1917,7 +2365,8 @@ def main(argv=None) -> int:
         "gens_per_run": {
             **{f"primates_c{C}": r["gens"] for C, r in runs.items()},
             "test1_switch_off": args.switch_blocks * BLOCK_GENS,
-            "test2_switch_off": args.switch_blocks * BLOCK_GENS},
+            "test2_switch_off": args.switch_blocks * BLOCK_GENS,
+            "avian_cli": AA_GENS, "replicase_ny98_cli": CODON_GENS},
         "max_abs_err": max(err_pd, err_ck["pruning_down"]),
         **{k: t_pd[4][k] for k in keys + ("before_ms", "walk", "threads",
                                            "T", "lanes")},
@@ -2046,6 +2495,28 @@ def main(argv=None) -> int:
         "golden_cynmix_max_err": golden_cyn[0],
         "dryrun_sites": sh_dry,
         "distinct_cards": sh_cards or None,
+        "card": power_line,
+    }, {
+        "name": "eigh_jacobi",
+        "route": "cuda",
+        "source": "mrbayes_tpu_torch/csrc/eigh.cu",
+        "replaces": "mrbayes_tpu/ops/tiprobs.py:34",
+        "launches": sum(eigh_launches.values()),
+        "launches_per_run": eigh_launches,
+        "gens_per_run": {"avian_cli": AA_GENS,
+                         "replicase_ny98_cli": CODON_GENS},
+        "max_abs_err": max(c["max_abs_err"] for c in eigh_cases.values()),
+        **{k: eigh_cases["B24_S61"][k] for k in (
+            "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "sweeps_mean")},
+        "shape": "replicase NY98, 2 runs x 4 chains x 3 omega classes: "
+                 "B=24 S=61",
+        "cases": eigh_cases,
+        "ptxas": ptxas["eigh"],
+        "golden_max_err": golden_aa,
+        "avian": {k: avian[k] for k in aa_keys + ("aamodel_shares",)},
+        "replicase_ny98": {k: ny98[k] for k in aa_keys},
+        "prior_only": aa_prior,
         "card": power_line,
     }]
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")

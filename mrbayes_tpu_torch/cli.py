@@ -77,7 +77,7 @@ PARAM_ALIASES = {
 # commands of mrbayes_tpu/cli.py not carried yet -> their ROADMAP item
 NOT_PORTED = {
     **dict.fromkeys(("constraint", "calibrate"), "Queue 1 item 10b"),
-    **dict.fromkeys(("pairs",), "Queue 1 item 12"),
+    **dict.fromkeys(("pairs",), "Queue 1 item 12b"),
     **dict.fromkeys(("report", "ss", "ssp", "sumss", "comparetree",
                      "compareref", "plot", "propset", "startvals",
                      "speciespartition"), "Queue 1 item 14"),
@@ -94,15 +94,18 @@ PRSET_NOT_PORTED = {
     **dict.fromkeys(("mixedvarpr", "cppratepr", "cppmultdevpr",
                      "fossilizationpr", "nodeagepr", "topologypr"),
                     "Queue 1 item 10b"),
-    **dict.fromkeys(("omegapr", "ny98omega1pr", "ny98omega3pr",
-                     "codoncatfreqpr", "m3omegapr", "m10betapr",
-                     "m10gammapr", "aamodelpr", "aarevmatpr"),
-                    "Queue 1 item 12"),
+    **dict.fromkeys(("m3omegapr", "m10betapr", "m10gammapr"),
+                    "Queue 1 item 12b"),
     **dict.fromkeys(("ratecorrpr", "covswitchpr", "symdirihyperpr",
                      "rootfreqpr", "browncorrpr", "brownscalepr"),
                     "Queue 1 item 13"),
     **dict.fromkeys(("generatepr", "popvarpr", "ploidy"), "Queue 1 item 14"),
 }
+
+
+# aamodelpr=fixed(<name>) (mrbayes_tpu cli.py:749-760)
+AA_MODEL_NAMES = ("poisson", "jones", "dayhoff", "mtrev", "mtmam", "wag",
+                  "rtrev", "cprev", "vt", "blosum", "lg", "equalin", "gtr")
 
 
 def _not_ported(what: str, item: str) -> CommandError:
@@ -431,9 +434,13 @@ class Interpreter:
                   "ilnvarpr", "tk02varpr", "wnvarpr", "speciationpr",
                   "extinctionpr", "popsizepr", "growthpr", "sampleprob",
                   "samplestrat")
+    # the amino-acid and codon prset keys (mrbayes_tpu cli.py:723-762),
+    # which set DivisionSettings fields of the same name
+    AA_CODON_KEYS = ("aamodelpr", "aarevmatpr", "omegapr", "ny98omega1pr",
+                     "ny98omega3pr", "codoncatfreqpr")
     PRSET_KEYS = ("applyto", "statefreqpr", "revmatpr", "tratiopr",
                   "shapepr", "pinvarpr", "ratepr", "brlenspr", *CLOCK_KEYS,
-                  *PRSET_NOT_PORTED)
+                  *AA_CODON_KEYS, *PRSET_NOT_PORTED)
 
     def do_prset(self, args, base_dir):
         pairs = self._kv_pairs(args)
@@ -456,6 +463,15 @@ class Interpreter:
                 if key == "ratepr":
                     s.ratepr = ("variable" if prior.kind.startswith("var")
                                 or prior.kind == "dirichlet" else "fixed")
+                elif key == "aamodelpr":
+                    if prior.kind == "fixed" and prior.params:
+                        name = str(prior.params[0]).lower()
+                        if name not in AA_MODEL_NAMES:
+                            raise CommandError(
+                                f"unknown amino-acid model '{name}' (valid: "
+                                f"{', '.join(AA_MODEL_NAMES)})")
+                        s.aamodel = name
+                    s.aamodelpr = prior
                 else:
                     setattr(s, key, prior)
 

@@ -23,8 +23,9 @@ Usage (on the GPU; ``--device cpu`` for the CPU):
         [--ngen 20000] [--multiwalk] [--workdir runs/envelope]
 
 prints one ``ENVELOPE {...}`` JSON line and exits 1 outside the envelope.
-``run_batch`` also runs cynmix's favored model the same way (``chip_smoke.py``
-drives it on the card).
+``run_batch`` also runs cynmix's favored model, avian_ovomucoids.nex under
+``aamodelpr=mixed`` and replicase.nex under the NY98 codon model the same
+way (``chip_smoke.py`` drives them on the card).
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 EXAMPLES = os.path.join(HERE, os.pardir, "tests", "data", "ref", "examples")
 PRIMATES = os.path.join(EXAMPLES, "primates.nex")
 CYNMIX = os.path.join(EXAMPLES, "cynmix.nex")
+AVIAN = os.path.join(EXAMPLES, "avian_ovomucoids.nex")
+REPLICASE = os.path.join(EXAMPLES, "replicase.nex")
 
 # test1's model commands, after its execute
 TEST1_MODEL = ("partition test = 2: 1-400, 401-.",
@@ -66,9 +69,18 @@ CYNMIX_MODEL = ("set partition=favored",
                 "unlink revmat=(all) pinvar=(all) shape=(all) "
                 "statefreq=(all)",
                 "prset applyto=(all) ratepr=variable")
+# the MrBayes manual's protein example (the commented-out block of
+# avian_ovomucoids.nex): the chain integrates over the fixed amino-acid
+# models
+AVIAN_MODEL = ("prset aamodelpr=mixed",)
+# replicase.nex under NY98 (the replicase_ny98 rows of
+# tests/golden_extra.json)
+REPLICASE_NY98_MODEL = ("lset nucmodel=codon omegavar=ny98",)
 # the batch runs: name -> (data file, model commands after its execute)
 BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "test2": (PRIMATES, TEST2_MODEL),
-           "cynmix": (CYNMIX, CYNMIX_MODEL)}
+           "cynmix": (CYNMIX, CYNMIX_MODEL),
+           "avian": (AVIAN, AVIAN_MODEL),
+           "replicase_ny98": (REPLICASE, REPLICASE_NY98_MODEL)}
 BATCH = """#NEXUS
 begin mrbayes;
     set autoclose=yes nowarn=yes;
@@ -83,10 +95,9 @@ end;
 
 def write_batch(name: str, workdir: str, ngen: int = 20000,
                 samplefreq: int = 100, diagnfreq: int = 2000) -> str:
-    """Write the batch file of run ``name`` (test1, test2 or cynmix: its
-    data, its
-    model, an mcmc of 2 runs x 4 chains, sump and sumt) into ``workdir``;
-    returns its path."""
+    """Write the batch file of run ``name`` (a key of ``BATCHES``: its
+    data, its model, an mcmc of 2 runs x 4 chains, sump and sumt) into
+    ``workdir``; returns its path."""
     data, model = BATCHES[name]
     os.makedirs(workdir, exist_ok=True)
     path = os.path.join(workdir, f"{name}.nex")
@@ -145,7 +156,7 @@ def test1_stats(prefix: str, lines: list[str]) -> dict:
     vals = []
     for name in runs_cols[0]:
         if name in ("Gen", "lnLike", "lnPrior") \
-                or name.startswith("gtrsubmodel"):
+                or name.startswith(("gtrsubmodel", "aamodel")):
             continue
         p = psrf(np.stack([rc[name] for rc in runs_cols]))
         if np.isfinite(p) and p <= 10.0:

@@ -14,10 +14,14 @@ reference's MPI design, src/mcmc.c:826-842).
 host generator, every other random number from a device generator, and
 acceptance, swaps and autotuning stay tensor math on the device.
 
-The port carries nucleotide data under nst 1/2/6/mixed and standard
-(morphology) data under the plain unordered Mk model with its
-ascertainment coding (``coding=variable`` by default), each with equal,
-gamma, propinv or invgamma rates; any number of divisions (partitions)
+The port carries nucleotide data under nst 1/2/6/mixed, codon models M0
+and NY98 (``nucmodel=codon``, ``omegavar=equal|ny98``), protein data
+under the empirical amino-acid models, Poisson, equalin, protein GTR and
+``aamodelpr=mixed``, and standard (morphology) data under the plain
+unordered Mk model with its ascertainment coding (``coding=variable`` by
+default), each with equal, gamma, propinv or invgamma rates (a codon
+division has none: its category axis holds the omega classes); any
+number of divisions (partitions)
 with linked or unlinked parameters and fixed or variable rate
 multipliers, one unrooted non-clock tree with the default priors or one
 clock tree (``mcmc/clock.py``: uniform, birth-death or coalescent node
@@ -72,8 +76,11 @@ import torch
 
 from .. import resolve_device
 from ..data import DataSet, Division
+from ..models.aa_models import AA_MODELS
+from ..models.codes import CodonCode
 from ..models.rates import GammaRateTable
-from ..models.substitution import mk_q, nuc_q_gtr, nuc_q_nst1, nuc_q_nst2
+from ..models.substitution import (codon_q, mk_q, nuc_q_gtr, nuc_q_nst1,
+                                   nuc_q_nst2, protein_q)
 from ..nexus.datatypes import DataType
 from ..ops.multiwalk_cuda import PruningCudaMultiwalk
 from ..ops.pruning import (branch_tiprobs, coding_tips, coding_total,
@@ -106,6 +113,13 @@ STACK_MAX_WIDTH = 96
 # src/model.c:18562-18576)
 _CODING = {"all": "all", "variable": "variable",
            "noabsencesites": "noabsence", "nopresencesites": "nopresence"}
+# aamodelpr=mixed: the reference's model-index order (src/bayes.c
+# modelElementNames), the index the aamodel column prints
+AA_MIXED_ORDER = ("poisson", "jones", "dayhoff", "mtrev", "mtmam", "wag",
+                  "rtrev", "cprev", "vt", "blosum", "lg")
+# state-frequency fields: the Dirichlet-sampled frequencies of nucleotide,
+# protein and codon divisions
+PI_FIELDS = ("pi", "pi20", "pi61")
 
 
 @dataclass
@@ -132,14 +146,21 @@ class DivCfg:
     div: Division
     settings: DivisionSettings
     pi_group: int = -1          # -1: fixed (not sampled)
-    pi_field: str = "pi"
+    pi_field: str = "pi"        # "pi", "pi20" (protein) or "pi61" (codon)
     revmat_group: int = -1
     tratio_group: int = -1
     shape_group: int = -1
     pinvar_group: int = -1
-    n_cats: int = 1
+    n_cats: int = 1             # the category axis K: rate categories, or
+                                # a codon division's omega classes
     fixed_pi: np.ndarray | None = None
     coding: str = "all"         # resolved ascertainment coding
+    codon: CodonCode | None = None   # nucmodel=codon
+    omega_group: int = -1       # omegavar=equal (M0)
+    ny98_group: int = -1        # omegavar=ny98
+    aamodel_group: int = -1     # aamodelpr=mixed
+    aarevmat_group: int = -1    # protein GTR, sampled exchangeabilities
+    fixed_aarevmat: np.ndarray | None = None   # aarevmatpr=fixed(...)
 
 
 def _scalar_prior_lpdf(prior: Prior, x):
@@ -262,10 +283,22 @@ class Engine:
                                           and float(sp.params[0]) > 0.0):
                     raise _not_ported("symdirihyperpr (sampled standard "
                                       "state frequencies)", "item 13")
+            elif div.dtype is DataType.PROTEIN:
+                if s.aamodelpr.kind not in ("fixed", "mixed"):
+                    raise ValueError(f"aamodelpr={s.aamodelpr.kind}: "
+                                     f"fixed(<model>) or mixed")
             elif div.dtype not in (DataType.DNA, DataType.RNA):
-                raise _not_ported(f"{div.dtype.value} data", "items 12-13")
+                raise _not_ported(f"{div.dtype.value} data", "item 13")
+            elif s.nucmodel == "codon":
+                if s.omegavar in ("m3", "m10"):
+                    raise _not_ported(f"omegavar={s.omegavar}", "item 12b")
+                if s.omegavar not in ("equal", "ny98"):
+                    raise ValueError(f"omegavar={s.omegavar}")
+                if s.nst not in ("1", "2"):
+                    raise ValueError(f"nucmodel=codon takes nst=1 or 2, "
+                                     f"got nst={s.nst}")
             elif s.nucmodel != "4by4":
-                raise _not_ported(f"nucmodel={s.nucmodel}", "item 12")
+                raise _not_ported(f"nucmodel={s.nucmodel}", "item 12b")
             elif s.nst not in ("1", "2", "6", "mixed"):
                 raise ValueError(f"nst={s.nst} is not a nucleotide model")
             if s.rates not in ("equal", "gamma", "propinv", "invgamma"):
@@ -294,7 +327,7 @@ class Engine:
                 dv = self.data.divisions[d]
                 dclass = ("nuc" if dv.dtype in (DataType.DNA, DataType.RNA)
                           else dv.dtype.value)
-                dim = dv.n_states if param == "pi" else 0
+                dim = dv.n_states if param in PI_FIELDS else 0
                 key = (param, dclass, dim, signature)
             store = counters.setdefault(param, {})
             if key not in store:
@@ -305,13 +338,34 @@ class Engine:
             cfg = DivCfg(div=div, settings=s)
             fixed_params = (s.statefreqpr.kind == "fixed"
                             and s.statefreqpr.params)
+            nuc = div.dtype in (DataType.DNA, DataType.RNA)
+            prot = div.dtype is DataType.PROTEIN
+            if nuc and s.nucmodel == "codon":
+                self.div_cfg.append(self._codon_cfg(cfg, d, group_of))
+                continue
+            if prot:
+                cfg.pi_field = "pi20"
             if div.dtype is DataType.STANDARD:
                 # plain Mk: equal, fixed state frequencies and the
                 # ascertainment coding (variable unless set)
                 cfg.fixed_pi = np.full(div.n_states, 1.0 / div.n_states)
                 cfg.coding = _CODING.get(s.coding or "variable", "all")
+            elif prot and s.aamodelpr.kind == "mixed":
+                # rjMCMC over the 10 empirical models and Poisson, each
+                # with its own frequencies (reference Move_Aamodel,
+                # src/proposal.c:66)
+                cfg.aamodel_group = group_of("aamodel", d, "mixed")
+            elif prot and s.aamodel not in ("poisson", "equalin", "gtr") \
+                    and s.aamodel not in AA_MODELS:
+                raise ValueError(
+                    f"unsupported amino-acid model {s.aamodel!r}; valid: "
+                    f"{', '.join(sorted(AA_MODELS))}, equalin, gtr")
+            elif prot and s.aamodel not in ("poisson", "equalin", "gtr"):
+                # an empirical model's frequencies are part of it and never
+                # sampled (reference: no pi columns in .p)
+                cfg.fixed_pi = AA_MODELS[s.aamodel][1]
             elif s.statefreqpr.kind == "dirichlet":
-                cfg.pi_group = group_of("pi", d, repr(s.statefreqpr))
+                cfg.pi_group = group_of(cfg.pi_field, d, repr(s.statefreqpr))
             elif fixed_params and s.statefreqpr.params[0] == "empirical":
                 cfg.fixed_pi = self._empirical_freqs(div)
             elif fixed_params and not isinstance(s.statefreqpr.params[0],
@@ -319,7 +373,21 @@ class Engine:
                 cfg.fixed_pi = np.asarray(s.statefreqpr.params)
             else:
                 cfg.fixed_pi = np.full(div.n_states, 1.0 / div.n_states)
-            nuc = div.dtype is not DataType.STANDARD
+            if prot and s.aamodelpr.kind != "mixed" and s.aamodel == "gtr":
+                # protein GTR: 190 sampled (or fixed) exchangeabilities
+                # under aarevmatpr (reference REVMAT_DIR with nValues=190,
+                # src/model.c:19240,19262; prior src/model.c:4992)
+                if s.aarevmatpr.kind == "fixed":
+                    p = np.asarray([float(x) for x in s.aarevmatpr.params],
+                                   np.float64)
+                    cfg.fixed_aarevmat = (np.full(190, p[0]) if p.size == 1
+                                          else p)
+                    if cfg.fixed_aarevmat.size != 190:
+                        raise ValueError(
+                            "aarevmatpr=fixed needs 1 or 190 values")
+                else:
+                    cfg.aarevmat_group = group_of("aarevmat", d,
+                                                  repr(s.aarevmatpr))
             if nuc and s.nst in ("6", "mixed"):
                 cfg.revmat_group = group_of("revmat", d,
                                             repr(s.revmatpr) + s.nst)
@@ -341,13 +409,45 @@ class Engine:
         self.group_priors: dict[tuple, Prior] = {}
         for cfg in self.div_cfg:
             s = cfg.settings
-            for param, gid, pr in [("pi", cfg.pi_group, s.statefreqpr),
+            for param, gid, pr in [(cfg.pi_field, cfg.pi_group,
+                                    s.statefreqpr),
                                    ("revmat", cfg.revmat_group, s.revmatpr),
+                                   ("aarevmat", cfg.aarevmat_group,
+                                    s.aarevmatpr),
                                    ("tratio", cfg.tratio_group, s.tratiopr),
                                    ("shape", cfg.shape_group, s.shapepr),
-                                   ("pinvar", cfg.pinvar_group, s.pinvarpr)]:
+                                   ("pinvar", cfg.pinvar_group, s.pinvarpr),
+                                   ("omega", cfg.omega_group, s.omegapr),
+                                   ("omega1", cfg.ny98_group,
+                                    s.ny98omega1pr),
+                                   ("omega3", cfg.ny98_group,
+                                    s.ny98omega3pr),
+                                   ("omegaprobs", cfg.ny98_group,
+                                    s.codoncatfreqpr)]:
                 if gid >= 0:
                     self.group_priors.setdefault((param, gid), pr)
+
+    def _codon_cfg(self, cfg, d, group_of):
+        """A codon division's wiring (mrbayes_tpu/mcmc/engine.py:446-470,
+        without M3 and M10): the 61 (or the code's) sense codons, their
+        frequencies, omega (M0) or the NY98 classes, and kappa under
+        nst=2.  Its category axis K holds the omega classes."""
+        s = cfg.settings
+        cfg.codon = CodonCode(s.code)
+        cfg.pi_field = "pi61"
+        if s.statefreqpr.kind == "dirichlet":
+            cfg.pi_group = group_of("pi61", d, repr(s.statefreqpr))
+        else:
+            cfg.fixed_pi = np.full(cfg.codon.n_states,
+                                   1.0 / cfg.codon.n_states)
+        if s.omegavar == "ny98":
+            cfg.ny98_group = group_of("ny98", d, "ny98")
+            cfg.n_cats = 3
+        else:
+            cfg.omega_group = group_of("omega", d, repr(s.omegapr))
+        if s.nst == "2":
+            cfg.tratio_group = group_of("tratio", d, repr(s.tratiopr))
+        return cfg
 
     def _empirical_freqs(self, div) -> np.ndarray:
         """Observed state frequencies (ambiguity split uniformly)."""
@@ -366,13 +466,22 @@ class Engine:
         self.tip_partials, self.weights, self.const_masks = [], [], []
         self._fixed_pi = []
         self._pruners: list = []
+        # each division's tip partials under its model [n, P, S]: codon
+        # divisions' over codon sites and sense codons
+        self._model_tips: list[np.ndarray] = []
         masks, factors = [], []
         v_typ = 0.03    # reference default tuningParam[2] (model.c:22598)
         for cfg in self.div_cfg:
             d = cfg.div
-            tp = d.tip_partials()
-            cmask = constant_state_mask(d.patterns, d.n_states)
-            wts = np.asarray(d.weights, np.float32).copy()
+            if cfg.codon is not None:
+                tp, wts = self._codon_tensors(cfg)
+                # no pinvar on a codon division: the mask is never read
+                cmask = np.all(tp > 0, axis=0).astype(np.float32)
+            else:
+                tp = d.tip_partials()
+                cmask = constant_state_mask(d.patterns, d.n_states)
+                wts = np.asarray(d.weights, np.float32).copy()
+            self._model_tips.append(tp)
             if cfg.coding != "all":
                 # the reference excludes characters the coding rules out
                 # (CheckCharCodingType + AddDummyChars, src/model.c:314-
@@ -406,11 +515,47 @@ class Engine:
         self._build_multiwalk_pruners()
         self._build_stacked_pruners()
 
+    def _codon_tensors(self, cfg: DivCfg):
+        """A nucleotide division recoded as codon-site patterns
+        (mrbayes_tpu/mcmc/engine.py:733-771; reference CompressData's
+        three-characters-a-column compression, src/model.c:2466): tip
+        partials [n, P, n_sense], one pattern per distinct codon site in
+        the order ``np.unique`` gives their keys (the JAX package's
+        order), and their counts."""
+        d = cfg.div
+        code = cfg.codon
+        cols = d.patterns[:, d.pattern_of_char]      # [ntax, nchar] masks
+        nchar = cols.shape[1]
+        if nchar % 3:
+            raise ValueError(
+                f"codon model needs a multiple of 3 sites, got {nchar}")
+        trip = cols.reshape(cols.shape[0], nchar // 3, 3)
+        b = code.bases                               # [S, 3]
+        compat = np.ones((cols.shape[0], nchar // 3, code.n_states), bool)
+        for pos in range(3):
+            compat &= ((trip[:, :, pos:pos + 1]
+                        >> b[None, None, :, pos]) & 1).astype(bool)
+        if np.any(~compat.any(-1)):
+            raise ValueError("stop codon observed in data (check code= "
+                             "and reading frame)")
+        packed = np.packbits(compat, axis=-1)        # [ntax, sites, bytes]
+        key = np.ascontiguousarray(
+            packed.transpose(1, 0, 2).reshape(packed.shape[1], -1))
+        _, first, counts = np.unique(key, axis=0, return_index=True,
+                                     return_counts=True)
+        return (compat[:, first, :].astype(np.float32),
+                counts.astype(np.float32))
+
     def _coded_tips(self, i) -> np.ndarray:
         """Division i's tip partials [n, P_d, S] with its coding dummies:
         the operand every pruner of the division is built from."""
-        cfg = self.div_cfg[i]
-        return coding_tips(cfg.div.tip_partials(), cfg.coding)
+        return coding_tips(self._model_tips[i], self.div_cfg[i].coding)
+
+    def _grouped(self, i) -> bool:
+        """True where division i may join a multiwalk or stacked group: the
+        JAX engine groups only its generic-path divisions, which excludes
+        codon ones (mrbayes_tpu/mcmc/engine.py:2476-2486)."""
+        return self.div_cfg[i].codon is None
 
     def _build_multiwalk_pruners(self):
         """Group the divisions into multiwalk launches when the switch is
@@ -427,7 +572,9 @@ class Engine:
         n_int = self.n_tips - 1
         by_states: dict = {}
         for i, cfg in enumerate(self.div_cfg):
-            S = cfg.div.n_states
+            S = self._model_tips[i].shape[2]
+            if not self._grouped(i):
+                continue
             try:
                 check_kernel_shape(S, cfg.n_cats, "multiwalk")
             except ValueError:
@@ -471,9 +618,10 @@ class Engine:
             return
         groups, cur, width = [], [], 0
         for i, cfg in enumerate(self.div_cfg):
-            if self._coded_tips(i).shape[1] > STACK_MAX_PATTERNS:
+            if self._coded_tips(i).shape[1] > STACK_MAX_PATTERNS \
+                    or not self._grouped(i):
                 continue
-            ks = cfg.n_cats * cfg.div.n_states
+            ks = cfg.n_cats * self._model_tips[i].shape[2]
             if cur and width + ks > STACK_MAX_WIDTH:
                 groups.append(cur)
                 cur, width = [], 0
@@ -611,6 +759,7 @@ class Engine:
             mk.append(MoveSpec("pi_dir",
                                partial(M.make_simplex_move("pi"), n_tips=n),
                                2.0, 100.0, 0.25, -1, 1.0, 1e5))
+        mk += self._protein_codon_moves()
         plain_rev = [g for g in range(self.n_groups.get("revmat", 0))
                      if g not in self._mixed_rev]
         if plain_rev:
@@ -620,6 +769,15 @@ class Engine:
                     "revmat", None if len(plain_rev) == self.n_groups[
                         "revmat"] else self._rows(plain_rev)), n_tips=n),
                 2.0, 200.0, 0.25, -1, 1.0, 1e5))
+        if self.n_groups.get("aarevmat"):
+            # protein GTR exchangeabilities: the Dirichlet proposal the
+            # reference applies to REVMAT_DIR parameters of any size
+            # (Move_Revmat_Dir, src/model.c:22913); its tuning alphaPi=100
+            # is per rate, this concentration total: 100 x 190
+            mk.append(MoveSpec(
+                "aarevmat_dir",
+                partial(M.make_simplex_move("aarevmat"), n_tips=n),
+                2.0, 19000.0, 0.25, -1, 1.0, 1e7))
         if self._mixed_rev:
             mk += self._mixed_gtr_moves()
         if self.n_groups.get("tratio"):
@@ -643,13 +801,66 @@ class Engine:
                 "ratemult_dir",
                 partial(M.make_simplex_move("ratemult"), n_tips=n),
                 1.5, 300.0, 0.25, -1, 1.0, 1e5))
-        q_moves = {"pi_dir", "revmat_dir", "revmat_splitmerge",
-                   "revmat_dirmix", "tratio_mult"}
+        # omegaprobs_dir changes Q because the NY98 classes are normalised
+        # jointly (src/likelihood.c:10702); aamodel_jump gathers the
+        # precomputed eigensystem of the new model
+        q_moves = {"pi_dir", "pi20_dir", "pi61_dir", "omega_mult",
+                   "omega1_slider", "omega3_mult", "omegaprobs_dir",
+                   "aamodel_jump", "revmat_dir", "aarevmat_dir",
+                   "revmat_splitmerge", "revmat_dirmix", "tratio_mult"}
         for i, m in enumerate(mk):
             m.updates_q = m.name in q_moves
             if m.prior_scope is None:
                 m.prior_scope = "tree" if i < n_tree_moves else "params"
         self.moves = mk
+
+    def _protein_codon_moves(self):
+        """The protein and codon parameter moves with the JAX package's
+        weights, tunings and bounds, in its order
+        (mrbayes_tpu/mcmc/engine.py:1559-1563, 1667-1697, 1741-1753)."""
+        n = self.n_tips
+        g = self.n_groups
+        lam = 2.0 * np.log(1.5)
+        mk = []
+        if g.get("pi20"):
+            mk.append(MoveSpec("pi20_dir",
+                               partial(M.make_simplex_move("pi20"), n_tips=n),
+                               2.0, 500.0, 0.25, -1, 1.0, 1e6))
+        if g.get("pi61"):
+            mk.append(MoveSpec("pi61_dir",
+                               partial(M.make_simplex_move("pi61"), n_tips=n),
+                               2.0, 2000.0, 0.25, -1, 10.0, 1e7))
+        if g.get("omega"):
+            mk.append(MoveSpec(
+                "omega_mult",
+                partial(M.make_multiplier_move("omega", 1e-4, 1e3), n_tips=n),
+                2.0, lam, 0.25, 1, 1e-3, 20.0))
+        if g.get("ny98"):
+            mk.append(MoveSpec(
+                "omega1_slider",
+                partial(M.make_slider_move("omega1", 0.0, 1.0), n_tips=n),
+                1.5, 0.1, 0.25, 1, 1e-3, 1.0))
+            mk.append(MoveSpec(
+                "omega3_mult",
+                partial(M.make_multiplier_move("omega3", 1.0, 1e3), n_tips=n),
+                1.5, lam, 0.25, 1, 1e-3, 20.0))
+            mk.append(MoveSpec(
+                "omegaprobs_dir",
+                partial(M.make_simplex_move("omegaprobs"), n_tips=n),
+                1.5, 100.0, 0.25, -1, 1.0, 1e5))
+        if g.get("aamodel"):
+            mk.append(MoveSpec(
+                "aamodel_jump",
+                partial(M.make_jump_move("aamodel_idx", len(AA_MIXED_ORDER)),
+                        n_tips=n), 2.0, 0.0, tunable=False))
+        return mk
+
+    def _simplex_width(self, param, gid) -> int:
+        """The length of a Dirichlet-sampled group's simplex."""
+        if param == "pi61":
+            return next(c.codon.n_states for c in self.div_cfg
+                        if c.pi_field == "pi61" and c.pi_group == gid)
+        return {"pi": 4, "pi20": 20, "revmat": 6, "aarevmat": 190}[param]
 
     def _rows(self, values):
         return torch.as_tensor(list(values), dtype=torch.long,
@@ -714,18 +925,39 @@ class Engine:
         self._unit_rates = torch.ones((1, 1), device=dev)
         self._prior_alpha = {}
         for (param, gid), pr in self.group_priors.items():
-            if param in ("pi", "revmat"):
-                k = 4 if param == "pi" else 6
+            if param == "omegaprobs":
+                self._prior_alpha[(param, gid)] = torch.tensor(
+                    [float(x) for x in pr.params], device=dev)
+            elif param in PI_FIELDS + ("revmat", "aarevmat"):
                 a = pr.params[0] if pr.params else 1.0
                 self._prior_alpha[(param, gid)] = torch.full(
-                    (k,), float(a), device=dev)
+                    (self._simplex_width(param, gid),), float(a), device=dev)
         if self.ratemult_on:
             self._ratemult_alpha = torch.ones(self.n_div, device=dev)
-        # a standard division's Q is fixed (Mk, equal frequencies): its
-        # eigensystem is computed once here, in float64 (Mk's eigenvalue
-        # repeated S - 1 times costs the float32 Jacobi up to 2e-6 in P(t)
-        # at S = 8), and never refreshed, where the JAX engine recomputes
-        # it in float32 with every refresh
+        # the codon pair classes (single change, transition,
+        # nonsynonymous) [S, S] of each codon division
+        self._codon_classes = {
+            i: tuple(torch.as_tensor(m, device=dev)
+                     for m in c.codon.pair_classes())
+            for i, c in enumerate(self.div_cfg) if c.codon is not None}
+        # a protein division's fixed exchangeabilities [190]
+        self._aa_exch = {}
+        for i, c in enumerate(self.div_cfg):
+            if c.div.dtype is DataType.PROTEIN and c.aamodel_group < 0 \
+                    and c.aarevmat_group < 0:
+                ex = (c.fixed_aarevmat if c.fixed_aarevmat is not None
+                      else AA_MODELS["poisson" if c.settings.aamodel in (
+                          "poisson", "equalin") else c.settings.aamodel][0])
+                self._aa_exch[i] = torch.as_tensor(
+                    np.asarray(ex, np.float32), device=dev)
+        # eigensystems of fixed Q matrices are computed once here, in
+        # float64, and never refreshed, where the JAX engine recomputes
+        # them in float32 with every refresh: a standard division's (Mk,
+        # equal frequencies; its eigenvalue repeated S - 1 times costs the
+        # float32 Jacobi up to 2e-6 in P(t) at S = 8) and a protein
+        # division's whose exchangeabilities and frequencies are both
+        # fixed (an empirical model, or Poisson or fixed GTR rates under
+        # fixed frequencies)
         self._const_eigs = {}
         for i, c in enumerate(self.div_cfg):
             if c.div.dtype is DataType.STANDARD:
@@ -733,6 +965,20 @@ class Engine:
                 self._const_eigs[i] = tuple(
                     x.float() for x in eigh_reversible(
                         mk_q(c.div.n_states, pi), pi))
+            elif i in self._aa_exch and c.pi_group < 0:
+                self._const_eigs[i] = _fixed_eig(
+                    self._aa_exch[i][None], self._fixed_pi[i])
+        # aamodelpr=mixed: every model's exchangeabilities [11, 190],
+        # frequencies [11, 20] and eigensystem, in the reference's model
+        # order, gathered on the device by each chain's aamodel_idx
+        if self.n_groups.get("aamodel"):
+            ex = torch.as_tensor(np.stack(
+                [AA_MODELS[m][0] for m in AA_MIXED_ORDER]).astype(np.float32),
+                device=dev)
+            pi = torch.as_tensor(np.stack(
+                [AA_MODELS[m][1] for m in AA_MIXED_ORDER]).astype(np.float32),
+                device=dev)
+            self._aa_stack = (ex, pi) + _fixed_eig(ex, pi)
 
     # ------------------------------------------------------------------
     # state
@@ -792,6 +1038,22 @@ class Engine:
         g = self.n_groups
         if g.get("pi"):
             st["pi"] = np.full((g["pi"], 4), 0.25, np.float32)
+        if g.get("pi20"):
+            st["pi20"] = np.full((g["pi20"], 20), 0.05, np.float32)
+        if g.get("pi61"):
+            n61 = self._simplex_width("pi61", 0)
+            st["pi61"] = np.full((g["pi61"], n61), 1.0 / n61, np.float32)
+        if g.get("omega"):
+            st["omega"] = np.ones((g["omega"],), np.float32)
+        if g.get("ny98"):
+            st["omega1"] = np.full((g["ny98"],), 0.1, np.float32)
+            st["omega3"] = np.full((g["ny98"],), 2.0, np.float32)
+            st["omegaprobs"] = np.full((g["ny98"], 3), 1.0 / 3, np.float32)
+        if g.get("aamodel"):
+            st["aamodel_idx"] = np.zeros((g["aamodel"],), np.int64)
+        if g.get("aarevmat"):
+            st["aarevmat"] = np.full((g["aarevmat"], 190), 1.0 / 190,
+                                     np.float32)
         if g.get("revmat"):
             st["revmat"] = np.full((g["revmat"], 6), 1.0 / 6, np.float32)
             if self._mixed_rev:
@@ -865,15 +1127,29 @@ class Engine:
         cfg = self.div_cfg[i]
         if cfg.pi_group >= 0:
             return state[cfg.pi_field][:, cfg.pi_group]
+        if cfg.aamodel_group >= 0:
+            return self._aa_stack[1][state["aamodel_idx"][:, cfg.aamodel_group]]
         return self._fixed_pi[i].expand(state["parent"].shape[0], -1)
 
     def _division_q_pi(self, state, i):
         """(Q, pi) of division i for every chain (reference SetNucQMatrix
-        inputs, src/likelihood.c:8166)."""
+        inputs, src/likelihood.c:8166): Q [C, S, S], or [C, K, S, S] for a
+        codon division, one generator per omega class."""
         cfg = self.div_cfg[i]
         pi = self._division_pi(state, i)
         nst = cfg.settings.nst
-        if cfg.div.dtype is DataType.STANDARD:
+        if cfg.codon is not None:
+            Q = self._codon_q(state, i, pi)
+        elif cfg.div.dtype is DataType.PROTEIN:
+            if cfg.aamodel_group >= 0:
+                exch = self._aa_stack[0][
+                    state["aamodel_idx"][:, cfg.aamodel_group]]
+            elif cfg.aarevmat_group >= 0:
+                exch = state["aarevmat"][:, cfg.aarevmat_group]
+            else:
+                exch = self._aa_exch[i]
+            Q = protein_q(exch, pi)
+        elif cfg.div.dtype is DataType.STANDARD:
             Q = mk_q(cfg.div.n_states, pi)
         elif nst == "1":
             Q = nuc_q_nst1(pi)
@@ -883,9 +1159,37 @@ class Engine:
             Q = nuc_q_gtr(state["revmat"][:, cfg.revmat_group], pi)
         return Q, pi
 
+    def _codon_q(self, state, i, pi):
+        """A codon division's generators [C, K, S, S] (mrbayes_tpu engine
+        :2248-2267): M0's one omega, or NY98's omega1 < 1, 1 and
+        omega3 > 1 normalised together under the class frequencies, with
+        kappa under nst=2."""
+        cfg = self.div_cfg[i]
+        kappa = (state["tratio"][:, cfg.tratio_group]
+                 if cfg.tratio_group >= 0 else 1.0)
+        if cfg.ny98_group >= 0:
+            g = cfg.ny98_group
+            w1 = state["omega1"][:, g]
+            omegas = torch.stack([w1, torch.ones_like(w1),
+                                  state["omega3"][:, g]], -1)
+            weights = state["omegaprobs"][:, g]
+        else:
+            omegas = state["omega"][:, cfg.omega_group][:, None]
+            weights = None
+        return codon_q(omegas, kappa, pi, *self._codon_classes[i],
+                       cat_weights=weights)
+
     def _division_eig(self, state, i):
+        """Division i's eigensystem for every chain: lam [C, S] with U,
+        Uinv [C, S, S], or lam [C, K, S] with [C, K, S, S] for a codon
+        division.  Under aamodelpr=mixed, each chain's model's precomputed
+        eigensystem."""
+        cfg = self.div_cfg[i]
+        if cfg.aamodel_group >= 0:
+            idx = state["aamodel_idx"][:, cfg.aamodel_group]
+            return tuple(x[idx] for x in self._aa_stack[2:])
         Q, pi = self._division_q_pi(state, i)
-        return eigh_reversible(Q, pi)
+        return eigh_reversible(Q, pi if Q.ndim == 3 else pi[:, None])
 
     def refresh_eigs(self, state):
         """(Re)compute every division's cached eigensystem.  The cache
@@ -1006,6 +1310,8 @@ class Engine:
         return pi, cfg.coding, lam, U, Uinv, rates, pinv, cmask, mult
 
     def _division_lnL(self, state, i, blen, weights):
+        if self.div_cfg[i].codon is not None:
+            return self._codon_lnL(state, i, blen, weights)
         pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \
             self._generic_div_params(state, i)
         return division_loglik(
@@ -1013,6 +1319,27 @@ class Engine:
             self.tip_partials[i], weights, lam, U, Uinv, pi, rates,
             pinv, cmask, self.n_tips, rate_mult=mult, coding=coding,
             pruner=self._pruners[i])
+
+    def _codon_lnL(self, state, i, blen, weights):
+        """A codon division's lnL [C] (mrbayes_tpu engine :2752-2777): the
+        omega classes on the category axis with unit rates, weighted by
+        the NY98 class frequencies (equal for M0's one class), branch
+        lengths scaled by 3 (they are per nucleotide and a codon site
+        evolves three times as fast), no pinvar."""
+        cfg = self.div_cfg[i]
+        lam, U, Uinv = self._division_eig_cached(state, i)
+        cat_w = (state["omegaprobs"][:, cfg.ny98_group]
+                 if cfg.ny98_group >= 0 else None)
+        mult = 3.0
+        if self.ratemult_on:
+            mult = mult * state["ratemult"][:, i] / float(
+                self.div_char_frac[i])
+        return division_loglik(
+            state["left"], state["right"], state["parent"], blen,
+            self.tip_partials[i], weights, lam, U, Uinv,
+            self._division_pi(state, i), self._unit_rates.expand(
+                1, cfg.n_cats), 0.0, None, self.n_tips, rate_mult=mult,
+            cat_weights=cat_w, pruner=self._pruners[i])
 
     def log_prior(self, state):
         """Full log prior [C] = tree component + parameter component."""
@@ -1105,14 +1432,17 @@ class Engine:
                 symdir = pr.params[0] if pr.params else 1.0
                 lp = lp + MG.ln_prior_mixed(state["gtr_class"][:, gid], x,
                                             symdir)
-            elif param in ("pi", "revmat"):
+            elif (param, gid) in self._prior_alpha:
                 lp = lp + dirichlet_lpdf(x, self._prior_alpha[(param, gid)])
-            elif param == "tratio":
+            elif param in ("tratio", "omega"):
                 # Beta prior on x/(x+1) with Jacobian 1/(1+x)^2
-                # (reference tRatioDir)
+                # (reference tRatioDir / omegaDir)
                 a, b = (pr.params + (1.0, 1.0))[:2]
                 lp = lp + beta_lpdf(x / (1.0 + x), a, b) \
                     - 2.0 * torch.log1p(x)
+            elif param == "omega1":
+                # as the JAX package: the prior's parameters as a Beta's
+                lp = lp + beta_lpdf(x, *pr.params)
             else:
                 lp = lp + _scalar_prior_lpdf(pr, x)
         if self.ratemult_on:
@@ -1303,6 +1633,15 @@ class Engine:
                     right=host("right"),
                     blen=self.effective_blens(states, slot),
                     n_tips=self.n_tips, rooted=self.tree_settings.clock)
+
+
+def _fixed_eig(exch, pi):
+    """The eigensystems (lam, U, Uinv) of fixed reversible generators from
+    exchangeabilities [B, n(n-1)/2] and frequencies [B, n], computed once
+    in float64 on their device (on the card one ``csrc/eigh.cu`` launch for
+    the batch) and kept in float64 (``ops/tiprobs.py``)."""
+    ex, p = exch.double(), pi.double()
+    return eigh_reversible(protein_q(ex, p), p)
 
 
 def _host(x) -> np.ndarray:

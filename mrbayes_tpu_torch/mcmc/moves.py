@@ -737,3 +737,20 @@ def make_slider_move(field, lo, hi):
         return {**state, field: _put(arr, gi, new)}, torch.zeros_like(tuning)
     move.__name__ = f"move_{field}_slider"
     return move
+
+
+def make_jump_move(field, n_values):
+    """Jump of one random element of an integer indicator array
+    state[field] [C, G] to a uniformly drawn OTHER value in
+    range(n_values): the proposal is symmetric, so ln_hastings is 0 (the
+    aamodelpr=mixed model jump, reference Move_Aamodel,
+    src/proposal.c:66)."""
+    def move(gen, state, tuning, n_tips):
+        arr = state[field]
+        u = _uniforms(gen, arr, 2)
+        gi = _row_index(u[:, 0], arr.shape[1])
+        off = 1 + _row_index(u[:, 1], n_values - 1)
+        new = (_take(arr, gi) + off) % n_values
+        return {**state, field: _put(arr, gi, new)}, torch.zeros_like(tuning)
+    move.__name__ = f"move_{field}_jump"
+    return move

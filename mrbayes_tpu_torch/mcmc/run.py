@@ -26,11 +26,15 @@ import time
 import numpy as np
 import torch
 
+from ..models.codes import BASES
 from ..trees import to_newick
 from .diagnostics import SplitCounter
-from .engine import SCORE_KEYS, Engine
+from .engine import PI_FIELDS, SCORE_KEYS, Engine
 
 _REV_NAMES = ("A<->C", "A<->G", "A<->T", "C<->G", "C<->T", "G<->T")
+_AA = "ARNDCQEGHILKMFPSTWYV"
+_AA3 = ("Ala", "Arg", "Asn", "Asp", "Cys", "Gln", "Glu", "Gly", "His", "Ile",
+        "Leu", "Lys", "Met", "Phe", "Pro", "Ser", "Thr", "Trp", "Tyr", "Val")
 
 
 def param_columns(eng: Engine):
@@ -44,8 +48,12 @@ def param_columns(eng: Engine):
     def suffix(param, gid):
         if not multi:
             return ""
+        # the state-frequency fields share one group attribute (pi_group)
+        # keyed by pi_field
         divs = [i + 1 for i, c in enumerate(eng.div_cfg)
-                if getattr(c, f"{param}_group") == gid]
+                if (c.pi_field == param and c.pi_group == gid
+                    if param in PI_FIELDS
+                    else getattr(c, f"{param}_group") == gid)]
         if len(divs) == n_div:
             return "{all}"
         return "{" + ",".join(map(str, divs)) + "}"
@@ -65,19 +73,55 @@ def param_columns(eng: Engine):
                          lambda st, s, g=gid: float("".join(
                              str(int(x) + 1)
                              for x in np.asarray(st["gtr_class"][s, g])))))
+    for gid in range(eng.n_groups.get("aarevmat", 0)):
+        # upper-triangle pairs in the reference's amino-acid order
+        # (src/model.c:19267-19285)
+        for k, (i, j) in enumerate(zip(*np.triu_indices(20, 1))):
+            cols.append((f"r({_AA[i]}<->{_AA[j]})" + suffix("aarevmat", gid),
+                         lambda st, s, g=gid, k=k:
+                         float(st["aarevmat"][s, g, k])))
     for gid in range(eng.n_groups.get("tratio", 0)):
         cols.append(("kappa" + suffix("tratio", gid),
                      lambda st, s, g=gid: float(st["tratio"][s, g])))
+    for gid in range(eng.n_groups.get("omega", 0)):
+        cols.append(("omega" + suffix("omega", gid),
+                     lambda st, s, g=gid: float(st["omega"][s, g])))
+    for gid in range(eng.n_groups.get("ny98", 0)):
+        # unsuffixed, as the JAX package prints them
+        cols.append(("omega(1)", lambda st, s, g=gid:
+                     float(st["omega1"][s, g])))
+        cols.append(("omega(3)", lambda st, s, g=gid:
+                     float(st["omega3"][s, g])))
+        for k, nm in enumerate(("-", "N", "+")):
+            cols.append((f"pi({nm})", lambda st, s, g=gid, k=k:
+                         float(st["omegaprobs"][s, g, k])))
     for gid in range(eng.n_groups.get("pi", 0)):
         for k, nm in enumerate("ACGT"):
             cols.append((f"pi({nm})" + suffix("pi", gid),
                          lambda st, s, g=gid, k=k: float(st["pi"][s, g, k])))
+    for gid in range(eng.n_groups.get("pi20", 0)):
+        # the reference prints three-letter names (pi(Ala) ...)
+        for k, nm in enumerate(_AA3):
+            cols.append((f"pi({nm})" + suffix("pi20", gid),
+                         lambda st, s, g=gid, k=k:
+                         float(st["pi20"][s, g, k])))
+    for gid in range(eng.n_groups.get("pi61", 0)):
+        code = next(c.codon for c in eng.div_cfg
+                    if c.pi_field == "pi61" and c.pi_group == gid)
+        for k, b in enumerate(code.bases):
+            cols.append((f"pi({''.join(BASES[x] for x in b)})"
+                         + suffix("pi61", gid),
+                         lambda st, s, g=gid, k=k:
+                         float(st["pi61"][s, g, k])))
     for gid in range(eng.n_groups.get("shape", 0)):
         cols.append(("alpha" + suffix("shape", gid),
                      lambda st, s, g=gid: float(st["shape"][s, g])))
     for gid in range(eng.n_groups.get("pinvar", 0)):
         cols.append(("pinvar" + suffix("pinvar", gid),
                      lambda st, s, g=gid: float(st["pinvar"][s, g])))
+    for gid in range(eng.n_groups.get("aamodel", 0)):
+        cols.append(("aamodel" + suffix("aamodel", gid),
+                     lambda st, s, g=gid: float(st["aamodel_idx"][s, g])))
     if eng.ratemult_on:
         for d in range(n_div):
             cols.append((f"m{{{d + 1}}}",

@@ -58,3 +58,45 @@ def mk_q(n_states: int, pi: torch.Tensor | None = None, device=None,
                         device=device)
     return reversible_q(pi.new_ones(pi.shape[:-1]
                                     + (n_states * (n_states - 1) // 2,)), pi)
+
+
+def protein_q(exchange: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
+    """Protein model from a 190-vector of exchangeabilities (an empirical
+    model's or the sampled protein GTR's) and 20 frequencies."""
+    return reversible_q(exchange, pi)
+
+
+def codon_q(omega: torch.Tensor, kappa, pi: torch.Tensor,
+            single: torch.Tensor, transition: torch.Tensor,
+            nonsyn: torch.Tensor,
+            cat_weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Goldman-Yang / NY98 codon generators, one per omega class.
+
+    q_ij = kappa^[transition] * omega^[nonsynonymous] * pi_j for codon
+    pairs differing at one position, else 0 (reference
+    src/likelihood.c SetNucQMatrix 61-state branch).  omega [..., K]
+    (K = 1 for M0, 3 for NY98), kappa [...] or a float, pi [..., S];
+    single/transition/nonsyn [S, S] boolean masks from
+    ``CodonCode.pair_classes()``.  Returns [..., K, S, S].
+
+    Normalisation: with ``cat_weights`` [..., K] every class is rescaled
+    by the SAME factor, so that the class-weighted mean rate is 1 and the
+    classes keep their relative speeds (reference: per-class dN + dS in
+    SetNucQMatrix, one posScaler in UpDateCijk,
+    src/likelihood.c:10688-10714); without weights each class has mean
+    rate 1."""
+    if torch.is_tensor(kappa):
+        kappa = kappa[..., None, None, None]
+    # a float kappa stays a Python scalar: a tensor made from it would be
+    # a host-to-device copy in every Q move
+    factor = (torch.where(transition, kappa, 1.0)
+              * torch.where(nonsyn, omega[..., None, None], 1.0)
+              * single)                                   # [..., K, S, S]
+    pik = pi[..., None, :]                                # [..., 1, S]
+    Q = factor * pik[..., None, :]
+    diag = -Q.sum(-1)                                     # [..., K, S]
+    Q = Q + torch.diag_embed(diag)
+    mu = -(pik * diag).sum(-1)                            # [..., K]
+    if cat_weights is not None:
+        mu = (cat_weights * mu).sum(-1, keepdim=True)
+    return Q / mu[..., None, None]

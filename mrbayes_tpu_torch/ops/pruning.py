@@ -57,9 +57,12 @@ def make_pruner(tip_partials, n_cats: int, device, coding: str = "all",
 def branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult=1.0):
     """Per-branch, per-category transition matrices [C, n_nodes, K, S, S].
     ``pinv > 0`` rescales the variable-class rate by 1/(1-pinv)
-    (reference src/likelihood.c:9309-9310).  blen [C, n_nodes]; lam [C, S];
-    U/Uinv [C, S, S]; cat_rates [C, K]; pinv and rate_mult [C] or
-    floats."""
+    (reference src/likelihood.c:9309-9310).  blen [C, n_nodes]; lam [C, S]
+    with U/Uinv [C, S, S] (one eigensystem a chain), or lam [C, K, S] with
+    U/Uinv [C, K, S, S] (one a category: the NY98 omega classes);
+    cat_rates [C, K]; pinv and rate_mult [C] or floats.  A float64
+    eigensystem (S > 8) gives float64 products, returned in blen's
+    dtype."""
     if torch.is_tensor(pinv):
         base = rate_mult / torch.clamp_min(1.0 - pinv, 1e-6)
     else:
@@ -68,8 +71,12 @@ def branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult=1.0):
         base = base.reshape(-1, 1)                        # [C|1, 1]
     tau = blen * base
     eff = tau[..., None] * cat_rates[:, None, :]          # [C, N, K]
-    return transition_probs(lam[:, None, None], U[:, None, None],
-                            Uinv[:, None, None], eff)
+    if lam.ndim == 3:
+        P = transition_probs(lam[:, None], U[:, None], Uinv[:, None], eff)
+    else:
+        P = transition_probs(lam[:, None, None], U[:, None, None],
+                             Uinv[:, None, None], eff)
+    return P.to(blen.dtype)
 
 
 def root_partials(left, right, parent, blen, tip_partials, lam, U, Uinv,
@@ -126,9 +133,10 @@ def division_site_loglik(left, right, parent, blen, tip_partials,
     """Per-pattern log-likelihoods [C, P] for one division.
 
     Shapes: left/right/parent/blen [C, 2n-1]; tip_partials [n, P, S];
-    lam [C, S]; U/Uinv [C, S, S]; pi [C, S]; cat_rates [C, K];
-    cat_weights [K] (None = equal 1/K); const_mask [P, S] (None when pinv
-    is fixed at 0); pinv [C] or a float.
+    lam [C, S] or [C, K, S]; U/Uinv [C, S, S] or [C, K, S, S] (see
+    ``branch_tiprobs``); pi [C, S]; cat_rates [C, K]; cat_weights [K] or
+    [C, K] (None = equal 1/K); const_mask [P, S] (None when pinv is fixed
+    at 0); pinv [C] or a float.
     """
     root_cl, logscale = root_clv(
         left, right, parent, blen, tip_partials, lam, U, Uinv,
@@ -147,12 +155,18 @@ def site_loglik_from_root(root, logscale, pi, pinv, const_mask,
     grouped, per shard), so a division's lnL is the same function of its
     root partials on each.  The state and category sums are two batched
     products: a three-operand ``torch.einsum`` searches its contraction
-    path on every call, about 0.2 ms of host time."""
+    path on every call, about 0.2 ms of host time.  ``cat_weights`` [K]
+    is shared by the chains, [C, K] is each chain's own (the NY98 omega
+    class frequencies)."""
     k = root.shape[1]
     if cat_weights is None:
         cat_weights = root.new_full((k,), 1.0 / k)
     pi4 = pi.reshape(-1, 1, 1, pi.shape[-1])                   # [C|1,1,1,S]
-    site_l = torch.matmul(cat_weights, torch.matmul(pi4, root)[:, :, 0])
+    per_cat = torch.matmul(pi4, root)[:, :, 0]                 # [C, K, P]
+    if cat_weights.ndim == 2:
+        site_l = torch.matmul(cat_weights[:, None], per_cat)[:, 0]
+    else:
+        site_l = torch.matmul(cat_weights, per_cat)
     ln_var = torch.log(torch.clamp_min(site_l, _TINY)) + logscale
     if const_mask is None:
         return ln_var

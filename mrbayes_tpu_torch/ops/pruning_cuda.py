@@ -28,8 +28,9 @@ The kernel library is built together with the multiwalk kernel's
 (``csrc/multiwalk.cu``, wired by ``ops/multiwalk_cuda.py``), the
 wavefront kernel's (``csrc/wavefront.cu``, wired by
 ``ops/wavefront_cuda.py``) and the stacked kernel's (``csrc/stacked.cu``,
-wired by ``ops/stacked_cuda.py``): ``build`` starts one ``nvcc`` per
-source at once.  The stacked and multiwalk kernels share the group launch
+wired by ``ops/stacked_cuda.py``) and the batched eigensolver's
+(``csrc/eigh.cu``, wired by ``ops/eigh_cuda.py``): ``build`` starts one
+``nvcc`` per source at once.  The stacked and multiwalk kernels share the group launch
 of ``csrc/group_walk.cuh`` (a tile map and a per-division table), laid
 out and planned by ``GroupLayout``.
 
@@ -59,7 +60,8 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # one shared library per source, all compiled at once; every source
 # includes the shared walks
 SOURCES = {"pruning": "pruning.cu", "multiwalk": "multiwalk.cu",
-           "wavefront": "wavefront.cu", "stacked": "stacked.cu"}
+           "wavefront": "wavefront.cu", "stacked": "stacked.cu",
+           "eigh": "eigh.cu"}
 _HEADERS = ("down_pass.cuh", "onchip_walk.cuh", "group_walk.cuh")
 # state counts with a template in the on-chip walk (csrc/onchip_walk.cuh)
 TEMPLATED_S = (2, 3, 4, 8, 20)
@@ -84,6 +86,7 @@ _ENTRY_POINTS = {
                   "mb_wavefront_plan": [_INT] * 7 + [_PTR]},
     "stacked": {"mb_stacked_down": [_PTR] * 8 + [_INT] * 8 + [_PTR],
                 "mb_group_plan": _GROUP_PLAN},
+    "eigh": {"mb_eigh_jacobi": [_PTR] * 4 + [_INT] * 3 + [_PTR]},
 }
 
 
@@ -173,7 +176,7 @@ def libraries(verbose: bool = False) -> dict[str, KernelBuild]:
 
 def library(name: str = "pruning") -> KernelBuild:
     """One loaded kernel library (``pruning``, ``multiwalk``,
-    ``wavefront`` or ``stacked``)."""
+    ``wavefront``, ``stacked`` or ``eigh``)."""
     return _LIBRARIES.get()[name]
 
 

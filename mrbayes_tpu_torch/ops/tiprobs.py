@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .eigh_cuda import MAX_S, symmetric_eigh
 from .jacobi import jacobi_eigh
 
 
@@ -18,18 +19,30 @@ def eigh_reversible(Q: torch.Tensor, pi: torch.Tensor):
 
     Returns (lam, U, Uinv) with Q = U diag(lam) Uinv, all real.  Up to 8
     states (nucleotide, binary, standard) use the fixed-sweep Jacobi
-    solver, which never synchronises with the host; larger spaces raise
-    (protein and codon models come with a later slice of the port).
+    solver, in Q's dtype; 9 to 64 states (protein 20, codon 61) the
+    batched Jacobi eigensolver of ``ops/eigh_cuda.py`` (its CUDA kernel on
+    the card, its plain version on the CPU), and the eigensystem stays in
+    float64: rounded to float32, U and Uinv carry absolute errors of about
+    6e-8 |U| |Uinv| into every P(t) entry, which at S = 20 swamps the
+    transition probabilities below about 1e-6 and moved an avian
+    (89-taxon protein) lnL by up to 0.08 from an exact evaluation, against
+    6e-4 kept in float64 (``tests/test_torch_protein.py``).  Neither
+    solver synchronises with the host on the card.  Larger state spaces
+    raise.
     """
     s = Q.shape[-1]
-    if s > 8:
+    if s > MAX_S:
         raise NotImplementedError(
-            f"{s}-state eigensystems (protein/codon models) are not ported "
-            "yet (ROADMAP Queue 1 item 12)")
+            f"{s}-state eigensystems: the port's eigensolvers take at most "
+            f"{MAX_S} states")
     sq = torch.sqrt(pi.clamp_min(1e-30))
     B = Q * (sq[..., :, None] / sq[..., None, :])
     B = 0.5 * (B + B.transpose(-1, -2))  # symmetrize numerical noise
-    lam, V = jacobi_eigh(B)
+    if s <= 8:
+        lam, V = jacobi_eigh(B)
+    else:
+        lam, V = symmetric_eigh(B)
+        sq = sq.double()
     U = V / sq[..., :, None]
     Uinv = V.transpose(-1, -2) * sq[..., None, :]
     return lam, U, Uinv
@@ -40,7 +53,8 @@ def transition_probs(lam: torch.Tensor, U: torch.Tensor, Uinv: torch.Tensor,
     """P(t) for a batch of effective branch lengths.
 
     lam/U/Uinv: [..., s] / [..., s, s]; t: [...] broadcastable against the
-    batch.  Returns [..., s, s], clipped to [0, 1].
+    batch.  Returns [..., s, s], clipped to [0, 1], in the eigensystem's
+    dtype.
     """
     elt = torch.exp(lam * t[..., None])               # [..., s]
     P = (U * elt[..., None, :]) @ Uinv

@@ -101,7 +101,7 @@ def shard_engine_data(eng, mesh: Mesh) -> None:
     devices = mesh.site_devices()
     ws, cms, pruners = [], [], []
     for i, cfg in enumerate(eng.div_cfg):
-        tp, _ = _pad_to_multiple(cfg.div.tip_partials(), 1, k)
+        tp, _ = _pad_to_multiple(eng._model_tips[i], 1, k)
         w, _ = _pad_to_multiple(eng.weights[i].cpu().numpy(), 0, k)
         cm, _ = _pad_to_multiple(eng.const_masks[i].cpu().numpy(), 0, k)
         pruners.append(PruningCudaSharded(tp, cfg.n_cats, devices,

@@ -2,11 +2,15 @@
 CLI, the run driver, the summaries, the native tree reader and the
 envelope run) and running CPU ``Engine`` blocks, single-division,
 partitioned through the multiwalk wiring, sharded over the ``sites``
-mesh axis (``parallel.mesh``, ``parallel.dryrun``) and on a clock tree
-(``mcmc.clock``, test2's relaxed clock), loads neither JAX nor any
-module of the JAX package (``mrbayes_tpu``), and ``chip_smoke.py``
-imports neither.  Checked in a
-fresh interpreter, since this test process has JAX loaded already."""
+mesh axis (``parallel.mesh``, ``parallel.dryrun``), on a clock tree
+(``mcmc.clock``, test2's relaxed clock) and under the protein and codon
+models (``models.aa_models``, ``models.codes``, the S > 8 eigensolver
+``ops.eigh_cuda``), loads neither JAX nor any module of the JAX package
+(``mrbayes_tpu``), and ``chip_smoke.py`` imports neither.  Checked in a
+fresh interpreter, since this test process has JAX loaded already.  The
+new entry points run on CUDA unless given the CPU: an engine under a
+protein or codon model raises without a CUDA device, and the eigensolver's
+kernel wrapper refuses a CPU tensor."""
 import ast
 import os
 import subprocess
@@ -61,6 +65,21 @@ for line in ["execute " + sys.argv[1], "partition p = 2: 1-400, 401-.",
 eng = it.build_engine()
 states, bk = eng.run_block(*eng.init_chains(), 3)
 assert "age" in states and eng.extract_tree(states, 0).rooted
+# protein (aamodelpr=mixed and protein GTR) and codon (NY98) engines
+import os
+import mrbayes_tpu_torch.models.aa_models
+import mrbayes_tpu_torch.models.codes
+import mrbayes_tpu_torch.ops.eigh_cuda
+examples = os.path.dirname(sys.argv[1])
+for data, line in [("avian_ovomucoids.nex", "prset aamodelpr=mixed"),
+                   ("avian_ovomucoids.nex", "prset aamodelpr=fixed(gtr)"),
+                   ("replicase.nex", "lset nucmodel=codon omegavar=ny98")]:
+    it = Interpreter(log=lambda m: None, device="cpu")
+    for ln in ["execute " + os.path.join(examples, data), line,
+               "mcmcp nruns=1 nchains=2"]:
+        it.run_line(ln)
+    eng = it.build_engine()
+    states, bk = eng.run_block(*eng.init_chains(), 3)
 print(" ".join(sorted(sys.modules)))
 """
 
@@ -99,3 +118,28 @@ def test_port_sources_import_no_jax_module():
     found = {(os.path.relpath(f, ROOT), m) for f in files
              for m in _imports(f) if _is_foreign(m)}
     assert not found, sorted(found)
+
+
+def test_new_entry_points_default_to_cuda():
+    import pytest
+    import torch
+    from conftest import example
+    from mrbayes_tpu_torch.data import DataSet, make_divisions
+    from mrbayes_tpu_torch.mcmc.engine import Engine
+    from mrbayes_tpu_torch.mcmc.settings import DivisionSettings, Prior
+    from mrbayes_tpu_torch.nexus.parser import read_nexus_file
+    from mrbayes_tpu_torch.ops.eigh_cuda import eigh_cuda
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        eigh_cuda(torch.eye(20, dtype=torch.float64).expand(2, 20, 20)
+                  .contiguous())
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for name, kw in (("avian_ovomucoids.nex",
+                      dict(aamodelpr=Prior("mixed", ()))),
+                     ("replicase.nex",
+                      dict(nucmodel="codon", omegavar="ny98"))):
+        nf = read_nexus_file(example(name))
+        ds = DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar,
+                     divisions=make_divisions(nf.matrix))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Engine(ds, [DivisionSettings(**kw)])

@@ -131,6 +131,9 @@ def test_transition_probs_match_jax_gtr_gamma():
 
 
 def test_eigh_reversible_rejects_large_state_spaces():
-    pi = torch.full((20,), 0.05)
-    with pytest.raises(NotImplementedError):
-        TTP.eigh_reversible(torch.zeros(20, 20), pi)
+    """20 and 61 states are taken since the protein and codon models came
+    (tests/test_torch_protein.py); beyond the eigensolvers' 64 it
+    raises."""
+    pi = torch.full((65,), 1.0 / 65)
+    with pytest.raises(NotImplementedError, match="64 states"):
+        TTP.eigh_reversible(torch.zeros(65, 65), pi)
