@@ -100,12 +100,17 @@ Phases, each fatal on failure:
  21. eigh kernel (run with phase 3): csrc/eigh.cu, the batched S > 8
      eigensolver, against its plain version (torch.linalg.eigh in float64)
      at [8, 20, 20], [32, 20, 20], [24, 61, 61] and [96, 61, 61] seeded
-     reversible generators, Poisson's among them: reconstruction and P(t)
-     at four branch lengths within 1e-10 (a float32 solve misses it by
-     three orders), with the sweeps taken, its
-     CUDA-graph time, torch.linalg.eigh's (library_ms), the bound and the
-     ptxas registers; pruning.cu at the avian (S 20, K 1 and 4) and
-     replicase (S 61, K 1 and 3) shapes at C = 8 and 32 runs with phase 3;
+     reversible generators, Poisson's among them, and at runtime S 9, 60
+     and 64 (B 8): reconstruction and P(t) at four branch lengths within
+     1e-10 (a float32 solve misses it by three orders); against its kept
+     first design (mb_eigh_jacobi_before) on the same batch: sweeps within
+     one on every matrix and max |P(t) - first design's|; the sweeps
+     taken, its CUDA-graph time and the first design's (before_ms),
+     torch.linalg.eigh's (library_ms), the bound, each instantiation's
+     thread split and shared memory (mb_eigh_plan, equal to
+     ops/eigh_cuda.eigh_plan) and ptxas registers; pruning.cu at the avian
+     (S 20, K 1 and 4) and replicase (S 61, K 1 and 3) shapes at C = 8 and
+     32 runs with phase 3;
  22. golden protein and codon: the protein_jones_g and codon_m0 rows of
      tests/golden_primates.json and the replicase_ny98 rows of
      tests/golden_extra.json on the card (within 0.05, 0.6 and 1.0);
@@ -235,6 +240,9 @@ REPLICASE = os.path.join(EXAMPLES, "replicase.nex")
 # NY98's 8 and 32 chains x 3 omega classes; its tolerance on
 # |A - V diag(w) V^T| / |A| and on P(t) against the plain version
 EIGH_CASES = [(8, 20), (32, 20), (24, 61), (96, 61)]
+# ... and at S the runtime-S instantiation takes (other genetic codes have
+# 60-62 codons)
+EIGH_RUNTIME_CASES = [(8, 9), (8, 60), (8, 64)]
 EIGH_TOL = 1e-10
 # the protein and codon runs through the CLI (2 runs x 4 chains), and
 # their prior-only check: runs x 1 chain, generations, seed
@@ -1870,25 +1878,10 @@ def phase_prior_only(torch, ds, seed, power_line):
 
 
 def reversible_batch(torch, rng, B, S):
-    """B seeded symmetrised reversible generators D^1/2 Q D^-1/2 [B, S, S]
-    (float64, on the card): every fourth Poisson's (equal rates and
-    frequencies: one eigenvalue S - 1 times), the others gamma(1)
-    exchangeabilities and Dirichlet(2) frequencies."""
-    out = []
-    for i in range(B):
-        poisson = i % 4 == 0
-        pi = np.full(S, 1.0 / S) if poisson else rng.dirichlet(np.ones(S) * 2)
-        ex = (np.ones(S * (S - 1) // 2) if poisson
-              else rng.gamma(1.0, 1.0, S * (S - 1) // 2))
-        R = np.zeros((S, S))
-        R[np.triu_indices(S, 1)] = ex
-        Q = (R + R.T) * pi[None]
-        np.fill_diagonal(Q, -Q.sum(1))
-        Q /= -(pi * np.diag(Q)).sum()
-        sq = np.sqrt(pi)
-        A = Q * (sq[:, None] / sq[None, :])
-        out.append(0.5 * (A + A.T))
-    return torch.tensor(np.stack(out), dtype=torch.float64, device=DEV)
+    """B seeded symmetrised reversible generators [B, S, S] (float64, on
+    the card; ``eigh_bench.reversible_batch``: every fourth Poisson's)."""
+    from mrbayes_tpu_torch.eigh_bench import reversible_batch as batch
+    return torch.tensor(batch(rng, B, S), dtype=torch.float64, device=DEV)
 
 
 def eigh_flops(S):
@@ -1899,55 +1892,90 @@ def eigh_flops(S):
     return 9 * S ** 3
 
 
+def p_of_t(torch, w, V, t):
+    return V @ torch.diag_embed(torch.exp(w * t)) @ V.transpose(-1, -2)
+
+
+def eigh_case(torch, E, A):
+    """One batch through eigh.cu, its plain version and its first design:
+    the gates' numbers and the times."""
+    B, S = A.shape[0], A.shape[1]
+    w, V, sw = E.eigh_cuda(A, with_sweeps=True)
+    wb, Vb = torch.empty_like(w), torch.empty_like(V)
+    swb = torch.empty_like(sw)
+    if E.eigh_launch(A, wb, Vb, swb, before=True) != 0:
+        raise AssertionError(f"eigh first design B={B} S={S}: refused")
+    torch.cuda.synchronize()
+    wp, Vp = E.eigh_plain(A)
+    rec = ((V @ torch.diag_embed(w) @ V.transpose(-1, -2) - A).norm(
+        dim=(1, 2)) / A.norm(dim=(1, 2))).max().item()
+    p_err = p_before = 0.0
+    for t in (0.01, 0.1, 1.0, 10.0):
+        P = p_of_t(torch, w, V, t)
+        p_err = max(p_err, (P - p_of_t(torch, wp, Vp, t)).abs().max().item())
+        p_before = max(p_before,
+                       (P - p_of_t(torch, wb, Vb, t)).abs().max().item())
+    sweeps, before = sw.cpu().numpy(), swb.cpu().numpy()
+    d_sweeps = int(np.abs(sweeps - before).max())
+    log(f"eigh_cuda B={B} S={S}: |A - V diag(w) V^T| / |A| {rec:.3e}, "
+        f"max |P(t) - plain| {p_err:.3e} (limit {EIGH_TOL}), sweeps "
+        f"{int(sweeps.min())}-{int(sweeps.max())}; first design: sweeps "
+        f"{int(before.min())}-{int(before.max())} (most apart {d_sweeps}), "
+        f"max |P(t) - first design's| {p_before:.3e}")
+    if not (rec <= EIGH_TOL and p_err <= EIGH_TOL and d_sweeps <= 1
+            and p_before <= EIGH_TOL):
+        raise AssertionError(f"eigh_cuda B={B} S={S} disagrees with its "
+                             f"plain version or its first design")
+    w_o, V_o = torch.empty_like(w), torch.empty_like(V)
+    nbytes = 8 * (A.numel() + w.numel() + V.numel())
+    return {
+        "max_abs_err": p_err, "reconstruction": rec,
+        "max_abs_diff_before": p_before,
+        "sweeps_min": int(sweeps.min()), "sweeps_max": int(sweeps.max()),
+        "sweeps_mean": float(sweeps.mean()),
+        "before_sweeps_mean": float(before.mean()),
+        "sweeps_most_apart": d_sweeps,
+        "ms": time_graph(torch, lambda: E.eigh_launch(A, w_o, V_o, None),
+                         n=20, reps=3),
+        "before_ms": time_graph(
+            torch, lambda: E.eigh_launch(A, w_o, V_o, None, before=True),
+            n=20, reps=3),
+        "wrapper_ms": time_events(torch, lambda: E.eigh_cuda(A), 20),
+        "plain_ms": time_events(torch, lambda: E.eigh_plain(A), 5),
+        "library_ms": time_events(torch, lambda: torch.linalg.eigh(A), 5),
+        **{k: v for k, v in bound(nbytes, B * eigh_flops(S),
+                                  H100_FP64_FLOPS).items()
+           if k in ("bound_ms", "bound_by")},
+        "plan": E.device_plan(S)}
+
+
 def phase_eigh(torch):
-    """eigh.cu against its plain version (torch.linalg.eigh in float64) at
-    the batches the main path gives it, seeded reversible generators with
-    Poisson's among them: A = V diag(w) V^T within EIGH_TOL of |A| and
-    P(t) within EIGH_TOL of the plain version's at four branch lengths;
-    the sweeps taken, the kernel's CUDA-graph time, the plain version's
-    and torch.linalg.eigh's (library_ms) on the same batch, and the
-    bound."""
+    """eigh.cu against its plain version (torch.linalg.eigh in float64) and
+    its kept first design at the batches the main path gives it and at
+    runtime S, seeded reversible generators with Poisson's among them:
+    A = V diag(w) V^T within EIGH_TOL of |A|, P(t) within EIGH_TOL of the
+    plain version's and of the first design's at four branch lengths, and
+    sweeps within one of the first design's on every matrix; the sweeps
+    taken, the kernel's and the first design's CUDA-graph times, the plain
+    version's and torch.linalg.eigh's (library_ms) on the same batch, the
+    bound, and each instantiation's plan (held equal to its twin
+    ``eigh_plan``)."""
     from mrbayes_tpu_torch.ops import eigh_cuda as E
+    for S in range(E.MIN_S, E.MAX_S + 1):
+        if E.device_plan(S) != E.eigh_plan(S):
+            raise AssertionError(f"mb_eigh_plan({S}) {E.device_plan(S)} is "
+                                 f"not its twin's {E.eigh_plan(S)}")
     rng = np.random.default_rng(300)
     cases = {}
     for B, S in EIGH_CASES:
-        A = reversible_batch(torch, rng, B, S)
-        w, V, sw = E.eigh_cuda(A, with_sweeps=True)
-        torch.cuda.synchronize()
-        wp, Vp = E.eigh_plain(A)
-        A64 = A.double()
-        rec = ((V @ torch.diag_embed(w) @ V.transpose(-1, -2) - A64).norm(
-            dim=(1, 2)) / A64.norm(dim=(1, 2))).max().item()
-        p_err = 0.0
-        for t in (0.01, 0.1, 1.0, 10.0):
-            P = V @ torch.diag_embed(torch.exp(w * t)) @ V.transpose(-1, -2)
-            Pp = Vp @ torch.diag_embed(torch.exp(wp * t)) @ \
-                Vp.transpose(-1, -2)
-            p_err = max(p_err, (P - Pp).abs().max().item())
-        sweeps = sw.cpu().numpy()
-        log(f"eigh_cuda B={B} S={S}: |A - V diag(w) V^T| / |A| {rec:.3e}, "
-            f"max |P(t) - plain| {p_err:.3e} (limit {EIGH_TOL}), sweeps "
-            f"{int(sweeps.min())}-{int(sweeps.max())}")
-        if not (rec <= EIGH_TOL and p_err <= EIGH_TOL):
-            raise AssertionError(f"eigh_cuda B={B} S={S} disagrees with its "
-                                 f"plain version")
-        w_o, V_o = torch.empty_like(w), torch.empty_like(V)
-
-        def raw():
-            E.eigh_launch(A, w_o, V_o, None)
-        nbytes = 8 * (A.numel() + w.numel() + V.numel())
-        flops = B * eigh_flops(S)
-        cases[f"B{B}_S{S}"] = {
-            "max_abs_err": p_err, "reconstruction": rec,
-            "sweeps_min": int(sweeps.min()), "sweeps_max": int(sweeps.max()),
-            "sweeps_mean": float(sweeps.mean()),
-            "ms": time_graph(torch, raw, n=20, reps=3),
-            "wrapper_ms": time_events(torch, lambda: E.eigh_cuda(A), 20),
-            "plain_ms": time_events(torch, lambda: E.eigh_plain(A), 5),
-            "library_ms": time_events(torch, lambda: torch.linalg.eigh(A), 5),
-            **{k: v for k, v in bound(nbytes, flops, H100_FP64_FLOPS).items()
-               if k in ("bound_ms", "bound_by")}}
-        log(f"eigh_cuda timing B={B} S={S}: {json.dumps(cases[f'B{B}_S{S}'])}")
+        cases[f"B{B}_S{S}"] = eigh_case(torch, E,
+                                        reversible_batch(torch, rng, B, S))
+    rng = np.random.default_rng(301)
+    for B, S in EIGH_RUNTIME_CASES:
+        cases[f"B{B}_S{S}"] = eigh_case(torch, E,
+                                        reversible_batch(torch, rng, B, S))
+    for key, case in cases.items():
+        log(f"eigh_cuda timing {key}: {json.dumps(case)}")
     return cases
 
 
@@ -2500,15 +2528,15 @@ def main(argv=None) -> int:
         "name": "eigh_jacobi",
         "route": "cuda",
         "source": "mrbayes_tpu_torch/csrc/eigh.cu",
-        "replaces": "mrbayes_tpu/ops/tiprobs.py:34",
+        "replaces": "mrbayes_tpu/ops/tiprobs.py:33",
         "launches": sum(eigh_launches.values()),
         "launches_per_run": eigh_launches,
         "gens_per_run": {"avian_cli": AA_GENS,
                          "replicase_ny98_cli": CODON_GENS},
         "max_abs_err": max(c["max_abs_err"] for c in eigh_cases.values()),
         **{k: eigh_cases["B24_S61"][k] for k in (
-            "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "sweeps_mean")},
+            "ms", "before_ms", "wrapper_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "sweeps_mean", "before_sweeps_mean")},
         "shape": "replicase NY98, 2 runs x 4 chains x 3 omega classes: "
                  "B=24 S=61",
         "cases": eigh_cases,

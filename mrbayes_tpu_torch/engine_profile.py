@@ -8,22 +8,27 @@ Usage (from the repository root, on a machine with a CUDA GPU):
     python -m mrbayes_tpu_torch.engine_profile --config test2 [--multiwalk]
     python -m mrbayes_tpu_torch.engine_profile --config cynmix \
         [--wavefront] [--stacked] [--multiwalk]
+    python -m mrbayes_tpu_torch.engine_profile --config replicase_ny98
+    python -m mrbayes_tpu_torch.engine_profile --config avian_gtr
     python -m mrbayes_tpu_torch.engine_profile [--config ...] --sites 4
 
 ``--config primates`` (the default) is primates GTR+I+G, 1 run;
 ``--config test1`` is test1's partitioned model, ``--config test2`` the
-same on test2's IGR relaxed clock, and ``--config cynmix`` cynmix's
-favored total-evidence model (each built through the CLI's
-commands, ``envelope.BATCHES``), 2 runs, with the kernel-path switches as
-given.  ``--chains`` is the chain count per run; ``--sites k`` shards
-the engine's patterns over k site shards of its device
-(``parallel.mesh``).  It builds the engine,
-warms it up, and then measures, each on the device it runs on:
+same on test2's IGR relaxed clock, ``--config cynmix`` cynmix's
+favored total-evidence model, ``--config avian`` avian_ovomucoids under
+aamodelpr=mixed, ``--config avian_gtr`` the same under
+aamodelpr=fixed(gtr) and ``--config replicase_ny98`` replicase under
+NY98 (each built through the CLI's commands, ``envelope.BATCHES``), 2
+runs, with the kernel-path switches as given.  ``--chains`` is the chain
+count per run; ``--sites k`` shards the engine's patterns over k site
+shards of its device (``parallel.mesh``).  It builds the engine, warms it
+up, and then measures, each on the device it runs on:
 
   * ``run_block`` under ``torch.profiler``: wall time, the device's busy
     and idle share (summed kernel time over the window), kernel launches
-    per generation, and the kernels and host operators that take the most
-    time;
+    per generation, the kernels and host operators that take the most
+    time, and each of the port's kernels (``csrc/*.cu``): launches, device
+    ms and share of the busy time and of the wall time;
   * one generation of each move type alone (host clock around
     ``torch.cuda.synchronize()``), with the move's share of the draws;
   * one ``log_likelihood`` call, one ``refresh_eigs`` call and one pruning
@@ -50,6 +55,9 @@ from .ops.traversal import postorder_internal
 from .ops.pruning import branch_tiprobs
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# name fragments of the port's kernels (csrc/*.cu) in a profiler trace
+PORT_KERNELS = ("pruning", "multiwalk", "wavefront", "stacked",
+                "eigh_jacobi")
 PRIMATES = os.path.join(_ROOT, "tests", "data", "ref", "examples",
                         "primates.nex")
 
@@ -107,6 +115,19 @@ def profile_block(eng, states, bk, gens, dev, top=12):
         return [{"name": k[:90], "count": v[0], "ms": v[1]}
                 for k, v in sorted(d.items(), key=lambda kv: -kv[1][1])[:top]]
 
+    # the port's hand-written kernels, summed over their instantiations
+    ours = {}
+    for name, (count, ms) in kernels.items():
+        for tag in PORT_KERNELS:
+            if tag in name:
+                o = ours.setdefault(tag, {"launches": 0, "ms": 0.0})
+                o["launches"] += count
+                o["ms"] += ms
+    for o in ours.values():
+        o["launches_per_gen"] = o["launches"] / gens
+        o["share_of_busy"] = o["ms"] / busy_ms if busy_ms else None
+        o["share_of_wall"] = o["ms"] / (wall * 1e3)
+
     out = {"gens": gens, "wall_ms": wall * 1e3,
            "ms_per_gen": wall * 1e3 / gens,
            "device_busy_ms": busy_ms if dev.type == "cuda" else None,
@@ -115,6 +136,7 @@ def profile_block(eng, states, bk, gens, dev, top=12):
            "kernel_launches_per_gen": (n_kernels / gens
                                        if dev.type == "cuda" else None),
            "top_kernels": ranked(kernels),
+           "port_kernels": ours,
            "top_host_ops_self": ranked(host)}
     return out, states, bk
 
@@ -164,6 +186,16 @@ def parts(eng, states, dev, reps):
     return out
 
 
+def configs() -> dict:
+    """The CLI-built configurations: ``envelope.BATCHES`` (test1, test2,
+    cynmix, avian under aamodelpr=mixed, replicase under NY98) and avian
+    under aamodelpr=fixed(gtr), whose every Q move refreshes an S = 20
+    eigensystem through ``csrc/eigh.cu``."""
+    from .envelope import AVIAN, BATCHES
+    return {**BATCHES,
+            "avian_gtr": (AVIAN, ("prset aamodelpr=fixed(gtr)",))}
+
+
 def build_engine(config: str, chains: int, device, **switches):
     """(engine, description) of one profiled configuration, with the
     kernel-path switches given (``multiwalk=``, ``wavefront=``,
@@ -177,8 +209,7 @@ def build_engine(config: str, chains: int, device, **switches):
                      device=device)
         return eng, f"primates GTR+I+G, 1 run x {chains} chains"
     from .cli import Interpreter
-    from .envelope import BATCHES
-    data, model = BATCHES[config]
+    data, model = configs()[config]
     it = Interpreter(log=lambda m: None, device=device, **switches)
     for line in (f"execute {data}", *model,
                  f"mcmcp nruns=2 nchains={chains} seed=3"):
@@ -195,8 +226,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a CUDA device)")
-    ap.add_argument("--config",
-                    choices=("primates", "test1", "test2", "cynmix"),
+    ap.add_argument("--config", choices=("primates", *configs()),
                     default="primates")
     ap.add_argument("--multiwalk", action="store_true",
                     help="test1, test2, cynmix: group the divisions of "

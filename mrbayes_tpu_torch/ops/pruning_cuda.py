@@ -86,7 +86,9 @@ _ENTRY_POINTS = {
                   "mb_wavefront_plan": [_INT] * 7 + [_PTR]},
     "stacked": {"mb_stacked_down": [_PTR] * 8 + [_INT] * 8 + [_PTR],
                 "mb_group_plan": _GROUP_PLAN},
-    "eigh": {"mb_eigh_jacobi": [_PTR] * 4 + [_INT] * 3 + [_PTR]},
+    "eigh": {"mb_eigh_jacobi": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+             "mb_eigh_jacobi_before": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+             "mb_eigh_plan": [_INT, _PTR]},
 }
 
 

@@ -410,7 +410,8 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S", [(8, 20), (24, 61)])
+@pytest.mark.parametrize("B,S", [(8, 20), (32, 20), (24, 61), (96, 61),
+                                 (8, 9), (8, 60), (8, 64)])
 def test_eigh_kernel_matches_plain_on_gpu(cuda_device, B, S):
     """eigh.cu against its plain version: reconstruction within 1e-10 of
     |A| and P(t) within 1e-10 at four branch lengths (both float64; a
