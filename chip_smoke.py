@@ -5,11 +5,12 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
     python3 chip_smoke.py [--test1-gens N] [--primates-blocks N]
                           [--cynmix-gens N] [--switch-blocks N]
 
-(defaults 4,000, 3, 600 and 2; primates blocks, cynmix generations and
+(defaults 2,000, 3, 600 and 2; primates blocks, cynmix generations and
 switch blocks were 5, 2,000 and 3 before the sharded phases came, and
-test1's generations 20,000 before test2's came: each was cut to keep the
-script within 600 s, and test1's 20,000-generation envelope is checked by
-``--test1-gens 20000``; test2 always runs the envelope's 20,000).  Each
+test1's generations 20,000 before test2's came and 4,000 before the
+dating phases: each was cut to keep the script within 600 s, and test1's
+20,000-generation envelope is checked by ``--test1-gens 20000``; test2
+always runs the envelope's 20,000).  Each
 phase's end is logged with the seconds since the start.
 
 Phases, each fatal on failure:
@@ -115,7 +116,7 @@ Phases, each fatal on failure:
      tests/golden_primates.json and the replicase_ny98 rows of
      tests/golden_extra.json on the card (within 0.05, 0.6 and 1.0);
  23. avian: avian_ovomucoids.nex under the manual's aamodelpr=mixed
-     through the CLI, 2 runs x 4 chains, 1,000 generations: one pruning.cu
+     through the CLI, 2 runs x 4 chains, 600 generations: one pruning.cu
      launch a likelihood, one eigh.cu launch at the engine's build (the 11
      models' fixed eigensystems as one batch) and none in the loop,
      carried versus recomputed scores, the files, sump
@@ -124,12 +125,42 @@ Phases, each fatal on failure:
      every move type with host synchronisation made an error, eigh.cu
      once per Q move under gtr and never under mixed;
  25. replicase NY98: replicase.nex under lset nucmodel=codon omegavar=ny98
-     through the CLI, 2 runs x 4 chains, 2,000 generations, with phase 23's
+     through the CLI, 2 runs x 4 chains, 1,200 generations, with phase 23's
      checks and eigh.cu once per refresh; then the sync check of phase 24;
  26. prior-only protein and codon: mcmc data=no from draws of the prior,
-     32 runs x 1 chain, 2,000 generations: each amino-acid model's share,
+     32 runs x 1 chain, 1,200 generations: each amino-acid model's share,
      M0's omega/(1+omega), NY98's omega1, omega3 and class frequencies
-     within 4 batch-means standard errors of their prior means.
+     within 4 batch-means standard errors of their prior means;
+ 27. hymfossil kernels (run with phase 3): pruning.cu against its plain
+     version at every division shape of hymfossil.nex's FBD analysis (114
+     tips; P with the coding dummies; S 2-7 and 4; K 4) at C = 8 and 32,
+     on the engine's operands for the reference's dated trees (the
+     hymfossil_fbd_totev rows' trees and ages: extant tips aged about
+     1e-8, sampled ancestors on zero-length branches) with seeded
+     substitution parameters: the walk taken, ms, before_ms, plain_ms and
+     the bound of each;
+ 28. golden hymfossil: the hymfossil_fbd_totev rows of
+     tests/golden_extra.json through the port's CLI and engine with every
+     kernel-path switch off and with the multiwalk, wavefront and stacked
+     paths: each path's total within the row's tol (3.0) of the
+     reference, each division's lnL within 1e-3 of the other paths';
+ 29. hymfossil: the FBD analysis through the CLI (45 fossils with fixed
+     ages, 15 divisions, 2 runs x 4 chains, 600 generations), switches
+     off: one pruning.cu launch a division and likelihood, carried versus
+     recomputed scores, every fixed fossil age held, the pinned ages
+     ordered and no constraint broken, the .p/.t/.mcmc files with each
+     sample's nSampledAncestors equal to its tree's zero-length tip
+     branches, sump and sumt;
+ 30. dating sync: a block and one generation of every move type with host
+     synchronisation made an error, on the hymfossil engine (add_branch,
+     del_branch, the fossilization slider) and on small problems with a
+     uniformly dated tip, a calibrated hard constraint, the CPP clock and
+     clockvarpr=mixed (tip_date_slider, the CPP moves, rcl_jump);
+ 31. prior-only dating: mcmc data=no on an 8-tip FBD problem with 3 dated
+     fossils and on a CPP problem, 32 runs x 1 chain, 1,000 generations on
+     the card and on the port's own CPU engine (held against JAX in
+     tests/test_torch_dating.py): the mean root age, sampled ancestors and
+     CPP events within 4 batch-means standard errors of each other.
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -215,10 +246,10 @@ WARM_GENS, BLOCK_GENS, SYNC_GENS = 50, 200, 50
 SHARD_COUNTS, SHARD_BLOCKS = (1, 2, 4), 3
 DEV = "cuda"
 # the reference's envelope runs 20,000 generations; test1's default run is
-# cut to leave room for test2's within 600 s (its 20,000-generation
-# envelope is a separate call: --test1-gens 20000)
+# cut to leave room for test2's and the later phases' within 600 s (its
+# 20,000-generation envelope is a separate call: --test1-gens 20000)
 ENVELOPE_GENS = 20000
-TEST1_GENS = 4000
+TEST1_GENS = 2000
 TEST2_GENS = ENVELOPE_GENS
 # the clock-tree kernel cases: test2's divisions (test1's, on a clock
 # tree) at 8 and 32 chains
@@ -245,9 +276,19 @@ EIGH_CASES = [(8, 20), (32, 20), (24, 61), (96, 61)]
 EIGH_RUNTIME_CASES = [(8, 9), (8, 60), (8, 64)]
 EIGH_TOL = 1e-10
 # the protein and codon runs through the CLI (2 runs x 4 chains), and
-# their prior-only check: runs x 1 chain, generations, seed
-AA_GENS, CODON_GENS = 1000, 2000
-AA_PRIOR_RUNS, AA_PRIOR_GENS, AA_PRIOR_SEED = 32, 2000, 13
+# their prior-only check: runs x 1 chain, generations, seed (the three
+# runs cut from 1,000, 2,000 and 2,000 to make room for the dating phases
+# within 600 s)
+AA_GENS, CODON_GENS = 600, 1200
+AA_PRIOR_RUNS, AA_PRIOR_GENS, AA_PRIOR_SEED = 32, 1200, 13
+
+
+# hymfossil (the dating slice): the kernel cases' chain counts, the CLI
+# run's generations (7 samples a run at samplefreq 100), and the
+# prior-only dating checks' runs x 1 chain and generations
+HYM_CHAINS = (8, 32)
+HYM_GENS = 600
+DATING_PRIOR_RUNS, DATING_PRIOR_GENS = 32, 1000
 
 
 def log(msg):
@@ -2257,6 +2298,378 @@ def phase_aa_codon_prior(torch, seed, power_line):
     return out
 
 
+# ---------------------------------------------------------------------------
+# hymfossil: total-evidence dating under the fossilized birth-death prior
+
+
+def hymfossil_interpreter(**switches):
+    """hymfossil.nex's FBD analysis (envelope.BATCHES["hymfossil"], the
+    hymfossil_fbd_totev rows' commands) in a CLI interpreter on the card,
+    2 runs x 4 chains, the kernel-path switches as given (off unless
+    named)."""
+    from mrbayes_tpu_torch.cli import Interpreter
+    from mrbayes_tpu_torch.envelope import BATCHES
+    data, model = BATCHES["hymfossil"]
+    it = Interpreter(log=lambda m: None, device=DEV,
+                     **{"multiwalk": False, "wavefront": False,
+                        "stacked": False, **switches})
+    for line in (f"execute {data}", *model, "mcmcp nruns=2 nchains=4 seed=5"):
+        it.run_line(line)
+    return it
+
+
+def hymfossil_kernel_states(torch, eng, C, rng):
+    """C chain states of the hymfossil engine on the card, on the
+    reference's own sampled trees: the three hymfossil_fbd_totev rows'
+    trees and ages in turn (extant tips aged about 1e-8; at generations 30
+    and 60 fossils on zero-length branches, sampled ancestors, flagged in
+    ``sa``), their clock rate and rate multipliers, and seeded gamma
+    shapes, exchangeabilities and frequencies."""
+    rows = [r for r in json.load(open(GOLDEN_EXTRA))
+            if r["name"] == "hymfossil_fbd_totev"]
+    base = [hymfossil_row_state(torch, r, eng.data.taxa) for r in rows]
+    st = {k: torch.cat([base[c % len(base)][k] for c in range(C)])
+          for k in base[0]}
+    n = eng.n_tips
+    fossil = torch.as_tensor(eng.fossil_tips, device=DEV)
+    st["sa"] = ((eng.branch_lengths(st)[:, :n] == 0) & fossil).long()
+    g = eng.n_groups
+    for k, a in (("revmat", 2.0), ("pi", 5.0)):
+        st[k] = torch.as_tensor(rng.dirichlet(
+            np.full(st[k].shape[-1], a), (C, g[k])), dtype=torch.float32,
+            device=DEV)
+    st["shape"] = torch.as_tensor(rng.uniform(0.5, 2.0, (C, g["shape"])),
+                                  dtype=torch.float32, device=DEV)
+    return eng.refresh_eigs(st)
+
+
+def phase_hymfossil_kernels(torch):
+    """pruning.cu against its plain version at every hymfossil division's
+    shape (114 tips; P with the coding dummies; S 2-7 and 4; K 4) at
+    C = 8 and 32, on the engine's own operands for the reference's dated
+    trees with sampled ancestors on zero-length branches
+    (``hymfossil_kernel_states``): the walk the size rule took, the
+    CUDA-graph time beside the old walk's (before_ms), the plain
+    version's and the bound."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    from mrbayes_tpu_torch.ops.pruning import branch_tiprobs
+    from mrbayes_tpu_torch.ops.traversal import postorder_internal
+    eng = hymfossil_interpreter().build_engine()
+    worst, cases = 0.0, {}
+    for C in HYM_CHAINS:
+        rng = np.random.default_rng(900 + C)
+        st = hymfossil_kernel_states(torch, eng, C, rng)
+        blen = eng.branch_lengths(st)
+        n = eng.n_tips
+        zero = blen[:, :n] == 0
+        if not zero.any() or (zero != (st["sa"] > 0)).any():
+            raise AssertionError("hymfossil kernel trees: the zero-length "
+                                 "branches must be the sampled ancestors'")
+        order = postorder_internal(st["parent"], n)
+        for i, pruner in enumerate(eng._pruners):
+            pi, _, lam, U, Uinv, rates, pinv, cmask, mult = \
+                eng._generic_div_params(st, i)
+            Pm = branch_tiprobs(blen, lam, U, Uinv, rates,
+                                pinv if cmask is not None else 0.0, mult)
+            lr, pstep = pruner.operands(order, st["left"], st["right"], Pm)
+            tips = pruner.tips
+            root_k, ls_k = PC.pruning_down(lr, pstep, tips)
+            torch.cuda.synchronize()
+            root_p, ls_p = PC.pruning_down_plain(lr, pstep, tips)
+            raw, plan, root, ls = new_walk(torch, lr, pstep, tips)
+            K, S, P = pruner.K, pruner.S, pruner.P
+            name = f"d{i}_n{n}_P{P}_S{S}_K{K}_C{C}"
+            err = compare(
+                torch, site_lnl(torch, root_k, ls_k, pi),
+                site_lnl(torch, root_p, ls_p, pi),
+                f"pruning_down hymfossil division {i} n_tips={n} P={P} S={S} "
+                f"K={K} C={C} ({plan['walk']} walk, {plan['threads']} "
+                f"threads for {plan['T']} patterns, {plan['lanes']} lanes, "
+                f"{plan['smem_bytes']} B shared; {int(zero.sum())} "
+                f"zero-length branches)")
+            worst = max(worst, err)
+            flops = 2 * C * (n - 1) * 2 * K * S * S * P
+            nbytes = 4 * (lr.numel() + pstep.numel() + tips.numel()
+                          + root.numel() + ls.numel())
+            cases[name] = {
+                **plan, "max_abs_err": err,
+                "ms": time_graph(torch, raw),
+                "before_ms": time_graph(torch, old_walk(torch, lr, pstep,
+                                                        tips)),
+                "plain_ms": time_events(
+                    torch, lambda: PC.pruning_down_plain(lr, pstep, tips), 3),
+                **{k: v for k, v in bound(nbytes, flops).items()
+                   if k in ("bound_ms", "bound_by")}}
+            log(f"pruning_down hymfossil timing {name}: "
+                f"{json.dumps(cases[name])}")
+    return worst, cases
+
+
+def hymfossil_row_state(torch, rec, taxa):
+    """A hymfossil_fbd_totev row's state on the card (one chain)."""
+    from mrbayes_tpu_torch.trees import parse_newick
+    t = parse_newick(rec["newick"], taxa, rooted=True)
+    st = tree_state(torch, t)
+    del st["blen"]
+    for k, v in rec["state"].items():
+        if not k.startswith("_"):
+            a = np.asarray(v)[None]
+            st[k] = torch.as_tensor(a, device=DEV).to(
+                torch.long if k == "sa" else torch.float32)
+    return st
+
+
+def phase_golden_hymfossil(torch):
+    """The hymfossil_fbd_totev rows of tests/golden_extra.json through the
+    port's CLI and engine with every kernel-path switch off and with the
+    multiwalk, wavefront and stacked paths: each path's total within the
+    row's tol (3.0) of reference MrBayes, each division's lnL within
+    GOLDEN_PATH_TOL of the other paths', each path's kernel launched for
+    every row."""
+    from mrbayes_tpu_torch.ops.wavefront_cuda import PruningCudaWavefront
+    rows = [r for r in json.load(open(GOLDEN_EXTRA))
+            if r["name"] == "hymfossil_fbd_totev"]
+    it = hymfossil_interpreter()
+    lnl, per_div, launches = {}, {}, {}
+    for path in ("off", "multiwalk", "wavefront", "stacked"):
+        eng = it.build_engine(**({path: True} if path != "off" else {}))
+        lnl[path], per_div[path] = [], []
+        for rec in rows:
+            st = eng.refresh_eigs(hymfossil_row_state(torch, rec,
+                                                      eng.data.taxa))
+            lnl[path].append(eng.log_likelihood(st)[0].item())
+            per_div[path].append(eng.division_lnls(st)[0].cpu())
+        used = {"off": [p for p in eng._pruners
+                        if not isinstance(p, PruningCudaWavefront)],
+                "wavefront": [p for p in eng._pruners
+                              if isinstance(p, PruningCudaWavefront)],
+                "stacked": [p for _, p in eng._stacked_pruners],
+                "multiwalk": [p for _, p in eng._multiwalk_pruners]}[path]
+        launches[path] = sum(p.launches for p in used)
+        if not used or min(p.launches for p in used) < 2 * len(rows):
+            raise AssertionError(f"golden hymfossil, {path} path: its kernel "
+                                 f"was not launched for every row")
+    worst = max(abs(v - rec["lnL"]) for vals in lnl.values()
+                for v, rec in zip(vals, rows))
+    spread = 0.0
+    for r in range(len(rows)):
+        t = torch.stack([v[r] for v in per_div.values()])
+        spread = max(spread, float((t.max(0).values - t.min(0).values).max()))
+    tol = rows[0]["tol"]
+    log(f"golden hymfossil_fbd_totev: {len(rows)} rows, lnL by path "
+        f"{json.dumps(lnl)}, reference {[r['lnL'] for r in rows]}, max "
+        f"|lnL - reference| {worst:.4f} (limit {tol}), max spread of one "
+        f"division's lnL between paths {spread:.2e} (limit "
+        f"{GOLDEN_PATH_TOL}); launches {json.dumps(launches)}")
+    if worst >= tol or spread > GOLDEN_PATH_TOL:
+        raise AssertionError("golden hymfossil rows outside their limits")
+    return worst, spread, launches["off"]
+
+
+def zero_length_tips(tree_line):
+    """Tip labels with a zero branch length in one .t tree line."""
+    import re
+    return re.findall(r"[(,](\d+):0(?=[,)])", tree_line)
+
+
+def phase_hymfossil_cli(torch, ngen, power_line):
+    """hymfossil's FBD analysis through the CLI, 2 runs x 4 chains, every
+    kernel-path switch off: one pruning.cu launch a division and
+    likelihood, carried versus recomputed scores, every fixed fossil age
+    held, the pinned ages ordered and no constraint broken, complete
+    .p/.t/.mcmc files whose sampled ancestors (nSampledAncestors) are the
+    zero-length tip branches of the same sample's tree, sump and sumt."""
+    from mrbayes_tpu_torch.envelope import run_batch
+    from mrbayes_tpu_torch.mcmc import clock as CL
+    workdir = os.path.join(OUT, "hymfossil")
+    shutil.rmtree(workdir, ignore_errors=True)
+    it, stats, lines = run_batch(
+        "hymfossil", workdir, ngen, device=DEV, diagnfreq=ngen // 2,
+        multiwalk=False, wavefront=False, stacked=False)
+    runner = it._last_runner
+    eng = runner.eng
+    final = runner.final_states
+    calls = ngen + 1
+    per = [p.launches for p in eng._pruners]
+    if per != [calls] * eng.n_div:
+        raise AssertionError(f"hymfossil launches {per}, predicted {calls} "
+                             f"for each of {eng.n_div} divisions")
+    assert_carried(eng, final, runner.final_bk)
+    fossil = torch.as_tensor(np.flatnonzero(eng.fossil_tips), device=DEV)
+    want = torch.as_tensor(eng.tip_dates[eng.fossil_tips],
+                           dtype=torch.float32, device=DEV)
+    if not (final["age"][:, fossil] == want).all():
+        raise AssertionError("a fixed fossil age moved")
+    pinned = CL.pin_sa_ages(final, eng.n_tips)
+    if not CL.ages_ordered(pinned).all() \
+            or (eng._constraint_terms(pinned) != 0).any():
+        raise AssertionError("hymfossil final states break the ordering or "
+                             "a constraint")
+    for phrase in ("Average PSRF for parameter values",
+                   "Credible sets of trees", "Consensus tree written to"):
+        if not any(phrase in ln for ln in lines):
+            raise AssertionError(f"sump/sumt printed no {phrase!r}")
+    sf = eng.mcmc.samplefreq
+    expect_rows = ngen // sf + 1 + (ngen % sf > 0)     # the last sample too
+    n_sa = []
+    for r in (1, 2):
+        prefix = os.path.join(workdir, f"hymfossil.run{r}")
+        with open(prefix + ".p") as f:
+            f.readline()
+            header = f.readline().rstrip("\n").split("\t")
+            rows = [ln.rstrip("\n").split("\t") for ln in f
+                    if ln[:1].isdigit()]
+        with open(prefix + ".t") as f:
+            trees = [ln for ln in f.read().splitlines() if "tree gen." in ln]
+        if len(rows) != expect_rows or len(trees) != expect_rows \
+                or not os.path.exists(os.path.join(workdir,
+                                                   "hymfossil.mcmc")):
+            raise AssertionError(f"hymfossil.run{r}: {len(rows)} .p rows, "
+                                 f"{len(trees)} trees, expected "
+                                 f"{expect_rows}, or no .mcmc file")
+        col = header.index("nSampledAncestors")
+        for row, tree in zip(rows, trees):
+            k = int(float(row[col]))
+            if len(zero_length_tips(tree)) != k:
+                raise AssertionError(f"hymfossil.run{r} gen {row[0]}: {k} "
+                                     f"sampled ancestors, tree has "
+                                     f"{zero_length_tips(tree)}")
+            n_sa.append(k)
+    out = {**stats, "launches": sum(per), "launches_per_gen": sum(per) / calls,
+           "sampled_ancestors_max": max(n_sa),
+           "sampled_ancestors_mean": float(np.mean(n_sa))}
+    log(f"hymfossil through the CLI, switches off: {json.dumps(out)}; card "
+        f"{power_line}")
+    return it, out
+
+
+def hymfossil_dataset(ntax=8, nchar=60, seed=5):
+    """A small random DNA matrix (the JAX package's tests/test_fbd.py
+    _mini_dataset) for the prior-only dating checks."""
+    from mrbayes_tpu_torch.data import DataSet, make_divisions
+    from mrbayes_tpu_torch.nexus.datatypes import DataType, FormatInfo
+    from mrbayes_tpu_torch.nexus.parser import CharacterMatrix
+    rng = np.random.default_rng(seed)
+    codes = (1 << rng.integers(0, 4, size=(ntax, nchar))).astype(np.uint32)
+    m = CharacterMatrix(taxa=[f"t{i}" for i in range(ntax)], nchar=nchar,
+                        fmt=FormatInfo(datatype=DataType.DNA), codes=codes,
+                        col_datatype=[DataType.DNA] * nchar)
+    return DataSet(taxa=m.taxa, nchar=nchar, divisions=make_divisions(m))
+
+
+def dating_settings(kind):
+    """The small dating problems of the sync and prior-only checks:
+    "fbd", the FBD prior on 8 tips with two fixed fossils and one dated
+    uniformly (sampled ancestors, the tip-date slider), and "cpp", the CPP
+    clock on a uniform prior with the same dated tips and a calibrated
+    hard constraint; "mixed" adds the IGR/ILN switch to the latter."""
+    from mrbayes_tpu_torch.mcmc.settings import Prior, TreeSettings
+    tips = {0: Prior("fixed", (0.5,)), 1: Prior("fixed", (0.3,)),
+            2: Prior("uniform", (0.2, 0.8))}
+    if kind == "fbd":
+        return TreeSettings(clock=True, clockpr="fossilization",
+                            samplestrat="random", sampleprob=0.7,
+                            clockratepr=Prior("exponential", (10.0,)),
+                            treeagepr=Prior("gamma", (2.0, 2.0)),
+                            tip_calibrations=tips)
+    mask = np.zeros(8, bool)
+    mask[[4, 5, 6]] = True
+    return TreeSettings(clock=True, clockpr="uniform",
+                        clockvarpr="cpp" if kind == "cpp" else "mixed",
+                        cppratepr=Prior("exponential", (1.0,)),
+                        treeagepr=Prior("gamma", (2.0, 2.0)),
+                        tip_calibrations=tips,
+                        constraints=[("c", mask, Prior("uniform",
+                                                       (0.0, 5.0)))])
+
+
+def dating_engine(kind, device, nruns=1, nchains=4, seed=3, use_data=True):
+    from mrbayes_tpu_torch.mcmc.engine import Engine
+    from mrbayes_tpu_torch.mcmc.settings import (DivisionSettings,
+                                                 McmcSettings)
+    return Engine(hymfossil_dataset(), [DivisionSettings(nst="1")],
+                  tree_settings=dating_settings(kind),
+                  mcmc=McmcSettings(nruns=nruns, nchains=nchains, seed=seed,
+                                    use_data=use_data), device=device)
+
+
+def phase_dating_sync(torch, it, power_line):
+    """A block and one generation of every move type with host
+    synchronisation made an error: the hymfossil engine (the FBD moves,
+    add_branch and del_branch) and the small dating problems (the
+    tip-date slider, the CPP moves, rcl_jump, the constraint terms).
+    Returns each engine's moves."""
+    engines = {"hymfossil": it.build_engine(),
+               **{k: dating_engine(k, DEV) for k in ("fbd", "cpp",
+                                                     "mixed")}}
+    out = {}
+    for name, eng in engines.items():
+        states, bk = eng.init_chains()
+        states, bk = eng.run_block(states, bk, 10)
+        sync_checked(torch, eng, states, bk, SYNC_GENS)
+        out[name] = [m.name for m in eng.moves]
+    need = {"add_branch", "del_branch", "tip_date_slider",
+            "fossilization_slider", "cpp_adddelete", "cpp_position",
+            "cpp_multiplier", "cpprate_mult", "rcl_jump"}
+    missing = need - set().union(*map(set, out.values()))
+    if missing:
+        raise AssertionError(f"dating sync check missed {missing}")
+    log(f"dating: no host sync in a {SYNC_GENS}-gen block or in any move "
+        f"type of {json.dumps(out)}; card {power_line}")
+    return out
+
+
+def dating_prior_stats(torch, kind, device, seed):
+    """mcmc data=no on a small dating problem, DATING_PRIOR_RUNS runs x 1
+    chain for DATING_PRIOR_GENS generations on ``device``: per run, the
+    means over the second half of the root age and of the number of
+    sampled ancestors ("fbd") or CPP events ("cpp"), recorded every 10
+    generations."""
+    eng = dating_engine(kind, device, nruns=DATING_PRIOR_RUNS, nchains=1,
+                        seed=seed, use_data=False)
+    states, bk = eng.init_chains()
+    root = eng.n_nodes - 1
+    count = "sa" if kind == "fbd" else "cpp_n"
+    rec = []
+    t0 = time.perf_counter()
+    for _ in range(DATING_PRIOR_GENS // 10):
+        states, bk = eng.run_block(states, bk, 10)
+        rec.append(torch.stack([states["age"][:, root],
+                                states[count].sum(1).float()], 1))
+    x = torch.stack(rec).cpu().numpy()
+    rate = DATING_PRIOR_GENS / (time.perf_counter() - t0)
+    return x[x.shape[0] // 2:].mean(0), rate           # [runs, 2]
+
+
+def phase_dating_prior(torch, power_line):
+    """The prior-only FBD (8 tips, 3 dated fossils) and CPP problems on the
+    card against the port's own CPU engine on the same settings and seed:
+    the mean root age and the mean number of sampled ancestors or CPP
+    events within 4 batch-means standard errors (one batch a run, both
+    sides' errors together)."""
+    out, bad = {}, []
+    for kind, stat in (("fbd", "sampled_ancestors"), ("cpp", "cpp_events")):
+        res = {dev: dating_prior_stats(torch, kind, dev, 21)
+               for dev in (DEV, "cpu")}
+        out[kind] = {"gens_per_s": {d: r for d, (_, r) in res.items()}}
+        for j, nm in enumerate(("root_age", stat)):
+            (g, _), (c, _) = res[DEV], res["cpu"]
+            se = float(np.hypot(g[:, j].std(ddof=1), c[:, j].std(ddof=1))
+                       / np.sqrt(DATING_PRIOR_RUNS))
+            d = float(g[:, j].mean() - c[:, j].mean())
+            out[kind][nm] = {"card": float(g[:, j].mean()),
+                             "cpu": float(c[:, j].mean()), "se": se,
+                             "z": d / se if se > 0 else 0.0}
+            if abs(d) > 4.0 * se:
+                bad.append(f"{kind} {nm}")
+    log(f"prior-only dating, card against the CPU engine, "
+        f"{DATING_PRIOR_RUNS} runs x 1 chain, {DATING_PRIOR_GENS} gens: "
+        f"{json.dumps(out)}; card {power_line}")
+    if bad:
+        raise AssertionError(f"prior-only dating marginals disagree: {bad}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--test1-gens", type=int, default=TEST1_GENS)
@@ -2362,6 +2775,15 @@ def main(argv=None) -> int:
     log(f"[{time.perf_counter() - t_start:.1f} s] protein and codon phases "
         f"done")
 
+    # 27.-31. dating and hymfossil, the tenth slice's main path
+    err_hym, hym_cases = phase_hymfossil_kernels(torch)
+    golden_hym, golden_hym_spread, golden_hym_launches = \
+        phase_golden_hymfossil(torch)
+    it_h, hym = phase_hymfossil_cli(torch, HYM_GENS, power_line)
+    dating_sync = phase_dating_sync(torch, it_h, power_line)
+    dating_prior = phase_dating_prior(torch, power_line)
+    log(f"[{time.perf_counter() - t_start:.1f} s] dating phases done")
+
     keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     # each kernel's launches are the sum of its runs' counts, each count
     # set to 0 just before its run and read just after
@@ -2372,7 +2794,9 @@ def main(argv=None) -> int:
         "golden_clock_rows": golden_clock_launches,
         "golden_protein_codon_rows": golden_aa_launches["pruning_down"],
         "avian_cli": avian["pruning_down_launches"],
-        "replicase_ny98_cli": ny98["pruning_down_launches"]}
+        "replicase_ny98_cli": ny98["pruning_down_launches"],
+        "golden_hymfossil_rows": golden_hym_launches,
+        "hymfossil_cli": hym["launches"]}
     eigh_launches = {"golden_codon_rows": golden_aa_launches["eigh"],
                      "avian_cli": avian["eigh_launches"],
                      "avian_gtr_sync": gtr_sync,
@@ -2394,8 +2818,9 @@ def main(argv=None) -> int:
             **{f"primates_c{C}": r["gens"] for C, r in runs.items()},
             "test1_switch_off": args.switch_blocks * BLOCK_GENS,
             "test2_switch_off": args.switch_blocks * BLOCK_GENS,
-            "avian_cli": AA_GENS, "replicase_ny98_cli": CODON_GENS},
-        "max_abs_err": max(err_pd, err_ck["pruning_down"]),
+            "avian_cli": AA_GENS, "replicase_ny98_cli": CODON_GENS,
+            "hymfossil_cli": HYM_GENS},
+        "max_abs_err": max(err_pd, err_ck["pruning_down"], err_hym),
         **{k: t_pd[4][k] for k in keys + ("before_ms", "walk", "threads",
                                            "T", "lanes")},
         "library_ms": None,
@@ -2404,6 +2829,14 @@ def main(argv=None) -> int:
                                                  "threads", "T", "lanes")},
         "cases": pd_cases,
         "clock_cases": t_ck["pruning_down"],
+        "hymfossil_cases": hym_cases,
+        "hymfossil": {k: hym[k] for k in (
+            "best_lnl", "tl_mean", "asdsf", "avg_psrf", "run_s",
+            "gens_per_s", "launches_per_gen", "sampled_ancestors_max")},
+        "golden_hymfossil_max_err": golden_hym,
+        "golden_hymfossil_path_spread": golden_hym_spread,
+        "dating_sync_moves": dating_sync,
+        "dating_prior_only": dating_prior,
         "gens_per_s": {f"primates_c{C}": r["gens_per_s"]
                        for C, r in runs.items()},
         "gens_per_s_blocks": {f"primates_c{C}": r["gens_per_s_blocks"]

@@ -2,8 +2,9 @@
 the GPU.
 
 Counterpart of ``mrbayes_tpu/cli.py`` for the commands the port carries:
-execute, set, charset, partition, lset, prset, link/unlink, mcmc/mcmcp,
-sump, sumt, quit.  Every other command of the reference interpreter
+execute, set, charset, taxset, partition, exclude/include, ctype,
+constraint, calibrate, lset, prset, link/unlink, mcmc/mcmcp, sump, sumt,
+quit.  Every other command of the reference interpreter
 raises ``CommandError`` naming the ROADMAP item that brings it.  Batch
 mode: ``python -m mrbayes_tpu_torch.cli file.nex`` (on the GPU; add
 ``--device cpu`` to run on the CPU, and ``--multiwalk``, ``--wavefront``
@@ -18,6 +19,8 @@ import os
 import sys
 from dataclasses import dataclass, field, replace
 
+import numpy as np
+
 from .data import DataSet, make_divisions, parse_char_range
 from .mcmc.engine import Engine
 from .mcmc.settings import (DivisionSettings, McmcSettings, Prior,
@@ -31,7 +34,14 @@ class Environment:
     nexus: NexusFile | None = None
     data_path: str | None = None
     charsets: dict = field(default_factory=dict)
+    taxsets: dict = field(default_factory=dict)     # name -> [taxon index]
     partitions: dict = field(default_factory=dict)  # name -> list[list[int]]
+    excluded: set = field(default_factory=set)      # 0-based characters
+    ctypes: dict = field(default_factory=dict)      # 0-based char -> ordered
+    # name -> (hard|negative|partial, taxon mask, second mask or None)
+    constraints: dict = field(default_factory=dict)
+    calibrations: dict = field(default_factory=dict)  # taxon/name -> Prior
+    enforced_constraints: list = field(default_factory=list)  # names
     current_partition: str | None = None
     # settings per user-division (list index = user division)
     div_settings: list = field(default_factory=list)
@@ -76,13 +86,12 @@ PARAM_ALIASES = {
 
 # commands of mrbayes_tpu/cli.py not carried yet -> their ROADMAP item
 NOT_PORTED = {
-    **dict.fromkeys(("constraint", "calibrate"), "Queue 1 item 10b"),
     **dict.fromkeys(("pairs",), "Queue 1 item 12b"),
     **dict.fromkeys(("report", "ss", "ssp", "sumss", "comparetree",
                      "compareref", "plot", "propset", "startvals",
                      "speciespartition"), "Queue 1 item 14"),
-    **dict.fromkeys(("taxset", "exclude", "include", "ctype", "delete",
-                     "restore", "outgroup", "usertree", "showmodel",
+    **dict.fromkeys(("delete", "restore", "outgroup", "usertree",
+                     "showmodel",
                      "showmatrix", "showmoves", "showparams", "charstat",
                      "taxastat", "showusertrees", "databreaks",
                      "citations", "about", "acknowledgments", "disclaimer",
@@ -91,9 +100,6 @@ NOT_PORTED = {
 }
 # prset parameters not carried yet -> their ROADMAP item
 PRSET_NOT_PORTED = {
-    **dict.fromkeys(("mixedvarpr", "cppratepr", "cppmultdevpr",
-                     "fossilizationpr", "nodeagepr", "topologypr"),
-                    "Queue 1 item 10b"),
     **dict.fromkeys(("m3omegapr", "m10betapr", "m10gammapr"),
                     "Queue 1 item 12b"),
     **dict.fromkeys(("ratecorrpr", "covswitchpr", "symdirihyperpr",
@@ -353,6 +359,117 @@ class Interpreter:
             out.extend(parse_char_range(plain, nchar))
         return out
 
+    def do_taxset(self, args, base_dir):
+        """taxset <name> = <taxa> (reference DoTaxset): names or 1-based
+        numbers (mrbayes_tpu cli.py:348)."""
+        name = args[0]
+        taxa = self.env.nexus.taxa
+        ids = []
+        for t in (t for t in args[1:] if t != "="):
+            if t in taxa:
+                ids.append(taxa.index(t))
+            elif t.isdigit():
+                ids.append(int(t) - 1)
+        self.env.taxsets[name] = ids
+
+    def do_exclude(self, args, base_dir):
+        nchar = self.env.nexus.matrix.nchar
+        self.env.excluded |= set(self._expand_sets(args, nchar))
+
+    def do_include(self, args, base_dir):
+        nchar = self.env.nexus.matrix.nchar
+        self.env.excluded -= set(self._expand_sets(args, nchar))
+
+    def do_ctype(self, args, base_dir):
+        """ctype ordered|unordered: chars (reference DoCtype,
+        src/command.c:3009): ordered standard characters take the
+        adjacent-state Mk generator (src/likelihood.c:9257)."""
+        kind = args[0].lower().rstrip(":")
+        nchar = self.env.nexus.matrix.nchar
+        cols = self._expand_sets([t for t in args[1:] if t != ":"], nchar)
+        if kind == "unordered":
+            for c in cols:
+                self.env.ctypes.pop(c, None)
+        elif kind == "irreversible":
+            # the reference rejects it at model setup ("Irreversible model
+            # not yet supported", src/model.c:16527-16531)
+            raise CommandError("irreversible model not supported (the "
+                               "reference rejects it too, "
+                               "src/model.c:16529)")
+        else:
+            for c in cols:
+                self.env.ctypes[c] = kind
+        self.log(f"   Set ctype {kind} for {len(cols)} characters")
+
+    def _expand_taxa(self, toks) -> list[int]:
+        """Taxon tokens to sorted 0-based indices: names, numbers, ranges
+        (3-114, 1-.) and taxset names."""
+        taxa = self.env.nexus.taxa
+        lower = {t.lower(): i for i, t in enumerate(taxa)}
+        out: list[int] = []
+        plain: list[str] = []
+
+        def flush():
+            if plain:
+                out.extend(parse_char_range(plain, len(taxa)))
+                plain.clear()
+
+        for t in toks:
+            if t.lower() in lower:
+                flush()
+                out.append(lower[t.lower()])
+            elif t in self.env.taxsets:
+                flush()
+                out.extend(self.env.taxsets[t])
+            else:
+                plain.append(t)
+        flush()
+        return sorted(set(out))
+
+    def do_constraint(self, args, base_dir):
+        """constraint <name> [hard|negative|partial] = <taxa> [: <taxa2>]
+        (reference DoConstraint, src/command.c:2419; a partial constraint
+        carries a second taxon set after ':').  Enforced only when named
+        in prset topologypr=constraints(...)."""
+        name = args[0]
+        rest = [t for t in args[1:] if t != "="]
+        ctype = "hard"
+        if rest and rest[0].lower() in ("hard", "negative", "partial"):
+            ctype = rest[0].lower()
+            rest = rest[1:]
+        ntax = len(self.env.nexus.taxa)
+        mask2 = None
+        if ctype == "partial":
+            if ":" not in rest:
+                raise CommandError(
+                    f"partial constraint {name} needs two taxon sets "
+                    "separated by ':'")
+            cut = rest.index(":")
+            mask2 = np.zeros(ntax, bool)
+            mask2[self._expand_taxa(rest[cut + 1:])] = True
+            rest = rest[:cut]
+        mask = np.zeros(ntax, bool)
+        mask[self._expand_taxa(rest)] = True
+        if ctype == "partial":
+            if (mask & mask2).any():
+                raise CommandError(
+                    f"partial constraint {name}: the two taxon sets "
+                    "intersect (reference src/command.c:2482)")
+            if not mask2.any():
+                raise CommandError(
+                    f"partial constraint {name}: empty second set")
+        if ctype in ("negative", "partial") and mask.sum() < 2:
+            raise CommandError(
+                f"{ctype} constraint {name} needs at least two taxa")
+        self.env.constraints[name.lower()] = (ctype, mask, mask2)
+
+    def do_calibrate(self, args, base_dir):
+        """calibrate <taxon|constraint|root> = fixed(age)|uniform(a,b)|
+        offsetexp(offset,mean) (reference DoCalibrate,
+        src/command.c:1161)."""
+        for key, val in self._kv_pairs(args):
+            self.env.calibrations[key.lower()] = self._parse_prior(val)
+
     def do_partition(self, args, base_dir):
         # partition name = N: ranges, ranges, ...
         name = args[0]
@@ -431,15 +548,17 @@ class Interpreter:
     # the clock's prset keys (mrbayes_tpu cli.py:686, :780-787), which
     # set TreeSettings fields of the same name
     CLOCK_KEYS = ("clockvarpr", "clockratepr", "treeagepr", "igrvarpr",
-                  "ilnvarpr", "tk02varpr", "wnvarpr", "speciationpr",
+                  "ilnvarpr", "tk02varpr", "wnvarpr", "mixedvarpr",
+                  "cppratepr", "cppmultdevpr", "speciationpr",
                   "extinctionpr", "popsizepr", "growthpr", "sampleprob",
-                  "samplestrat")
+                  "samplestrat", "fossilizationpr", "nodeagepr")
     # the amino-acid and codon prset keys (mrbayes_tpu cli.py:723-762),
     # which set DivisionSettings fields of the same name
     AA_CODON_KEYS = ("aamodelpr", "aarevmatpr", "omegapr", "ny98omega1pr",
                      "ny98omega3pr", "codoncatfreqpr")
     PRSET_KEYS = ("applyto", "statefreqpr", "revmatpr", "tratiopr",
-                  "shapepr", "pinvarpr", "ratepr", "brlenspr", *CLOCK_KEYS,
+                  "shapepr", "pinvarpr", "ratepr", "brlenspr", "topologypr",
+                  *CLOCK_KEYS,
                   *AA_CODON_KEYS, *PRSET_NOT_PORTED)
 
     def do_prset(self, args, base_dir):
@@ -455,6 +574,9 @@ class Interpreter:
                 self._set_brlenspr(val)
                 continue
             prior = self._parse_prior(val)
+            if key == "topologypr":
+                self._set_topologypr(prior)
+                continue
             if key in self.CLOCK_KEYS:
                 self._set_clock_key(key, prior)
                 continue
@@ -495,12 +617,11 @@ class Interpreter:
         elif text.startswith("clock"):
             sub = text.split(":", 1)[1] if ":" in text else "uniform"
             kind = sub.split("(")[0]
-            if kind in ("fossilization", "speciestree",
-                        "speciestreecoalescence"):
+            if kind in ("speciestree", "speciestreecoalescence"):
                 raise _not_ported(f"brlenspr=clock:{kind}",
-                                  "Queue 1 item 10b" if kind ==
-                                  "fossilization" else "Queue 1 item 14")
-            if kind not in ("uniform", "birthdeath", "coalescence"):
+                                  "Queue 1 item 14")
+            if kind not in ("uniform", "birthdeath", "coalescence",
+                            "fossilization"):
                 raise CommandError(f"unknown clock prior {kind!r}")
             ts.clock = True
             ts.clockpr = kind
@@ -508,22 +629,25 @@ class Interpreter:
             raise CommandError(f"brlenspr {text!r} not supported")
 
     def _set_clock_key(self, key, prior):
-        """A clock prset key (mrbayes_tpu cli.py:780-830)."""
+        """A clock prset key (mrbayes_tpu cli.py:780-812)."""
         ts = self.env.tree_settings
-        if key == "clockvarpr":
-            if prior.kind in ("cpp", "mixed"):
-                raise _not_ported(f"clockvarpr={prior.kind}",
-                                  "Queue 1 item 10b")
-            ts.clockvarpr = prior.kind
+        if key in ("clockvarpr", "samplestrat", "nodeagepr"):
+            setattr(ts, key, prior.kind)
         elif key == "sampleprob":
             ts.sampleprob = float(prior.params[0] if prior.params
                                   else prior.kind)
-        elif key == "samplestrat":
-            if prior.kind == "fossiltip":
-                raise _not_ported("samplestrat=fossiltip", "Queue 1 item 10b")
-            ts.samplestrat = prior.kind
         else:
             setattr(ts, key, prior)
+
+    def _set_topologypr(self, prior):
+        """topologypr=uniform|constraints(<names>) (mrbayes_tpu
+        cli.py:765-773); speciestree is item 14's."""
+        if prior.kind == "speciestree":
+            raise _not_ported("topologypr=speciestree", "Queue 1 item 14")
+        self.env.enforced_constraints = (
+            [str(p).lower() for p in prior.params]
+            if prior.kind == "constraints" else [])
+        self.env.tree_settings.topologypr = prior
 
     def do_link(self, args, base_dir):
         self._link_unlink(args, link=True)
@@ -563,13 +687,13 @@ class Interpreter:
         env.ensure_div_settings()
         matrix = env.nexus.matrix
         taxa = list(env.nexus.taxa)
-        if env.current_partition:
-            divisions = make_divisions(
-                matrix, env.partitions[env.current_partition])
-        else:
-            divisions = make_divisions(matrix)
+        subsets = ([env.partitions[env.current_partition]]
+                   if env.current_partition else [])
+        divisions = make_divisions(matrix, *subsets, excluded=env.excluded,
+                                   ctype=env.ctypes)
         ds = DataSet(taxa=taxa, nchar=matrix.nchar, divisions=divisions,
-                     charsets=env.charsets)
+                     charsets=env.charsets, taxsets=env.taxsets)
+        self._wire_dating(taxa)
         div_settings = [replace(env.div_settings[d.user_index])
                         for d in divisions]
         links = None
@@ -583,6 +707,41 @@ class Interpreter:
         return Engine(ds, div_settings, env.tree_settings, env.mcmc,
                       links=links, device=self.device,
                       **{**self.switches, **switches})
+
+    def _wire_dating(self, taxa: list[str]):
+        """Resolve the calibrate and constraint declarations into
+        TreeSettings (mrbayes_tpu cli.py:1105-1150; calibrations count only
+        under nodeagepr=calibrated, cli.py:984-987)."""
+        env = self.env
+        ts = env.tree_settings
+        lower = {t.lower(): i for i, t in enumerate(taxa)}
+        ts.tip_calibrations = {}
+        cons: list = []
+        calibs = env.calibrations if ts.nodeagepr == "calibrated" else {}
+        if env.calibrations and ts.nodeagepr != "calibrated":
+            self.log("   [calibrations ignored: nodeagepr=unconstrained "
+                     "(set prset nodeagepr=calibrated)]")
+        for name, pr in calibs.items():
+            if name == "root":
+                cons.append(("root", np.ones(len(taxa), bool), pr))
+            elif name in lower:
+                ts.tip_calibrations[lower[name]] = pr
+            elif name not in env.constraints:
+                self.log(f"   [calibrate {name}: no such taxon or "
+                         "constraint in the current taxon set]")
+        for name in env.enforced_constraints:
+            if name == "root":
+                if "root" not in calibs:
+                    cons.append(("root", np.ones(len(taxa), bool), None))
+                continue
+            if name not in env.constraints:
+                raise CommandError(f"constraint {name!r} not defined")
+            ctype, mask, mask2 = env.constraints[name]
+            if ctype == "hard":
+                cons.append((name, mask, calibs.get(name)))
+            else:
+                cons.append((name, ctype, mask, mask2, calibs.get(name)))
+        ts.constraints = cons
 
     MCMC_KEYS = ("ngen", "nruns", "nchains", "temp", "samplefreq",
                  "printfreq", "diagnfreq", "swapfreq", "nswaps",

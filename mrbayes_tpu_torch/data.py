@@ -175,7 +175,11 @@ def _standard_subdivisions(sub: np.ndarray, cols: np.ndarray, gi: int,
             if v != full_mask:  # ignore missing
                 observed |= v
         nstates_per_char[j] = max(2, observed.bit_length())
-    ct_per_char = np.array([ctype.get(int(c), "unordered") for c in cols])
+    # a wide enough string type: where every character is ordered, numpy
+    # would size it to "ordered" and cut the "unordered" written below to
+    # "unorder" (as the JAX package's copy does)
+    ct_per_char = np.array([ctype.get(int(c), "unordered") for c in cols],
+                           dtype="<U9")
     ct_per_char[(nstates_per_char == 2) & (ct_per_char == "ordered")] = \
         "unordered"
     out = []

@@ -10,6 +10,7 @@ Usage (from the repository root, on a machine with a CUDA GPU):
         [--wavefront] [--stacked] [--multiwalk]
     python -m mrbayes_tpu_torch.engine_profile --config replicase_ny98
     python -m mrbayes_tpu_torch.engine_profile --config avian_gtr
+    python -m mrbayes_tpu_torch.engine_profile --config hymfossil
     python -m mrbayes_tpu_torch.engine_profile [--config ...] --sites 4
 
 ``--config primates`` (the default) is primates GTR+I+G, 1 run;
@@ -17,8 +18,10 @@ Usage (from the repository root, on a machine with a CUDA GPU):
 same on test2's IGR relaxed clock, ``--config cynmix`` cynmix's
 favored total-evidence model, ``--config avian`` avian_ovomucoids under
 aamodelpr=mixed, ``--config avian_gtr`` the same under
-aamodelpr=fixed(gtr) and ``--config replicase_ny98`` replicase under
-NY98 (each built through the CLI's commands, ``envelope.BATCHES``), 2
+aamodelpr=fixed(gtr), ``--config replicase_ny98`` replicase under
+NY98 and ``--config hymfossil`` hymfossil.nex's fossilized birth-death
+total-evidence dating (114 taxa, 15 divisions) (each built through the
+CLI's commands, ``envelope.BATCHES``), 2
 runs, with the kernel-path switches as given.  ``--chains`` is the chain
 count per run; ``--sites k`` shards the engine's patterns over k site
 shards of its device (``parallel.mesh``).  It builds the engine, warms it
@@ -188,7 +191,8 @@ def parts(eng, states, dev, reps):
 
 def configs() -> dict:
     """The CLI-built configurations: ``envelope.BATCHES`` (test1, test2,
-    cynmix, avian under aamodelpr=mixed, replicase under NY98) and avian
+    cynmix, avian under aamodelpr=mixed, replicase under NY98, hymfossil's
+    FBD dating) and avian
     under aamodelpr=fixed(gtr), whose every Q move refreshes an S = 20
     eigensystem through ``csrc/eigh.cu``."""
     from .envelope import AVIAN, BATCHES

@@ -24,8 +24,9 @@ Usage (on the GPU; ``--device cpu`` for the CPU):
 
 prints one ``ENVELOPE {...}`` JSON line and exits 1 outside the envelope.
 ``run_batch`` also runs cynmix's favored model, avian_ovomucoids.nex under
-``aamodelpr=mixed`` and replicase.nex under the NY98 codon model the same
-way (``chip_smoke.py`` drives them on the card).
+``aamodelpr=mixed``, replicase.nex under the NY98 codon model and
+hymfossil.nex's fossilized birth-death dating analysis the same way
+(``chip_smoke.py`` drives them on the card).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ PRIMATES = os.path.join(EXAMPLES, "primates.nex")
 CYNMIX = os.path.join(EXAMPLES, "cynmix.nex")
 AVIAN = os.path.join(EXAMPLES, "avian_ovomucoids.nex")
 REPLICASE = os.path.join(EXAMPLES, "replicase.nex")
+HYMFOSSIL = os.path.join(EXAMPLES, "hymfossil.nex")
 
 # test1's model commands, after its execute
 TEST1_MODEL = ("partition test = 2: 1-400, 401-.",
@@ -76,11 +78,76 @@ AVIAN_MODEL = ("prset aamodelpr=mixed",)
 # replicase.nex under NY98 (the replicase_ny98 rows of
 # tests/golden_extra.json)
 REPLICASE_NY98_MODEL = ("lset nucmodel=codon omegavar=ny98",)
+# hymfossil.nex's total-evidence dating analysis (Ronquist et al. 2012,
+# Syst. Biol. 61:973): seven user partitions (morphology, six genes; the
+# third codon positions of CO1 excluded), ordered morphology, 45 fossils
+# with fixed ages, the fossilized birth-death prior with random sampling
+# (the hymfossil_fbd_totev rows of tests/golden_extra.json)
+HYMFOSSIL_MODEL = (
+    "charset MV = 1-236",
+    "charset MS = 237-353",
+    "charset 12S = 354-556",
+    "charset 16S = 557-778",
+    "charset 18S = 779-1669",
+    "charset 28S = 1670-2221",
+    "charset CO1 = 2222-3265",
+    "charset CO1_12 = 2222-3265\\3 2223-3265\\3",
+    "charset CO1_3 = 2224-3265\\3",
+    "charset Ef1aF2 = 3266-4357",
+    "charset Ef1aF2_12 = 3266-4357\\3 3267-4357\\3",
+    "charset Ef1aF2_3 = 3268-4357\\3",
+    "charset Ef1aF1 = 4358-5449",
+    "charset Ef1aF1_12 = 4358-5449\\3 4359-5449\\3",
+    "charset Ef1aF1_3 = 4360-5449\\3",
+    "charset morph_ordered = 20 23 27 30 35 36 41 42 44 46 48 59 65 "
+    "75 78 79 89 99 112 117 134 146 157 159 171 185 191 192 193 196 "
+    "218 228 229 230 237 263 266 288 296 299 304 343 347 349",
+    "charset morph_excluded = 96 136 212 216 217 218 219 220",
+    "charset morph_constant = 277 331",
+    "ctype ordered: morph_ordered",
+    "exclude morph_excluded morph_constant",
+    "partition without_CO1_3 = 7: MV MS, 12S 16S, 18S, 28S, CO1_12 "
+    "CO1_3, Ef1aF1_12 Ef1aF2_12, Ef1aF1_3 Ef1aF2_3",
+    "exclude CO1_3",
+    "set partition = without_CO1_3",
+    "lset applyto=(1) coding=variable rates=gamma",
+    "lset applyto=(2,3,4,5,6,7) nst=6 rates=gamma",
+    "prset applyto=(4) statefreqpr=fixed(equal)",
+    "unlink statefreq=(all) revmat=(all) shape=(all)",
+    "prset applyto=(all) ratepr=variable",
+    "calibrate Triassoxyela=fixed(235) Asioxyela=fixed(235) "
+    "Nigrimonticola=fixed(157) Gigantoxyelinae=fixed(135) "
+    "Spathoxyela=fixed(135) Xyela_mesozoica=fixed(135) "
+    "Angaridyela=fixed(135) Xyelotoma=fixed(157) Undatoma=fixed(148) "
+    "Dahuratoma=fixed(134) Mesolyda=fixed(157) Turgidontes=fixed(134)"
+    " Aulidontes=fixed(157) Protosirex=fixed(157) Aulisca=fixed(157) "
+    "Anaxyela=fixed(157) Syntexyela=fixed(157) Karatavites=fixed(157)"
+    " Stephanogaster=fixed(157) Leptephialtites=fixed(157) "
+    "Cleistogaster=fixed(179) Sepulca=fixed(157) Onochoius=fixed(135)"
+    " Ghilarella=fixed(119) Paroryssus=fixed(157) "
+    "Praeoryssus=fixed(157) Mesorussus=fixed(97) "
+    "Trematothorax=fixed(135) Thoracotrema=fixed(119) "
+    "Prosyntexis=fixed(83) Kulbastavia=fixed(157) "
+    "Brachysyntexis=fixed(157) Symphytopterus=fixed(157) "
+    "Eoxyela=fixed(179) Liadoxyela=fixed(179) Abrotoxyela=fixed(164) "
+    "Pseudoxyelocerus=fixed(182) Palaeathalia=fixed(135) "
+    "Ferganolyda=fixed(179) PamphiliidaeUndesc=fixed(164) "
+    "Rudisiricius=fixed(164) Sogutia=fixed(187) Xyelula=fixed(182) "
+    "Brigittepterus=fixed(182) Grimmaratavites=fixed(182)",
+    "prset brlenspr=clock:fossilization",
+    "prset speciationpr=exp(20)",
+    "prset extinctionpr=beta(1,1)",
+    "prset fossilizationpr=beta(1,1)",
+    "prset sampleprob=0.0005",
+    "prset nodeagepr=calibrated",
+    "prset clockratepr=lognorm(-7.1,0.5)",
+)
 # the batch runs: name -> (data file, model commands after its execute)
 BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "test2": (PRIMATES, TEST2_MODEL),
            "cynmix": (CYNMIX, CYNMIX_MODEL),
            "avian": (AVIAN, AVIAN_MODEL),
-           "replicase_ny98": (REPLICASE, REPLICASE_NY98_MODEL)}
+           "replicase_ny98": (REPLICASE, REPLICASE_NY98_MODEL),
+           "hymfossil": (HYMFOSSIL, HYMFOSSIL_MODEL)}
 BATCH = """#NEXUS
 begin mrbayes;
     set autoclose=yes nowarn=yes;

@@ -24,21 +24,35 @@ ln_hastings)``, all chains make the same kind of move, each with its own
 uniforms, and nothing synchronises with the host (data-dependent picks
 are masked inverse-CDF or Gumbel-max choices on the device).
 
-Not here (item 10b): CPP and mixed branch rates, the fossilized
-birth-death prior with sampled ancestors, dated tips, calibrations and
-constraints.
+Dating (ROADMAP Queue 1 item 10b): tips may carry ages (dated fossils,
+``age[:n_tips]`` nonzero); a sampled ancestor is a fossil tip on a
+zero-length branch, flagged in ``sa [C, n_tips]``, whose parent's age
+``pin_sa_ages`` pins to the fossil's wherever ages are read.  The
+fossilized birth-death prior (random, fossiltip and diversity sampling,
+src/mcmc.c:8693-9155), the uniform prior with dated tips
+(src/mcmc.c:9460), the add/delete-branch rjMCMC (src/proposal.c:1266,
+:1537) and the tip-date slider follow the JAX package.  The CPP relaxed
+clock keeps its rate-multiplier events in fixed-capacity slots
+(``cpp_pos``/``cpp_mult [C, n_nodes, K]``, counts ``cpp_n [C, n_nodes]``);
+``clockvarpr=mixed`` switches each chain between the IGR and ILN
+densities on ``rcl_model [C, 1]``.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from ..ops.traversal import descendant_matrix, subtree_mask
+from ..ops.traversal import ancestor_matrix, descendant_matrix, \
+    subtree_mask
 from .moves import (NEG_INF, _fitch, _masked_choice, _node_ids, _pars_pick,
                     _pars_scores, _put, _replace_child, _take, _uniforms)
 
 RELAXED = ("igr", "iln", "wn", "tk02")
+# every clockvarpr with per-branch rates ``brate``: the relaxed clocks and
+# the IGR/ILN switch of clockvarpr=mixed
+BRATE_CLOCKS = RELAXED + ("mixed",)
 
 
 # ---------------------------------------------------------------------------
@@ -52,11 +66,9 @@ def _parent_values(x, parent, root):
 
 
 def clock_blens(state: dict, n_tips: int, clockvar: str) -> torch.Tensor:
-    """Substitution-unit branch lengths [C, n_nodes] from ages and rates."""
-    if "sa" in state:
-        raise NotImplementedError(
-            "sampled ancestors are not ported to mrbayes_tpu_torch yet "
-            "(ROADMAP Queue 1 item 10b)")
+    """Substitution-unit branch lengths [C, n_nodes] from ages and rates
+    (of a state whose sampled ancestors are already pinned,
+    ``pin_sa_ages``)."""
     age, parent = state["age"], state["parent"]
     root = 2 * n_tips - 2
     dt = (_parent_values(age, parent, root) - age).clamp_min(0.0)
@@ -65,13 +77,181 @@ def clock_blens(state: dict, n_tips: int, clockvar: str) -> torch.Tensor:
     if clockvar == "tk02":
         br = state["brate"]
         dt = dt * (0.5 * (br + _parent_values(br, parent, root)))
-    elif clockvar in ("igr", "iln", "wn"):
+    elif clockvar == "cpp":
+        dt = dt * cpp_branch_multipliers(parent, state["cpp_pos"],
+                                         state["cpp_mult"], state["cpp_n"])
+    elif clockvar in BRATE_CLOCKS:
         dt = dt * state["brate"]
     elif clockvar != "strict":
-        raise NotImplementedError(
-            f"clockvarpr={clockvar} is not ported to mrbayes_tpu_torch yet "
-            f"(ROADMAP Queue 1 item 10b)")
+        raise ValueError(f"unknown clockvarpr {clockvar}")
     return torch.where(_node_ids(state) == root, 0.0, dt)
+
+
+# ---------------------------------------------------------------------------
+# CPP (compound Poisson process) relaxed clock
+#
+# Rate-multiplier events on branches in fixed-capacity slots (the
+# reference's realloc'd per-branch arrays, src/bayes.h:711-714).  The
+# effective length follows UpdateCppEvolLength (src/model.c:25923):
+# positions measured from the tipward end; the rate at a point is the
+# inherited (rootward) rate times the multipliers of the events closer to
+# the tipward end; children inherit rate x the product of the branch's
+# multipliers.
+
+
+def _cpp_active(cpp_n, K):
+    """[C, n, K] bool: the occupied event slots."""
+    return torch.arange(K, device=cpp_n.device) < cpp_n[..., None]
+
+
+def cpp_branch_multipliers(parent, cpp_pos, cpp_mult, cpp_n):
+    """Per-branch effective rate multiplier r_v [C, n_nodes]: the effective
+    substitution length is ``dt * clockrate * r_v``, the inherited path rate
+    times the within-branch integral of the piecewise rate (reference
+    UpdateCppEvolLengths, src/model.c:25996)."""
+    K = cpp_pos.shape[-1]
+    active = _cpp_active(cpp_n, K)
+    logm = torch.where(active, torch.log(cpp_mult.clamp_min(1e-30)), 0.0)
+    s = logm.sum(-1)                                  # [C, n]
+    A = ancestor_matrix(parent)                       # A[u, v]: v anc-or-self
+    base = torch.exp((A @ s[..., None])[..., 0] - s)  # strict ancestors only
+    # within-branch relative length over the positions sorted ascending
+    # (empty slots pad at position 1 with multiplier 1 and drop out)
+    pos_s, order = torch.sort(torch.where(active, cpp_pos, 1.0), dim=-1)
+    m_s = torch.where(active, cpp_mult, 1.0).gather(-1, order)
+    rel = pos_s[..., 0] * m_s[..., 0]
+    for i in range(1, K):
+        rel = (rel + pos_s[..., i] - pos_s[..., i - 1]) * m_s[..., i]
+    rel = rel + 1.0 - pos_s[..., K - 1]
+    return base * rel
+
+
+def _ln_lognormal_mult(m, sigma):
+    """log density of a LogNormal(0, sigma) rate multiplier."""
+    return (-torch.log(m) - math.log(sigma) - 0.5 * math.log(2.0 * math.pi)
+            - torch.log(m) ** 2 / (2.0 * sigma ** 2))
+
+
+def ln_cpp_prior(state, n_tips: int, lam, sigma: float) -> torch.Tensor:
+    """CPP event prior [C]: per branch of strict length L, events are a
+    Poisson process of rate ``lam`` [C] per expected substitution with
+    LogNormal(0, sigma) multipliers; positions integrate out, leaving
+    exp(-lam L) lam^k prod f(m) (the add/delete prior ratio of
+    Move_AddDeleteCPPEvent, src/proposal.c:286-293)."""
+    nonroot = _node_ids(state) != 2 * n_tips - 2
+    L = clock_blens(state, n_tips, "strict")
+    k_b = state["cpp_n"].to(L.dtype)
+    lp = torch.where(nonroot, -lam[:, None] * L
+                     + k_b * torch.log(lam)[:, None], 0.0).sum(1)
+    active = _cpp_active(state["cpp_n"], state["cpp_pos"].shape[-1])
+    lnln = _ln_lognormal_mult(state["cpp_mult"].clamp_min(1e-30), sigma)
+    return lp + torch.where(active & nonroot[:, None], lnln, 0.0).sum((1, 2))
+
+
+def _take2(x, v, j):
+    """x [C, n, K] -> x[c, v[c], j[c]]."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, v, j]
+
+
+def _put2(x, v, j, val):
+    """Out-of-place x[c, v[c], j[c]] = val[c]."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    out = x.clone()
+    out[rows, v, j] = val.to(x.dtype)
+    return out
+
+
+def _slot(u, count):
+    """A uniform slot index in [0, count) from u [C] (0 when count is 0)."""
+    return torch.minimum((u * count).long(), (count - 1).clamp_min(0))
+
+
+def _cpp_branch(gen, state, n_tips, k):
+    """k uniforms [C, k] and a uniform non-root branch v [C] with its
+    event count."""
+    u = _uniforms(gen, state["age"], k + 1)
+    nonroot = (_node_ids(state) != 2 * n_tips - 2).expand_as(state["age"])
+    v = _masked_choice(u[:, 0], nonroot)
+    return u[:, 1:], v, _take(state["cpp_n"], v)
+
+
+def make_cpp_adddelete(sigma: float):
+    """rjMCMC add/delete of one CPP event (reference
+    Move_AddDeleteCPPEvent, src/proposal.c:174).  The engine recomputes
+    the prior, so only the proposal ratio is returned."""
+    def move(gen, state, tuning, n_tips):
+        u, v, k = _cpp_branch(gen, state, n_tips, 5)
+        npos, nmult, nn = state["cpp_pos"], state["cpp_mult"], state["cpp_n"]
+        K = npos.shape[-1]
+        add = (k == 0) | (u[:, 0] < 0.5)
+        # the strict-substitution length of the branch (the CPP unit)
+        age = state["age"]
+        L_v = _take(age, _take(state["parent"], v)) - _take(age, v)
+        if "clockrate" in state:
+            L_v = L_v * state["clockrate"][:, 0]
+        L_v = L_v.clamp_min(1e-30)
+        kf = k.to(L_v.dtype)
+        # add: slot k (rejected at capacity); the multiplier lognormal by
+        # Box-Muller, the position uniform
+        z = torch.sqrt(-2.0 * torch.log(u[:, 2].clamp_min(1e-30))) \
+            * torch.cos(2.0 * math.pi * u[:, 3])
+        m_new = torch.exp(sigma * z)
+        slot_a = k.clamp_max(K - 1)
+        pos_a = _put2(npos, v, slot_a, u[:, 4])
+        mult_a = _put2(nmult, v, slot_a, m_new)
+        lnH_a = (torch.log(L_v) - torch.log(kf + 1.0)
+                 - _ln_lognormal_mult(m_new, sigma)
+                 + torch.where(k == 0, math.log(0.5), 0.0))
+        lnH_a = torch.where(k >= K, NEG_INF, lnH_a)
+        # delete: a uniform event; the last active slot fills the hole
+        kk = k.clamp_min(1)
+        j = _slot(u[:, 1], kk)
+        last = kk - 1
+        m_del = _take2(nmult, v, j)
+        pos_d = _put2(npos, v, j, _take2(npos, v, last))
+        mult_d = _put2(nmult, v, j, _take2(nmult, v, last))
+        lnH_d = (torch.log(kk.to(L_v.dtype)) - torch.log(L_v)
+                 + _ln_lognormal_mult(m_del.clamp_min(1e-30), sigma)
+                 + torch.where(k == 1, math.log(2.0), 0.0))
+        a3 = add[:, None, None]
+        n2 = _put(nn, v, torch.where(add, k + 1, k - 1)).clamp(0, K)
+        return ({**state, "cpp_pos": torch.where(a3, pos_a, pos_d),
+                 "cpp_mult": torch.where(a3, mult_a, mult_d),
+                 "cpp_n": n2}, torch.where(add, lnH_a, lnH_d))
+
+    move.__name__ = "move_cpp_adddelete"
+    return move
+
+
+def move_cpp_position(gen, state, tuning, n_tips):
+    """Resample one event's position uniformly on its branch (role of
+    reference Move_CPPEventPosition, src/proposal.c:932); symmetric."""
+    u, v, k = _cpp_branch(gen, state, n_tips, 2)
+    j = _slot(u[:, 0], k.clamp_min(1))
+    return ({**state, "cpp_pos": _put2(state["cpp_pos"], v, j, u[:, 1])},
+            torch.where(k > 0, 0.0, NEG_INF))
+
+
+def move_cpp_multiplier(gen, state, tuning, n_tips):
+    """Multiplier move on one event's rate multiplier (reference
+    Move_CPPRateMultiplierMult, src/proposal.c:1159)."""
+    u, v, k = _cpp_branch(gen, state, n_tips, 2)
+    j = _slot(u[:, 0], k.clamp_min(1))
+    f = torch.exp(tuning * (u[:, 1] - 0.5))
+    new = _take2(state["cpp_mult"], v, j) * f
+    ok = (k > 0) & (new > 1e-4) & (new < 1e4)
+    return ({**state, "cpp_mult": _put2(state["cpp_mult"], v, j, new)},
+            torch.where(ok, torch.log(f), NEG_INF))
+
+
+def move_rcl_jump(gen, state, tuning, n_tips):
+    """IGR<->ILN model jump of clockvarpr=mixed (reference
+    Move_RelaxedClockModel, src/proposal.c:6189 with variance ratio 1:
+    matched parameters, same dimension, Jacobian 1; the engine's prior
+    recompute supplies the density ratio)."""
+    return ({**state, "rcl_model": 1 - state["rcl_model"]},
+            torch.zeros_like(tuning))
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +372,317 @@ def ln_coalescence(age, n_tips: int, theta, growth=0.0,
 
 
 # ---------------------------------------------------------------------------
+# sampled ancestors (ancestral fossils)
+#
+# A sampled ancestor is a fossil lying ON a lineage: the reference
+# represents it as a fossil tip with branch length 0 whose parent is the
+# degree-2 sampling vertex (src/proposal.c:1266 Move_AddBranch diagram).
+# The flags ``sa [C, n_tips]`` mark ancestral fossils and ``pin_sa_ages``
+# forces the parent's age to the fossil's wherever ages are read; the raw
+# parent age is an inert coordinate (moves on it leave the posterior
+# unchanged).
+
+
+def pin_sa_ages(state: dict, n_tips: int) -> dict:
+    """``state`` with age[parent[v]] pinned to age[v] for every
+    ancestral-fossil tip v (a scatter-min, so duplicates are safe)."""
+    if "sa" not in state:
+        return state
+    age = state["age"]
+    vals = torch.where(state["sa"] > 0, age[:, :n_tips], math.inf)
+    return {**state, "age": age.scatter_reduce(
+        1, state["parent"][:, :n_tips], vals, "amin", include_self=True)}
+
+
+def make_add_del_branch(fossil, add: bool):
+    """rjMCMC between an ancestral fossil (branch length 0) and a fossil
+    tip (branch length > 0): reference Move_AddBranch src/proposal.c:1266
+    and Move_DelBranch :1537.  ``fossil`` [n_tips] bool marks the dated
+    fossil tips.  Hastings: add = log k - log(m+1) + log(window); delete =
+    log m - log(k+1) - log(window); window = grandparent age - fossil age
+    (the engine recomputes the prior)."""
+    def move(gen, state, tuning, n_tips):
+        age, parent, left, right = (state["age"], state["parent"],
+                                    state["left"], state["right"])
+        u = _uniforms(gen, age, 2)
+        sa = state["sa"] > 0
+        anc, tip = sa & fossil, fossil & ~sa
+        k_anc = anc.sum(1).to(age.dtype)
+        m_tip = tip.sum(1).to(age.dtype)
+        v = _masked_choice(u[:, 0], anc if add else tip)
+        q = _take(parent, v)
+        g = _take(parent, q)
+        lq = _take(left, q)
+        r = torch.where(lq == v, _take(right, q), lq)
+        root = 2 * n_tips - 2
+        hi = torch.where(q == root, 1e6, _take(age, g.clamp_min(0)))
+        lo = _take(age, v)
+        win = (hi - lo).clamp_min(1e-30)
+        if add:
+            sa2 = _put(state["sa"], v, torch.zeros_like(v))
+            age2 = _put(age, q, lo + u[:, 1] * win)
+            ok = (k_anc > 0) & (hi > lo)
+            lnH = (torch.log(k_anc.clamp_min(1)) - torch.log(m_tip + 1.0)
+                   + torch.log(win))
+        else:
+            sa2 = _put(state["sa"], v, torch.ones_like(v))
+            age2 = _put(age, q, lo)
+            # the sibling must be younger than the fossil (the reference
+            # aborts, src/proposal.c:1638)
+            ok = ((m_tip > 0) & (_take(age, r) < lo) & (hi > lo)
+                  & (q != root))
+            lnH = (torch.log(m_tip.clamp_min(1)) - torch.log(k_anc + 1.0)
+                   - torch.log(win))
+        return ({**state, "sa": sa2, "age": age2},
+                torch.where(ok, lnH, NEG_INF))
+
+    move.__name__ = "move_add_branch" if add else "move_del_branch"
+    return move
+
+
+# ---------------------------------------------------------------------------
+# fossilized birth-death (FBD) priors
+#
+# The reference's math without rate shifts (one slice): c1/c2/q/p0 closed
+# forms src/mcmc.c:8693-8762, the random strategy src/mcmc.c:9013
+# LnFossilizedBDPriorRandom, fossiltip :8886, diversity :9155.  Parameter
+# map (src/mcmc.c:8820-8827): lambda = sR/(1-eR), mu = lambda eR,
+# psi = mu fR/(1-fR), rho = sampleprob.  Rates are [C, 1] and ages
+# [C, n] or [C, 1], so every term broadcasts over the chains.
+
+
+def _fbd_c1c2(lam, mu, psi, rho):
+    c1 = torch.sqrt((lam - mu - psi) ** 2 + 4.0 * lam * psi)
+    c2 = ((2.0 * rho - 1.0) * lam + mu + psi) / c1
+    return c1, c2
+
+
+def _fbd_ln_q(t, c1, c2):
+    """ln q(t): density of an edge from t to the present (reference
+    LnQi_fossil with t_sl = 0, src/mcmc.c:8738)."""
+    return (math.log(4.0) - c1 * t
+            - 2.0 * torch.log(1.0 + c2 + (1.0 - c2) * torch.exp(-c1 * t)))
+
+
+def _fbd_ln_p0(t, lam, mu, psi, c1, c2):
+    """ln p0(t): no sampled descendant (reference LnPi_fossil /
+    LnP0_fossil, src/mcmc.c:8693, :8752)."""
+    e = torch.exp(-c1 * t)
+    frac = (1.0 + c2 - (1.0 - c2) * e) / (1.0 + c2 + (1.0 - c2) * e)
+    other = lam + mu + psi - c1 * frac
+    return torch.log(other.clamp_min(1e-300)) - torch.log(2.0 * lam)
+
+
+def _fbd_ln_p1(t, rho, c1, c2):
+    """ln p1(t): exactly one sampled extant and no sampled extinct
+    descendant (reference LnP1_fossil, src/mcmc.c:8707)."""
+    e = torch.exp(-c1 * t)
+    other = (2.0 * (1.0 - c2 * c2) * e + (1.0 - c2) ** 2 * e * e
+             + (1.0 + c2) ** 2)
+    return math.log(4.0) + math.log(rho) - c1 * t - torch.log(other)
+
+
+def fbd_rates(net_div, turnover, fossil_frac, strategy: str):
+    """(lambda, mu, psi) from the sampled (d, r, s) parameters."""
+    eR = turnover.clamp(1e-6, 1.0 - 1e-6)
+    fR = fossil_frac.clamp(1e-6, 1.0 - 1e-6)
+    lam = net_div / (1.0 - eR)
+    if strategy == "fossiltip":
+        # reference FossilTip: sR = lam-mu-psi, eR = (mu+psi)/lam,
+        # fR = psi/(mu+psi)
+        return lam, lam * eR * (1.0 - fR), lam * eR * fR
+    mu = lam * eR
+    return lam, mu, mu * fR / (1.0 - fR)
+
+
+def _sa_flags(sa, parent, fossil, n_tips):
+    """The ancestral fossils [C, n_tips], their parents (degree-2 sampling
+    vertices) [C, n_nodes] and their count [C]."""
+    sa_t = (sa > 0) & fossil
+    sa_par = torch.zeros_like(parent).scatter_reduce(
+        1, parent[:, :n_tips], sa_t.long(), "amax", include_self=True) > 0
+    return sa_t, sa_par, sa_t.sum(1)
+
+
+def ln_fbd(age, n_tips: int, net_div, turnover, fossil_frac, rho: float,
+           fossil_tip_mask, treeage_lpdf, strategy: str = "random",
+           root_dated: bool = False, sa=None, parent=None,
+           fossil=None) -> torch.Tensor:
+    """Fossilized birth-death tree prior [C], no rate shifts, with sampled
+    ancestors (mrbayes_tpu/mcmc/clock.py:478).
+
+    ``fossil_tip_mask``: host bool [n_tips], True where a tip is a dated
+    fossil; ``fossil`` its copy on the ages' device (made here when None:
+    a caller inside the generation loop passes one, since a copy from the
+    host synchronises).  ``rho``: the extant sampling probability
+    (random) or the diversity fraction (diversity).  ``sa``/``parent``:
+    the ancestral fossil flags and the parents; an ancestral fossil's
+    parent is a degree-2 sampling vertex contributing psi instead of
+    lambda q, the fossil contributes nothing itself, and ancestral fossils
+    drop out of the oriented-to-labeled 2^(M+E-1) factor (reference
+    LnFossilizedBDPriorRandom, src/mcmc.c:9060-9130).  The rates are [C].
+    """
+    host = np.asarray(fossil_tip_mask, bool)
+    if fossil is None:
+        fossil = torch.as_tensor(host, device=age.device)
+    root = 2 * n_tips - 2
+    tmrca = age[:, root:root + 1].clamp_min(1e-20)           # [C, 1]
+    lam, mu, psi = (x[:, None] for x in fbd_rates(
+        net_div, turnover, fossil_frac, strategy))
+    m_fossil = int(host.sum())
+    n_extant = n_tips - m_fossil
+    int_ages = age[:, n_tips:root]
+    tip_ages = age[:, :n_tips]
+    if sa is not None:
+        sa_t, sa_par, n_sa = _sa_flags(sa, parent, fossil, n_tips)
+    else:
+        sa_t = torch.zeros_like(tip_ages, dtype=torch.bool)
+        sa_par = torch.zeros_like(age, dtype=torch.bool)
+        n_sa = torch.zeros_like(age[:, 0], dtype=torch.long)
+    n_sa = n_sa.to(age.dtype)
+    tree_age = 0.0 if root_dated else treeage_lpdf(tmrca[:, 0])
+
+    if strategy == "fossiltip":
+        c1, c2 = _fbd_c1c2(lam, mu, psi, rho)
+        lp = (torch.log(lam) + _fbd_ln_p1(int_ages, rho, c1, c2)).sum(1)
+        lp = lp + torch.where(fossil, torch.log(psi)
+                              - _fbd_ln_p1(tip_ages, rho, c1, c2), 0.0).sum(1)
+        lp = lp + 2.0 * _fbd_ln_p1(tmrca, rho, c1, c2)[:, 0]
+        lp = lp - 2.0 * torch.log1p(-torch.exp(
+            _fbd_ln_p0(tmrca, lam, mu, psi, c1, c2)))[:, 0]
+        # fossiltip sampling assumes every fossil ends its lineage
+        return torch.where(n_sa > 0, NEG_INF, lp + tree_age)
+
+    if strategy == "diversity":
+        # Zhang et al. 2016: complete sampling below the cutoff x_cut
+        # (0.95 x the youngest internal or fossil age)
+        x_cut = 0.95 * torch.minimum(
+            int_ages.min(1, keepdim=True).values,
+            torch.where(fossil, tip_ages, math.inf).min(1, keepdim=True)
+            .values)
+        return _ln_fbd_diversity(age, n_tips, lam, mu, psi, rho, fossil,
+                                 n_extant, x_cut, sa_t, sa_par,
+                                 n_sa) + tree_age
+
+    # strategy == "random"
+    c1, c2 = _fbd_c1c2(lam, mu, psi, rho)
+    p_t = torch.exp(_fbd_ln_p0(tmrca, lam, mu, psi, c1, c2))
+    lp = torch.where(sa_par[:, n_tips:root], torch.log(psi),
+                     torch.log(lam) + _fbd_ln_q(int_ages, c1, c2)).sum(1)
+    lp = lp + torch.where(sa_par[:, root], torch.log(psi[:, 0]), 0.0)
+    lp = lp + torch.where(
+        fossil & ~sa_t,
+        _fbd_ln_p0(tip_ages, lam, mu, psi, c1, c2)
+        - _fbd_ln_q(tip_ages, c1, c2) + torch.log(psi), 0.0).sum(1)
+    lp = lp + n_extant * math.log(rho)
+    lp = lp + 2.0 * (_fbd_ln_q(tmrca, c1, c2) - torch.log1p(-p_t))[:, 0]
+    lp = lp + (n_extant + (m_fossil - n_sa) - 1.0) * math.log(2.0)
+    return lp + tree_age
+
+
+def _ln_fbd_diversity(age, n_tips, lam, mu, psi, rho, fossil, n_extant,
+                      x_cut, sa_t, sa_par, n_sa):
+    """Two-slice FBD without the tree-age density: the boundary at x_cut
+    [C, 1] (psi -> 0 below it, rho_cut = 0 there, complete sampling
+    rho = 1 at the present), then the diversified-sampling correction for
+    the M_x unsampled extant taxa (reference src/mcmc.c:9155)."""
+    root = 2 * n_tips - 2
+    tmrca = age[:, root:root + 1].clamp_min(1e-20)
+    # slice 0: (x_cut, tmrca], fossil sampling on, rho_0 = 0 at x_cut;
+    # slice 1: [0, x_cut), psi = 0, complete extant sampling rho_1 = 1
+    c1_0, _ = _fbd_c1c2(lam, mu, psi, 0.0)
+    c1_1, c2_1 = _fbd_c1c2(lam, mu, 0.0, 1.0)
+    # slice 0's c2 uses p of slice 1 at the boundary (reference c2[i] =
+    # ((1 - 2(1 - rho_i) p_{i+1}(t_i)) lam + mu + psi) / c1)
+    p1_at_cut = torch.exp(_fbd_ln_p0(x_cut, lam, mu, 0.0, c1_1, c2_1))
+    c2_0 = ((1.0 - 2.0 * p1_at_cut) * lam + mu + psi) / c1_0
+
+    def ln_q(t):
+        """q piecewise: slice 1 within [0, x_cut), slice 0 above."""
+        below = _fbd_ln_q(t, c1_1, c2_1)
+        above = _fbd_ln_q(t - x_cut, c1_0, c2_0)
+        return torch.where(t < x_cut, below, above)
+
+    def ln_p0(t):
+        return _fbd_ln_p0(t - x_cut, lam, mu, psi, c1_0, c2_0)
+
+    int_ages = age[:, n_tips:root]
+    tip_ages = age[:, :n_tips]
+    p_t = torch.exp(ln_p0(tmrca))
+    lp = torch.where(sa_par[:, n_tips:root], torch.log(psi),
+                     torch.log(lam) + ln_q(int_ages)).sum(1)
+    lp = lp + torch.where(sa_par[:, root], torch.log(psi[:, 0]), 0.0)
+    # the fossil tips all lie above x_cut by construction
+    lp = lp + torch.where(fossil & ~sa_t, ln_p0(tip_ages) - ln_q(tip_ages)
+                          + torch.log(psi), 0.0).sum(1)
+    # every extant lineage crosses x_cut once, and nothing else does
+    lp = lp + n_extant * _fbd_ln_q(x_cut, c1_1, c2_1)[:, 0]
+    lp = lp + 2.0 * (ln_q(tmrca) - torch.log1p(-p_t))[:, 0]
+    lp = lp + (n_tips - n_sa - 1.0) * math.log(2.0)
+    # diversified-sampling correction for the unsampled extant taxa
+    m_x = round(n_extant / rho) - n_extant
+    d = lam - mu
+    e = torch.exp(-d * x_cut)
+    corr = torch.where(
+        d.abs() * x_cut > 1e-6,
+        torch.log(lam * (1.0 - e)) - torch.log(
+            (lam - mu * e).clamp_min(1e-300)),
+        torch.log(lam / (mu + 1.0 / x_cut.clamp_min(1e-20))))
+    return lp + m_x * corr[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# the uniform clock prior with dated tips
+
+
+def ln_uniform_clock_dated(age, n_tips: int, fossil_tip_mask,
+                           treeage_lpdf, root_dated: bool) -> torch.Tensor:
+    """Uniform node-age prior with dated tips [C] (reference
+    LnUniformPriorPr, src/mcmc.c:9460, single-subtree case: dated tips,
+    no dated interior node; interior calibrations add their densities
+    separately).  The sorted tip depths (extant tips dated at 0) and the
+    root bound intervals in which each interior depth is uniform, with the
+    reference's sorting and coalescent-history corrections."""
+    root = 2 * n_tips - 2
+    t0 = age[:, root].clamp_min(1e-20)
+    m = int(np.asarray(fossil_tip_mask, bool).sum())
+    lp = 0.0 if root_dated else treeage_lpdf(t0)
+    n = float(n_tips)
+    if m == 0:
+        return lp + ((n - 1.0) * math.log(2.0) - math.lgamma(n + 1.0)
+                     - math.log(n - 1.0) - (n - 2.0) * torch.log(t0))
+    nt = n_tips
+    dev = age.device
+    depths = torch.sort(age[:, :n_tips], dim=1).values
+    bounds = torch.cat([depths, t0[:, None]], 1)
+    int_ages = age[:, n_tips:root]
+    # nLineages[k] = (k + 1) - #interior nodes younger than bounds[k + 1]
+    below = (int_ages[:, None, :] < bounds[:, 1:, None]).sum(-1)
+    n_lin = torch.arange(1, nt + 1, device=dev) - below          # [C, nt]
+    # the uniform node depths: skip the first and last dated tip (the
+    # reference loops j = 1..nDatedTips-2 over every sorted dated depth,
+    # extant zeros included, src/mcmc.c:9536-9538)
+    j = torch.arange(1, nt - 1, device=dev)
+    lp = lp - torch.log((t0[:, None] - depths[:, j]).clamp_min(1e-30)).sum(1)
+    # sorting corrections
+    n_in = n_lin[:, j - 1] + 1
+    n_out = torch.where(j == nt - 2, 2, n_lin[:, j])
+    use = (n_in > 1) & (n_in - n_out >= 1)
+    lg = torch.lgamma
+    lp = lp + torch.where(use, lg(n_in.to(age.dtype))
+                          - lg(n_out.to(age.dtype)), 0.0).sum(1)
+    # coalescent-history counts
+    j2 = torch.arange(1, nt, device=dev)
+    n_in2 = (n_lin[:, j2 - 1] + 1).to(age.dtype)
+    n_out2 = n_lin[:, j2].to(age.dtype)
+    return lp + torch.where(
+        n_in2 != n_out2,
+        math.log(2.0) * (n_in2 - n_out2) + lg(n_out2 + 1.0)
+        + lg(n_out2.clamp_min(1.0)) - lg(n_in2 + 1.0)
+        - lg(n_in2.clamp_min(1.0)), 0.0).sum(1)
+
+
+# ---------------------------------------------------------------------------
 # relaxed-clock branch-rate priors
 
 
@@ -199,21 +690,32 @@ def ln_branch_rates_prior(state, n_tips: int, clockvar: str,
                           var) -> torch.Tensor:
     """Sum of the per-branch rate log-priors [C]; ``var`` [C] is the
     model's variance parameter.  Branch set: every node but the root."""
-    if clockvar not in RELAXED:
+    if clockvar not in BRATE_CLOCKS:
         return state["age"].new_zeros(state["age"].shape[0])
     root = 2 * n_tips - 2
     rates = state["brate"]
     r = rates.clamp_min(1e-30)
     lr = torch.log(r)
     v = var[:, None]
-    if clockvar == "igr":
+
+    def igr():
         a = 1.0 / v
-        lp = a * torch.log(a) - torch.lgamma(a) + (a - 1.0) * lr - a * r
-    elif clockvar == "iln":
+        return a * torch.log(a) - torch.lgamma(a) + (a - 1.0) * lr - a * r
+
+    def iln():
         # lognormal with mean 1 and variance var (natural scale)
         s2 = torch.log1p(v)
-        lp = (-lr - 0.5 * torch.log(2 * math.pi * s2)
-              - (lr + 0.5 * s2) ** 2 / (2.0 * s2))
+        return (-lr - 0.5 * torch.log(2 * math.pi * s2)
+                - (lr + 0.5 * s2) ** 2 / (2.0 * s2))
+
+    if clockvar == "mixed":
+        # the IGR<->ILN indicator picks the density (reference LogPrior
+        # mixed branch, src/mcmc.c:8287-8321; RCL_IGR 0, RCL_ILN 1)
+        lp = torch.where(state["rcl_model"][:, :1] == 0, igr(), iln())
+    elif clockvar == "igr":
+        lp = igr()
+    elif clockvar == "iln":
+        lp = iln()
     else:
         # time x clockrate lengths
         blen = clock_blens(state, n_tips, "strict")
@@ -235,7 +737,10 @@ def ln_branch_rates_prior(state, n_tips: int, clockvar: str,
 
 def ages_ordered(state) -> torch.Tensor:
     """[C] bool: every parent older than its children (with the JAX
-    package's 1e-12 slack)."""
+    package's 1e-12 slack).  As in the JAX package, this holds above a
+    sampled ancestor too, whose parent's pinned age equals its own, so in
+    float32 (where age - 1e-12 rounds to age) every state with a sampled
+    ancestor gets prior 0 (ROADMAP Queue 3)."""
     age, parent = state["age"], state["parent"]
     par_age = age.gather(1, parent.clamp_min(0))
     return torch.where(parent >= 0, par_age > age - 1e-12, True).all(1)
@@ -527,4 +1032,24 @@ def make_brate_multiplier(n_tips: int):
                 torch.where(ok, torch.log(m), NEG_INF))
 
     move.__name__ = "move_brate_multiplier"
+    return move
+
+
+def make_tip_date_move(tips, los, his):
+    """Uniform slide of one calibrated tip's age within its calibration
+    bounds intersected with (0, parent age) (role of reference
+    Move_NodeSliderClock on dated tips, src/proposal.c:8570).  ``tips``
+    [T] long, ``los``/``his`` [T] float on the engine's device.  The window
+    depends only on unchanged quantities, so the proposal is symmetric."""
+    def move(gen, state, tuning, n_tips):
+        age = state["age"]
+        u = _uniforms(gen, age, 2)
+        i = (u[:, 0] * tips.shape[0]).long().clamp_max(tips.shape[0] - 1)
+        v = tips[i]
+        hi = torch.minimum(his[i], _take(age, _take(state["parent"], v)))
+        lo = los[i]
+        return ({**state, "age": _put(age, v, lo + (hi - lo) * u[:, 1])},
+                torch.where(hi > lo, 0.0, NEG_INF))
+
+    move.__name__ = "move_tip_date"
     return move

@@ -24,9 +24,12 @@ division has none: its category axis holds the omega classes); any
 number of divisions (partitions)
 with linked or unlinked parameters and fixed or variable rate
 multipliers, one unrooted non-clock tree with the default priors or one
-clock tree (``mcmc/clock.py``: uniform, birth-death or coalescent node
-ages; strict, IGR, ILN, WN or TK02 branch rates; a fixed or sampled clock
-rate), and any number of runs and chains.  Every other setting raises
+clock tree (``mcmc/clock.py``: uniform, birth-death, coalescent or
+fossilized birth-death node ages, dated tips and sampled ancestors;
+strict, IGR, ILN, WN, TK02, CPP or mixed branch rates; a fixed or sampled
+clock rate), hard, negative and partial topology constraints with
+calibrated clade ages, ordered and unordered standard characters, and any
+number of runs and chains.  Every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 A clock state has no ``blen``: its branch lengths are derived from the
@@ -80,7 +83,7 @@ from ..models.aa_models import AA_MODELS
 from ..models.codes import CodonCode
 from ..models.rates import GammaRateTable
 from ..models.substitution import (codon_q, mk_q, nuc_q_gtr, nuc_q_nst1,
-                                   nuc_q_nst2, protein_q)
+                                   nuc_q_nst2, ordered_mk_q, protein_q)
 from ..nexus.datatypes import DataType
 from ..ops.multiwalk_cuda import PruningCudaMultiwalk
 from ..ops.pruning import (branch_tiprobs, coding_tips, coding_total,
@@ -88,9 +91,10 @@ from ..ops.pruning import (branch_tiprobs, coding_tips, coding_total,
                            make_pruner, site_loglik_from_root)
 from ..ops.pruning_cuda import check_kernel_shape
 from ..ops.stacked_cuda import PruningCudaStacked
-from ..ops.traversal import postorder_internal
+from ..ops.traversal import ancestor_matrix, postorder_internal
 from ..ops.tiprobs import eigh_reversible
-from ..trees import Tree, random_clock_tree, random_unrooted
+from ..trees import (Tree, random_clock_tree, random_clock_tree_constrained,
+                     random_unrooted, random_unrooted_constrained)
 from . import clock as CL
 from . import mixed_gtr as MG
 from . import moves as M
@@ -235,9 +239,14 @@ class Engine:
         self.mcmc = mcmc or McmcSettings()
         self.n_tips = dataset.ntax
         self.n_nodes = 2 * self.n_tips - 1
+        # CPP relaxed clock: event slots per branch (the fixed-capacity
+        # stand-in for the reference's variable-length event arrays,
+        # bayes.h:711-714)
+        self.cpp_cap = 8
         if len(div_settings) != len(dataset.divisions):
             raise ValueError("one DivisionSettings per division required")
         self._check_slice(div_settings, links)
+        self._build_dating()
         self._build_groups(div_settings, links)
         self._build_data_tensors()
         self._build_moves()
@@ -252,16 +261,12 @@ class Engine:
         if ts.speciestree:
             raise _not_ported("the multispecies coalescent (BEST)",
                               "item 14")
-        if ts.constraints or ts.tip_calibrations:
-            raise _not_ported("constraints, calibrations and dated tips",
-                              "item 10b")
         if ts.clock:
-            if ts.clockpr not in ("uniform", "birthdeath", "coalescence"):
-                raise _not_ported(f"clockpr={ts.clockpr}", "item 10b")
-            if ts.clockvarpr not in ("strict",) + CL.RELAXED:
-                raise _not_ported(f"clockvarpr={ts.clockvarpr}", "item 10b")
-            if ts.treeage_calibrated:
-                raise _not_ported("a root calibration", "item 10b")
+            if ts.clockpr not in ("uniform", "birthdeath", "coalescence",
+                                  "fossilization"):
+                raise ValueError(f"clockpr {ts.clockpr} not supported")
+            if ts.clockvarpr not in ("strict", "cpp") + CL.BRATE_CLOCKS:
+                raise ValueError(f"clockvarpr {ts.clockvarpr} not supported")
         elif ts.brlenspr.kind not in ("gammadir", "exponential", "uniform"):
             raise ValueError(f"brlenspr {ts.brlenspr.kind} not supported")
         if links and (any(links.get("topology", ()))
@@ -275,9 +280,10 @@ class Engine:
                               "item 14")
         for div, s in zip(self.data.divisions, div_settings):
             if div.dtype is DataType.STANDARD:
-                if div.ctype != "unordered":
-                    raise _not_ported(f"{div.ctype} standard characters "
-                                      f"(ctype)", "item 15")
+                if div.ctype not in ("unordered", "ordered"):
+                    # the reference rejects irreversible characters at
+                    # model setup (src/model.c:16527-16531)
+                    raise ValueError(f"ctype {div.ctype} is not supported")
                 sp = s.symdirihyperpr
                 if sp.kind != "fixed" or (sp.params
                                           and float(sp.params[0]) > 0.0):
@@ -307,6 +313,131 @@ class Engine:
                     or s.statefreqmodel != "stationary":
                 raise _not_ported("covarion, parsimony and directional "
                                   "models", "item 13")
+
+    def _build_dating(self):
+        """Static dating and constraint wiring (mrbayes_tpu engine.py:234):
+        tip calibration ages, the fossil-tip mask and the constraint taxon
+        masks (reference calibrate src/command.c:1161, constraint
+        src/command.c:2419), with their copies on the device."""
+        ts = self.tree_settings
+        n = self.n_tips
+        dev = self.device
+        self.tip_dates = np.zeros(n)
+        self.sampled_tip_ages: list[tuple[int, Prior]] = []
+        for ti, pr in (ts.tip_calibrations or {}).items():
+            if pr.kind == "fixed":
+                self.tip_dates[ti] = pr.params[0]
+            elif pr.kind == "uniform":
+                self.tip_dates[ti] = 0.5 * (pr.params[0] + pr.params[1])
+                self.sampled_tip_ages.append((ti, pr))
+            elif pr.kind == "offsetexp":
+                self.tip_dates[ti] = pr.params[1]   # the mean
+                self.sampled_tip_ages.append((ti, pr))
+            else:
+                raise ValueError(f"tip calibration {pr.kind} unsupported")
+        self.fossil_tips = self.tip_dates > 0.0
+        self.has_dated_tips = bool(self.fossil_tips.any())
+        self._fossil = torch.as_tensor(self.fossil_tips, device=dev)
+        # constraints: [M, n_tips] bool + optional age priors on MRCAs.  A
+        # constraint covering every taxon is a root calibration: its prior
+        # replaces treeagepr (a dated root skips treeAgePr,
+        # src/mcmc.c:9476-9484)
+        self._root_calib: Prior | None = None
+        cons, negs, partials = [], [], []
+        for entry in (ts.constraints or []):
+            # a 3-tuple is hard; a 5-tuple carries the constraint type
+            # (hard|negative|partial) and the partial second taxon set
+            # (reference ConstraintType, src/bayes.h:517-521)
+            if len(entry) == 3:
+                nm, m, p = entry
+                ctype, m2 = "hard", None
+            else:
+                nm, ctype, m, m2, p = entry
+            if ctype == "negative":
+                negs.append(m)
+            elif ctype == "partial":
+                partials.append((m, m2))
+            elif m.all():
+                if p is not None:
+                    self._root_calib = p
+            else:
+                cons.append((nm, m, p))
+        self.constraint_masks = (np.stack([m for (_, m, _) in cons])
+                                 if cons else None)
+        self.constraint_priors = [p for (_, _, p) in cons]
+        self.negative_masks = np.stack(negs) if negs else None
+        self.partial_masks = (
+            (np.stack([a for a, _ in partials]),
+             np.stack([b for _, b in partials])) if partials else None)
+
+        def on_device(m):
+            return None if m is None else torch.as_tensor(
+                np.asarray(m, np.float32), device=dev)
+
+        self._cons_dev = on_device(self.constraint_masks)
+        self._neg_dev = on_device(self.negative_masks)
+        self._partial_dev = (None if self.partial_masks is None else
+                             tuple(on_device(m) for m in self.partial_masks))
+        if self.sampled_tip_ages:
+            tips, los, his = zip(*[
+                (t, p.params[0], p.params[1] if p.kind == "uniform"
+                 else np.inf) for t, p in self.sampled_tip_ages])
+            self._tip_date_bounds = (
+                torch.as_tensor(tips, dtype=torch.long, device=dev),
+                torch.as_tensor(los, dtype=torch.float32, device=dev),
+                torch.as_tensor(np.minimum(his, 1e30), dtype=torch.float32,
+                                device=dev))
+
+    def _constraint_terms(self, state):
+        """[C]: NEG_INF where a hard, negative or partial constraint is
+        broken, plus the calibration densities of the constrained clades'
+        MRCA ages on a clock tree (mrbayes_tpu engine.py:290; reference
+        DoesTreeSatisfyConstraints src/model.c:12660-12737, the
+        calibration priors of LogPrior)."""
+        lp = self._zeros(state)
+        if self._cons_dev is None and self._neg_dev is None \
+                and self._partial_dev is None:
+            return lp
+        rooted = self.tree_settings.clock
+        n = self.n_tips
+        tipA = ancestor_matrix(state["parent"])[:, :n]   # [C, n_tips, nodes]
+        sizes = tipA.sum(1)[:, None, :]                 # [C, 1, nodes]
+
+        def clade_counts(m):
+            # [C, M, nodes] and [1, M, 1]
+            return m @ tipA, m.sum(1)[None, :, None]
+
+        def splits(m):
+            counts, totals = clade_counts(m)
+            is_clade = (counts == totals) & (sizes == totals)
+            # unrooted: the complement side is the same split
+            comp = (counts == 0.0) & (sizes == n - totals)
+            return is_clade, is_clade if rooted else is_clade | comp
+
+        if self._cons_dev is not None:
+            is_clade, split = splits(self._cons_dev)
+            lp = torch.where(split.any(-1).all(-1), lp, NEG_INF)
+            if rooted:
+                for c, pr in enumerate(self.constraint_priors):
+                    if pr is None or pr.kind == "fixed":
+                        continue
+                    mrca = is_clade[:, c].long().argmax(-1)
+                    lp = lp + _scalar_prior_lpdf(
+                        pr, M._take(state["age"], mrca))
+        if self._neg_dev is not None:
+            # a banned clade rejects the tree wherever it appears
+            _, split = splits(self._neg_dev)
+            lp = torch.where(split.any(-1).any(-1), NEG_INF, lp)
+        if self._partial_dev is not None:
+            # partial (backbone) set1:set2: some node holds all of set1 and
+            # none of set2 (unrooted: or the mirrored direction)
+            c1, t1 = clade_counts(self._partial_dev[0])
+            c2, t2 = clade_counts(self._partial_dev[1])
+            ok = (c1 == t1) & (c2 == 0.0)
+            if not rooted:
+                ok = ok | ((c2 == t2) & (c1 == 0.0))
+            lp = torch.where(ok.any(-1).all(-1), lp, NEG_INF)
+        return lp
 
     def _build_groups(self, div_settings, links):
         """Assign each sampled parameter of each division to a link group.
@@ -683,10 +814,12 @@ class Engine:
 
     def _clock_moves(self, wrap):
         """The clock tree's moves with the JAX package's weights, tunings
-        and bounds (mrbayes_tpu engine.py:1292-1388, without CPP, mixed and
-        fossilization), then the clock rate, the branch rates and the
-        tree-process parameters.  Every one of them changes only inputs
-        of ``log_prior_tree``: registered before ``_finish_moves``' split,
+        and bounds (mrbayes_tpu engine.py:1292-1430), then the clock rate,
+        the branch rates (CPP events, or per-branch rates with their
+        variance and the mixed model's jump), the tree-process parameters,
+        the sampled ancestors' add/delete-branch pair and the tip-date
+        slider.  Every one of them changes only inputs of
+        ``log_prior_tree``: registered before ``_finish_moves``' split,
         they take the tree scope."""
         ts = self.tree_settings
         lam = 2.0 * np.log(1.6)
@@ -715,7 +848,21 @@ class Engine:
                 "clockrate_mult",
                 wrap(M.make_multiplier_move("clockrate", 1e-10, 1e6)), 3.0,
                 2.0 * np.log(1.5), 0.25, 1, 1e-4, 10.0))
-        if ts.clockvarpr != "strict":
+        if ts.clockvarpr == "cpp":
+            sigma = float((ts.cppmultdevpr.params or (0.4,))[0])
+            mk += [MoveSpec("cpp_adddelete",
+                            wrap(CL.make_cpp_adddelete(sigma)), 6.0, 0.0,
+                            tunable=False),
+                   MoveSpec("cpp_position", wrap(CL.move_cpp_position), 2.0,
+                            0.0, tunable=False),
+                   MoveSpec("cpp_multiplier", wrap(CL.move_cpp_multiplier),
+                            4.0, 2.0 * np.log(1.5), 0.25, 1, 1e-3, 20.0)]
+            if ts.cppratepr.kind != "fixed":
+                mk.append(MoveSpec(
+                    "cpprate_mult",
+                    wrap(M.make_multiplier_move("cpprate", 1e-6, 1e4)), 2.0,
+                    lam, 0.25, 1, 1e-3, 20.0))
+        elif ts.clockvarpr != "strict":
             mk.append(MoveSpec("brate_mult",
                                wrap(CL.make_brate_multiplier(self.n_tips)),
                                10.0, lam, 0.25, 1, 1e-3, 20.0))
@@ -723,6 +870,9 @@ class Engine:
                 "clockvar_mult",
                 wrap(M.make_multiplier_move("clockvar", 1e-6, 1e4)), 2.0,
                 lam, 0.25, 1, 1e-3, 20.0))
+            if ts.clockvarpr == "mixed":
+                mk.append(MoveSpec("rcl_jump", wrap(CL.move_rcl_jump), 2.0,
+                                   0.0, tunable=False))
         if ts.clockpr == "birthdeath":
             mk.append(MoveSpec(
                 "speciation_mult",
@@ -744,7 +894,37 @@ class Engine:
                     "growth_slider",
                     wrap(M.make_slider_move("growth", -1e3, 1e3)), 1.5,
                     1.0, 0.25, 1, 1e-3, 100.0))
+        if ts.clockpr == "fossilization":
+            # the (d, r, s) parameters (reference Move_Speciation
+            # src/proposal.c:15961, Move_Extinction :1800,
+            # Move_Fossilization :1923)
+            mk += [MoveSpec(
+                "speciation_mult",
+                wrap(M.make_multiplier_move("speciation", 1e-6, 1e4)), 1.5,
+                lam, 0.25, 1, 1e-3, 20.0),
+                MoveSpec("extinction_slider",
+                         wrap(M.make_slider_move("extinction", 0.0, 1.0)),
+                         1.5, 0.2, 0.25, 1, 1e-3, 1.0),
+                MoveSpec("fossilization_slider",
+                         wrap(M.make_slider_move("fossilization", 0.0, 1.0)),
+                         1.5, 0.2, 0.25, 1, 1e-3, 1.0)]
+            if self._samples_ancestors():
+                mk += [MoveSpec(name, wrap(CL.make_add_del_branch(
+                    self._fossil, add)), 2.0, 0.0, tunable=False)
+                    for name, add in (("add_branch", True),
+                                      ("del_branch", False))]
+        if self.sampled_tip_ages:
+            mk.append(MoveSpec("tip_date_slider", wrap(CL.make_tip_date_move(
+                *self._tip_date_bounds)), 3.0, 0.0, tunable=False))
         return mk
+
+    def _samples_ancestors(self) -> bool:
+        """True where fossils may be sampled ancestors (the ``sa`` flags):
+        dated tips under the FBD prior with samplestrat other than
+        fossiltip."""
+        ts = self.tree_settings
+        return (ts.clockpr == "fossilization" and self.has_dated_tips
+                and ts.samplestrat != "fossiltip")
 
     def _finish_moves(self, mk):
         """Append the substitution-parameter moves and finalize weights
@@ -964,7 +1144,7 @@ class Engine:
                 pi = self._fixed_pi[i].double()                 # [1, S]
                 self._const_eigs[i] = tuple(
                     x.float() for x in eigh_reversible(
-                        mk_q(c.div.n_states, pi), pi))
+                        self._standard_q(c, pi), pi))
             elif i in self._aa_exch and c.pi_group < 0:
                 self._const_eigs[i] = _fixed_eig(
                     self._aa_exch[i][None], self._fixed_pi[i])
@@ -990,19 +1170,77 @@ class Engine:
         A clock model starts from a random clock tree instead."""
         if self.tree_settings.clock:
             return self._init_substitution_state(self._init_clock_state(rng))
-        t = tree if tree is not None else random_unrooted(
-            self.n_tips, rng, mean_blen=0.1)
+        t = tree
+        if t is None and (self._start_clade_masks()
+                          or self.negative_masks is not None):
+            # a random tree holding the constrained clades
+            t = self._retry_negative(
+                lambda: random_unrooted_constrained(
+                    self.n_tips, rng, self._start_clade_masks(),
+                    mean_blen=0.1), lambda x: x)
+        elif t is None:
+            t = random_unrooted(self.n_tips, rng, mean_blen=0.1)
         st = {"left": np.asarray(t.left, np.int64),
               "right": np.asarray(t.right, np.int64),
               "parent": np.asarray(t.parent, np.int64),
               "blen": np.clip(t.blen, 0.0, M.BRLEN_MAX).astype(np.float32)}
         return self._init_substitution_state(st)
 
+    def _start_clade_masks(self) -> list:
+        """Clades the starting tree must hold: the hard constraints and the
+        partial constraints' first sets (making set1 a clade keeps set2
+        out of it, which satisfies the backbone)."""
+        masks = []
+        if self.constraint_masks is not None:
+            masks += list(self.constraint_masks)
+        if self.partial_masks is not None:
+            masks += list(self.partial_masks[0])
+        return masks
+
+    def _retry_negative(self, build, tree_of, tries: int = 100):
+        """Draw starting trees until none holds a negative constraint's
+        clade (rejection: a random tree rarely holds a given split)."""
+        for _ in range(tries):
+            out = build()
+            if self.negative_masks is None:
+                return out
+            t = tree_of(out)
+            tipsets = np.zeros((t.n_nodes, self.n_tips), bool)
+            tipsets[np.arange(self.n_tips), np.arange(self.n_tips)] = True
+            for v in t.postorder():
+                tipsets[v] = tipsets[t.left[v]] | tipsets[t.right[v]]
+            bad = False
+            for m in self.negative_masks:
+                eq = (tipsets == m[None, :]).all(1)
+                if not t.rooted:
+                    eq |= (tipsets == ~m[None, :]).all(1)
+                if eq.any():
+                    bad = True
+                    break
+            if not bad:
+                return out
+        raise ValueError("could not draw a starting tree satisfying the "
+                         "negative constraints")
+
     def _init_clock_state(self, rng):
-        """A random clock tree with its ages, and the clock's starting
-        values (mrbayes_tpu engine.py:1952-2010, the same rng draws)."""
+        """A random clock tree (constrained, with its dated tips) with its
+        ages, and the clock's starting values (mrbayes_tpu
+        engine.py:1959-2041, the same rng draws)."""
         ts = self.tree_settings
-        t, ages = random_clock_tree(self.n_tips, rng, mean_age=0.1)
+        mean_age = 0.1
+        tip_ages = None
+        if self.has_dated_tips:
+            mean_age = max(0.1, 1.2 * float(self.tip_dates.max()))
+            tip_ages = self.tip_dates
+        smasks = self._start_clade_masks()
+        if smasks:
+            t, ages = self._retry_negative(
+                lambda: random_clock_tree_constrained(
+                    self.n_tips, rng, smasks, mean_age=mean_age,
+                    tip_ages=tip_ages), lambda pair: pair[0])
+        else:
+            t, ages = random_clock_tree(self.n_tips, rng, mean_age=mean_age,
+                                        tip_ages=tip_ages)
         st = {"left": np.asarray(t.left, np.int64),
               "right": np.asarray(t.right, np.int64),
               "parent": np.asarray(t.parent, np.int64),
@@ -1020,16 +1258,31 @@ class Engine:
                 "exponential": lambda: 1.0 / p[0],
                 "uniform": lambda: 0.5 * (p[0] + p[1])}[
                     ts.clockratepr.kind]())
-        if ts.clockvarpr != "strict":
+        if ts.clockvarpr == "cpp":
+            K = self.cpp_cap
+            st["cpp_n"] = np.zeros(self.n_nodes, np.int64)
+            st["cpp_pos"] = np.full((self.n_nodes, K), 0.5, np.float32)
+            st["cpp_mult"] = np.ones((self.n_nodes, K), np.float32)
+            p = ts.cppratepr.params
+            st["cpprate"] = one(1.0 / p[0] if ts.cppratepr.kind ==
+                                "exponential" else (p or (1.0,))[0])
+        elif ts.clockvarpr != "strict":
             st["brate"] = np.ones(self.n_nodes, np.float32)
             st["clockvar"] = one(0.1)
-        if ts.clockpr == "birthdeath":
+            if ts.clockvarpr == "mixed":
+                st["rcl_model"] = np.zeros(1, np.int64)
+        if ts.clockpr in ("birthdeath", "fossilization"):
             st["speciation"] = one(0.1)
             st["extinction"] = one(0.5)
         if ts.clockpr == "coalescence":
             st["popsize"] = one(1.0)
             if ts.growthpr.kind != "fixed":
                 st["growth"] = one(0.0)
+        if ts.clockpr == "fossilization":
+            st["fossilization"] = one(0.1)
+            if self._samples_ancestors():
+                # the ancestral-fossil flags: every fossil starts as a tip
+                st["sa"] = np.zeros(self.n_tips, np.int64)
         return st
 
     def _init_substitution_state(self, st):
@@ -1150,7 +1403,7 @@ class Engine:
                 exch = self._aa_exch[i]
             Q = protein_q(exch, pi)
         elif cfg.div.dtype is DataType.STANDARD:
-            Q = mk_q(cfg.div.n_states, pi)
+            Q = self._standard_q(cfg, pi)
         elif nst == "1":
             Q = nuc_q_nst1(pi)
         elif nst == "2":
@@ -1158,6 +1411,13 @@ class Engine:
         else:
             Q = nuc_q_gtr(state["revmat"][:, cfg.revmat_group], pi)
         return Q, pi
+
+    @staticmethod
+    def _standard_q(cfg, pi):
+        """A standard bucket's Mk generator: ordered (adjacent states only,
+        ``ctype ordered``) or unordered (mrbayes_tpu engine.py:2309-2311)."""
+        q = ordered_mk_q if cfg.div.ctype == "ordered" else mk_q
+        return q(cfg.div.n_states, pi)
 
     def _codon_q(self, state, i, pi):
         """A codon division's generators [C, K, S, S] (mrbayes_tpu engine
@@ -1360,7 +1620,8 @@ class Engine:
         (mrbayes_tpu engine.py:2374-2378)."""
         ts = self.tree_settings
         if ts.clock:
-            return CL.clock_blens(state, self.n_tips, ts.clockvarpr)
+            return CL.clock_blens(CL.pin_sa_ages(state, self.n_tips),
+                                  self.n_tips, ts.clockvarpr)
         return state["blen"]
 
     def log_prior_tree(self, state):
@@ -1373,30 +1634,49 @@ class Engine:
         blen = state["blen"]
         if bp.kind == "gammadir":
             a_t, b_t, a_f, c_i = bp.params
-            return brlens_gammadir_lpdf(
+            lp = brlens_gammadir_lpdf(
                 blen, self._blen_mask, a_t, b_t, a_f, c_i,
                 self._interior if c_i != 1.0 else None)
-        if bp.kind == "exponential":
-            return brlens_exponential_lpdf(blen, self._blen_mask,
-                                           bp.params[0])
-        return brlens_uniform_lpdf(blen, self._blen_mask, bp.params[0],
-                                   bp.params[1])
+        elif bp.kind == "exponential":
+            lp = brlens_exponential_lpdf(blen, self._blen_mask,
+                                         bp.params[0])
+        else:
+            lp = brlens_uniform_lpdf(blen, self._blen_mask, bp.params[0],
+                                     bp.params[1])
+        return lp + self._constraint_terms(state)
 
     def _log_prior_clock(self, state):
-        """A clock tree's prior (mrbayes_tpu engine.py:2976-3045, without
-        the FBD, dated-tip, CPP, calibration and constraint terms): the
-        tree prior on the ages with its parameters' priors, the clock
-        rate's, the branch rates' with their variance's, and -inf where a
+        """A clock tree's prior (mrbayes_tpu engine.py:2977-3050) on its
+        pinned ages: the tree prior on the ages (uniform, with dated tips
+        or not; birth-death; coalescent; fossilized birth-death) with its
+        parameters' priors, the clock rate's, the branch rates' (CPP
+        events, or per-branch rates with their variance's), the sampled
+        tip ages', the constraint and calibration terms, and -inf where a
         parent is not older than its child."""
         ts = self.tree_settings
         n = self.n_tips
+        state = CL.pin_sa_ages(state, n)
         age = state["age"]
+        treeage = self._root_calib or ts.treeagepr
 
         def treeage_lpdf(t1):
-            return _scalar_prior_lpdf(ts.treeagepr, t1)
+            return _scalar_prior_lpdf(treeage, t1)
 
         cr = state["clockrate"][:, 0] if "clockrate" in state else 1.0
-        if ts.clockpr == "uniform":
+        if ts.clockpr == "fossilization":
+            sp, ex, fo = (state[k][:, 0] for k in (
+                "speciation", "extinction", "fossilization"))
+            lp = (CL.ln_fbd(age, n, sp, ex, fo, ts.sampleprob,
+                            self.fossil_tips, treeage_lpdf,
+                            strategy=ts.samplestrat, sa=state.get("sa"),
+                            parent=state["parent"], fossil=self._fossil)
+                  + _scalar_prior_lpdf(ts.speciationpr, sp)
+                  + _scalar_prior_lpdf(ts.extinctionpr, ex)
+                  + _scalar_prior_lpdf(ts.fossilizationpr, fo))
+        elif ts.clockpr == "uniform" and self.has_dated_tips:
+            lp = CL.ln_uniform_clock_dated(age, n, self.fossil_tips,
+                                           treeage_lpdf, root_dated=False)
+        elif ts.clockpr == "uniform":
             lp = CL.ln_uniform_clock(age, n, treeage_lpdf)
         elif ts.clockpr == "birthdeath":
             strat = (ts.samplestrat if ts.samplestrat in
@@ -1418,10 +1698,18 @@ class Engine:
                   + _scalar_prior_lpdf(ts.popsizepr, theta))
         if "clockrate" in state:
             lp = lp + _scalar_prior_lpdf(ts.clockratepr, cr)
-        if ts.clockvarpr != "strict":
+        if ts.clockvarpr == "cpp":
+            sigma = float((ts.cppmultdevpr.params or (0.4,))[0])
+            lam = state["cpprate"][:, 0]
+            lp = (lp + CL.ln_cpp_prior(state, n, lam, sigma)
+                  + _scalar_prior_lpdf(ts.cppratepr, lam))
+        elif ts.clockvarpr != "strict":
             var = state["clockvar"][:, 0]
             lp = (lp + CL.ln_branch_rates_prior(state, n, ts.clockvarpr, var)
                   + _scalar_prior_lpdf(ts.clockvar_prior(), var))
+        for ti, pr in self.sampled_tip_ages:
+            lp = lp + _scalar_prior_lpdf(pr, age[:, ti])
+        lp = lp + self._constraint_terms(state)
         return torch.where(CL.ages_ordered(state), lp, NEG_INF)
 
     def _grouped_params_prior(self, state):
@@ -1619,8 +1907,8 @@ class Engine:
         if not self.tree_settings.clock:
             return _host(states["blen"][slot]).astype(np.float64)
         one = {k: torch.as_tensor(_host(states[k][slot]))[None]
-               for k in ("parent", "age", "clockrate", "brate")
-               if k in states}
+               for k in ("parent", "age", "clockrate", "brate", "sa",
+                         "cpp_pos", "cpp_mult", "cpp_n") if k in states}
         return self.branch_lengths(one)[0].double().numpy()
 
     def extract_tree(self, states, slot: int) -> Tree:

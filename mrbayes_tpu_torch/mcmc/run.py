@@ -131,9 +131,11 @@ def param_columns(eng: Engine):
 
 
 def _clock_columns(eng: Engine, multi: bool):
-    """A clock model's columns after TL (mrbayes_tpu run.py:72-104): the
-    tree height in substitutions, the sampled clock rate, the branch-rate
-    variance and the tree-process parameters."""
+    """A clock model's columns after TL (mrbayes_tpu run.py:68-116): the
+    tree height in substitutions, the sampled clock rate, the CPP rate and
+    event count or the branch-rate variance (and the mixed model's
+    indicator), the tree-process parameters and the number of sampled
+    ancestors."""
     ts = eng.tree_settings
     if not ts.clock:
         return []
@@ -147,16 +149,27 @@ def _clock_columns(eng: Engine, multi: bool):
              * (float(st["clockrate"][s, 0]) if "clockrate" in st else 1.0))]
     if ts.clockratepr.kind != "fixed":
         cols.append(("clockrate", field("clockrate")))
-    if ts.clockvarpr != "strict":
+    if ts.clockvarpr == "cpp":
+        cols += [("cppRate", field("cpprate")),
+                 ("nEvents", lambda st, s: float(np.sum(st["cpp_n"][s])))]
+    elif ts.clockvarpr != "strict":
         cols.append((f"{ts.clockvarpr}var" + ("{all}" if multi else ""),
                      field("clockvar")))
-    if ts.clockpr == "birthdeath":
+        if ts.clockvarpr == "mixed":
+            # 0 = IGR, 1 = ILN (the reference's RCL_* indicators)
+            cols.append(("rclModel", field("rcl_model")))
+    if ts.clockpr in ("birthdeath", "fossilization"):
         cols += [("net_speciation", field("speciation")),
                  ("relative_extinction", field("extinction"))]
     if ts.clockpr == "coalescence":
         cols.append(("theta", field("popsize")))
         if ts.growthpr.kind != "fixed":
             cols.append(("growthRate", field("growth")))
+    if ts.clockpr == "fossilization":
+        cols.append(("relative_fossilization", field("fossilization")))
+        if eng._samples_ancestors():
+            cols.append(("nSampledAncestors",
+                         lambda st, s: float(np.sum(st["sa"][s]))))
     return cols
 
 

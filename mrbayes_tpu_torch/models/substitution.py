@@ -60,6 +60,22 @@ def mk_q(n_states: int, pi: torch.Tensor | None = None, device=None,
                                     + (n_states * (n_states - 1) // 2,)), pi)
 
 
+def ordered_mk_q(n_states: int, pi: torch.Tensor | None = None,
+                 device=None, dtype=torch.float32) -> torch.Tensor:
+    """Ordered Mk model (``ctype ordered``): only adjacent states exchange,
+    q_ij = pi_j for |i - j| = 1, rescaled to mean rate 1 (reference
+    SetStdQMatrix ordered branch, src/likelihood.c:9257-9272).  A
+    reversible generator whose exchangeabilities are 1 on the adjacent
+    pairs and 0 elsewhere."""
+    if pi is None:
+        pi = torch.full((n_states,), 1.0 / n_states, dtype=dtype,
+                        device=device)
+    iu = torch.triu_indices(n_states, n_states, 1)
+    adjacent = (iu[1] - iu[0] == 1).to(pi.dtype).to(pi.device)
+    return reversible_q(adjacent.expand(pi.shape[:-1] + adjacent.shape),
+                        pi)
+
+
 def protein_q(exchange: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
     """Protein model from a 190-vector of exchangeabilities (an empirical
     model's or the sampled protein GTR's) and 20 frequencies."""

@@ -62,3 +62,11 @@ def descendant_matrix(parent: torch.Tensor) -> torch.Tensor:
         hit = hit | hit.gather(-1, anc[..., None, :].expand_as(hit))
         anc = anc.gather(-1, anc)
     return hit
+
+
+def ancestor_matrix(parent: torch.Tensor) -> torch.Tensor:
+    """[..., n, n] float: A[u, v] = 1.0 iff v is an ancestor-or-self of u
+    (mrbayes_tpu/ops/traversal.py:42), for monophyly checks, MRCA lookups
+    and the CPP clock's inherited rates.  The transpose of
+    ``descendant_matrix``."""
+    return descendant_matrix(parent).transpose(-1, -2).float()

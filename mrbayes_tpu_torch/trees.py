@@ -308,14 +308,112 @@ def random_unrooted(n_tips: int, rng: np.random.Generator,
     return t
 
 
+def _constrained_grouping(n_tips: int, rng: np.random.Generator,
+                          masks: list[np.ndarray]) -> tuple:
+    """Random nested grouping of taxa where every mask forms a clade
+    (role of the reference's constraint-tree starting topologies,
+    src/model.c:12753 FillTreeParams).  Returns nested (l, r) tuples
+    with ints at the leaves.  Raises on incompatible constraints."""
+    comps: list[tuple[object, frozenset]] = [
+        (i, frozenset([i])) for i in range(n_tips)]
+
+    def merge(indices: list[int]) -> None:
+        while len(indices) > 1:
+            i, j = rng.choice(len(indices), 2, replace=False)
+            a, b = indices[i], indices[j]
+            comps[a] = ((comps[a][0], comps[b][0]),
+                        comps[a][1] | comps[b][1])
+            comps[b] = None
+            indices.remove(b)
+        pass
+
+    for mask in sorted(masks, key=lambda m: int(m.sum())):
+        tipset = frozenset(np.flatnonzero(mask).tolist())
+        if len(tipset) < 2 or len(tipset) >= n_tips:
+            continue
+        inside = [k for k, c in enumerate(comps)
+                  if c is not None and c[1] <= tipset]
+        covered = frozenset().union(
+            *[comps[k][1] for k in inside]) if inside else frozenset()
+        if covered != tipset:
+            raise ValueError(
+                "incompatible constraints: clade "
+                f"{sorted(tipset)} conflicts with an earlier constraint")
+        merge(inside)
+    rest = [k for k, c in enumerate(comps) if c is not None]
+    merge(rest)
+    (top, _), = [c for c in comps if c is not None]
+    return top
+
+
+def random_unrooted_constrained(n_tips: int, rng: np.random.Generator,
+                                masks: list[np.ndarray],
+                                mean_blen: float = 0.1) -> Tree:
+    """Random unrooted topology in which every mask is a clade."""
+    top = _constrained_grouping(n_tips, rng, masks)
+
+    def nw(node) -> str:
+        if isinstance(node, tuple):
+            return (f"({nw(node[0])},{nw(node[1])})"
+                    f":{rng.exponential(mean_blen):.8g}")
+        return f"{node + 1}:{rng.exponential(mean_blen):.8g}"
+
+    taxa = [str(i + 1) for i in range(n_tips)]
+    return parse_newick(nw(top) + ";", taxa)
+
+
+def random_clock_tree_constrained(n_tips: int, rng: np.random.Generator,
+                                  masks: list[np.ndarray],
+                                  mean_age: float = 1.0,
+                                  tip_ages: np.ndarray | None = None):
+    """Random rooted clock tree where every mask is a clade: constrained
+    grouping for the topology, then bottom-up exponential age increments
+    (parents strictly older than children, dated tips respected)."""
+    n = n_tips
+    top = _constrained_grouping(n, rng, masks)
+    if tip_ages is None:
+        tip_ages = np.zeros(n)
+    t = Tree(parent=np.full(2 * n - 1, -1, np.int32),
+             left=np.full(2 * n - 1, -1, np.int32),
+             right=np.full(2 * n - 1, -1, np.int32),
+             blen=np.zeros(2 * n - 1), n_tips=n, rooted=True)
+    ages = np.zeros(2 * n - 1)
+    ages[:n] = tip_ages
+    counter = [n]
+    step = max(mean_age, 2.0 * float(np.max(tip_ages))) / max(n - 1, 1)
+
+    def build(node, is_top=False) -> int:
+        if not isinstance(node, tuple):
+            return node
+        l = build(node[0])
+        r = build(node[1])
+        me = t.root if is_top else counter[0]
+        if not is_top:
+            counter[0] += 1
+        t.left[me], t.right[me] = l, r
+        t.parent[l] = t.parent[r] = me
+        ages[me] = (max(ages[l], ages[r])
+                    + rng.exponential(step) + 1e-4)
+        return me
+
+    build(top, is_top=True)
+    for v in range(2 * n - 2):
+        t.blen[v] = ages[t.parent[v]] - ages[v]
+    t.check()
+    return t, ages
+
+
 def random_clock_tree(n_tips: int, rng: np.random.Generator,
-                      mean_age: float = 1.0):
+                      mean_age: float = 1.0,
+                      tip_ages: np.ndarray | None = None):
     """Random rooted topology with coalescent-style node ages.
 
-    Returns (Tree, ages[2n-1]) with the tips at age 0 and the root (node
-    2n-2) oldest.  Branch 'lengths' in the Tree are the age differences.
-    Each step joins a uniform pair of the active lineages after an
-    exponential wait of mean 2 * mean_age / (k (k - 1)).
+    Returns (Tree, ages[2n-1]) with tips at ``tip_ages`` (default 0) and
+    the root (node 2n-2) oldest.  Branch 'lengths' in the Tree are the age
+    differences.  With dated (fossil) tips, a tip only becomes available
+    for joining once the clock has passed its age — a serially-sampled
+    coalescent (role of the reference's calibrated starting trees,
+    src/utils.c:4164 InitCalibratedBrlens).
     """
     n = n_tips
     t = Tree(parent=np.full(2 * n - 1, -1, np.int32),
@@ -323,12 +421,24 @@ def random_clock_tree(n_tips: int, rng: np.random.Generator,
              right=np.full(2 * n - 1, -1, np.int32),
              blen=np.zeros(2 * n - 1), n_tips=n, rooted=True)
     ages = np.zeros(2 * n - 1)
-    active = list(range(n))
+    if tip_ages is None:
+        tip_ages = np.zeros(n)
+    ages[:n] = tip_ages
+    if mean_age < 2.0 * float(np.max(tip_ages)):
+        mean_age = 2.0 * float(np.max(tip_ages)) + 1e-3
+    pending = sorted(range(n), key=lambda i: tip_ages[i])
+    active: list[int] = []
     age = 0.0
     for i in range(n - 1):
+        while pending and (tip_ages[pending[0]] <= age or len(active) < 2):
+            nxt = pending.pop(0)
+            age = max(age, tip_ages[nxt])
+            active.append(nxt)
         k = len(active)
         age += rng.exponential(2.0 * mean_age / (k * (k - 1)))
-        a, b = rng.choice(k, 2, replace=False)
+        while pending and tip_ages[pending[0]] <= age:
+            active.append(pending.pop(0))
+        a, b = rng.choice(len(active), 2, replace=False)
         node = n + i
         na, nb = active[a], active[b]
         t.left[node], t.right[node] = na, nb
@@ -336,6 +446,8 @@ def random_clock_tree(n_tips: int, rng: np.random.Generator,
         ages[node] = age
         active = [x for j, x in enumerate(active) if j not in (a, b)]
         active.append(node)
+    # ensure root is node 2n-2 (it is, by construction order)
+    t.blen = ages - np.where(t.parent >= 0, 0, 0)
     for v in range(2 * n - 2):
         t.blen[v] = ages[t.parent[v]] - ages[v]
     t.blen[t.root] = 0.0

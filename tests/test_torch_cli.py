@@ -219,9 +219,9 @@ def test_commands_outside_the_port_name_their_item():
     it = Interpreter(log=lambda m: None, device="cpu")
     it.execute_file(example("primates.nex"))
     for line, item in (("ss ngen=10", "item 14"),
-                       ("calibrate x = fixed(1)", "item 10b"),
+                       ("delete 1", "item 15"),
                        ("showmodel", "item 15"),
-                       ("prset cppratepr=exp(1)", "item 10b")):
+                       ("prset m3omegapr=exp", "item 12b")):
         with pytest.raises(CommandError, match=f"ROADMAP Queue 1 {item}"):
             it.run_line(line)
     with pytest.raises(CommandError, match="unknown command"):

@@ -18,7 +18,8 @@ on the CPU, at small size.
   runs of every (clockpr, clockvarpr) pair of tests/test_clock.py:56-60,
   test2's .p header against JAX's, a clock engine over 2 site shards,
   test2 through the CLI (complete files, [&R] trees, the checkpoint, sumt
-  against JAX's), and the settings of ROADMAP Queue 1 item 10b refused.
+  against JAX's), and the settings of ROADMAP Queue 1 item 10b, once
+  refused, now taken as the JAX package takes them.
 """
 import json
 import os
@@ -635,7 +636,8 @@ def test_sumt_on_rooted_trees_prints_what_jax_prints(cli_run, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# item 10b stays refused
+# item 10b, once refused, is carried (tests/test_torch_dating.py,
+# tests/test_torch_cpp.py and tests/test_torch_hymfossil.py hold it)
 
 
 @pytest.mark.parametrize("field,value", [
@@ -645,11 +647,24 @@ def test_sumt_on_rooted_trees_prints_what_jax_prints(cli_run, tmp_path):
     ("constraints", [("c", np.ones(12, bool), None)]),
     ("treeage_calibrated", True)])
 def test_engine_refuses_item_10b(primates, field, value):
+    """The settings the engine refused naming item 10b now build an engine
+    whose starting states have a finite prior, with their moves."""
     ts = TreeSettings(clock=True)
     setattr(ts, field, value)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10b"):
-        Engine(primates, [DivisionSettings()], tree_settings=ts,
-               mcmc=McmcSettings(nruns=1, nchains=1), device="cpu")
+    eng = Engine(primates, [DivisionSettings()], tree_settings=ts,
+                 mcmc=McmcSettings(nruns=1, nchains=1), device="cpu")
+    states, _ = eng.init_chains()
+    assert (states["lnP"] > -1e20).all()
+    assert torch.isfinite(states["lnL"]).all()
+    names = {m.name for m in eng.moves}
+    want = {"cpp": {"cpp_adddelete", "cpp_position", "cpp_multiplier",
+                    "cpprate_mult"},
+            "mixed": {"brate_mult", "clockvar_mult", "rcl_jump"},
+            "fossilization": {"fossilization_slider"}}.get(
+                value if isinstance(value, str) else "", set())
+    assert want <= names
+    if field == "tip_calibrations":
+        assert eng.has_dated_tips and float(states["age"][0, 0]) == 1.0
 
 
 @pytest.mark.parametrize("line", [
@@ -660,7 +675,22 @@ def test_engine_refuses_item_10b(primates, field, value):
     "prset topologypr=uniform", "constraint c = 1 2",
     "calibrate Tarsius = fixed(1)"])
 def test_cli_refuses_item_10b(line):
+    """The commands the CLI refused naming item 10b are now taken, with
+    the JAX package's meaning."""
     it = Interpreter(log=lambda m: None, device="cpu")
     it.execute_file(example("primates.nex"))
-    with pytest.raises(CommandError, match="Queue 1 item 10b"):
-        it.run_line(line)
+    jit = JInterpreter(log=lambda m: None)
+    jit.execute_file(example("primates.nex"))
+    it.run_line(line)
+    jit.run_line(line)
+    ts, jts = it.env.tree_settings, jit.env.tree_settings
+    for k in ("clock", "clockpr", "clockvarpr", "nodeagepr"):
+        assert getattr(ts, k) == getattr(jts, k)
+    for k in ("cppratepr", "cppmultdevpr", "mixedvarpr", "fossilizationpr",
+              "topologypr"):
+        a, b = getattr(ts, k), getattr(jts, k)
+        assert (a.kind, a.params) == (b.kind, b.params)
+    assert {k: v[0] for k, v in it.env.constraints.items()} == \
+        {k: v[0] for k, v in jit.env.constraints.items()}
+    assert {k: (v.kind, v.params) for k, v in it.env.calibrations.items()} \
+        == {k: (v.kind, v.params) for k, v in jit.env.calibrations.items()}

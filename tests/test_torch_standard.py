@@ -305,12 +305,22 @@ def test_p_header_equals_jax_param_columns(jax_side, port_engine):
 
 
 def test_ordered_characters_and_symdiri_raise():
+    """Ordered characters are carried since item 10b (the ordered Mk
+    generator, tests/test_torch_dating.py and test_torch_hymfossil.py);
+    a sampled symdirihyperpr still raises naming item 13."""
     nf = read_nexus_file(example("cynmix.nex"))
     ordered = make_divisions(nf.matrix, ctype={c: "ordered"
                                                for c in range(166)})
     ds = DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar, divisions=ordered)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Engine(ds, [DivisionSettings() for _ in ordered], device="cpu")
+    eng = Engine(ds, [DivisionSettings() for _ in ordered], device="cpu")
+    # two-state ordered characters are unordered ones (reference
+    # src/model.c:16525)
+    assert {(c.div.n_states, c.div.ctype) for c in eng.div_cfg
+            if c.div.dtype is DataType.STANDARD} == {
+                (2, "unordered"), (3, "ordered"), (4, "ordered"),
+                (8, "ordered")}
+    states, _ = eng.init_chains()
+    assert torch.isfinite(states["lnL"]).all()
     divs = make_divisions(nf.matrix)
     ds = DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar, divisions=divs)
     with pytest.raises(NotImplementedError, match="item 13"):
