@@ -4,13 +4,19 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
 
     python3 chip_smoke.py [--test1-gens N] [--primates-blocks N]
                           [--cynmix-gens N] [--switch-blocks N]
+                          [--phases GROUP,...]
 
 (defaults 2,000, 3, 600 and 2; primates blocks, cynmix generations and
 switch blocks were 5, 2,000 and 3 before the sharded phases came, and
 test1's generations 20,000 before test2's came and 4,000 before the
 dating phases: each was cut to keep the script within 600 s, and test1's
 20,000-generation envelope is checked by ``--test1-gens 20000``; test2
-always runs the envelope's 20,000).  Each
+always runs the envelope's 20,000).  ``--phases`` runs only the named
+groups after the device and build phases (``PHASE_GROUPS``: kernels 3,
+17, 21; primates 4-5; test1 6-9; cynmix 10-12; sharded 13-16; clock
+18-20; aa_codon 22-26; dating 27-31; kim_codon 32-37); with a subset the
+kernels line names every kernel with its numbers null, and the groups'
+own lines carry what they measured.  Each
 phase's end is logged with the seconds since the start.
 
 Phases, each fatal on failure:
@@ -160,7 +166,31 @@ Phases, each fatal on failure:
      fossils and on a CPP problem, 32 runs x 1 chain, 1,000 generations on
      the card and on the port's own CPU engine (held against JAX in
      tests/test_torch_dating.py): the mean root age, sampled ancestors and
-     CPP events within 4 batch-means standard errors of each other.
+     CPP events within 4 batch-means standard errors of each other;
+ 32. doublet and M3/M10 kernels: pruning.cu against its plain version at
+     kim's stem doublets (27 tips, 78 pair patterns, S 16, K 1 and 4), its
+     proteins (P 68 and 32, S 20), replicase under M3 (K 3, staged) and
+     M10 (K 8, the global-scratch walk), C = 8 and 32: the walk and block
+     chosen, ms, before_ms, plain_ms and the bound;
+ 33. eigh.cu at [8|32, 16, 16] (the doublet's runtime S) and [64|256, 61,
+     61] (M10's eight classes a chain) with phase 21's gates and times;
+ 34. golden kim and M10: the kim_hky_g_mixed4, kim_stems_doublet_gtr,
+     kim_protein_gtr and replicase_m10 rows within their tol, M10's class
+     omegas within rtol 0.02 of the reference's;
+ 35. kim stem doublets: kim.nex under the kim_stems_doublet_gtr rows'
+     model through the CLI (9 divisions, 2 runs x 4 chains, 300
+     generations): exactly 9 pruning.cu launches a generation, eigh.cu
+     once at the build per protein and once per doublet Q move, carried
+     versus recomputed scores, the files, sump and sumt, gens/s; then the
+     sync check of every move type with its eigh.cu prediction;
+ 36. replicase M10 (400 generations) and M3 (150) through the CLI with
+     phase 35's checks and sync checks;
+ 37. kim's unlinked trees (set partition=by_gene; unlink topology=(all)
+     brlens=(all)): 6 trees over 8 divisions (div_tree [0, 1, 2, 3, 4, 5,
+     5, 5]), exactly 8 pruning.cu launches a generation, six .t files a
+     run and six consensus trees, each division's lnL on its own tree
+     through pruning.cu against the plain version within 1e-3 and the
+     carried total against their sum, and the sync check.
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -289,6 +319,50 @@ AA_PRIOR_RUNS, AA_PRIOR_GENS, AA_PRIOR_SEED = 32, 1200, 13
 HYM_CHAINS = (8, 32)
 HYM_GENS = 600
 DATING_PRIOR_RUNS, DATING_PRIOR_GENS = 32, 1000
+# kim.nex's stem doublets, codon M3 and M10 and unlinked trees: pruning.cu
+# at the new shapes (n_tips, P, S, K), each at C = 8 and 32: kim's stem
+# doublets (78 pair patterns, S 16, K 1 and 4), its two proteins (S 20),
+# replicase under M3 (K 3) and M10 (4 + 4 classes); the size rule stages
+# M3's operators and sends M10 (K S = 488 entries a step, more than 32
+# lanes x 8) to the global-scratch walk
+KIM_CODON_SHAPES = [(27, 78, 16, 1), (27, 78, 16, 4), (27, 68, 20, 1),
+                    (27, 32, 20, 1), (9, 239, 61, 3), (9, 239, 61, 8)]
+KIM_CODON_WALKS = {(9, 239, 61, 3): "staged", (9, 239, 61, 8): "global"}
+# eigh.cu's batches (matrices, S): the doublet's 8 and 32 chains, M10's 8
+# and 32 chains x 8 omega classes
+KIM_EIGH_CASES = [(8, 16), (32, 16), (64, 61), (256, 61)]
+GOLDEN_KIM_CODON = ("kim_hky_g_mixed4", "kim_stems_doublet_gtr",
+                    "kim_protein_gtr", "replicase_m10")
+# the CLI runs' generations, sampled every 50 (7 samples a run at 300)
+KIM_GENS, M10_GENS, M3_GENS, UNLINKED_GENS = 300, 400, 150, 300
+KIM_SAMPLEFREQ = 50
+# every kernel of the kernels line: name, route, source, the TPU kernel
+KERNEL_IDS = [
+    {"name": "pruning_down", "route": "cuda",
+     "source": "mrbayes_tpu_torch/csrc/pruning.cu",
+     "replaces": "mrbayes_tpu/ops/pruning_pallas.py:94"},
+    {"name": "multiwalk_down", "route": "cuda",
+     "source": "mrbayes_tpu_torch/csrc/multiwalk.cu",
+     "replaces": "mrbayes_tpu/ops/pruning_pallas.py:144"},
+    {"name": "wavefront_down", "route": "cuda",
+     "source": "mrbayes_tpu_torch/csrc/wavefront.cu",
+     "replaces": "mrbayes_tpu/ops/pruning_pallas.py:478"},
+    {"name": "stacked_down", "route": "cuda",
+     "source": "mrbayes_tpu_torch/csrc/stacked.cu",
+     "replaces": "mrbayes_tpu/ops/pruning_pallas.py:767"},
+    {"name": "sharded_down", "route": "cuda",
+     "source": "mrbayes_tpu_torch/csrc/pruning.cu + "
+               "mrbayes_tpu_torch/ops/sharded_cuda.py",
+     "replaces": "mrbayes_tpu/ops/pruning_pallas.py:456"},
+    {"name": "eigh_jacobi", "route": "cuda",
+     "source": "mrbayes_tpu_torch/csrc/eigh.cu",
+     "replaces": "mrbayes_tpu/ops/tiprobs.py:33"}]
+# the numbers of the kernels line, measured only when every group runs
+KERNEL_NUMBERS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms")
+# the phase groups of --phases, in the order they run
+PHASE_GROUPS = ("kernels", "primates", "test1", "cynmix", "sharded",
+                "clock", "aa_codon", "dating", "kim_codon")
 
 
 def log(msg):
@@ -534,6 +608,50 @@ def new_walk(torch, lr, pstep, tips):
     return raw, plan, root, ls
 
 
+def pruning_check(torch, shape, seed, expect=None, plain=False, n=100,
+                  reps=5, loops=200):
+    """pruning.cu at one (n_tips, P, S, K, C) against its plain version on
+    seeded operands: the walk and block the size rule chose (held to
+    ``expect`` where given), its CUDA-graph time and the old global-scratch
+    walk's on the same operands (before_ms), the Python loops' times, the
+    bound and, with ``plain``, the plain version's time.  Returns (record,
+    operands, bytes, operations)."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    n_tips, P, S, K, C = shape
+    lr, pstep, tips, pi = kernel_case(torch, n_tips, P, S, K, C, seed)
+    root_k, ls_k = PC.pruning_down(lr, pstep, tips)
+    torch.cuda.synchronize()
+    root_p, ls_p = PC.pruning_down_plain(lr, pstep, tips)
+    raw, plan, root, ls = new_walk(torch, lr, pstep, tips)
+    err = compare(
+        torch, site_lnl(torch, root_k, ls_k, pi),
+        site_lnl(torch, root_p, ls_p, pi),
+        f"pruning_down n_tips={n_tips} P={P} S={S} K={K} C={C} "
+        f"({plan['walk']} walk, {plan['threads']} threads for {plan['T']} "
+        f"patterns, {plan['lanes']} lanes a pattern, {plan['smem_bytes']} "
+        f"B of shared memory)")
+    if expect is not None and plan["walk"] != expect:
+        raise AssertionError(f"pruning_down n_tips={n_tips} S={S} K={K}: "
+                             f"{plan['walk']} walk, expected {expect}")
+    flops = 2 * C * (n_tips - 1) * 2 * K * S * S * P
+    nbytes = 4 * (lr.numel() + pstep.numel() + tips.numel()
+                  + root.numel() + ls.numel())
+    before = old_walk(torch, lr, pstep, tips)
+    rec = {**plan, "max_abs_err": err,
+           "ms": time_graph(torch, raw, n, reps),
+           "before_ms": time_graph(torch, before, n, reps),
+           "loop_ms": time_events(torch, raw, loops),
+           "before_loop_ms": time_events(torch, before, loops),
+           **{k: v for k, v in bound(nbytes, flops).items()
+              if k in ("bound_ms", "bound_by")}}
+    if plain:
+        rec["plain_ms"] = time_events(
+            torch, lambda: PC.pruning_down_plain(lr, pstep, tips), 5)
+    log(f"pruning_down timing n_tips={n_tips} P={P} S={S} K={K} C={C}: "
+        f"{json.dumps(rec)}")
+    return rec, (lr, pstep, tips), nbytes, flops
+
+
 def phase_kernels(torch):
     """pruning.cu against its plain version at every case, the walk and
     block the size rule gave it, and its time beside the old walk's
@@ -543,46 +661,18 @@ def phase_kernels(torch):
     worst = 0.0
     timing, cases = {}, {}
     for i, (n_tips, P, S, K, C) in enumerate(KERNEL_CASES):
-        lr, pstep, tips, pi = kernel_case(torch, n_tips, P, S, K, C, 100 + i)
-        root_k, ls_k = PC.pruning_down(lr, pstep, tips)
-        torch.cuda.synchronize()
-        root_p, ls_p = PC.pruning_down_plain(lr, pstep, tips)
-        raw, plan, root, ls = new_walk(torch, lr, pstep, tips)
-        expect = KERNEL_WALKS.get((n_tips, P, S, K), "whole")
-        err = compare(
-            torch, site_lnl(torch, root_k, ls_k, pi),
-            site_lnl(torch, root_p, ls_p, pi),
-            f"pruning_down n_tips={n_tips} P={P} S={S} K={K} C={C} "
-            f"({plan['walk']} walk, {plan['threads']} threads for {plan['T']} "
-            f"patterns, {plan['lanes']} lanes a pattern, {plan['smem_bytes']} "
-            f"B of shared memory)")
-        worst = max(worst, err)
-        if plan["walk"] != expect:
-            raise AssertionError(f"pruning_down n_tips={n_tips} S={S} K={K}: "
-                                 f"{plan['walk']} walk, expected {expect}")
-        flops = 2 * C * (n_tips - 1) * 2 * K * S * S * P
-        nbytes = 4 * (lr.numel() + pstep.numel() + tips.numel()
-                      + root.numel() + ls.numel())
-        before = old_walk(torch, lr, pstep, tips)
-        cases[f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"] = {
-            **plan, "max_abs_err": err,
-            "ms": time_graph(torch, raw),
-            "before_ms": time_graph(torch, before),
-            "loop_ms": time_events(torch, raw, 200),
-            "before_loop_ms": time_events(torch, before, 200),
-            **{k: v for k, v in bound(nbytes, flops).items()
-               if k in ("bound_ms", "bound_by")}}
-        if (n_tips, P, S, K) in AA_CODON_SHAPES:
-            cases[f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"]["plain_ms"] = time_events(
-                torch, lambda: PC.pruning_down_plain(lr, pstep, tips), 5)
-        log(f"pruning_down timing n_tips={n_tips} P={P} S={S} K={K} C={C}: "
-            f"{json.dumps(cases[f'n{n_tips}_P{P}_S{S}_K{K}_C{C}'])}")
+        key = f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"
+        cases[key], (lr, pstep, tips), nbytes, flops = pruning_check(
+            torch, (n_tips, P, S, K, C), 100 + i,
+            KERNEL_WALKS.get((n_tips, P, S, K), "whole"),
+            plain=(n_tips, P, S, K) in AA_CODON_SHAPES)
+        worst = max(worst, cases[key]["max_abs_err"])
         if (n_tips, P, S, K) != (12, 413, 4, 4):
             continue
         # the wrapper (operand checks + allocation + launch) and the plain
         # version at primates' shape
         timing[C] = {
-            **cases[f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"],
+            **cases[key],
             "wrapper_ms": time_events(
                 torch, lambda: PC.pruning_down(lr, pstep, tips), 200),
             "plain_ms": time_events(
@@ -2171,8 +2261,9 @@ def phase_aa_codon_cli(torch, name, ngen, solver, power_line):
 def phase_aa_codon_sync(torch, name, eng, power_line, solver=True):
     """A block and one generation of every move type of ``eng`` with host
     synchronisation made an error, and eigh.cu's launches over them
-    against the prediction: one a Q-move generation where the division's
-    Q goes through the solver (``solver``), none where it does not."""
+    against the prediction: one a Q-move generation and division whose Q
+    goes through the solver (``solver``: True or the number of such
+    divisions), none where none does."""
     from mrbayes_tpu_torch.ops import eigh_cuda as E
     states, bk = eng.init_chains()
     torch.cuda.synchronize()
@@ -2181,8 +2272,8 @@ def phase_aa_codon_sync(torch, name, eng, power_line, solver=True):
     states, bk = sync_checked(torch, eng, states, bk, SYNC_GENS)
     launches = E.EIGH.launches
     q = [m for m, spec in enumerate(eng.moves) if spec.updates_q]
-    expect = (int((bk["tries_total"][0] - before)[q].sum()) + len(q)
-              if solver else 0)
+    expect = int(solver) * (int((bk["tries_total"][0] - before)[q].sum())
+                            + len(q))
     if launches != expect:
         raise AssertionError(f"{name}: {launches} eigh launches, predicted "
                              f"{expect}")
@@ -2670,6 +2761,200 @@ def phase_dating_prior(torch, power_line):
     return out
 
 
+# ---------------------------------------------------------------------------
+# kim.nex's stem doublets, codon M3 and M10, and unlinked trees
+
+def phase_kim_codon_kernels(torch):
+    """pruning.cu against its plain version at the shapes this slice's
+    main paths give it (``KIM_CODON_SHAPES``), C = 8 and 32: the walk and
+    block the size rule chose (M3 staged, M10 the global-scratch walk),
+    ms, before_ms (the old global walk), plain_ms and the bound."""
+    worst, cases = 0.0, {}
+    for i, (n_tips, P, S, K) in enumerate(KIM_CODON_SHAPES):
+        for C in (8, 32):
+            rec = pruning_check(torch, (n_tips, P, S, K, C), 500 + 2 * i
+                                + (C == 32), KIM_CODON_WALKS.get(
+                                    (n_tips, P, S, K)), plain=True, n=20,
+                                reps=3, loops=20)[0]
+            cases[f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"] = rec
+            worst = max(worst, rec["max_abs_err"])
+    return worst, cases
+
+
+def phase_kim_codon_eigh(torch):
+    """eigh.cu against its plain version and its first design at the
+    batches of this slice's main paths (``KIM_EIGH_CASES``: the doublet's
+    runtime S 16, M10's eight omega classes a chain at S 61), with
+    ``eigh_case``'s gates and times."""
+    from mrbayes_tpu_torch.ops import eigh_cuda as E
+    rng = np.random.default_rng(302)
+    cases = {f"B{B}_S{S}": eigh_case(torch, E,
+                                     reversible_batch(torch, rng, B, S))
+             for B, S in KIM_EIGH_CASES}
+    for key, case in cases.items():
+        log(f"eigh_cuda timing {key}: {json.dumps(case)}")
+    return cases
+
+
+def row_engine(rec):
+    """The port's engine on the card for a golden row's commands, its
+    execute pointed at the vendored example."""
+    from mrbayes_tpu_torch.cli import Interpreter
+    it = Interpreter(log=lambda m: None, device=DEV)
+    for c in rec["commands"]:
+        if c.startswith("execute "):
+            c = "execute " + os.path.join(EXAMPLES,
+                                          os.path.basename(c.split()[1]))
+        it.run_line(c)
+    return it.build_engine()
+
+
+def phase_golden_kim_codon(torch):
+    """The kim_hky_g_mixed4, kim_stems_doublet_gtr, kim_protein_gtr and
+    replicase_m10 rows of tests/golden_extra.json on the card, each within
+    its row's tol, and M10's class omegas within rtol 0.02 (atol 5e-3) of
+    the reference's printed ones.  Returns the worst gap of each and the
+    pruning.cu and eigh.cu launches they made."""
+    from mrbayes_tpu_torch.ops import eigh_cuda as E
+    from mrbayes_tpu_torch.trees import parse_newick
+    rows = [r for r in json.load(open(GOLDEN_EXTRA))
+            if r["name"] in GOLDEN_KIM_CODON]
+    out, engines = {}, {}
+    E.EIGH.launches = 0
+    for rec in rows:
+        name = rec["name"]
+        eng = engines.get(name) or engines.setdefault(name, row_engine(rec))
+        st = tree_state(torch, parse_newick(rec["newick"], eng.data.taxa))
+        for k, v in rec["state"].items():
+            if not k.startswith("_"):
+                st[k] = torch.tensor([v], dtype=torch.float32, device=DEV)
+        gap = abs(eng.log_likelihood(eng.refresh_eigs(st))[0].item()
+                  - rec["lnL"])
+        out[name] = max(out.get(name, 0.0), gap)
+        if not gap < rec["tol"]:
+            raise AssertionError(f"golden {name}@{rec['gen']}: |lnL - "
+                                 f"reference| {gap} >= {rec['tol']}")
+        if "_ref_omegas" in rec["state"]:
+            ours = eng._m10_omegas_weights(st, eng.div_cfg[0])[0][0]
+            ref = np.asarray(rec["state"]["_ref_omegas"])
+            d = np.abs(ours.cpu().numpy() - ref)
+            out["replicase_m10_omegas"] = max(
+                out.get("replicase_m10_omegas", 0.0), float(d.max()))
+            if not (d <= 5e-3 + 0.02 * np.abs(ref)).all():
+                raise AssertionError(f"M10 omegas {ours} vs the "
+                                     f"reference's {ref}")
+    launches = {"pruning_down": sum(p.launches for e in engines.values()
+                                    for p in e._pruners),
+                "eigh": E.EIGH.launches}
+    log(f"golden kim and replicase M10 rows: max |lnL - reference| "
+        f"{json.dumps(out)} (limits "
+        f"{ {r['name']: r['tol'] for r in rows} }), launches "
+        f"{json.dumps(launches)}")
+    return out, launches
+
+
+def phase_kim_codon_cli(torch, name, ngen, power_line):
+    """``name`` (kim_doublet, replicase_m10, replicase_m3 or kim_unlinked,
+    ``envelope.BATCHES``) through the CLI, 2 runs x 4 chains, every
+    kernel-path switch off: one pruning.cu launch a division and
+    likelihood (no division groups), eigh.cu once per fixed eigensystem at
+    the build and once per refresh and division whose Q goes through it,
+    carried versus recomputed scores, complete .p, .t (one a tree
+    parameter) and .mcmc files, sump and sumt (one consensus a tree).  The
+    engine is built inside ``execute_file``: its counts start at 0 there,
+    eigh.cu's is set to 0 just before, and both are read when the run is
+    over."""
+    from mrbayes_tpu_torch.envelope import run_batch
+    from mrbayes_tpu_torch.ops import eigh_cuda as E
+    workdir = os.path.join(OUT, name)
+    shutil.rmtree(workdir, ignore_errors=True)
+    E.EIGH.launches = 0                       # the main path's run starts
+    it, stats, lines = run_batch(
+        name, workdir, ngen, device=DEV, samplefreq=KIM_SAMPLEFREQ,
+        diagnfreq=ngen // 2, multiwalk=False, wavefront=False, stacked=False)
+    eigh_launches = E.EIGH.launches           # ... and ends here
+    runner = it._last_runner
+    eng = runner.eng
+    calls = ngen + 1
+    per = [p.launches for p in eng._pruners]
+    if eng._multiwalk_pruners or eng._stacked_pruners \
+            or per != [calls] * eng.n_div:
+        raise AssertionError(f"{name} launches {per}, predicted {calls} for "
+                             f"each of {eng.n_div} divisions")
+    expect_eigh = build_eigh_launches(eng) + solver_divisions(eng) \
+        * solver_q_generations(eng, runner.final_bk)
+    if eigh_launches != expect_eigh:
+        raise AssertionError(f"{name}: {eigh_launches} eigh launches, "
+                             f"predicted {expect_eigh}")
+    assert_carried(eng, runner.final_states, runner.final_bk)
+    for phrase in ("Average PSRF for parameter values",
+                   "Credible sets of trees", "Consensus tree written to"):
+        if not any(phrase in ln for ln in lines):
+            raise AssertionError(f"sump/sumt printed no {phrase!r}")
+    prefix = os.path.join(workdir, name)
+    expect_rows = ngen // KIM_SAMPLEFREQ + 1
+    first = []
+    for r in (1, 2):
+        with open(f"{prefix}.run{r}.p") as f:
+            rows = [ln for ln in f if ln[:1].isdigit()]
+        first.append(float(rows[0].split("\t")[1]))
+        for path in runner._tree_paths(r - 1):
+            with open(path) as f:
+                text = f.read()
+            if text.count("tree gen.") != expect_rows \
+                    or not text.rstrip().endswith("end;"):
+                raise AssertionError(f"{path}: incomplete")
+        if len(rows) != expect_rows:
+            raise AssertionError(f"{name}.run{r}.p: {len(rows)} rows, "
+                                 f"expected {expect_rows}")
+    cons = ([f"{prefix}.tree{t + 1}.con.tre" for t in range(eng.n_trees)]
+            if eng.n_trees > 1 else [f"{prefix}.con.tre"])
+    if not all(os.path.exists(p) for p in cons + [f"{prefix}.mcmc"]):
+        raise AssertionError(f"{name}: missing {cons} or its .mcmc file")
+    if not stats["best_lnl"] > max(first):
+        raise AssertionError(f"{name} best lnL {stats['best_lnl']} did not "
+                             f"climb from the start {first}")
+    out = {**stats, "launches": sum(per), "launches_per_gen": sum(per) / calls,
+           "eigh_launches": eigh_launches, "n_div": eng.n_div,
+           "n_trees": eng.n_trees, "consensus_files": len(cons)}
+    log(f"{name} through the CLI, switches off: {json.dumps(out)}; start "
+        f"lnL {first}; card {power_line}")
+    return it, out
+
+
+def solver_divisions(eng):
+    """The divisions whose Q goes through eigh.cu at every refresh: more
+    than 8 states and an eigensystem that is not fixed."""
+    return sum(1 for i in range(eng.n_div) if i not in eng._const_eigs
+               and eng._model_tips[i].shape[2] > 8)
+
+
+def phase_unlinked_lnl(torch, eng, states, power_line):
+    """kim's unlinked trees: the tree groups JAX forms (6 trees over 8
+    divisions, the morphology buckets on one), each division's lnL on its
+    own tree through pruning.cu against the plain version within 1e-3
+    (float64 pattern sums), and the carried total lnL against their sum."""
+    if eng.n_trees != 6 or eng.div_tree != [0, 1, 2, 3, 4, 5, 5, 5]:
+        raise AssertionError(f"kim by_gene: {eng.n_trees} trees, div_tree "
+                             f"{eng.div_tree}")
+    kernel = eng.division_lnls(states)
+    pruners = eng._pruners
+    eng._pruners = [None] * eng.n_div        # division_loglik's plain path
+    try:
+        plain = eng.division_lnls(states)
+    finally:
+        eng._pruners = pruners
+    d = (kernel - plain).abs().max().item()
+    total = (states["lnL"].double() - kernel.sum(-1)).abs().max().item()
+    log(f"kim unlinked: per-division lnL through pruning.cu against the "
+        f"plain version max |d| {d:.3e}, carried total against their sum "
+        f"max |d| {total:.3e}; card {power_line}")
+    if not (d <= 1e-3 and total <= 2e-2):
+        raise AssertionError("kim unlinked: a division's lnL or the total "
+                             "disagrees")
+    return {"division_kernel_vs_plain": d, "total_vs_sum": total}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--test1-gens", type=int, default=TEST1_GENS)
@@ -2677,7 +2962,14 @@ def main(argv=None) -> int:
     ap.add_argument("--cynmix-gens", type=int, default=CYNMIX_GENS)
     ap.add_argument("--switch-blocks", type=int, default=2,
                     help="blocks per setting in each switch timing")
+    ap.add_argument("--phases", default="all",
+                    help="comma-separated phase groups to run (default "
+                         f"all): {', '.join(PHASE_GROUPS)}")
     args = ap.parse_args(argv)
+    groups = (set(PHASE_GROUPS) if args.phases == "all"
+              else set(args.phases.split(",")))
+    if not groups <= set(PHASE_GROUPS):
+        ap.error(f"unknown phase groups {sorted(groups - set(PHASE_GROUPS))}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2686,12 +2978,15 @@ def main(argv=None) -> int:
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
     t_start = time.perf_counter()
 
+    def done(what):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
+
     # 1. device
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     power_line = nvidia_smi_line()
     log(f"device: {name} x{count}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; phase groups {sorted(groups)}")
     log(power_line)
 
     # 2. build
@@ -2706,83 +3001,139 @@ def main(argv=None) -> int:
         for kname, regs, st, ld in ptxas[nm]:
             log(f"ptxas {nm}: {kname} {regs} registers, {st} B spill stores, "
                 f"{ld} B spill loads")
-
-    # 3. kernels
-    err_pd, t_pd, pd_cases = phase_kernels(torch)
-    err_mw, t_mw = phase_multiwalk_kernels(torch)
-    err_wf, t_wf, wf_root_diff = phase_wavefront_kernels(torch)
-    err_st, t_st = phase_stacked(torch)
-    err_ck, t_ck = phase_clock_kernels(torch)
-    eigh_cases = phase_eigh(torch)
-    log(f"[{time.perf_counter() - t_start:.1f} s] kernels phases done")
-
-    # 4.-5. primates, the first slice's main path
     ds = primates_dataset()
-    log(f"primates: {ds.ntax} taxa, {ds.divisions[0].npat} patterns")
-    runs = {C: phase_primates(torch, ds, C, args.primates_blocks, power_line)
-            for C in (4, 32)}
-    phase_golden(torch, ds)
-    log(f"[{time.perf_counter() - t_start:.1f} s] primates phases done")
 
-    # 6.-9. test1, the second slice's main path
-    it, t1 = phase_test1(torch, args.test1_gens, power_line)
-    switch = phase_switch(torch, it, args.switch_blocks, power_line)
-    phase_golden_partitioned(torch)
-    log(f"[{time.perf_counter() - t_start:.1f} s] test1 phases done")
+    if "kernels" in groups:
+        # 3. kernels
+        err_pd, t_pd, pd_cases = phase_kernels(torch)
+        err_mw, t_mw = phase_multiwalk_kernels(torch)
+        err_wf, t_wf, wf_root_diff = phase_wavefront_kernels(torch)
+        err_st, t_st = phase_stacked(torch)
+        err_ck, t_ck = phase_clock_kernels(torch)
+        eigh_cases = phase_eigh(torch)
+        done("kernels phases")
 
-    # 10.-12. cynmix, the third slice's main path
-    golden_cyn = phase_golden_cynmix(torch, [f"{DEV}:0"] * 4)
-    it_c, cyn = phase_cynmix(torch, args.cynmix_gens, power_line)
-    cswitch = phase_cynmix_switch(torch, it_c, args.switch_blocks,
-                                  power_line)
-    log(f"[{time.perf_counter() - t_start:.1f} s] cynmix phases done")
+    if "primates" in groups:
+        # 4.-5. primates, the first slice's main path
+        log(f"primates: {ds.ntax} taxa, {ds.divisions[0].npat} patterns")
+        runs = {C: phase_primates(torch, ds, C, args.primates_blocks,
+                                  power_line) for C in (4, 32)}
+        phase_golden(torch, ds)
+        done("primates phases")
 
-    # 13.-16. the sites mesh axis, the fourth slice's main path
-    err_sh, t_sh, sh_cyn_shapes, sh_prim, sh_cyn, sh_dry, sh_cards = \
-        phase_sharded(torch, ds, count, power_line)
-    log(f"[{time.perf_counter() - t_start:.1f} s] sharded phases done")
+    if "test1" in groups:
+        # 6.-9. test1, the second slice's main path
+        it, t1 = phase_test1(torch, args.test1_gens, power_line)
+        switch = phase_switch(torch, it, args.switch_blocks, power_line)
+        phase_golden_partitioned(torch)
+        done("test1 phases")
 
-    # 17.-20. clock trees and test2, the seventh slice's main path
-    golden_clock, golden_clock_launches = phase_golden_clock(torch, ds)
-    it2, t2 = phase_test1(torch, TEST2_GENS, power_line, name="test2")
-    switch2 = phase_switch(torch, it2, args.switch_blocks, power_line,
-                           name="test2")
-    prior = [phase_prior_only(torch, ds, seed, power_line)
-             for seed in PRIOR_SEEDS]
-    log(f"[{time.perf_counter() - t_start:.1f} s] clock phases done")
+    if "cynmix" in groups:
+        # 10.-12. cynmix, the third slice's main path
+        golden_cyn = phase_golden_cynmix(torch, [f"{DEV}:0"] * 4)
+        it_c, cyn = phase_cynmix(torch, args.cynmix_gens, power_line)
+        cswitch = phase_cynmix_switch(torch, it_c, args.switch_blocks,
+                                      power_line)
+        done("cynmix phases")
 
-    # 21.-26. the amino-acid and codon models, the eighth slice's main path
-    golden_aa, golden_aa_launches = phase_golden_aa_codon(torch)
-    log(f"[{time.perf_counter() - t_start:.1f} s] golden protein and codon "
-        f"rows done")
-    _, avian = phase_aa_codon_cli(torch, "avian", AA_GENS, False, power_line)
-    log(f"[{time.perf_counter() - t_start:.1f} s] avian done")
-    _, gtr_eng = aa_codon_engine(torch, AVIAN, ["prset aamodelpr=fixed(gtr)"],
-                                 nchains=4)
-    gtr_sync = phase_aa_codon_sync(torch, "avian aamodelpr=fixed(gtr)",
-                                   gtr_eng, power_line)
-    _, mixed_eng = aa_codon_engine(torch, AVIAN, ["prset aamodelpr=mixed"],
-                                   nchains=4)
-    mixed_sync = phase_aa_codon_sync(torch, "avian aamodelpr=mixed",
-                                     mixed_eng, power_line, solver=False)
-    log(f"[{time.perf_counter() - t_start:.1f} s] avian sync checks done")
-    it_r, ny98 = phase_aa_codon_cli(torch, "replicase_ny98", CODON_GENS, True,
-                                    power_line)
-    ny98_sync = phase_aa_codon_sync(torch, "replicase NY98",
-                                    it_r.build_engine(), power_line)
-    log(f"[{time.perf_counter() - t_start:.1f} s] replicase NY98 done")
-    aa_prior = phase_aa_codon_prior(torch, AA_PRIOR_SEED, power_line)
-    log(f"[{time.perf_counter() - t_start:.1f} s] protein and codon phases "
-        f"done")
+    if "sharded" in groups:
+        # 13.-16. the sites mesh axis, the fourth slice's main path
+        err_sh, t_sh, sh_cyn_shapes, sh_prim, sh_cyn, sh_dry, sh_cards = \
+            phase_sharded(torch, ds, count, power_line)
+        done("sharded phases")
 
-    # 27.-31. dating and hymfossil, the tenth slice's main path
-    err_hym, hym_cases = phase_hymfossil_kernels(torch)
-    golden_hym, golden_hym_spread, golden_hym_launches = \
-        phase_golden_hymfossil(torch)
-    it_h, hym = phase_hymfossil_cli(torch, HYM_GENS, power_line)
-    dating_sync = phase_dating_sync(torch, it_h, power_line)
-    dating_prior = phase_dating_prior(torch, power_line)
-    log(f"[{time.perf_counter() - t_start:.1f} s] dating phases done")
+    if "clock" in groups:
+        # 17.-20. clock trees and test2, the seventh slice's main path
+        golden_clock, golden_clock_launches = phase_golden_clock(torch, ds)
+        it2, t2 = phase_test1(torch, TEST2_GENS, power_line, name="test2")
+        switch2 = phase_switch(torch, it2, args.switch_blocks, power_line,
+                               name="test2")
+        prior = [phase_prior_only(torch, ds, seed, power_line)
+                 for seed in PRIOR_SEEDS]
+        done("clock phases")
+
+    if "aa_codon" in groups:
+        # 21.-26. the amino-acid and codon models, the eighth slice's main
+        # path
+        golden_aa, golden_aa_launches = phase_golden_aa_codon(torch)
+        done("golden protein and codon rows")
+        _, avian = phase_aa_codon_cli(torch, "avian", AA_GENS, False,
+                                      power_line)
+        done("avian")
+        _, gtr_eng = aa_codon_engine(torch, AVIAN,
+                                     ["prset aamodelpr=fixed(gtr)"],
+                                     nchains=4)
+        gtr_sync = phase_aa_codon_sync(torch, "avian aamodelpr=fixed(gtr)",
+                                       gtr_eng, power_line)
+        _, mixed_eng = aa_codon_engine(torch, AVIAN,
+                                       ["prset aamodelpr=mixed"], nchains=4)
+        mixed_sync = phase_aa_codon_sync(torch, "avian aamodelpr=mixed",
+                                         mixed_eng, power_line, solver=False)
+        done("avian sync checks")
+        it_r, ny98 = phase_aa_codon_cli(torch, "replicase_ny98", CODON_GENS,
+                                        True, power_line)
+        ny98_sync = phase_aa_codon_sync(torch, "replicase NY98",
+                                        it_r.build_engine(), power_line)
+        done("replicase NY98")
+        aa_prior = phase_aa_codon_prior(torch, AA_PRIOR_SEED, power_line)
+        done("protein and codon phases")
+
+    if "dating" in groups:
+        # 27.-31. dating and hymfossil, the tenth slice's main path
+        err_hym, hym_cases = phase_hymfossil_kernels(torch)
+        golden_hym, golden_hym_spread, golden_hym_launches = \
+            phase_golden_hymfossil(torch)
+        it_h, hym = phase_hymfossil_cli(torch, HYM_GENS, power_line)
+        dating_sync = phase_dating_sync(torch, it_h, power_line)
+        dating_prior = phase_dating_prior(torch, power_line)
+        done("dating phases")
+
+    if "kim_codon" in groups:
+        # 32.-37. doublets, codon M3 and M10, and unlinked trees, the
+        # eleventh slice's main paths
+        err_kc, kc_cases = phase_kim_codon_kernels(torch)
+        kc_eigh = phase_kim_codon_eigh(torch)
+        done("doublet and M3/M10 kernel phases")
+        golden_kc, golden_kc_launches = phase_golden_kim_codon(torch)
+        done("golden kim and M10 rows")
+        it_k, kim = phase_kim_codon_cli(torch, "kim_doublet", KIM_GENS,
+                                        power_line)
+        kim["sync_eigh_launches"] = phase_aa_codon_sync(
+            torch, "kim stem doublets", it_k.build_engine(), power_line)
+        done("kim stem doublets")
+        it_m, m10 = phase_kim_codon_cli(torch, "replicase_m10", M10_GENS,
+                                        power_line)
+        m10["sync_eigh_launches"] = phase_aa_codon_sync(
+            torch, "replicase M10", it_m.build_engine(), power_line)
+        it_3, m3 = phase_kim_codon_cli(torch, "replicase_m3", M3_GENS,
+                                       power_line)
+        m3["sync_eigh_launches"] = phase_aa_codon_sync(
+            torch, "replicase M3", it_3.build_engine(), power_line)
+        done("replicase M10 and M3")
+        it_u, unl = phase_kim_codon_cli(torch, "kim_unlinked", UNLINKED_GENS,
+                                        power_line)
+        unl.update(phase_unlinked_lnl(torch, it_u._last_runner.eng,
+                                      it_u._last_runner.final_states,
+                                      power_line))
+        eng_u = it_u.build_engine()
+        unl["sync_eigh_launches"] = phase_aa_codon_sync(
+            torch, "kim unlinked trees", eng_u, power_line,
+            solver=solver_divisions(eng_u))
+        done("kim unlinked trees")
+
+    if groups != set(PHASE_GROUPS):
+        # a chosen subset: every kernel named, its numbers in the groups'
+        # own lines above
+        log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
+        log(power_line)
+        print(json.dumps({"kernels": [
+            {**k, **dict.fromkeys(KERNEL_NUMBERS), "phases": sorted(groups)}
+            for k in KERNEL_IDS]}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": name,
+                                                 "count": count}}),
+              flush=True)
+        return 0
 
     keys = ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     # each kernel's launches are the sum of its runs' counts, each count
@@ -2796,22 +3147,31 @@ def main(argv=None) -> int:
         "avian_cli": avian["pruning_down_launches"],
         "replicase_ny98_cli": ny98["pruning_down_launches"],
         "golden_hymfossil_rows": golden_hym_launches,
-        "hymfossil_cli": hym["launches"]}
+        "hymfossil_cli": hym["launches"],
+        "golden_kim_codon_rows": golden_kc_launches["pruning_down"],
+        "kim_doublet_cli": kim["launches"],
+        "replicase_m10_cli": m10["launches"],
+        "replicase_m3_cli": m3["launches"],
+        "kim_unlinked_cli": unl["launches"]}
     eigh_launches = {"golden_codon_rows": golden_aa_launches["eigh"],
                      "avian_cli": avian["eigh_launches"],
                      "avian_gtr_sync": gtr_sync,
                      "avian_mixed_sync": mixed_sync,
                      "replicase_ny98_cli": ny98["eigh_launches"],
-                     "replicase_ny98_sync": ny98_sync}
+                     "replicase_ny98_sync": ny98_sync,
+                     "golden_kim_codon_rows": golden_kc_launches["eigh"],
+                     **{f"{nm}_{what}": r[f"{key}eigh_launches"]
+                        for nm, r in (("kim_doublet", kim),
+                                      ("replicase_m10", m10),
+                                      ("replicase_m3", m3),
+                                      ("kim_unlinked", unl))
+                        for what, key in (("cli", ""), ("sync", "sync_"))}}
     aa_keys = ("best_lnl", "tl_mean", "asdsf", "avg_psrf", "run_s",
                "gens_per_s")
     mw_launches = {"test1": t1["multiwalk_launches"],
                    "test2": t2["multiwalk_launches"]}
     kernels = [{
-        "name": "pruning_down",
-        "route": "cuda",
-        "source": "mrbayes_tpu_torch/csrc/pruning.cu",
-        "replaces": "mrbayes_tpu/ops/pruning_pallas.py:94",
+        **KERNEL_IDS[0],
         "launches": sum(pd_launches.values()),
         "launches_per_run": pd_launches,
         "gens_per_run": {
@@ -2819,8 +3179,10 @@ def main(argv=None) -> int:
             "test1_switch_off": args.switch_blocks * BLOCK_GENS,
             "test2_switch_off": args.switch_blocks * BLOCK_GENS,
             "avian_cli": AA_GENS, "replicase_ny98_cli": CODON_GENS,
-            "hymfossil_cli": HYM_GENS},
-        "max_abs_err": max(err_pd, err_ck["pruning_down"], err_hym),
+            "hymfossil_cli": HYM_GENS, "kim_doublet_cli": KIM_GENS,
+            "replicase_m10_cli": M10_GENS, "replicase_m3_cli": M3_GENS,
+            "kim_unlinked_cli": UNLINKED_GENS},
+        "max_abs_err": max(err_pd, err_ck["pruning_down"], err_hym, err_kc),
         **{k: t_pd[4][k] for k in keys + ("before_ms", "walk", "threads",
                                            "T", "lanes")},
         "library_ms": None,
@@ -2837,16 +3199,24 @@ def main(argv=None) -> int:
         "golden_hymfossil_path_spread": golden_hym_spread,
         "dating_sync_moves": dating_sync,
         "dating_prior_only": dating_prior,
+        "kim_codon_cases": kc_cases,
+        **{nm: {k: r[k] for k in (
+            "best_lnl", "tl_mean", "asdsf", "avg_psrf", "run_s",
+            "gens_per_s", "launches_per_gen", "eigh_launches", "n_div",
+            "n_trees")} for nm, r in (("kim_doublet", kim),
+                                      ("replicase_m10", m10),
+                                      ("replicase_m3", m3),
+                                      ("kim_unlinked", unl))},
+        "kim_unlinked_lnl": {k: unl[k] for k in (
+            "division_kernel_vs_plain", "total_vs_sum")},
+        "golden_kim_codon_max_err": golden_kc,
         "gens_per_s": {f"primates_c{C}": r["gens_per_s"]
                        for C, r in runs.items()},
         "gens_per_s_blocks": {f"primates_c{C}": r["gens_per_s_blocks"]
                               for C, r in runs.items()},
         "card": power_line,
     }, {
-        "name": "multiwalk_down",
-        "route": "cuda",
-        "source": "mrbayes_tpu_torch/csrc/multiwalk.cu",
-        "replaces": "mrbayes_tpu/ops/pruning_pallas.py:144",
+        **KERNEL_IDS[1],
         "launches": sum(mw_launches.values()),
         "launches_per_run": mw_launches,
         "gens_per_run": {"test1": args.test1_gens, "test2": TEST2_GENS},
@@ -2876,10 +3246,7 @@ def main(argv=None) -> int:
         "prior_only": prior,
         "card": power_line,
     }, {
-        "name": "wavefront_down",
-        "route": "cuda",
-        "source": "mrbayes_tpu_torch/csrc/wavefront.cu",
-        "replaces": "mrbayes_tpu/ops/pruning_pallas.py:478",
+        **KERNEL_IDS[2],
         "launches": cyn["wavefront_launches"],
         "gens": args.cynmix_gens,
         "max_abs_err": err_wf,
@@ -2903,10 +3270,7 @@ def main(argv=None) -> int:
         "golden_cynmix_max_err": golden_cyn[0],
         "card": power_line,
     }, {
-        "name": "stacked_down",
-        "route": "cuda",
-        "source": "mrbayes_tpu_torch/csrc/stacked.cu",
-        "replaces": "mrbayes_tpu/ops/pruning_pallas.py:767",
+        **KERNEL_IDS[3],
         "launches": cyn["stacked_launches"],
         "gens": args.cynmix_gens,
         "max_abs_err": err_st,
@@ -2921,11 +3285,7 @@ def main(argv=None) -> int:
                  "(4,2,124) (4,3,34) (4,4,10) (4,8,9) (4,4,125), C=8",
         "card": power_line,
     }, {
-        "name": "sharded_down",
-        "route": "cuda",
-        "source": "mrbayes_tpu_torch/csrc/pruning.cu + "
-                  "mrbayes_tpu_torch/ops/sharded_cuda.py",
-        "replaces": "mrbayes_tpu/ops/pruning_pallas.py:456",
+        **KERNEL_IDS[4],
         "launches": sh_prim["launches"] + sh_cyn["launches"],
         "launches_per_run": {"primates_c4": sh_prim["launches"],
                              "cynmix": sh_cyn["launches"],
@@ -2958,21 +3318,24 @@ def main(argv=None) -> int:
         "distinct_cards": sh_cards or None,
         "card": power_line,
     }, {
-        "name": "eigh_jacobi",
-        "route": "cuda",
-        "source": "mrbayes_tpu_torch/csrc/eigh.cu",
-        "replaces": "mrbayes_tpu/ops/tiprobs.py:33",
+        **KERNEL_IDS[5],
         "launches": sum(eigh_launches.values()),
         "launches_per_run": eigh_launches,
         "gens_per_run": {"avian_cli": AA_GENS,
-                         "replicase_ny98_cli": CODON_GENS},
-        "max_abs_err": max(c["max_abs_err"] for c in eigh_cases.values()),
+                         "replicase_ny98_cli": CODON_GENS,
+                         "kim_doublet_cli": KIM_GENS,
+                         "replicase_m10_cli": M10_GENS,
+                         "replicase_m3_cli": M3_GENS,
+                         "kim_unlinked_cli": UNLINKED_GENS},
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           [*eigh_cases.values(), *kc_eigh.values()]),
         **{k: eigh_cases["B24_S61"][k] for k in (
             "ms", "before_ms", "wrapper_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "sweeps_mean", "before_sweeps_mean")},
         "shape": "replicase NY98, 2 runs x 4 chains x 3 omega classes: "
                  "B=24 S=61",
         "cases": eigh_cases,
+        "kim_codon_cases": kc_eigh,
         "ptxas": ptxas["eigh"],
         "golden_max_err": golden_aa,
         "avian": {k: avian[k] for k in aa_keys + ("aamodel_shares",)},

@@ -3,9 +3,10 @@ the GPU.
 
 Counterpart of ``mrbayes_tpu/cli.py`` for the commands the port carries:
 execute, set, charset, taxset, partition, exclude/include, ctype,
-constraint, calibrate, lset, prset, link/unlink, mcmc/mcmcp, sump, sumt,
-quit.  Every other command of the reference interpreter
-raises ``CommandError`` naming the ROADMAP item that brings it.  Batch
+constraint, calibrate, pairs, lset, prset, link/unlink, mcmc/mcmcp, sump,
+sumt (one consensus a tree under ``unlink topology brlens``), quit.
+Every other command of the reference interpreter raises ``CommandError``
+naming the ROADMAP item that brings it.  Batch
 mode: ``python -m mrbayes_tpu_torch.cli file.nex`` (on the GPU; add
 ``--device cpu`` to run on the CPU, and ``--multiwalk``, ``--wavefront``
 or ``--stacked`` to turn on a kernel path, see ``Engine``); interactive
@@ -48,6 +49,7 @@ class Environment:
     tree_settings: TreeSettings = field(default_factory=TreeSettings)
     mcmc: McmcSettings = field(default_factory=McmcSettings)
     links: dict = field(default_factory=dict)   # param -> list[int] per div
+    pairs: tuple = ()       # doublet pairs: ((i, j), ...) 0-based columns
     seed: int = 1
     swapseed: int = 2
     autoclose: bool = True
@@ -86,7 +88,6 @@ PARAM_ALIASES = {
 
 # commands of mrbayes_tpu/cli.py not carried yet -> their ROADMAP item
 NOT_PORTED = {
-    **dict.fromkeys(("pairs",), "Queue 1 item 12b"),
     **dict.fromkeys(("report", "ss", "ssp", "sumss", "comparetree",
                      "compareref", "plot", "propset", "startvals",
                      "speciespartition"), "Queue 1 item 14"),
@@ -100,8 +101,6 @@ NOT_PORTED = {
 }
 # prset parameters not carried yet -> their ROADMAP item
 PRSET_NOT_PORTED = {
-    **dict.fromkeys(("m3omegapr", "m10betapr", "m10gammapr"),
-                    "Queue 1 item 12b"),
     **dict.fromkeys(("ratecorrpr", "covswitchpr", "symdirihyperpr",
                      "rootfreqpr", "browncorrpr", "brownscalepr"),
                     "Queue 1 item 13"),
@@ -555,7 +554,8 @@ class Interpreter:
     # the amino-acid and codon prset keys (mrbayes_tpu cli.py:723-762),
     # which set DivisionSettings fields of the same name
     AA_CODON_KEYS = ("aamodelpr", "aarevmatpr", "omegapr", "ny98omega1pr",
-                     "ny98omega3pr", "codoncatfreqpr")
+                     "ny98omega3pr", "codoncatfreqpr", "m3omegapr",
+                     "m10betapr", "m10gammapr")
     PRSET_KEYS = ("applyto", "statefreqpr", "revmatpr", "tratiopr",
                   "shapepr", "pinvarpr", "ratepr", "brlenspr", "topologypr",
                   *CLOCK_KEYS,
@@ -594,6 +594,15 @@ class Interpreter:
                                 f"{', '.join(AA_MODEL_NAMES)})")
                         s.aamodel = name
                     s.aamodelpr = prior
+                elif key == "m3omegapr":
+                    # M3's omegas always take the reference's default
+                    # exponential order-statistic prior (src/command.c:
+                    # 10819); fixed(w1,w2,w3) is not wired, as in
+                    # mrbayes_tpu cli.py:821-827
+                    if prior.kind not in ("exponential", "exp"):
+                        raise CommandError(
+                            "m3omegapr supports only 'exponential' "
+                            "(order-statistic prior)")
                 else:
                     setattr(s, key, prior)
 
@@ -673,6 +682,18 @@ class Interpreter:
                 cur[d] = 0 if link else d + 1
             self.env.links[param] = cur
 
+    def do_pairs(self, args, base_dir):
+        """pairs 1:20, 2:19, ...: the nucleotide pairs of the doublet model,
+        1-based (reference DoPairs, src/command.c:5599; mrbayes_tpu
+        cli.py:537-548)."""
+        pairs = []
+        for piece in "".join(args).replace(" ", "").split(","):
+            if piece:
+                a, b = piece.split(":")
+                pairs.append((int(a) - 1, int(b) - 1))
+        self.env.pairs = tuple(pairs)
+        self.log(f"   Defined {len(pairs)} nucleotide pairs")
+
     def do_quit(self, args, base_dir):
         self.env.quit_requested = True
 
@@ -696,6 +717,9 @@ class Interpreter:
         self._wire_dating(taxa)
         div_settings = [replace(env.div_settings[d.user_index])
                         for d in divisions]
+        for s in div_settings:
+            if s.nucmodel == "doublet":
+                s.pairs = env.pairs
         links = None
         if env.links:
             links = {p: [groups[d.user_index] for d in divisions]
@@ -704,9 +728,12 @@ class Interpreter:
             self.log(f"   Division {d.index + 1} ({d.name}): "
                      f"{d.npat} unique site patterns, nst={s.nst} "
                      f"rates={s.rates}")
-        return Engine(ds, div_settings, env.tree_settings, env.mcmc,
-                      links=links, device=self.device,
-                      **{**self.switches, **switches})
+        eng = Engine(ds, div_settings, env.tree_settings, env.mcmc,
+                     links=links, device=self.device,
+                     **{**self.switches, **switches})
+        for note in eng.notes:
+            self.log(f"   [{note}]")
+        return eng
 
     def _wire_dating(self, taxa: list[str]):
         """Resolve the calibrate and constraint declarations into
@@ -905,9 +932,6 @@ class Interpreter:
                 raise CommandError("sumt conformat must be "
                                    "figtree|simple")
             conformat = "simple" if "simple".startswith(cf) else "figtree"
-        if "ntrees" in kv and int(kv["ntrees"][0]) != 1:
-            raise CommandError(f"sumt ntrees={kv['ntrees'][0]} but the "
-                               f"analysis has 1 tree parameter")
         opts = dict(
             burninfrac=self._burnin_frac(kv), log=self.log,
             allcompat=allcompat, conformat=conformat,
@@ -917,12 +941,25 @@ class Interpreter:
                            if "calctreeprobs" in kv else True),
             outputname=kv.get("outputname", [None])[0],
             nruns=int(kv["nruns"][0]) if "nruns" in kv else None)
-        if glob.glob(f"{prefix}.tree*.run*.t"):
-            raise _not_ported("sumt over unlinked tree parameters",
-                              "Queue 1 item 9 (unlinked trees)")
-        sumt(prefix, **opts)
-        self.log("   Consensus tree written to "
-                 f"\"{(opts['outputname'] or prefix)}.con.tre\"")
+        # unlinked trees: one summary a tree parameter, from its
+        # <prefix>.tree<t>.run<r>.t files (reference sumt loops numTrees,
+        # src/sumpt.c:4899; mrbayes_tpu cli.py:1351-1375)
+        tree_pfx = sorted({p.rsplit(".run", 1)[0] for p in
+                           glob.glob(f"{prefix}.tree*.run*.t")})
+        n_trees = len(tree_pfx) or 1
+        if "ntrees" in kv and int(kv["ntrees"][0]) != n_trees:
+            raise CommandError(f"sumt ntrees={kv['ntrees'][0]} but the "
+                               f"analysis has {n_trees} tree parameters")
+        for tp in tree_pfx or [prefix]:
+            topts = dict(opts)
+            if tree_pfx:
+                self.log(f"   Summarizing tree parameter "
+                         f"\"{tp[len(prefix) + 1:]}\"")
+                if topts["outputname"]:
+                    topts["outputname"] += tp[len(prefix):]
+            sumt(tp, **topts)
+            self.log("   Consensus tree written to "
+                     f"\"{(topts['outputname'] or tp)}.con.tre\"")
 
 
 BANNER = """

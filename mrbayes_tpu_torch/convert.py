@@ -6,7 +6,10 @@ both engines can be evaluated at identical states.  Integer leaves become
 int64 (torch indexing) and float leaves float32.  JAX PRNG keys have no
 torch counterpart: the port seeds its generators from the key words.
 
-Every leaf is carried by name, so a partitioned state keeps each
+Every leaf is carried by name: unlinked trees' [C, n_trees, n_nodes]
+tree arrays, the doublet frequencies ``pi16``, M3's ``m3omega`` and
+``m3probs`` and M10's ``m10beta``, ``m10gamma`` and ``m10catprobs`` cross
+as they are.  A partitioned state keeps each
 division's eigensystem cache (``eigL{i}``, ``eigU{i}``, ``eigV{i}``),
 standard (Mk) divisions' included: the port's engine computes those once
 when it is built and keeps none in its own states, but uses a carried one

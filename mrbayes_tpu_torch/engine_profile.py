@@ -11,6 +11,9 @@ Usage (from the repository root, on a machine with a CUDA GPU):
     python -m mrbayes_tpu_torch.engine_profile --config replicase_ny98
     python -m mrbayes_tpu_torch.engine_profile --config avian_gtr
     python -m mrbayes_tpu_torch.engine_profile --config hymfossil
+    python -m mrbayes_tpu_torch.engine_profile --config kim_doublet
+    python -m mrbayes_tpu_torch.engine_profile --config replicase_m10
+    python -m mrbayes_tpu_torch.engine_profile --config kim_unlinked
     python -m mrbayes_tpu_torch.engine_profile [--config ...] --sites 4
 
 ``--config primates`` (the default) is primates GTR+I+G, 1 run;
@@ -19,9 +22,12 @@ same on test2's IGR relaxed clock, ``--config cynmix`` cynmix's
 favored total-evidence model, ``--config avian`` avian_ovomucoids under
 aamodelpr=mixed, ``--config avian_gtr`` the same under
 aamodelpr=fixed(gtr), ``--config replicase_ny98`` replicase under
-NY98 and ``--config hymfossil`` hymfossil.nex's fossilized birth-death
-total-evidence dating (114 taxa, 15 divisions) (each built through the
-CLI's commands, ``envelope.BATCHES``), 2
+NY98 (``replicase_m3``, ``replicase_m10``: under M3 and M10),
+``--config hymfossil`` hymfossil.nex's fossilized birth-death
+total-evidence dating (114 taxa, 15 divisions), ``--config kim_doublet``
+kim.nex's stem doublets (9 divisions) and ``--config kim_unlinked`` its
+six unlinked gene trees (each built through the CLI's commands,
+``envelope.BATCHES``), 2
 runs, with the kernel-path switches as given.  ``--chains`` is the chain
 count per run; ``--sites k`` shards the engine's patterns over k site
 shards of its device (``parallel.mesh``).  It builds the engine, warms it
@@ -164,13 +170,16 @@ def per_move(eng, states, bk, dev, reps):
 
 
 def parts(eng, states, dev, reps):
-    """ms of the likelihood, the eigensystem refresh and the kernel call."""
+    """ms of the likelihood, the eigensystem refresh and the kernel call
+    (of division 0, on its own tree where trees are unlinked)."""
     pr = eng._pruners[0]
+    view = (eng.tree_view(states, eng.div_tree[0]) if eng.n_trees > 1
+            else states)
     _, _, lam, U, Uinv, rates, pinv, _, _ = eng._generic_div_params(
-        states, 0)
-    blen = eng.branch_lengths(states)
+        view, 0)
+    blen = eng.branch_lengths(view)
     P = branch_tiprobs(blen, lam, U, Uinv, rates, pinv)
-    order = postorder_internal(states["parent"], eng.n_tips)
+    order = postorder_internal(view["parent"], eng.n_tips)
     launches = pr.launches
     out = {
         "log_likelihood_ms": _ms_per_call(
@@ -178,12 +187,12 @@ def parts(eng, states, dev, reps):
         "refresh_eigs_ms": _ms_per_call(
             dev, lambda: eng.refresh_eigs(states), reps),
         "tiprobs_and_postorder_ms": _ms_per_call(
-            dev, lambda: (branch_tiprobs(eng.branch_lengths(states), lam,
+            dev, lambda: (branch_tiprobs(eng.branch_lengths(view), lam,
                                          U, Uinv, rates, pinv),
-                          postorder_internal(states["parent"], eng.n_tips)),
+                          postorder_internal(view["parent"], eng.n_tips)),
             reps),
         "pruner_call_ms": _ms_per_call(
-            dev, lambda: pr(order, states["left"], states["right"], P), reps),
+            dev, lambda: pr(order, view["left"], view["right"], P), reps),
     }
     pr.launches = launches          # these launches are not the main path's
     return out

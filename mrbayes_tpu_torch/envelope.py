@@ -24,8 +24,9 @@ Usage (on the GPU; ``--device cpu`` for the CPU):
 
 prints one ``ENVELOPE {...}`` JSON line and exits 1 outside the envelope.
 ``run_batch`` also runs cynmix's favored model, avian_ovomucoids.nex under
-``aamodelpr=mixed``, replicase.nex under the NY98 codon model and
-hymfossil.nex's fossilized birth-death dating analysis the same way
+``aamodelpr=mixed``, replicase.nex under the NY98, M3 and M10 codon
+models, hymfossil.nex's fossilized birth-death dating analysis, and
+kim.nex's stem-doublet model and its unlinked gene trees the same way
 (``chip_smoke.py`` drives them on the card).
 """
 from __future__ import annotations
@@ -47,6 +48,7 @@ CYNMIX = os.path.join(EXAMPLES, "cynmix.nex")
 AVIAN = os.path.join(EXAMPLES, "avian_ovomucoids.nex")
 REPLICASE = os.path.join(EXAMPLES, "replicase.nex")
 HYMFOSSIL = os.path.join(EXAMPLES, "hymfossil.nex")
+KIM = os.path.join(EXAMPLES, "kim.nex")
 
 # test1's model commands, after its execute
 TEST1_MODEL = ("partition test = 2: 1-400, 401-.",
@@ -78,6 +80,20 @@ AVIAN_MODEL = ("prset aamodelpr=mixed",)
 # replicase.nex under NY98 (the replicase_ny98 rows of
 # tests/golden_extra.json)
 REPLICASE_NY98_MODEL = ("lset nucmodel=codon omegavar=ny98",)
+# ... and under M3 and M10 (the replicase_m10 rows)
+REPLICASE_M3_MODEL = ("lset nucmodel=codon omegavar=m3",)
+REPLICASE_M10_MODEL = ("lset nucmodel=codon omegavar=m10",)
+# kim.nex (Kim, Kjer and Duckett 2003; its own block defines the 110 stem
+# pairs and the partitions) under the kim_stems_doublet_gtr rows' model:
+# the 18S stems as GTR doublets, the loops, EF1a and CO1 under F81 and the
+# proteins under Poisson with equal frequencies, Mk on the morphology
+KIM_DOUBLET_MODEL = ("set partition=by_gene_and_struct",
+                     "lset applyto=(1) nucmodel=doublet nst=6",
+                     "prset applyto=(2,4) statefreqpr=fixed(equal)",
+                     "prset applyto=(3,5,6) statefreqpr=fixed(equal)")
+# ... and with one tree a locus (molecular against morphological trees)
+KIM_UNLINKED_MODEL = ("set partition=by_gene",
+                      "unlink topology=(all) brlens=(all)")
 # hymfossil.nex's total-evidence dating analysis (Ronquist et al. 2012,
 # Syst. Biol. 61:973): seven user partitions (morphology, six genes; the
 # third codon positions of CO1 excluded), ordered morphology, 45 fossils
@@ -147,7 +163,11 @@ BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "test2": (PRIMATES, TEST2_MODEL),
            "cynmix": (CYNMIX, CYNMIX_MODEL),
            "avian": (AVIAN, AVIAN_MODEL),
            "replicase_ny98": (REPLICASE, REPLICASE_NY98_MODEL),
-           "hymfossil": (HYMFOSSIL, HYMFOSSIL_MODEL)}
+           "replicase_m3": (REPLICASE, REPLICASE_M3_MODEL),
+           "replicase_m10": (REPLICASE, REPLICASE_M10_MODEL),
+           "hymfossil": (HYMFOSSIL, HYMFOSSIL_MODEL),
+           "kim_doublet": (KIM, KIM_DOUBLET_MODEL),
+           "kim_unlinked": (KIM, KIM_UNLINKED_MODEL)}
 BATCH = """#NEXUS
 begin mrbayes;
     set autoclose=yes nowarn=yes;
@@ -205,8 +225,9 @@ def run_batch(name: str, workdir: str, ngen: int = 20000, device=None,
 
 
 def test1_stats(prefix: str, lines: list[str]) -> dict:
-    """Best lnL, posterior mean TL, average PSRF (after 25% burn-in) from
-    the two runs' .p files, and the last ASDSF the log printed."""
+    """Best lnL, posterior mean TL (summed over unlinked trees), average
+    PSRF (after 25% burn-in) from the two runs' .p files, and the last
+    ASDSF the log printed."""
     best_lnl = -np.inf
     tl_all, runs_cols = [], []
     for r in (1, 2):
@@ -219,7 +240,8 @@ def test1_stats(prefix: str, lines: list[str]) -> dict:
         cols = {h.strip(): rows[:, i] for i, h in enumerate(header)}
         runs_cols.append({h: v[burn:] for h, v in cols.items()})
         best_lnl = max(best_lnl, float(cols["lnLike"].max()))
-        tl_all.append(cols.get("TL{all}", cols.get("TL"))[burn:])
+        tl_all.append(sum(v for h, v in cols.items()
+                          if h.startswith("TL"))[burn:])
     vals = []
     for name in runs_cols[0]:
         if name in ("Gen", "lnLike", "lnPrior") \

@@ -14,8 +14,10 @@ reference's MPI design, src/mcmc.c:826-842).
 host generator, every other random number from a device generator, and
 acceptance, swaps and autotuning stay tensor math on the device.
 
-The port carries nucleotide data under nst 1/2/6/mixed, codon models M0
-and NY98 (``nucmodel=codon``, ``omegavar=equal|ny98``), protein data
+The port carries nucleotide data under nst 1/2/6/mixed, RNA stem pairs
+under the 16-state doublet model (``nucmodel=doublet`` with ``pairs``),
+codon models M0, NY98, M3 and M10 (``nucmodel=codon``,
+``omegavar=equal|ny98|m3|m10``), protein data
 under the empirical amino-acid models, Poisson, equalin, protein GTR and
 ``aamodelpr=mixed``, and standard (morphology) data under the plain
 unordered Mk model with its ascertainment coding (``coding=variable`` by
@@ -23,7 +25,8 @@ default), each with equal, gamma, propinv or invgamma rates (a codon
 division has none: its category axis holds the omega classes); any
 number of divisions (partitions)
 with linked or unlinked parameters and fixed or variable rate
-multipliers, one unrooted non-clock tree with the default priors or one
+multipliers, one unrooted non-clock tree with the default priors (or one
+such tree per link group of ``unlink topology brlens``) or one
 clock tree (``mcmc/clock.py``: uniform, birth-death, coalescent or
 fossilized birth-death node ages, dated tips and sampled ancestors;
 strict, IGR, ILN, WN, TK02, CPP or mixed branch rates; a fixed or sampled
@@ -31,6 +34,12 @@ clock rate), hard, negative and partial topology constraints with
 calibrated clade ages, ordered and unordered standard characters, and any
 number of runs and chains.  Every other setting raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
+
+With one tree the tree fields ``left``, ``right``, ``parent`` and
+``blen`` are ``[C, n_nodes]``; with ``n_trees > 1`` (unlinked topologies)
+they are ``[C, n_trees, n_nodes]``, each division prunes its own tree
+(``div_tree``), a tree move changes one tree a chain drawn on the device,
+and no multiwalk or stacked group is formed (as in the JAX package).
 
 A clock state has no ``blen``: its branch lengths are derived from the
 ages and rates, and ``branch_lengths`` is the one place the likelihood,
@@ -81,9 +90,10 @@ from .. import resolve_device
 from ..data import DataSet, Division
 from ..models.aa_models import AA_MODELS
 from ..models.codes import CodonCode
-from ..models.rates import GammaRateTable
-from ..models.substitution import (codon_q, mk_q, nuc_q_gtr, nuc_q_nst1,
-                                   nuc_q_nst2, ordered_mk_q, protein_q)
+from ..models.rates import GammaRateTable, beta_quantile_breaks
+from ..models.substitution import (DOUBLET_CLS, codon_q, doublet_q, mk_q,
+                                   nuc_q_gtr, nuc_q_nst1, nuc_q_nst2,
+                                   ordered_mk_q, protein_q)
 from ..nexus.datatypes import DataType
 from ..ops.multiwalk_cuda import PruningCudaMultiwalk
 from ..ops.pruning import (branch_tiprobs, coding_tips, coding_total,
@@ -122,8 +132,11 @@ _CODING = {"all": "all", "variable": "variable",
 AA_MIXED_ORDER = ("poisson", "jones", "dayhoff", "mtrev", "mtmam", "wag",
                   "rtrev", "cprev", "vt", "blosum", "lg")
 # state-frequency fields: the Dirichlet-sampled frequencies of nucleotide,
-# protein and codon divisions
-PI_FIELDS = ("pi", "pi20", "pi61")
+# protein, codon and doublet divisions
+PI_FIELDS = ("pi", "pi20", "pi61", "pi16")
+# the tree fields a non-clock tree move changes; [C, n_trees, n_nodes]
+# with unlinked trees
+TREE_FIELDS = ("left", "right", "parent", "blen")
 
 
 @dataclass
@@ -150,7 +163,8 @@ class DivCfg:
     div: Division
     settings: DivisionSettings
     pi_group: int = -1          # -1: fixed (not sampled)
-    pi_field: str = "pi"        # "pi", "pi20" (protein) or "pi61" (codon)
+    pi_field: str = "pi"        # "pi", "pi20" (protein), "pi61" (codon)
+                                # or "pi16" (doublet)
     revmat_group: int = -1
     tratio_group: int = -1
     shape_group: int = -1
@@ -162,6 +176,9 @@ class DivCfg:
     codon: CodonCode | None = None   # nucmodel=codon
     omega_group: int = -1       # omegavar=equal (M0)
     ny98_group: int = -1        # omegavar=ny98
+    m3_group: int = -1          # omegavar=m3 (three ordered omegas)
+    m10_group: int = -1         # omegavar=m10 (beta + 1+gamma mixture)
+    doublet: bool = False       # nucmodel=doublet (16-state stem pairs)
     aamodel_group: int = -1     # aamodelpr=mixed
     aarevmat_group: int = -1    # protein GTR, sampled exchangeabilities
     fixed_aarevmat: np.ndarray | None = None   # aarevmatpr=fixed(...)
@@ -245,9 +262,12 @@ class Engine:
         self.cpp_cap = 8
         if len(div_settings) != len(dataset.divisions):
             raise ValueError("one DivisionSettings per division required")
+        # setup messages for the caller to print (the CLI logs them)
+        self.notes: list[str] = []
         self._check_slice(div_settings, links)
         self._build_dating()
         self._build_groups(div_settings, links)
+        self._build_tree_groups(links)
         self._build_data_tensors()
         self._build_moves()
         self._build_constants()
@@ -269,10 +289,6 @@ class Engine:
                 raise ValueError(f"clockvarpr {ts.clockvarpr} not supported")
         elif ts.brlenspr.kind not in ("gammadir", "exponential", "uniform"):
             raise ValueError(f"brlenspr {ts.brlenspr.kind} not supported")
-        if links and (any(links.get("topology", ()))
-                      or any(links.get("brlens", ()))):
-            raise _not_ported("unlinked topologies and branch lengths",
-                              "item 9")
         if mc.per_chain_moves:
             raise _not_ported("per-chain move selection", "item 14")
         if mc.starttree not in ("current", "random") or mc.nperts > 0:
@@ -296,15 +312,13 @@ class Engine:
             elif div.dtype not in (DataType.DNA, DataType.RNA):
                 raise _not_ported(f"{div.dtype.value} data", "item 13")
             elif s.nucmodel == "codon":
-                if s.omegavar in ("m3", "m10"):
-                    raise _not_ported(f"omegavar={s.omegavar}", "item 12b")
-                if s.omegavar not in ("equal", "ny98"):
+                if s.omegavar not in ("equal", "ny98", "m3", "m10"):
                     raise ValueError(f"omegavar={s.omegavar}")
                 if s.nst not in ("1", "2"):
                     raise ValueError(f"nucmodel=codon takes nst=1 or 2, "
                                      f"got nst={s.nst}")
-            elif s.nucmodel != "4by4":
-                raise _not_ported(f"nucmodel={s.nucmodel}", "item 12b")
+            elif s.nucmodel not in ("4by4", "doublet"):
+                raise ValueError(f"nucmodel={s.nucmodel}")
             elif s.nst not in ("1", "2", "6", "mixed"):
                 raise ValueError(f"nst={s.nst} is not a nucleotide model")
             if s.rates not in ("equal", "gamma", "propinv", "invgamma"):
@@ -474,6 +488,9 @@ class Engine:
             if nuc and s.nucmodel == "codon":
                 self.div_cfg.append(self._codon_cfg(cfg, d, group_of))
                 continue
+            if nuc and s.nucmodel == "doublet":
+                self.div_cfg.append(self._doublet_cfg(cfg, d, group_of))
+                continue
             if prot:
                 cfg.pi_field = "pi20"
             if div.dtype is DataType.STANDARD:
@@ -554,14 +571,47 @@ class Engine:
                                    ("omega3", cfg.ny98_group,
                                     s.ny98omega3pr),
                                    ("omegaprobs", cfg.ny98_group,
-                                    s.codoncatfreqpr)]:
+                                    s.codoncatfreqpr),
+                                   # M3's omegas take the order-statistic
+                                   # prior (mrbayes_tpu engine.py:704-708)
+                                   ("m3omega", cfg.m3_group,
+                                    Prior("m3orderstat", ())),
+                                   ("m3probs", cfg.m3_group,
+                                    s.codoncatfreqpr),
+                                   ("m10beta", cfg.m10_group, s.m10betapr),
+                                   ("m10gamma", cfg.m10_group, s.m10gammapr),
+                                   ("m10catprobs", cfg.m10_group,
+                                    Prior("dirichlet", (1.0, 1.0)))]:
                 if gid >= 0:
                     self.group_priors.setdefault((param, gid), pr)
 
+    def _build_tree_groups(self, links):
+        """``unlink topology brlens`` gives each link group its own tree
+        (mrbayes_tpu engine.py:356-385; reference SetModelParams, one tree
+        parameter per unlinked group, src/model.c:19026): the tree groups
+        are the refinement of the two link vectors.  With one group the
+        state keeps the flat [C, n_nodes] layout."""
+        self.n_trees = 1
+        self.div_tree = [0] * self.n_div
+        tlink = (links or {}).get("topology")
+        blink = (links or {}).get("brlens")
+        if tlink is None and blink is None:
+            return
+        store: dict = {}
+        for d in range(self.n_div):
+            key = (tlink[d] if tlink else 0, blink[d] if blink else 0)
+            self.div_tree[d] = store.setdefault(key, len(store))
+        self.n_trees = len(store)
+        if self.n_trees > 1 and self.tree_settings.clock:
+            raise NotImplementedError(
+                "unlinked topologies are supported for non-clock trees "
+                "(clock analyses share one dated tree; use BEST/"
+                "speciestree for multi-gene clock models)")
+
     def _codon_cfg(self, cfg, d, group_of):
-        """A codon division's wiring (mrbayes_tpu/mcmc/engine.py:446-470,
-        without M3 and M10): the 61 (or the code's) sense codons, their
-        frequencies, omega (M0) or the NY98 classes, and kappa under
+        """A codon division's wiring (mrbayes_tpu/mcmc/engine.py:446-470):
+        the 61 (or the code's) sense codons, their frequencies, omega (M0),
+        the NY98 or M3 classes or M10's B + G classes, and kappa under
         nst=2.  Its category axis K holds the omega classes."""
         s = cfg.settings
         cfg.codon = CodonCode(s.code)
@@ -574,10 +624,42 @@ class Engine:
         if s.omegavar == "ny98":
             cfg.ny98_group = group_of("ny98", d, "ny98")
             cfg.n_cats = 3
+        elif s.omegavar == "m3":
+            cfg.m3_group = group_of("m3", d, "m3")
+            cfg.n_cats = 3
+        elif s.omegavar == "m10":
+            # omega ~ p0 Beta(ab, bb) + p1 (1 + Gamma(ag, bg)), discretized
+            # into B + G classes (reference OMEGA_10* ids, src/model.c:19371)
+            cfg.m10_group = group_of(
+                "m10", d, repr((s.nm10betacat, s.nm10gammacat)))
+            cfg.n_cats = s.nm10betacat + s.nm10gammacat
         else:
             cfg.omega_group = group_of("omega", d, repr(s.omegapr))
         if s.nst == "2":
             cfg.tratio_group = group_of("tratio", d, repr(s.tratiopr))
+        return cfg
+
+    def _doublet_cfg(self, cfg, d, group_of):
+        """A doublet division's wiring (mrbayes_tpu/mcmc/engine.py:472-
+        491): 16 pair states with their frequencies (``pi16``), GTR, HKY or
+        F81 exchangeabilities shared with the nucleotide groups, and the
+        rate categories."""
+        s = cfg.settings
+        cfg.doublet = True
+        cfg.pi_field = "pi16"
+        if s.statefreqpr.kind == "dirichlet":
+            cfg.pi_group = group_of("pi16", d, repr(s.statefreqpr))
+        else:
+            cfg.fixed_pi = np.full(16, 1.0 / 16)
+        if s.nst in ("6", "mixed"):
+            cfg.revmat_group = group_of("revmat", d, repr(s.revmatpr) + s.nst)
+        elif s.nst == "2":
+            cfg.tratio_group = group_of("tratio", d, repr(s.tratiopr))
+        if s.rates in ("gamma", "invgamma"):
+            cfg.shape_group = group_of("shape", d, repr(s.shapepr))
+            cfg.n_cats = s.ngammacat
+        if s.rates in ("propinv", "invgamma"):
+            cfg.pinvar_group = group_of("pinvar", d, repr(s.pinvarpr))
         return cfg
 
     def _empirical_freqs(self, div) -> np.ndarray:
@@ -591,9 +673,11 @@ class Engine:
         dev = self.device
         self._gamma_tables = {}
         for cfg in self.div_cfg:
-            if cfg.shape_group >= 0 and cfg.n_cats not in self._gamma_tables:
-                self._gamma_tables[cfg.n_cats] = GammaRateTable(
-                    cfg.n_cats, device=dev)
+            # M10's gamma classes read the table of their own count
+            k = (cfg.settings.nm10gammacat if cfg.m10_group >= 0
+                 else cfg.n_cats if cfg.shape_group >= 0 else None)
+            if k is not None and k not in self._gamma_tables:
+                self._gamma_tables[k] = GammaRateTable(k, device=dev)
         self.tip_partials, self.weights, self.const_masks = [], [], []
         self._fixed_pi = []
         self._pruners: list = []
@@ -608,6 +692,8 @@ class Engine:
                 tp, wts = self._codon_tensors(cfg)
                 # no pinvar on a codon division: the mask is never read
                 cmask = np.all(tp > 0, axis=0).astype(np.float32)
+            elif cfg.doublet:
+                tp, wts, cmask = self._doublet_tensors(cfg)
             else:
                 tp = d.tip_partials()
                 cmask = constant_state_mask(d.patterns, d.n_states)
@@ -637,14 +723,57 @@ class Engine:
                                - np.exp(-S / (S - 1.0) * v_typ) / S))
             masks.append(d.patterns.astype(np.int64))
             factors.append(d.weights * divf)
-        self._pars_masks = torch.as_tensor(np.concatenate(masks, axis=1),
-                                           device=dev)
-        self._pars_factors = torch.as_tensor(
-            np.concatenate(factors).astype(np.float32), device=dev)
+        self._pars_per_div = list(zip(masks, factors))
+        self._pars_masks, self._pars_factors = self._pars_tensors(
+            range(self.n_div))
         w = np.array([float(c.div.weights.sum()) for c in self.div_cfg])
         self.div_char_frac = w / w.sum()   # ratemult weighting
         self._build_multiwalk_pruners()
         self._build_stacked_pruners()
+
+    def _pars_tensors(self, divs):
+        """The parsimony proposals' bit-coded state sets and pattern
+        factors over divisions ``divs``, on the device."""
+        masks, factors = zip(*[self._pars_per_div[i] for i in divs])
+        return (torch.as_tensor(np.concatenate(masks, axis=1),
+                                device=self.device),
+                torch.as_tensor(np.concatenate(factors).astype(np.float32),
+                                device=self.device))
+
+    def _doublet_tensors(self, cfg: DivCfg):
+        """A nucleotide division recoded as 16-state doublet patterns from
+        the ``pairs`` statement (mrbayes_tpu/mcmc/engine.py:773-808;
+        reference CompressData's two-characters-a-column compression,
+        src/model.c:2466, pairs src/command.c:5599): tip partials
+        [n, P, 16] (first position major), one pattern per distinct pair in
+        the order ``np.unique`` gives their keys, their counts, and the
+        constant-state mask [P, 16].  Every character of the division must
+        be in one pair."""
+        d = cfg.div
+        pairs = cfg.settings.pairs
+        if not pairs:
+            raise ValueError("nucmodel=doublet requires a pairs statement")
+        local = {int(c): k for k, c in enumerate(d.char_ids)}
+        pl = [(local[a], local[b]) for (a, b) in pairs
+              if a in local and b in local]
+        if len({x for ab in pl for x in ab}) != len(d.char_ids):
+            raise ValueError(
+                "doublet model: every character of the division must "
+                "belong to exactly one pair")
+        cols = d.patterns[:, d.pattern_of_char]          # [ntax, nchar]
+        bits = ((cols[..., None] >> np.arange(4)) & 1).astype(bool)
+        first = bits[:, [a for a, _ in pl]]
+        second = bits[:, [b for _, b in pl]]
+        compat = (first[..., :, None] & second[..., None, :]).reshape(
+            cols.shape[0], len(pl), 16)                  # [ntax, sites, 16]
+        key = np.ascontiguousarray(
+            np.packbits(compat, axis=-1).transpose(1, 0, 2).reshape(
+                len(pl), -1))
+        _, first_site, counts = np.unique(key, axis=0, return_index=True,
+                                          return_counts=True)
+        tp = compat[:, first_site, :].astype(np.float32)
+        cmask = np.all(tp > 0, axis=0).astype(np.float32)
+        return tp, counts.astype(np.float32), cmask
 
     def _codon_tensors(self, cfg: DivCfg):
         """A nucleotide division recoded as codon-site patterns
@@ -688,6 +817,17 @@ class Engine:
         codon ones (mrbayes_tpu/mcmc/engine.py:2476-2486)."""
         return self.div_cfg[i].codon is None
 
+    def _ungrouped_trees(self, switch: str) -> bool:
+        """True with unlinked trees: no multiwalk or stacked group is
+        formed (the JAX package's rule, engine.py:946-948, :1023), every
+        division takes its own ``pruning.cu`` launch on its own tree, and
+        ``notes`` says so for a switch that was asked for."""
+        if self.n_trees == 1:
+            return False
+        self.notes.append(f"{switch} path off: {self.n_trees} unlinked "
+                          f"trees, one pruning.cu launch a division")
+        return True
+
     def _build_multiwalk_pruners(self):
         """Group the divisions into multiwalk launches when the switch is
         on (port of mrbayes_tpu/mcmc/engine.py:988-1053 with the grouping
@@ -697,7 +837,7 @@ class Engine:
         within ``MULTIWALK_SCRATCH_CAP`` floats.  Groups of one division
         keep their single-division launch."""
         self._multiwalk_pruners: list = []
-        if not self.multiwalk:
+        if not self.multiwalk or self._ungrouped_trees("multiwalk"):
             return
         C = self.mcmc.n_chains_total
         n_int = self.n_tips - 1
@@ -745,7 +885,7 @@ class Engine:
         memory by itself and gives a member that does not fit the
         global-scratch walk."""
         self._stacked_pruners: list = []
-        if not self.stacked:
+        if not self.stacked or self._ungrouped_trees("stacked"):
             return
         groups, cur, width = [], [], 0
         for i, cfg in enumerate(self.div_cfg):
@@ -779,6 +919,10 @@ class Engine:
         if self.tree_settings.clock:
             self._finish_moves(self._clock_moves(wrap))
             return
+        T = self.n_trees
+        if T > 1:
+            def wrap(base):
+                return self._tree_move(partial(base, n_tips=n))
         mk = []
         mk.append(MoveSpec("nni", wrap(M.move_nni), 5.0, 0.0,
                            tunable=False))
@@ -796,14 +940,25 @@ class Engine:
                                2.0, 2.0 * np.log(1.6), 0.25, 1, 1e-3, 20.0))
         mk.append(MoveSpec("subtree_swap", wrap(M.move_subtree_swap),
                            2.0, 0.0, tunable=False))
-        mk.append(MoveSpec(
-            "pars_spr",
-            wrap(M.make_pars_spr_move(self._pars_masks, self._pars_factors)),
-            5.0, 0.1, 0.25, -1, 0.01, 1.0))
-        mk.append(MoveSpec(
-            "pars_tbr",
-            wrap(M.make_pars_tbr_move(self._pars_masks, self._pars_factors)),
-            3.0, 0.1, 0.25, -1, 0.01, 1.0))
+        if T > 1:
+            # one parsimony SPR a tree, biased by that tree's divisions, and
+            # no parsimony TBR (mrbayes_tpu engine.py:1498-1517)
+            for t in range(T):
+                base = M.make_pars_spr_move(*self._pars_tensors(
+                    [i for i in range(self.n_div) if self.div_tree[i] == t]))
+                mk.append(MoveSpec(
+                    f"pars_spr_t{t + 1}",
+                    self._tree_move(partial(base, n_tips=n), t),
+                    5.0 / T, 0.1, 0.25, -1, 0.01, 1.0))
+        else:
+            mk.append(MoveSpec(
+                "pars_spr", wrap(M.make_pars_spr_move(self._pars_masks,
+                                                      self._pars_factors)),
+                5.0, 0.1, 0.25, -1, 0.01, 1.0))
+            mk.append(MoveSpec(
+                "pars_tbr", wrap(M.make_pars_tbr_move(self._pars_masks,
+                                                      self._pars_factors)),
+                3.0, 0.1, 0.25, -1, 0.01, 1.0))
         mk.append(MoveSpec("blen_mult", wrap(M.move_blen_multiplier),
                            15.0, 2.0 * np.log(1.6), 0.25, 1, 1e-3, 20.0))
         mk.append(MoveSpec("node_slider", wrap(M.move_node_slider),
@@ -811,6 +966,26 @@ class Engine:
         mk.append(MoveSpec("treelen_mult", wrap(M.move_treelen_multiplier),
                            2.0, 2.0 * np.log(1.6), 0.25, 1, 1e-3, 10.0))
         self._finish_moves(mk)
+
+    def _tree_move(self, base, tree: int | None = None):
+        """A tree move on unlinked trees (mrbayes_tpu engine.py:1430-1450):
+        each chain applies ``base`` to one of its trees, ``tree`` or one
+        drawn uniformly on the device, and its other trees stay as they
+        were."""
+        T = self.n_trees
+
+        def mv(gen, state, tuning):
+            parent = state["parent"]
+            rows = torch.arange(parent.shape[0], device=parent.device)
+            g = (M.pick_group(gen, parent, T) if tree is None
+                 else torch.full_like(rows, tree))
+            sub, lnH = base(gen, {f: state[f][rows, g] for f in TREE_FIELDS},
+                            tuning)
+            out = dict(state)
+            for f in TREE_FIELDS:
+                out[f] = state[f].index_put((rows, g), sub[f])
+            return out, lnH
+        return mv
 
     def _clock_moves(self, wrap):
         """The clock tree's moves with the JAX package's weights, tunings
@@ -981,11 +1156,14 @@ class Engine:
                 "ratemult_dir",
                 partial(M.make_simplex_move("ratemult"), n_tips=n),
                 1.5, 300.0, 0.25, -1, 1.0, 1e5))
-        # omegaprobs_dir changes Q because the NY98 classes are normalised
-        # jointly (src/likelihood.c:10702); aamodel_jump gathers the
-        # precomputed eigensystem of the new model
-        q_moves = {"pi_dir", "pi20_dir", "pi61_dir", "omega_mult",
-                   "omega1_slider", "omega3_mult", "omegaprobs_dir",
+        # omegaprobs_dir, m3probs_dir and m10probs_dir change Q because the
+        # NY98, M3 and M10 classes are normalised jointly
+        # (src/likelihood.c:10702); aamodel_jump gathers the precomputed
+        # eigensystem of the new model
+        q_moves = {"pi_dir", "pi20_dir", "pi61_dir", "pi16_dir",
+                   "omega_mult", "omega1_slider", "omega3_mult",
+                   "omegaprobs_dir", "m3omega_slider", "m3probs_dir",
+                   "m10beta_mult", "m10gamma_mult", "m10probs_dir",
                    "aamodel_jump", "revmat_dir", "aarevmat_dir",
                    "revmat_splitmerge", "revmat_dirmix", "tratio_mult"}
         for i, m in enumerate(mk):
@@ -995,9 +1173,9 @@ class Engine:
         self.moves = mk
 
     def _protein_codon_moves(self):
-        """The protein and codon parameter moves with the JAX package's
-        weights, tunings and bounds, in its order
-        (mrbayes_tpu/mcmc/engine.py:1559-1563, 1667-1697, 1741-1753)."""
+        """The protein, codon and doublet parameter moves with the JAX
+        package's weights, tunings and bounds, in its order
+        (mrbayes_tpu/mcmc/engine.py:1559-1563, 1667-1753)."""
         n = self.n_tips
         g = self.n_groups
         lam = 2.0 * np.log(1.5)
@@ -1010,6 +1188,10 @@ class Engine:
             mk.append(MoveSpec("pi61_dir",
                                partial(M.make_simplex_move("pi61"), n_tips=n),
                                2.0, 2000.0, 0.25, -1, 10.0, 1e7))
+        if g.get("pi16"):
+            mk.append(MoveSpec("pi16_dir",
+                               partial(M.make_simplex_move("pi16"), n_tips=n),
+                               2.0, 500.0, 0.25, -1, 1.0, 1e6))
         if g.get("omega"):
             mk.append(MoveSpec(
                 "omega_mult",
@@ -1028,6 +1210,24 @@ class Engine:
                 "omegaprobs_dir",
                 partial(M.make_simplex_move("omegaprobs"), n_tips=n),
                 1.5, 100.0, 0.25, -1, 1.0, 1e5))
+        if g.get("m3"):
+            mk.append(MoveSpec(
+                "m3omega_slider", partial(M.move_m3omega_slider, n_tips=n),
+                2.0, 0.5, 0.25, 1, 1e-3, 50.0))
+            mk.append(MoveSpec(
+                "m3probs_dir",
+                partial(M.make_simplex_move("m3probs"), n_tips=n),
+                1.5, 100.0, 0.25, -1, 1.0, 1e5))
+        if g.get("m10"):
+            for field in ("m10beta", "m10gamma"):
+                mk.append(MoveSpec(
+                    f"{field}_mult",
+                    partial(M.make_multiplier_move(field, 1e-3, 20.0),
+                            n_tips=n), 1.0, lam, 0.25, 1, 1e-3, 20.0))
+            mk.append(MoveSpec(
+                "m10probs_dir",
+                partial(M.make_simplex_move("m10catprobs"), n_tips=n),
+                1.0, 100.0, 0.25, -1, 1.0, 1e5))
         if g.get("aamodel"):
             mk.append(MoveSpec(
                 "aamodel_jump",
@@ -1040,7 +1240,8 @@ class Engine:
         if param == "pi61":
             return next(c.codon.n_states for c in self.div_cfg
                         if c.pi_field == "pi61" and c.pi_group == gid)
-        return {"pi": 4, "pi20": 20, "revmat": 6, "aarevmat": 190}[param]
+        return {"pi": 4, "pi20": 20, "pi16": 16, "revmat": 6,
+                "aarevmat": 190}[param]
 
     def _rows(self, values):
         return torch.as_tensor(list(values), dtype=torch.long,
@@ -1105,7 +1306,7 @@ class Engine:
         self._unit_rates = torch.ones((1, 1), device=dev)
         self._prior_alpha = {}
         for (param, gid), pr in self.group_priors.items():
-            if param == "omegaprobs":
+            if param in ("omegaprobs", "m3probs", "m10catprobs"):
                 self._prior_alpha[(param, gid)] = torch.tensor(
                     [float(x) for x in pr.params], device=dev)
             elif param in PI_FIELDS + ("revmat", "aarevmat"):
@@ -1114,6 +1315,7 @@ class Engine:
                     (self._simplex_width(param, gid),), float(a), device=dev)
         if self.ratemult_on:
             self._ratemult_alpha = torch.ones(self.n_div, device=dev)
+        self._doublet_cls = torch.as_tensor(DOUBLET_CLS, device=dev)
         # the codon pair classes (single change, transition,
         # nonsynonymous) [S, S] of each codon division
         self._codon_classes = {
@@ -1170,20 +1372,31 @@ class Engine:
         A clock model starts from a random clock tree instead."""
         if self.tree_settings.clock:
             return self._init_substitution_state(self._init_clock_state(rng))
-        t = tree
-        if t is None and (self._start_clade_masks()
-                          or self.negative_masks is not None):
-            # a random tree holding the constrained clades
-            t = self._retry_negative(
-                lambda: random_unrooted_constrained(
-                    self.n_tips, rng, self._start_clade_masks(),
-                    mean_blen=0.1), lambda x: x)
-        elif t is None:
-            t = random_unrooted(self.n_tips, rng, mean_blen=0.1)
-        st = {"left": np.asarray(t.left, np.int64),
-              "right": np.asarray(t.right, np.int64),
-              "parent": np.asarray(t.parent, np.int64),
-              "blen": np.clip(t.blen, 0.0, M.BRLEN_MAX).astype(np.float32)}
+
+        def draw():
+            if tree is not None:
+                return tree
+            if self._start_clade_masks() or self.negative_masks is not None:
+                # a random tree holding the constrained clades
+                return self._retry_negative(
+                    lambda: random_unrooted_constrained(
+                        self.n_tips, rng, self._start_clade_masks(),
+                        mean_blen=0.1), lambda x: x)
+            return random_unrooted(self.n_tips, rng, mean_blen=0.1)
+
+        def arrays(t):
+            return {"left": np.asarray(t.left, np.int64),
+                    "right": np.asarray(t.right, np.int64),
+                    "parent": np.asarray(t.parent, np.int64),
+                    "blen": np.clip(t.blen, 0.0, M.BRLEN_MAX).astype(
+                        np.float32)}
+
+        if self.n_trees > 1:
+            # one random tree a tree group, [n_trees, n_nodes] each
+            per = [arrays(draw()) for _ in range(self.n_trees)]
+            st = {k: np.stack([p[k] for p in per]) for k in TREE_FIELDS}
+        else:
+            st = arrays(draw())
         return self._init_substitution_state(st)
 
     def _start_clade_masks(self) -> list:
@@ -1296,12 +1509,22 @@ class Engine:
         if g.get("pi61"):
             n61 = self._simplex_width("pi61", 0)
             st["pi61"] = np.full((g["pi61"], n61), 1.0 / n61, np.float32)
+        if g.get("pi16"):
+            st["pi16"] = np.full((g["pi16"], 16), 1.0 / 16, np.float32)
         if g.get("omega"):
             st["omega"] = np.ones((g["omega"],), np.float32)
         if g.get("ny98"):
             st["omega1"] = np.full((g["ny98"],), 0.1, np.float32)
             st["omega3"] = np.full((g["ny98"],), 2.0, np.float32)
             st["omegaprobs"] = np.full((g["ny98"], 3), 1.0 / 3, np.float32)
+        if g.get("m10"):
+            st["m10beta"] = np.ones((g["m10"], 2), np.float32)
+            st["m10gamma"] = np.ones((g["m10"], 2), np.float32)
+            st["m10catprobs"] = np.full((g["m10"], 2), 0.5, np.float32)
+        if g.get("m3"):
+            st["m3omega"] = np.tile(np.asarray([0.1, 1.0, 3.0], np.float32),
+                                    (g["m3"], 1))
+            st["m3probs"] = np.full((g["m3"], 3), 1.0 / 3, np.float32)
         if g.get("aamodel"):
             st["aamodel_idx"] = np.zeros((g["aamodel"],), np.int64)
         if g.get("aarevmat"):
@@ -1393,6 +1616,9 @@ class Engine:
         nst = cfg.settings.nst
         if cfg.codon is not None:
             Q = self._codon_q(state, i, pi)
+        elif cfg.doublet:
+            Q = doublet_q(self._doublet_rates(state, cfg, pi), pi,
+                          self._doublet_cls)
         elif cfg.div.dtype is DataType.PROTEIN:
             if cfg.aamodel_group >= 0:
                 exch = self._aa_stack[0][
@@ -1413,6 +1639,19 @@ class Engine:
         return Q, pi
 
     @staticmethod
+    def _doublet_rates(state, cfg, pi):
+        """A doublet division's GTR 6-vector [C, 6] (mrbayes_tpu engine
+        :2270-2279): the sampled revmat, (1, k, 1, 1, k, 1) under nst=2,
+        ones under nst=1."""
+        if cfg.revmat_group >= 0:
+            return state["revmat"][:, cfg.revmat_group]
+        r6 = pi.new_ones(pi.shape[:-1] + (6,))
+        if cfg.tratio_group >= 0:
+            kap = state["tratio"][:, cfg.tratio_group, None]
+            r6 = torch.cat([r6[:, :1], kap, r6[:, 2:4], kap, r6[:, 5:]], -1)
+        return r6
+
+    @staticmethod
     def _standard_q(cfg, pi):
         """A standard bucket's Mk generator: ordered (adjacent states only,
         ``ctype ordered``) or unordered (mrbayes_tpu engine.py:2309-2311)."""
@@ -1422,8 +1661,9 @@ class Engine:
     def _codon_q(self, state, i, pi):
         """A codon division's generators [C, K, S, S] (mrbayes_tpu engine
         :2248-2267): M0's one omega, or NY98's omega1 < 1, 1 and
-        omega3 > 1 normalised together under the class frequencies, with
-        kappa under nst=2."""
+        omega3 > 1, M3's three ordered omegas or M10's B + G class omegas,
+        normalised together under the class frequencies, with kappa under
+        nst=2."""
         cfg = self.div_cfg[i]
         kappa = (state["tratio"][:, cfg.tratio_group]
                  if cfg.tratio_group >= 0 else 1.0)
@@ -1433,11 +1673,54 @@ class Engine:
             omegas = torch.stack([w1, torch.ones_like(w1),
                                   state["omega3"][:, g]], -1)
             weights = state["omegaprobs"][:, g]
+        elif cfg.m3_group >= 0:
+            omegas = state["m3omega"][:, cfg.m3_group]
+            weights = state["m3probs"][:, cfg.m3_group]
+        elif cfg.m10_group >= 0:
+            omegas, weights = self._m10_omegas_weights(state, cfg)
         else:
             omegas = state["omega"][:, cfg.omega_group][:, None]
             weights = None
         return codon_q(omegas, kappa, pi, *self._codon_classes[i],
                        cat_weights=weights)
+
+    def _codon_cat_weights(self, state, cfg):
+        """The omega classes' weights [C, K] of a codon division (None for
+        M0's one class)."""
+        if cfg.ny98_group >= 0:
+            return state["omegaprobs"][:, cfg.ny98_group]
+        if cfg.m3_group >= 0:
+            return state["m3probs"][:, cfg.m3_group]
+        if cfg.m10_group >= 0:
+            return self._m10_weights(state, cfg)
+        return None
+
+    @staticmethod
+    def _m10_weights(state, cfg):
+        """M10's class weights [C, B + G]: p_k / n_k (reference
+        src/model.c:11608-11611), without the class omegas' bisection."""
+        B, G = cfg.settings.nm10betacat, cfg.settings.nm10gammacat
+        p = state["m10catprobs"][:, cfg.m10_group]
+        return torch.cat([p[:, :1].expand(-1, B) / B,
+                          p[:, 1:].expand(-1, G) / G], -1)
+
+    def _m10_omegas_weights(self, state, cfg):
+        """M10's class omegas and weights [C, B + G] (mrbayes_tpu engine
+        :2218-2238; reference BetaBreaks and DiscreteGamma + 1,
+        src/model.c:11637-11643, weights p_k / n_k :11608-11611): the
+        median-of-class quantiles of Beta(ab, bb), then 1 plus the class
+        means of Gamma(ag, bg), which are the mean-1 table's at ag times
+        ag / bg."""
+        g = cfg.m10_group
+        B = cfg.settings.nm10betacat
+        G = cfg.settings.nm10gammacat
+        ab, bb = state["m10beta"][:, g].unbind(-1)
+        ag, bg = state["m10gamma"][:, g].unbind(-1)
+        w_beta = beta_quantile_breaks(ab, bb, B)
+        w_gamma = 1.0 + self._gamma_tables[G](ag) \
+            * (ag / bg.clamp_min(1e-6))[:, None]
+        return (torch.cat([w_beta.to(w_gamma.dtype), w_gamma], -1),
+                self._m10_weights(state, cfg))
 
     def _division_eig(self, state, i):
         """Division i's eigensystem for every chain: lam [C, S] with U,
@@ -1498,6 +1781,12 @@ class Engine:
         division order: multiwalk groups first, then stacked groups that
         share no division with them (mrbayes_tpu/mcmc/engine.py:2394-2406),
         then every other division through its own pruner."""
+        if self.n_trees > 1:
+            # unlinked trees: each division prunes its own tree
+            views = [self.tree_view(state, t) for t in range(self.n_trees)]
+            return [self._division_lnL(views[t], i, views[t]["blen"],
+                                       weights[i])
+                    for i, t in enumerate(self.div_tree)]
         blen = self.branch_lengths(state)
         terms = [None] * self.n_div
         for idxs, gpruner in self._multiwalk_pruners + self._stacked_pruners:
@@ -1562,11 +1851,15 @@ class Engine:
             cmask = self.const_masks[i]
         else:
             pinv, cmask = 0.0, None
-        mult = 1.0
+        # a doublet site spans two nucleotide columns while branch lengths
+        # stay in substitutions per nucleotide (reference TiProbs_Gen
+        # correctionFactor 2, src/likelihood.c:9437-9443)
+        mult = 2.0 if cfg.doublet else 1.0
         if self.ratemult_on:
             # the stored simplex is weighted by the character fractions;
             # the branch-length multiplier has mean 1 over characters
-            mult = state["ratemult"][:, i] / float(self.div_char_frac[i])
+            mult = mult * state["ratemult"][:, i] / float(
+                self.div_char_frac[i])
         return pi, cfg.coding, lam, U, Uinv, rates, pinv, cmask, mult
 
     def _division_lnL(self, state, i, blen, weights):
@@ -1583,13 +1876,12 @@ class Engine:
     def _codon_lnL(self, state, i, blen, weights):
         """A codon division's lnL [C] (mrbayes_tpu engine :2752-2777): the
         omega classes on the category axis with unit rates, weighted by
-        the NY98 class frequencies (equal for M0's one class), branch
-        lengths scaled by 3 (they are per nucleotide and a codon site
-        evolves three times as fast), no pinvar."""
+        the NY98, M3 or M10 class weights (equal for M0's one class),
+        branch lengths scaled by 3 (they are per nucleotide and a codon
+        site evolves three times as fast), no pinvar."""
         cfg = self.div_cfg[i]
         lam, U, Uinv = self._division_eig_cached(state, i)
-        cat_w = (state["omegaprobs"][:, cfg.ny98_group]
-                 if cfg.ny98_group >= 0 else None)
+        cat_w = self._codon_cat_weights(state, cfg)
         mult = 3.0
         if self.ratemult_on:
             mult = mult * state["ratemult"][:, i] / float(
@@ -1624,12 +1916,25 @@ class Engine:
                                   self.n_tips, ts.clockvarpr)
         return state["blen"]
 
+    def tree_view(self, state, t: int):
+        """``state`` with tree ``t``'s fields [C, n_nodes] in place of the
+        unlinked trees' [C, n_trees, n_nodes]."""
+        return {**state, **{f: state[f][:, t] for f in TREE_FIELDS}}
+
     def log_prior_tree(self, state):
         """Prior over the branch lengths of the unrooted tree (the
-        uniform topology prior is a constant and dropped), or over a
-        clock tree's ages, rates and tree-process parameters."""
+        uniform topology prior is a constant and dropped), summed over
+        unlinked trees, or over a clock tree's ages, rates and
+        tree-process parameters."""
         if self.tree_settings.clock:
             return self._log_prior_clock(state)
+        if self.n_trees > 1:
+            return sum(self._log_prior_unrooted(self.tree_view(state, t))
+                       for t in range(self.n_trees))
+        return self._log_prior_unrooted(state)
+
+    def _log_prior_unrooted(self, state):
+        """One unrooted tree's branch-length prior and constraint terms."""
         bp = self.tree_settings.brlenspr
         blen = state["blen"]
         if bp.kind == "gammadir":
@@ -1731,6 +2036,18 @@ class Engine:
             elif param == "omega1":
                 # as the JAX package: the prior's parameters as a Beta's
                 lp = lp + beta_lpdf(x, *pr.params)
+            elif param == "m3omega":
+                # order statistics of iid exponential dN over a shared dS
+                # (reference LogOmegaPrior, src/mcmc.c:7498)
+                ordered = (x[:, 0] < x[:, 1]) & (x[:, 1] < x[:, 2]) \
+                    & (x[:, 0] > 0)
+                lp = lp + torch.where(
+                    ordered, math.log(36.0) - 4.0 * torch.log1p(x.sum(-1)),
+                    NEG_INF)
+            elif param in ("m10beta", "m10gamma"):
+                # both shapes iid under the prior (reference m10betapr,
+                # src/bayes.c:741-748)
+                lp = lp + _scalar_prior_lpdf(pr, x).sum(-1)
             else:
                 lp = lp + _scalar_prior_lpdf(pr, x)
         if self.ratemult_on:
@@ -1900,26 +2217,31 @@ class Engine:
         return [int(r * nc + np.argmin(tid[r * nc:(r + 1) * nc]))
                 for r in range(self.mcmc.nruns)]
 
-    def effective_blens(self, states, slot: int) -> np.ndarray:
-        """One chain's substitution-unit branch lengths, float64 on the
-        host (``states`` tensors or host arrays); a clock tree's are
-        computed from its ages and rates in float32, as on the device."""
+    def effective_blens(self, states, slot: int,
+                        tree: int = 0) -> np.ndarray:
+        """One chain's substitution-unit branch lengths (of unlinked tree
+        ``tree``), float64 on the host (``states`` tensors or host arrays);
+        a clock tree's are computed from its ages and rates in float32, as
+        on the device."""
         if not self.tree_settings.clock:
-            return _host(states["blen"][slot]).astype(np.float64)
+            blen = states["blen"][slot]
+            return _host(blen[tree] if self.n_trees > 1
+                         else blen).astype(np.float64)
         one = {k: torch.as_tensor(_host(states[k][slot]))[None]
                for k in ("parent", "age", "clockrate", "brate", "sa",
                          "cpp_pos", "cpp_mult", "cpp_n") if k in states}
         return self.branch_lengths(one)[0].double().numpy()
 
-    def extract_tree(self, states, slot: int) -> Tree:
-        """One chain's tree as a host ``Tree`` (``states`` tensors or
-        host arrays), rooted for a clock model."""
+    def extract_tree(self, states, slot: int, tree: int = 0) -> Tree:
+        """One chain's tree (unlinked tree ``tree``) as a host ``Tree``
+        (``states`` tensors or host arrays), rooted for a clock model."""
         def host(k):
-            return _host(states[k][slot]).astype(np.int32)
+            a = states[k][slot]
+            return _host(a[tree] if self.n_trees > 1 else a).astype(np.int32)
 
         return Tree(parent=host("parent"), left=host("left"),
                     right=host("right"),
-                    blen=self.effective_blens(states, slot),
+                    blen=self.effective_blens(states, slot, tree),
                     n_tips=self.n_tips, rooted=self.tree_settings.clock)
 
 

@@ -754,3 +754,25 @@ def make_jump_move(field, n_values):
         return {**state, field: _put(arr, gi, new)}, torch.zeros_like(tuning)
     move.__name__ = f"move_{field}_jump"
     return move
+
+
+def move_m3omega_slider(gen, state, tuning, n_tips):
+    """Reflected window slide of one of M3's three ordered omegas of one
+    random group between its neighbours (0 below the first, 1e3 above the
+    last), the window cut to the gap (reference Move_OmegaM3,
+    src/proposal.c:9446; mrbayes_tpu engine.py:1700-1718)."""
+    arr = state["m3omega"]                                   # [C, G, 3]
+    u = _uniforms(gen, arr, 3)
+    rows = torch.arange(arr.shape[0], device=arr.device)
+    gi = _row_index(u[:, 0], arr.shape[1])
+    which = _row_index(u[:, 1], 3)
+    w = arr[rows, gi]                                        # [C, 3]
+    lo = torch.where(which == 0, 0.0, _take(w, (which - 1).clamp_min(0)))
+    hi = torch.where(which == 2, 1e3, _take(w, (which + 1).clamp_max(2)))
+    win = torch.minimum(tuning, hi - lo)
+    new = _take(w, which) + win * (u[:, 2] - 0.5)
+    span = (hi - lo).clamp_min(1e-30)
+    t = torch.remainder(new - lo, 2 * span)
+    new = lo + torch.where(t > span, 2 * span - t, t)
+    out = arr.index_put((rows, gi), _put(w, which, new))
+    return {**state, "m3omega": out}, torch.zeros_like(tuning)

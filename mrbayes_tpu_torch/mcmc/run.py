@@ -5,10 +5,12 @@ around ``Engine.run_block``: the device advances ``samplefreq``
 generations per block; at each block boundary the driver makes ONE
 device->host copy of the chain states (every state tensor packed into one
 buffer) and from it writes the ``.p``/``.t`` sample rows of each run's
-cold chain, updates the split counters for ASDSF, prints progress and
-checkpoints.  File formats follow the reference (PreparePrintFiles
-src/mcmc.c:10427, PrintStatesToFiles :13186), so the reference's own
-sump/sumt can read them.
+cold chain (one ``.tree<t>.run<r>.t`` file a tree under unlinked trees,
+with a ``TL{divisions}`` column each), updates the split counters for
+ASDSF (the worst tree's), prints progress and checkpoints.  File formats
+follow the reference (PreparePrintFiles src/mcmc.c:10427,
+PrintStatesToFiles :13186), so the reference's own sump/sumt can read
+them.
 
 With a mesh (``parallel/mesh.py``) the engine's data is sharded over the
 ``sites`` axis in this one process (Queue 1 item 11a); the states stay
@@ -58,8 +60,19 @@ def param_columns(eng: Engine):
             return "{all}"
         return "{" + ",".join(map(str, divs)) + "}"
 
-    cols.append(("TL" + ("{all}" if multi else ""),
-                 lambda st, s: float(np.sum(eng.effective_blens(st, s)))))
+    if eng.n_trees > 1:
+        # one TL column an unlinked tree, tagged with its divisions (the
+        # reference prints TL{divs} a brlens parameter; mrbayes_tpu
+        # run.py:45-49)
+        for t in range(eng.n_trees):
+            divs = [i + 1 for i in range(n_div) if eng.div_tree[i] == t]
+            cols.append(("TL{" + ",".join(map(str, divs)) + "}",
+                         lambda st, s, t=t: float(np.sum(
+                             eng.effective_blens(st, s, t)))))
+    else:
+        cols.append(("TL" + ("{all}" if multi else ""),
+                     lambda st, s: float(np.sum(
+                         eng.effective_blens(st, s)))))
     cols += _clock_columns(eng, multi)
     for gid in range(eng.n_groups.get("revmat", 0)):
         for k, nm in enumerate(_REV_NAMES):
@@ -95,6 +108,14 @@ def param_columns(eng: Engine):
         for k, nm in enumerate(("-", "N", "+")):
             cols.append((f"pi({nm})", lambda st, s, g=gid, k=k:
                          float(st["omegaprobs"][s, g, k])))
+    for gid in range(eng.n_groups.get("m3", 0)):
+        # M3's omegas and class frequencies, interleaved and unsuffixed as
+        # the JAX package prints them (run.py:156-161); M10 prints none
+        for k in range(3):
+            cols.append((f"omega({k + 1})", lambda st, s, g=gid, k=k:
+                         float(st["m3omega"][s, g, k])))
+            cols.append((f"pi({k + 1})", lambda st, s, g=gid, k=k:
+                         float(st["m3probs"][s, g, k])))
     for gid in range(eng.n_groups.get("pi", 0)):
         for k, nm in enumerate("ACGT"):
             cols.append((f"pi({nm})" + suffix("pi", gid),
@@ -113,6 +134,12 @@ def param_columns(eng: Engine):
                          + suffix("pi61", gid),
                          lambda st, s, g=gid, k=k:
                          float(st["pi61"][s, g, k])))
+    for gid in range(eng.n_groups.get("pi16", 0)):
+        # the doublets AA, AC, ..., TT (mrbayes_tpu run.py:209-214)
+        for k, (x, y) in enumerate((x, y) for x in "ACGT" for y in "ACGT"):
+            cols.append((f"pi({x}{y})" + suffix("pi16", gid),
+                         lambda st, s, g=gid, k=k:
+                         float(st["pi16"][s, g, k])))
     for gid in range(eng.n_groups.get("shape", 0)):
         cols.append(("alpha" + suffix("shape", gid),
                      lambda st, s, g=gid: float(st["shape"][s, g])))
@@ -206,7 +233,10 @@ class McmcRunner:
         self.mesh = mesh
         self.log = log
         self.cols = param_columns(engine)
-        self.splits = SplitCounter(self.mc.nruns)
+        self.n_trees = engine.n_trees
+        # split frequencies of each tree parameter
+        self.splits = [SplitCounter(self.mc.nruns)
+                       for _ in range(self.n_trees)]
         self.param_samples: list[list[dict]] = [
             [] for _ in range(self.mc.nruns)]
         self.asdsf_series: list[tuple[int, float]] = []
@@ -238,6 +268,15 @@ class McmcRunner:
         with open(path, "w") as f:
             f.writelines(kept)
 
+    def _tree_paths(self, r: int) -> list[str]:
+        """Run r's tree-sample files: one a tree parameter, named
+        <prefix>.tree<t>.run<r>.t for unlinked trees (reference
+        src/mcmc.c:10510; mrbayes_tpu run.py:341-347)."""
+        if self.n_trees > 1:
+            return [f"{self.prefix}.tree{t + 1}.run{r + 1}.t"
+                    for t in range(self.n_trees)]
+        return [f"{self.prefix}.run{r + 1}.t"]
+
     def _open_files(self, append: bool, start_gen: int = 0):
         mode = "a" if append else "w"
         self.pf, self.tf = [], []
@@ -246,21 +285,23 @@ class McmcRunner:
             base = f"{self.prefix}.run{r + 1}"
             if append:
                 self._truncate_after(base + ".p", start_gen, False)
-                self._truncate_after(base + ".t", start_gen, True)
+                for path in self._tree_paths(r):
+                    self._truncate_after(path, start_gen, True)
             pf = open(base + ".p", mode)
-            tf = open(base + ".t", mode)
+            tfs = [open(path, mode) for path in self._tree_paths(r)]
             if not append:
                 pf.write(f"[ID: {seed_id:010d}]\n")
                 pf.write("Gen\tlnLike\tlnPrior\t"
                          + "\t".join(n for n, _ in self.cols) + "\n")
-                tf.write(f"#NEXUS\n[ID: {seed_id:010d}]\n[Param: tree]\n"
-                         "begin trees;\n   translate\n")
                 labels = self.eng.data.taxa
-                for i, name in enumerate(labels):
-                    sep = "," if i < len(labels) - 1 else ";"
-                    tf.write(f"       {i + 1} {name}{sep}\n")
+                for tf in tfs:
+                    tf.write(f"#NEXUS\n[ID: {seed_id:010d}]\n"
+                             "[Param: tree]\nbegin trees;\n   translate\n")
+                    for i, name in enumerate(labels):
+                        sep = "," if i < len(labels) - 1 else ";"
+                        tf.write(f"       {i + 1} {name}{sep}\n")
             self.pf.append(pf)
-            self.tf.append(tf)
+            self.tf.append(tfs)
         self.mcmcf = open(f"{self.prefix}.mcmc", mode)
         if not append:
             self.mcmcf.write(f"[ID: {seed_id:010d}]\n")
@@ -277,7 +318,8 @@ class McmcRunner:
         (float32 sums)."""
         if os.environ.get("MB_DEBUG"):
             for slot in range(self.mc.n_chains_total):
-                self.eng.extract_tree(host, slot).check()
+                for t in range(self.n_trees):
+                    self.eng.extract_tree(host, slot, t).check()
         if os.environ.get("MB_DEBUG_LNL"):
             fresh = self.eng.score({k: v for k, v in states.items()
                                     if k not in SCORE_KEYS})
@@ -302,10 +344,11 @@ class McmcRunner:
             self.pf[r].write(
                 f"{gen}\t{lnL:.6e}\t{lnP:.6e}\t"
                 + "\t".join(f"{v:.6e}" for v in vals) + "\n")
-            t = self.eng.extract_tree(host, slot)
-            self.tf[r].write(f"   tree gen.{gen} = {_rooting(t)} "
-                             + to_newick(t, numbers=True) + "\n")
-            self.splits.add(r, t)
+            for ti in range(self.n_trees):
+                t = self.eng.extract_tree(host, slot, ti)
+                self.tf[r][ti].write(f"   tree gen.{gen} = {_rooting(t)} "
+                                     + to_newick(t, numbers=True) + "\n")
+                self.splits[ti].add(r, t)
             self.param_samples[r].append(
                 dict(zip(["Gen", "lnLike", "lnPrior"]
                          + [n for n, _ in self.cols], [gen, lnL, lnP] + vals)))
@@ -344,10 +387,12 @@ class McmcRunner:
         tid = host["temp_id"]
         for slot in range(mc.n_chains_total):
             r, c = slot // nc, slot % nc
-            t = self.eng.extract_tree(host, slot)
-            lines.append(f"   tree gen.{gen}$run={r + 1}.chain={c + 1}"
-                         f".heat={int(tid[slot])} = {_rooting(t)} "
-                         + to_newick(t, numbers=True))
+            for ti in range(self.n_trees):
+                t = self.eng.extract_tree(host, slot, ti)
+                tree = f"tree={ti + 1}." if self.n_trees > 1 else ""
+                lines.append(f"   tree gen.{gen}${tree}run={r + 1}.chain="
+                             f"{c + 1}.heat={int(tid[slot])} = "
+                             f"{_rooting(t)} " + to_newick(t, numbers=True))
         lines += ["end;", "begin mbtpu_state;", f"   generation {gen};"]
 
         def dump(prefix, d):
@@ -508,7 +553,7 @@ class McmcRunner:
             signal.signal(signal.SIGINT, prev_handler)
         for f in self.pf:
             f.close()
-        for f in self.tf:
+        for f in (f for tfs in self.tf for f in tfs):
             f.write("end;\n")
             f.close()
         self.mcmcf.close()
@@ -537,7 +582,9 @@ class McmcRunner:
         per-sample split sets (reference src/mcmc.c:1750)."""
         mc = self.mc
         burn = mc.burninfrac if mc.relburnin else 0.0
-        return self.splits.asdsf(mc.minpartfreq, burn_frac=burn)
+        # the worst tree parameter's (mrbayes_tpu run.py:753-760)
+        return max(sc.asdsf(mc.minpartfreq, burn_frac=burn)
+                   for sc in self.splits)
 
     def _print_move_summary(self, bk):
         tries = bk["tries_total"].sum(0).cpu().numpy()

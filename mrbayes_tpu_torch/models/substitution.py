@@ -8,6 +8,7 @@ takes leading batch dims (the chain axis) on its tensor arguments.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -115,4 +116,43 @@ def codon_q(omega: torch.Tensor, kappa, pi: torch.Tensor,
     mu = -(pik * diag).sum(-1)                            # [..., K]
     if cat_weights is not None:
         mu = (cat_weights * mu).sum(-1, keepdim=True)
+    return Q / mu[..., None, None]
+
+
+def _doublet_class_table() -> np.ndarray:
+    """[16, 16] class of each doublet pair (mrbayes_tpu/models/
+    substitution.py:168-190): 0-5 the GTR rate index of the one changing
+    position (AC, AG, AT, CG, CT, GT), 6 where both positions change (rate
+    0).  State order AA, AC, AG, AT, CA, ..., TT, first position major
+    (reference doublet[] table, src/bayes.c:651-666)."""
+    pair_idx = {frozenset((0, 1)): 0, frozenset((0, 2)): 1,
+                frozenset((0, 3)): 2, frozenset((1, 2)): 3,
+                frozenset((1, 3)): 4, frozenset((2, 3)): 5}
+    cls = np.full((16, 16), 6, np.int64)
+    for i in range(16):
+        f1, s1 = divmod(i, 4)
+        for j in range(16):
+            f2, s2 = divmod(j, 4)
+            if i != j and (f1 == f2 or s1 == s2):
+                cls[i, j] = pair_idx[frozenset((f1, f2) if f1 != f2
+                                               else (s1, s2))]
+    return cls
+
+
+DOUBLET_CLS = _doublet_class_table()
+
+
+def doublet_q(rates6: torch.Tensor, pi16: torch.Tensor,
+              classes: torch.Tensor) -> torch.Tensor:
+    """16-state doublet (RNA stem) generators [..., 16, 16] (mrbayes_tpu/
+    models/substitution.py:193-204): q_ij = r[class(i, j)] * pi_j for
+    doublets that differ at one position, 0 where both differ, normalised
+    to mean rate 1.  rates6 [..., 6] is the GTR vector: (1, k, 1, 1, k, 1)
+    under nst=2 and ones under nst=1.  ``classes`` is ``DOUBLET_CLS`` on
+    the operands' device (a copy from the host inside the generation loop
+    would synchronise)."""
+    r = torch.cat([rates6, rates6.new_zeros(rates6.shape[:-1] + (1,))], -1)
+    Q = r[..., classes] * pi16[..., None, :]
+    Q = Q - torch.diag_embed(Q.sum(-1))
+    mu = -(pi16 * torch.diagonal(Q, dim1=-2, dim2=-1)).sum(-1)
     return Q / mu[..., None, None]

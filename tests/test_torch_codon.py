@@ -26,7 +26,8 @@ replicase.nex (9 taxa, 720 nucleotides: 240 codon sites, 61 sense codons).
 * replicase under NY98 through the CLI, 2 runs x 2 chains, 40
   generations: its ``.p`` header equals JAX ``param_columns``, the files
   are complete, sump and sumt print what JAX's print;
-* doublets, M3, M10 and ``pairs`` raise naming ROADMAP item 12b."""
+* the settings item 12b brought (doublets, M3, M10, ``pairs`` and the
+  M3/M10 prset keys) build engines that hold against the JAX package."""
 import json
 import os
 
@@ -44,10 +45,10 @@ from mrbayes_tpu.ops import pruning as JP
 from mrbayes_tpu.ops import tiprobs as JTP
 from mrbayes_tpu.summarize.sump import sump as j_sump
 from mrbayes_tpu.summarize.sumt import sumt as j_sumt
-from mrbayes_tpu_torch.cli import CommandError, Interpreter
-from mrbayes_tpu_torch.convert import state_from_numpy
+from mrbayes_tpu_torch.cli import Interpreter
+from mrbayes_tpu_torch.convert import state_from_numpy, state_to_numpy
 from mrbayes_tpu_torch.envelope import write_batch
-from mrbayes_tpu_torch.mcmc.engine import Engine
+from mrbayes_tpu_torch.mcmc.engine import SCORE_KEYS, Engine
 from mrbayes_tpu_torch.mcmc.run import param_columns
 from mrbayes_tpu_torch.mcmc.settings import DivisionSettings, McmcSettings
 from mrbayes_tpu_torch.models import codes as TC
@@ -174,37 +175,43 @@ def _params(name, rng):
 
 
 def jax_exact_lnl(jeng, jst, own=False):
-    """The JAX package's codon lnL [C] (``_codon_loglik``) by its own ops
-    in float64 (``jax.enable_x64``), with the eigensystem carried in
-    ``jst`` or, with ``own``, a float64 ``eigh_reversible`` of each
-    chain's class generators."""
+    """Division 0's lnL [C] by the JAX package's own ops in float64
+    (``jax.enable_x64``): a codon division's (``_codon_loglik``: the NY98,
+    M3 or M10 class weights, none for M0) or a generic one's (doublets),
+    with the eigensystem carried in ``jst`` or, with ``own``, a float64
+    ``eigh_reversible`` of its Q."""
     cfg = jeng.div_cfg[0]
-    out = []
+
+    def f64(x):
+        return None if x is None else jnp.asarray(x, jnp.float64)
+
+    def one(s1):
+        Q, pi_q = jeng._division_q_pi(s1, 0)
+        codon = cfg.codon is not None
+        if own:
+            lam, U, Uinv = JTP.eigh_reversible(
+                f64(Q), f64(pi_q)[None] if codon else f64(pi_q))
+        else:
+            lam, U, Uinv = s1["eigL0"], s1["eigU0"], s1["eigV0"]
+        if not codon:
+            pi, coding, _, _, _, rates, _, _, mult = \
+                jeng._generic_div_params(s1, 0)
+            w = None
+        else:
+            pi, coding, mult = pi_q, "all", 3.0
+            w = (s1["omegaprobs"][cfg.ny98_group] if cfg.ny98_group >= 0
+                 else s1["m3probs"][cfg.m3_group] if cfg.m3_group >= 0
+                 else jeng._m10_omegas_weights(s1, cfg)[1]
+                 if cfg.m10_group >= 0 else None)
+            rates = jnp.ones((1 if w is None else w.shape[0],))
+        return JP.division_loglik(
+            s1["left"], s1["right"], s1["parent"], f64(s1["blen"]),
+            f64(jeng.tip_partials[0]), f64(jeng.weights[0]), f64(lam),
+            f64(U), f64(Uinv), f64(pi), f64(rates), 0.0, None, jeng.n_tips,
+            rate_mult=mult, coding=coding, cat_weights=f64(w))
+
     with jax.enable_x64(True):
-        for c in range(C):
-            s1 = {k: v[c] for k, v in jst.items()}
-            pi = s1["pi61"][cfg.pi_group]
-            if own:
-                Q, _ = jeng._division_q_pi(s1, 0)
-                lam, U, Uinv = JTP.eigh_reversible(
-                    jnp.asarray(Q, jnp.float64),
-                    jnp.asarray(pi, jnp.float64)[None])
-            else:
-                lam, U, Uinv = s1["eigL0"], s1["eigU0"], s1["eigV0"]
-            if cfg.ny98_group >= 0:
-                w, k = s1["omegaprobs"][cfg.ny98_group], 3
-            else:
-                w, k = None, 1
-
-            def f64(x):
-                return None if x is None else jnp.asarray(x, jnp.float64)
-
-            out.append(float(JP.division_loglik(
-                s1["left"], s1["right"], s1["parent"], f64(s1["blen"]),
-                f64(jeng.tip_partials[0]), f64(jeng.weights[0]), f64(lam),
-                f64(U), f64(Uinv), f64(pi), jnp.ones((k,), jnp.float64), 0.0,
-                None, jeng.n_tips, rate_mult=3.0, cat_weights=f64(w))))
-    return np.asarray(out)
+        return np.asarray(jax.jit(jax.vmap(one))(jst))
 
 
 @pytest.mark.parametrize("name", list(OMEGAVAR))
@@ -370,22 +377,73 @@ def test_ny98_run_writes_complete_files(ny98_run, tmp_path):
     assert ours == ref
 
 
+# every replicase site in a pair of neighbours, for the doublet model
+ALL_PAIRS = "pairs " + ", ".join(f"{i}:{i + 1}" for i in range(1, 720, 2))
+# the model each item-12b line runs under
+ITEM_12B_MODEL = {"pairs 1:2": [],
+                  "prset m3omegapr=exponential(1)":
+                      ["lset nucmodel=codon omegavar=m3"],
+                  "prset m10betapr=uniform(0,20)":
+                      ["lset nucmodel=codon omegavar=m10"],
+                  "prset m10gammapr=uniform(0,20)":
+                      ["lset nucmodel=codon omegavar=m10"]}
+
+
+def _item_12b_engines(lines):
+    """The port's and the JAX package's engines on replicase after
+    ``lines``, 1 run x C chains."""
+    it = Interpreter(log=lambda m: None, device="cpu")
+    jit = JInterpreter(log=lambda m: None)
+    for ln in [f"execute {example('replicase.nex')}", *lines,
+               f"mcmcp nruns=1 nchains={C} seed=3"]:
+        it.run_line(ln)
+        jit.run_line(ln)
+    return it, jit, it.build_engine(), jit.build_engine()
+
+
+def _hold_against_jax(eng, jeng):
+    """The port's lnL through its own eigensystems within 5e-3 of the JAX
+    package's function in float64 (S > 8: ``tests/test_torch_protein.py``
+    says why not JAX's float32 engine), lnPrior within 1e-4 of JAX's, at
+    the port's starting states."""
+    states, _ = eng.init_chains()
+    st = {k: v for k, v in states.items()
+          if k not in SCORE_KEYS and not k.startswith("eig")}
+    jst = {k: jnp.asarray(v) for k, v in state_to_numpy(st).items()}
+    np.testing.assert_allclose(states["lnL"].numpy(),
+                               jax_exact_lnl(jeng, jst, own=True), atol=5e-3,
+                               rtol=0)
+    np.testing.assert_allclose(
+        states["lnP"].numpy(),
+        np.asarray(jax.jit(jax.vmap(jeng.log_prior))(jst)), atol=1e-4,
+        rtol=0)
+    assert [m.name for m in eng.moves] == [m.name for m in jeng.moves]
+
+
 @pytest.mark.parametrize("line", [
     "lset nucmodel=doublet", "lset nucmodel=codon omegavar=m3",
     "lset nucmodel=codon omegavar=m10"])
 def test_engine_refuses_item_12b(line):
-    it = Interpreter(log=lambda m: None, device="cpu")
-    for ln in (f"execute {example('replicase.nex')}", line):
-        it.run_line(ln)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12b"):
-        it.build_engine()
+    """Item 12b's models, refused before the port carried them, now build:
+    replicase under doublets (every site in a pair), M3 and M10, each held
+    against the JAX package."""
+    lines = [ALL_PAIRS, line] if "doublet" in line else [line]
+    _, _, eng, jeng = _item_12b_engines(lines)
+    K, S = {"lset nucmodel=doublet": (1, 16)}.get(
+        line, (3 if "m3" in line else 8, 61))
+    assert eng.div_cfg[0].n_cats == K
+    assert eng._model_tips[0].shape[2] == S
+    _hold_against_jax(eng, jeng)
 
 
-@pytest.mark.parametrize("line", [
-    "pairs 1:2", "prset m3omegapr=exponential(1)",
-    "prset m10betapr=uniform(0,20)", "prset m10gammapr=uniform(0,20)"])
+@pytest.mark.parametrize("line", list(ITEM_12B_MODEL))
 def test_cli_refuses_item_12b(line):
-    it = Interpreter(log=lambda m: None, device="cpu")
-    it.run_line(f"execute {example('replicase.nex')}")
-    with pytest.raises(CommandError, match="ROADMAP Queue 1 item 12b"):
-        it.run_line(line)
+    """Item 12b's commands, refused before the port carried them, now set
+    what the JAX package's CLI sets, and the engine they shape holds
+    against the JAX package."""
+    it, jit, eng, jeng = _item_12b_engines(ITEM_12B_MODEL[line] + [line])
+    assert it.env.pairs == jit.env.pairs
+    s, js = it.env.div_settings[0], jit.env.div_settings[0]
+    for f in ("nucmodel", "omegavar", "m10betapr", "m10gammapr"):
+        assert repr(getattr(s, f)) == repr(getattr(js, f))
+    _hold_against_jax(eng, jeng)

@@ -182,7 +182,7 @@ def test_entry_point_defaults_to_cuda(dataset):
 
 
 @pytest.mark.parametrize("kw", [dict(covarion=True), dict(rates="lnorm"),
-                                dict(nucmodel="doublet"),
+                                dict(parsmodel=True),
                                 dict(rates="adgamma")])
 def test_settings_outside_the_slice_raise(dataset, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -3,9 +3,10 @@ CLI, the run driver, the summaries, the native tree reader and the
 envelope run) and running CPU ``Engine`` blocks, single-division,
 partitioned through the multiwalk wiring, sharded over the ``sites``
 mesh axis (``parallel.mesh``, ``parallel.dryrun``), on a clock tree
-(``mcmc.clock``, test2's relaxed clock) and under the protein and codon
+(``mcmc.clock``, test2's relaxed clock), under the protein and codon
 models (``models.aa_models``, ``models.codes``, the S > 8 eigensolver
-``ops.eigh_cuda``), loads neither JAX nor any module of the JAX package
+``ops.eigh_cuda``; codon M3 and M10 with ``models.rates.betainc``) and on
+kim.nex's stem doublets and unlinked trees, loads neither JAX nor any module of the JAX package
 (``mrbayes_tpu``), and ``chip_smoke.py`` imports neither.  Checked in a
 fresh interpreter, since this test process has JAX loaded already.  The
 new entry points run on CUDA unless given the CPU: an engine under a
@@ -71,11 +72,19 @@ import mrbayes_tpu_torch.models.aa_models
 import mrbayes_tpu_torch.models.codes
 import mrbayes_tpu_torch.ops.eigh_cuda
 examples = os.path.dirname(sys.argv[1])
-for data, line in [("avian_ovomucoids.nex", "prset aamodelpr=mixed"),
-                   ("avian_ovomucoids.nex", "prset aamodelpr=fixed(gtr)"),
-                   ("replicase.nex", "lset nucmodel=codon omegavar=ny98")]:
+# kim's stem doublets and unlinked trees, and codon M3 and M10
+for data, lines in [
+        ("avian_ovomucoids.nex", ["prset aamodelpr=mixed"]),
+        ("avian_ovomucoids.nex", ["prset aamodelpr=fixed(gtr)"]),
+        ("replicase.nex", ["lset nucmodel=codon omegavar=ny98"]),
+        ("replicase.nex", ["lset nucmodel=codon omegavar=m3"]),
+        ("replicase.nex", ["lset nucmodel=codon omegavar=m10"]),
+        ("kim.nex", ["set partition=by_gene_and_struct",
+                     "lset applyto=(1) nucmodel=doublet nst=6"]),
+        ("kim.nex", ["set partition=by_gene",
+                     "unlink topology=(all) brlens=(all)"])]:
     it = Interpreter(log=lambda m: None, device="cpu")
-    for ln in ["execute " + os.path.join(examples, data), line,
+    for ln in ["execute " + os.path.join(examples, data), *lines,
                "mcmcp nruns=1 nchains=2"]:
         it.run_line(ln)
     eng = it.build_engine()
