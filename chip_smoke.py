@@ -170,8 +170,12 @@ Phases, each fatal on failure:
  32. doublet and M3/M10 kernels: pruning.cu against its plain version at
      kim's stem doublets (27 tips, 78 pair patterns, S 16, K 1 and 4), its
      proteins (P 68 and 32, S 20), replicase under M3 (K 3, staged) and
-     M10 (K 8, the global-scratch walk), C = 8 and 32: the walk and block
-     chosen, ms, before_ms, plain_ms and the bound;
+     M10 (K 8, the tiled walk), and codon data on 114 taxa under M3 and
+     M10 (the tiled walk), C = 8 and 32: the walk and block chosen (held
+     to the size rule's Python twin), ms, before_ms (the old global
+     walk) and the largest difference to it, plain_ms and the bound, and
+     at the tiled shapes the tiled walk's other designs (cluster size 1,
+     other tiles);
  33. eigh.cu at [8|32, 16, 16] (the doublet's runtime S) and [64|256, 61,
      61] (M10's eight classes a chain) with phase 21's gates and times;
  34. golden kim and M10: the kim_hky_g_mixed4, kim_stems_doublet_gtr,
@@ -183,8 +187,8 @@ Phases, each fatal on failure:
      once at the build per protein and once per doublet Q move, carried
      versus recomputed scores, the files, sump and sumt, gens/s; then the
      sync check of every move type with its eigh.cu prediction;
- 36. replicase M10 (400 generations) and M3 (150) through the CLI with
-     phase 35's checks and sync checks;
+ 36. replicase M10 (400 generations, on the tiled walk) and M3 (150)
+     through the CLI with phase 35's checks and sync checks;
  37. kim's unlinked trees (set partition=by_gene; unlink topology=(all)
      brlens=(all)): 6 trees over 8 divisions (div_tree [0, 1, 2, 3, 4, 5,
      5, 5]), exactly 8 pruning.cu launches a generation, six .t files a
@@ -236,8 +240,9 @@ TEST1_SHAPE = (12, (199, 258), (4, 4), 4)
 # patterns included) and test1's two divisions at 8 chains (each the shape
 # of a launch with the kernel-path switches off), and S = 20 at 32 tips.
 # The size rule (csrc/onchip_walk.cuh) gives S = 20 and (6, 40, 61, 3)
-# their operators staged a step ahead and (9, 70, 32, 16) the
-# global-scratch walk; every other case the whole on-chip walk.
+# their operators staged a step ahead and (9, 70, 32, 16) the tiled walk
+# (csrc/tiled_walk.cuh; the global-scratch walk before it); every other
+# case the whole on-chip walk.
 KERNEL_CASES = [(8, 137, 4, 4, C) for C in (1, 4, 8)] \
     + [(12, 434, 4, 1, C) for C in (1, 4, 8)] \
     + [(6, 40, 20, 2, C) for C in (1, 4, 8)] \
@@ -257,7 +262,7 @@ KERNEL_CASES += [(n, P, S, K, 8) for n, P, S, K, _ in CYNMIX_SHAPES
 AA_CODON_SHAPES = [(89, 88, 20, 4), (89, 88, 20, 1), (9, 239, 61, 1),
                    (9, 239, 61, 3)]
 KERNEL_CASES += [shape + (C,) for shape in AA_CODON_SHAPES for C in (8, 32)]
-KERNEL_WALKS = {(6, 40, 61, 3): "staged", (9, 70, 32, 16): "global",
+KERNEL_WALKS = {(6, 40, 61, 3): "staged", (9, 70, 32, 16): "tiled",
                 (32, 100, 20, 4): "staged",
                 **{shape: "staged" for shape in AA_CODON_SHAPES}}
 # a stacked group on 9 tips, C = 4, whose members (P, S, K) take the
@@ -322,12 +327,17 @@ DATING_PRIOR_RUNS, DATING_PRIOR_GENS = 32, 1000
 # kim.nex's stem doublets, codon M3 and M10 and unlinked trees: pruning.cu
 # at the new shapes (n_tips, P, S, K), each at C = 8 and 32: kim's stem
 # doublets (78 pair patterns, S 16, K 1 and 4), its two proteins (S 20),
-# replicase under M3 (K 3) and M10 (4 + 4 classes); the size rule stages
-# M3's operators and sends M10 (K S = 488 entries a step, more than 32
-# lanes x 8) to the global-scratch walk
+# replicase under M3 (K 3) and M10 (4 + 4 classes), and codon data on 114
+# taxa (hymfossil's tree size) under M3 and M10; the size rule stages M3's
+# operators on 9 taxa and sends M10 (K S = 488 entries a step, more than
+# 32 lanes x 8) and the 114-taxon shapes (a step's operators and 57 live
+# slots beyond a block) to the tiled walk (the global-scratch walk before
+# it)
 KIM_CODON_SHAPES = [(27, 78, 16, 1), (27, 78, 16, 4), (27, 68, 20, 1),
-                    (27, 32, 20, 1), (9, 239, 61, 3), (9, 239, 61, 8)]
-KIM_CODON_WALKS = {(9, 239, 61, 3): "staged", (9, 239, 61, 8): "global"}
+                    (27, 32, 20, 1), (9, 239, 61, 3), (9, 239, 61, 8),
+                    (114, 240, 61, 3), (114, 240, 61, 8)]
+KIM_CODON_WALKS = {(9, 239, 61, 3): "staged", (9, 239, 61, 8): "tiled",
+                   (114, 240, 61, 3): "tiled", (114, 240, 61, 8): "tiled"}
 # eigh.cu's batches (matrices, S): the doublet's 8 and 32 chains, M10's 8
 # and 32 chains x 8 omega classes
 KIM_EIGH_CASES = [(8, 16), (32, 16), (64, 61), (256, 61)]
@@ -576,17 +586,21 @@ def group_walk(torch, lay, lr, pstep, tips, walk=None):
     return raw, plan, root, ls
 
 
-def old_walk(torch, lr, pstep, tips):
+def old_walk(torch, lr, pstep, tips, outputs=False):
     """The global-scratch walk of down_pass.cuh on the same operands, for
     the time the old walk takes: a raw multiwalk.cu launch at D = 1 whose
     plan forces its kept global-scratch kernel (one thread a pattern, the
-    kernel of every multiwalk launch before the on-chip one)."""
+    kernel of every multiwalk launch before the on-chip one).  With
+    ``outputs`` also its root [C, K, S, P] and ls [C, P]."""
     from mrbayes_tpu_torch.ops import multiwalk_cuda as MW
-    K, S = pstep.shape[3:5]
+    C, K, S = lr.shape[0], *pstep.shape[3:5]
     n_tips, _, P = tips.shape
     lay = MW.MultiwalkLayout(n_tips, S, [K], [P])
-    return group_walk(torch, lay, lr, pstep.reshape(-1), tips.reshape(-1),
-                      "global")[0]
+    raw, _, root, ls = group_walk(torch, lay, lr, pstep.reshape(-1),
+                                  tips.reshape(-1), "global")
+    if not outputs:
+        return raw
+    return raw, root.view(C, K, S, P), ls.view(C, P)
 
 
 def new_walk(torch, lr, pstep, tips):
@@ -609,13 +623,18 @@ def new_walk(torch, lr, pstep, tips):
 
 
 def pruning_check(torch, shape, seed, expect=None, plain=False, n=100,
-                  reps=5, loops=200):
+                  reps=5, loops=200, before_n=None, before_reps=None,
+                  before_loops=None):
     """pruning.cu at one (n_tips, P, S, K, C) against its plain version on
     seeded operands: the walk and block the size rule chose (held to
-    ``expect`` where given), its CUDA-graph time and the old global-scratch
-    walk's on the same operands (before_ms), the Python loops' times, the
-    bound and, with ``plain``, the plain version's time.  Returns (record,
-    operands, bytes, operations)."""
+    ``expect`` where given, and to its Python twin
+    ``pruning_cuda.size_rule`` at an H100's limits), its CUDA-graph time
+    and the old global-scratch walk's on the same operands (before_ms,
+    ``before_n`` launches a graph and ``before_reps`` replays, n and reps
+    unless given), the largest difference of root and ls to the old walk
+    (vs_old_max_abs), the Python loops' times (``before_loops`` 0: the old
+    walk's is not timed), the bound and, with ``plain``, the plain
+    version's time.  Returns (record, operands, bytes, operations)."""
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
     n_tips, P, S, K, C = shape
     lr, pstep, tips, pi = kernel_case(torch, n_tips, P, S, K, C, seed)
@@ -628,20 +647,30 @@ def pruning_check(torch, shape, seed, expect=None, plain=False, n=100,
         site_lnl(torch, root_p, ls_p, pi),
         f"pruning_down n_tips={n_tips} P={P} S={S} K={K} C={C} "
         f"({plan['walk']} walk, {plan['threads']} threads for {plan['T']} "
-        f"patterns, {plan['lanes']} lanes a pattern, {plan['smem_bytes']} "
-        f"B of shared memory)")
+        f"patterns, {plan['lanes']} lanes a pattern, cluster "
+        f"{plan['cluster']}, {plan['smem_bytes']} B of shared memory)")
     if expect is not None and plan["walk"] != expect:
         raise AssertionError(f"pruning_down n_tips={n_tips} S={S} K={K}: "
                              f"{plan['walk']} walk, expected {expect}")
+    twin = PC.size_rule(C, n_tips, K, S, P)
+    if plan != twin:
+        raise AssertionError(f"pruning_plan {plan} != size_rule {twin}")
     flops = 2 * C * (n_tips - 1) * 2 * K * S * S * P
     nbytes = 4 * (lr.numel() + pstep.numel() + tips.numel()
                   + root.numel() + ls.numel())
-    before = old_walk(torch, lr, pstep, tips)
+    before, root_o, ls_o = old_walk(torch, lr, pstep, tips, outputs=True)
+    before()
+    torch.cuda.synchronize()
+    before_loops = loops if before_loops is None else before_loops
     rec = {**plan, "max_abs_err": err,
+           "vs_old_max_abs": max((root_o - root_k).abs().max().item(),
+                                 (ls_o - ls_k).abs().max().item()),
            "ms": time_graph(torch, raw, n, reps),
-           "before_ms": time_graph(torch, before, n, reps),
+           "before_ms": time_graph(torch, before, before_n or n,
+                                   before_reps or reps),
            "loop_ms": time_events(torch, raw, loops),
-           "before_loop_ms": time_events(torch, before, loops),
+           "before_loop_ms": (time_events(torch, before, before_loops)
+                              if before_loops else None),
            **{k: v for k, v in bound(nbytes, flops).items()
               if k in ("bound_ms", "bound_by")}}
     if plain:
@@ -2764,18 +2793,61 @@ def phase_dating_prior(torch, power_line):
 # ---------------------------------------------------------------------------
 # kim.nex's stem doublets, codon M3 and M10, and unlinked trees
 
+def tiled_designs(torch, lr, pstep, tips):
+    """The tiled walk's other designs on the same operands: every cluster
+    size in (the rule's, 1: all categories in one block) and every T that
+    fits, each launched through ``pruning_cuda.tiled_plan``, its largest
+    difference of root and ls to the rule's launch (0: the same bits) and
+    its CUDA-graph time."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    C, K, S = lr.shape[0], *pstep.shape[3:5]
+    n_tips, _, P = tips.shape
+    ref = PC.pruning_down(lr, pstep, tips)
+    out = {}
+    for Q in (PC.tiled_cluster(K), 1):
+        for T in (32, 16, 8, 4):
+            plan = PC.tiled_plan(C, n_tips, K, S, P, lr.device, Q, T)
+            if plan["walk"] != "tiled":
+                continue
+            root = torch.empty((C, K, S, P), device=lr.device)
+            ls = torch.empty((C, P), device=lr.device)
+
+            def raw():
+                PC.pruning_launch(lr, pstep, tips, None, root, ls, plan)
+            err = PC.pruning_launch(lr, pstep, tips, None, root, ls, plan)
+            if err != 0:
+                raise PC.launch_error(PC.library().lib, err, "tiled design")
+            torch.cuda.synchronize()
+            out[f"Q{Q}_T{T}"] = {
+                "threads": plan["threads"], "smem_bytes": plan["smem_bytes"],
+                "vs_rule_max_abs": max((root - ref[0]).abs().max().item(),
+                                       (ls - ref[1]).abs().max().item()),
+                "ms": time_graph(torch, raw, 10, 3)}
+    return out
+
+
 def phase_kim_codon_kernels(torch):
     """pruning.cu against its plain version at the shapes this slice's
     main paths give it (``KIM_CODON_SHAPES``), C = 8 and 32: the walk and
-    block the size rule chose (M3 staged, M10 the global-scratch walk),
-    ms, before_ms (the old global walk), plain_ms and the bound."""
+    block the size rule chose (M3 staged, M10 and the 114-taxon codon
+    shapes the tiled walk), ms, before_ms (the old global walk, one launch
+    a graph and two replays at 114 taxa, where it takes 0.1-0.3 s), the
+    largest difference to it, plain_ms and the bound; at the tiled shapes
+    also the tiled walk's other designs (``tiled_designs``)."""
     worst, cases = 0.0, {}
     for i, (n_tips, P, S, K) in enumerate(KIM_CODON_SHAPES):
         for C in (8, 32):
-            rec = pruning_check(torch, (n_tips, P, S, K, C), 500 + 2 * i
-                                + (C == 32), KIM_CODON_WALKS.get(
-                                    (n_tips, P, S, K)), plain=True, n=20,
-                                reps=3, loops=20)[0]
+            big = n_tips > 100
+            rec, ops, _, _ = pruning_check(
+                torch, (n_tips, P, S, K, C), 500 + 2 * i + (C == 32),
+                KIM_CODON_WALKS.get((n_tips, P, S, K)), plain=True, n=20,
+                reps=3, loops=20, before_n=1 if big else None,
+                before_reps=2 if big else None,
+                before_loops=0 if big else None)
+            if rec["walk"] == "tiled":
+                rec["designs"] = tiled_designs(torch, *ops)
+                log(f"tiled walk's designs n_tips={n_tips} P={P} S={S} K={K} "
+                    f"C={C}: {json.dumps(rec['designs'])}")
             cases[f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"] = rec
             worst = max(worst, rec["max_abs_err"])
     return worst, cases
@@ -2881,6 +2953,13 @@ def phase_kim_codon_cli(torch, name, ngen, power_line):
             or per != [calls] * eng.n_div:
         raise AssertionError(f"{name} launches {per}, predicted {calls} for "
                              f"each of {eng.n_div} divisions")
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    C = eng.mcmc.nruns * eng.mcmc.nchains
+    walks = [PC.pruning_plan(C, p.n_tips, p.K, p.S, p.P, DEV)["walk"]
+             for p in eng._pruners]
+    if name == "replicase_m10" and walks != ["tiled"]:
+        raise AssertionError(f"{name}: pruning.cu walks {walks}, expected "
+                             f"the tiled walk")
     expect_eigh = build_eigh_launches(eng) + solver_divisions(eng) \
         * solver_q_generations(eng, runner.final_bk)
     if eigh_launches != expect_eigh:
@@ -2915,6 +2994,7 @@ def phase_kim_codon_cli(torch, name, ngen, power_line):
         raise AssertionError(f"{name} best lnL {stats['best_lnl']} did not "
                              f"climb from the start {first}")
     out = {**stats, "launches": sum(per), "launches_per_gen": sum(per) / calls,
+           "walks": walks,
            "eigh_launches": eigh_launches, "n_div": eng.n_div,
            "n_trees": eng.n_trees, "consensus_files": len(cons)}
     log(f"{name} through the CLI, switches off: {json.dumps(out)}; start "

@@ -1,9 +1,11 @@
 // One thread's Felsenstein down-pass over a whole postorder, with the
-// partials in global memory: the global-scratch walk.  pruning.cu,
-// stacked.cu and multiwalk.cu run it for a shape whose slots do not fit in
-// shared memory (the size rule of onchip_walk.cuh), and multiwalk.cu for
-// the old walk's time; every other launch takes the on-chip walk of
-// onchip_walk.cuh, which computes the same arithmetic in the same order.
+// partials in global memory: the global-scratch walk, the last of
+// pruning.cu's four walks (whole, staged, tiled, global).  stacked.cu and
+// multiwalk.cu run it for a member whose slots do not fit the on-chip
+// walk (the size rule of onchip_walk.cuh), pruning.cu only for a shape
+// that fits neither the on-chip nor the tiled walk (tiled_walk.cuh), and
+// multiwalk.cu for the old walk's time; every other launch takes one of
+// those walks, which compute the same arithmetic in the same order.
 //
 // For one walk (one chain of one division) and one pattern p, for each
 // postorder step i with child slots (l, r) = lr[i]:

@@ -63,7 +63,9 @@
 // device's per-block opt-in shared memory (227 KB on an H100), else the
 // staged walk if that fits, else, and wherever K*S needs more than
 // kMaxItems entries on each of 32 lanes, the global-scratch walk of
-// down_pass.cuh.  The block is the largest of 256, 128 and 64 threads at
+// down_pass.cuh; pruning.cu then takes the tiled walk of tiled_walk.cuh
+// where its slots fit (mb_pruning_plan), and the group kernels keep the
+// global-scratch walk for such a member.  The block is the largest of 256, 128 and 64 threads at
 // which no division's walk is worse than at 32 and the grid (tiles x
 // chains) still covers every SM; otherwise 32 threads.  Nothing is caught
 // and retried: the launch takes what the rule says.
@@ -89,6 +91,7 @@ namespace mb {
 constexpr int kWalkWhole = 0;    // operators of the whole chain on chip
 constexpr int kWalkStaged = 1;   // operators staged a step ahead
 constexpr int kWalkGlobal = 2;   // down_pass.cuh's global-scratch walk
+constexpr int kWalkTiled = 3;    // tiled_walk.cuh (pruning.cu only)
 constexpr int kMaxItems = 8;     // entries (k, s) a lane keeps
 constexpr unsigned kFullWarp = 0xffffffffu;
 
@@ -187,14 +190,25 @@ __device__ __forceinline__ void copy_tips_async(float* dst, const float* tips,
   }
 }
 
-// Thread 0's live-slot map.  codes [n_int, 2] holds the chain's child
-// slots on entry and child codes on return (c >= 0: tip c; c < 0: the
-// internal partial in shared slot -c - 1); oslot[i] is step i's slot.
+// Thread 0's live-slot map over L slots.  codes [n_int, 2] holds the
+// chain's child slots on entry and child codes on return (c >= 0: tip c;
+// c < 0: the internal partial in shared slot -c - 1); oslot[i] is step
+// i's slot.  With `spare` a step takes its slot before its children's are
+// freed, so it never writes a slot it reads (L = n_tips / 2 + 1 then).
 __device__ inline void build_slot_map(int* codes, int* oslot, unsigned* busy,
-                                      int n_tips, int n_int, int L) {
+                                      int n_tips, int n_int, int L,
+                                      bool spare = false) {
   const int W = (L + 31) / 32;
   for (int w = 0; w < W; ++w) busy[w] = 0u;
+  auto take = [&](int i) {
+    int w = 0;
+    while (busy[w] == 0xffffffffu) ++w;
+    const int s = 32 * w + __ffs(~busy[w]) - 1;
+    busy[w] |= 1u << (s & 31);
+    oslot[i] = s;
+  };
   for (int i = 0; i < n_int; ++i) {
+    if (spare) take(i);
     for (int h = 0; h < 2; ++h) {
       const int c = codes[2 * i + h];
       if (c >= n_tips) {
@@ -203,11 +217,7 @@ __device__ inline void build_slot_map(int* codes, int* oslot, unsigned* busy,
         codes[2 * i + h] = -s - 1;
       }
     }
-    int w = 0;
-    while (busy[w] == 0xffffffffu) ++w;
-    const int s = 32 * w + __ffs(~busy[w]) - 1;
-    busy[w] |= 1u << (s & 31);
-    oslot[i] = s;
+    if (!spare) take(i);
   }
 }
 
@@ -475,7 +485,9 @@ inline void onchip_plan(int D, const int* K, const int* S, const int* P,
     for (int d = 0; d < D; ++d) {
       same = same && walk_at(n_tips, K[d], S[d], G[d], cand, lim.smem) ==
                          walk_at(n_tips, K[d], S[d], G[d], 32, lim.smem);
-      const int Td = cand / G[d];
+      // a division past 32 lanes (G > cand) takes the global-scratch
+      // walk: count it one pattern a tile
+      const int Td = cand / G[d] > 0 ? cand / G[d] : 1;
       tiles += (P[d] + Td - 1) / Td;
     }
     if (same && tiles * C >= lim.sms) {

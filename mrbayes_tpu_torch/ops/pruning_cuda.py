@@ -8,14 +8,21 @@ about that.  It is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``_build/`` beside this package (listed in ``.gitignore``) and loaded with
 ``ctypes`` through a plain C interface.
 
-The kernel runs the on-chip walk of ``csrc/onchip_walk.cuh``: one block
-per (chain, tile of T patterns), the K·S entries of a step spread over up
-to 32 lanes of a pattern, every partial in shared memory, at most
-n_tips / 2 live slots (``live_slot_map`` is the Python twin of the
-kernel's slot allocator).  The header's size rule picks the walk and the
-block; ``pruning_plan`` reports its choice.  A shape that does not fit a
-block of 32 threads takes the global-scratch walk of
-``csrc/down_pass.cuh``.
+The kernel has four walks.  Most shapes take the on-chip walk of
+``csrc/onchip_walk.cuh``: one block per (chain, tile of T patterns), the
+K·S entries of a step spread over up to 32 lanes of a pattern, every
+partial in shared memory, at most n_tips / 2 live slots (``live_slot_map``
+is the Python twin of the kernel's slot allocator), with the chain's
+operators on chip ("whole") or staged a step ahead ("staged").  A shape
+that does not fit a block of 32 threads takes the tiled walk of
+``csrc/tiled_walk.cuh`` ("tiled"): one thread-block cluster per (chain,
+tile), the categories split across its blocks, each (step, category) a
+block-cooperative product on operators streamed through shared memory,
+the partials on chip and the step's max combined through distributed
+shared memory.  Only a shape whose slots fit neither takes the
+global-scratch walk of ``csrc/down_pass.cuh`` ("global").  The size rule
+picks the walk and the block; ``pruning_plan`` reports its choice and
+``size_rule`` is its Python twin.
 
 Differences from the TPU layout, all deliberate:
   * per-category S×S operators ``Pstep [C, n_int, 2, K, S, S]`` instead of
@@ -62,15 +69,18 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 SOURCES = {"pruning": "pruning.cu", "multiwalk": "multiwalk.cu",
            "wavefront": "wavefront.cu", "stacked": "stacked.cu",
            "eigh": "eigh.cu"}
-_HEADERS = ("down_pass.cuh", "onchip_walk.cuh", "group_walk.cuh")
-# state counts with a template in the on-chip walk (csrc/onchip_walk.cuh)
+_HEADERS = ("down_pass.cuh", "onchip_walk.cuh", "group_walk.cuh",
+            "tiled_walk.cuh")
+# state counts with a template in the on-chip walk (csrc/onchip_walk.cuh;
+# the tiled walk's launch in csrc/pruning.cu has one for S 61, the codons)
 TEMPLATED_S = (2, 3, 4, 8, 20)
 # the runtime-S paths keep no per-S arrays, so this cap is only a sanity
 # bound (the largest data type, codons, has 61 states)
 MAX_RUNTIME_S = 64
 MAX_RUNTIME_K = 16
-# the walks of the size rule in csrc/onchip_walk.cuh, by its codes
-WALKS = ("whole", "staged", "global")
+# the walks of the size rule in csrc/onchip_walk.cuh, by its codes (the
+# tiled walk is pruning.cu's alone)
+WALKS = ("whole", "staged", "global", "tiled")
 # threads a block of the global-scratch walk (kThreads, csrc/down_pass.cuh)
 GLOBAL_THREADS = 128
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -78,8 +88,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _GROUP_PLAN = [_PTR] + [_INT] * 4 + [_PTR]
 _ENTRY_POINTS = {
-    "pruning": {"mb_pruning_down": [_PTR] * 6 + [_INT] * 12 + [_PTR],
-                "mb_pruning_plan": [_INT] * 6 + [_PTR]},
+    "pruning": {"mb_pruning_down": [_PTR] * 6 + [_INT] * 13 + [_PTR],
+                "mb_pruning_plan": [_INT] * 6 + [_PTR],
+                "mb_tiled_plan": [_INT] * 8 + [_PTR]},
     "multiwalk": {"mb_multiwalk_down": [_PTR] * 9 + [_INT] * 10 + [_PTR],
                   "mb_group_plan": _GROUP_PLAN},
     "wavefront": {"mb_wavefront_down": [_PTR] * 5 + [_INT] * 14 + [_PTR],
@@ -240,23 +251,140 @@ def device_index(dev: torch.device) -> int:
 def pruning_plan(C: int, n_tips: int, K: int, S: int, P: int,
                  device) -> dict:
     """The size rule's choice for one ``pruning_down`` launch
-    (``csrc/onchip_walk.cuh``), asked of the kernel library once per
-    shape and device: ``walk`` ("whole", "staged" or "global"), the
-    ``threads`` of a block, the patterns ``T`` it covers, the ``lanes`` of
-    a pattern and the block's dynamic shared memory ``smem_bytes``, which
-    ``pruning_launch`` passes to the kernel library as they are."""
+    (``csrc/onchip_walk.cuh``, then ``csrc/tiled_walk.cuh``), asked of the
+    kernel library once per shape and device: ``walk`` ("whole", "staged",
+    "tiled" or "global"), the ``threads`` of a block, the patterns ``T``
+    it covers, the ``lanes`` of a pattern (along s on the tiled walk), the
+    blocks of a ``cluster`` (0 off the tiled walk) and the block's dynamic
+    shared memory ``smem_bytes``, which ``pruning_launch`` passes to the
+    kernel library as they are.  ``size_rule`` is its Python twin."""
     return _plan(C, n_tips, K, S, P, device_index(torch.device(device)))
 
 
+def tiled_plan(C: int, n_tips: int, K: int, S: int, P: int, device,
+               cluster: int = 0, T: int = 0) -> dict:
+    """The tiled walk's plan with the blocks of a ``cluster`` and the
+    patterns ``T`` of a block forced where they are > 0 (0: the size
+    rule's), in ``pruning_plan``'s form; ``walk`` is "global" where no
+    block fits.  ``chip_smoke.py`` times the walk's other designs with
+    it."""
+    return _plan(C, n_tips, K, S, P, device_index(torch.device(device)),
+                 (cluster, T))
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(C, n_tips, K, S, P, dev):
+def _plan(C, n_tips, K, S, P, dev, forced=None):
     lib = library("pruning").lib
-    out = (ctypes.c_int * 5)()
-    err = lib.mb_pruning_plan(C, n_tips, K, S, P, dev, out)
+    out = (ctypes.c_int * 6)()
+    if forced is None:
+        err = lib.mb_pruning_plan(C, n_tips, K, S, P, dev, out)
+    else:
+        err = lib.mb_tiled_plan(C, n_tips, K, S, P, dev, *forced, out)
     if err != 0:
         raise launch_error(lib, err, "pruning_plan")
     return {"walk": WALKS[out[0]], "threads": out[1], "T": out[3],
-            "lanes": out[4], "smem_bytes": out[2]}
+            "lanes": out[4], "cluster": out[5], "smem_bytes": out[2]}
+
+
+# the limits of an H100 that the size rule reads (opt-in shared memory a
+# block, streaming multiprocessors) and the constants of its two headers
+H100_SMEM_OPTIN, H100_SMS = 232_448, 132
+_MAX_ITEMS, _THREADS_PER_SM, _GLOBAL_BLOCK = 8, 512, 128
+_TILED_ROWS, _TILED_MAX_CLUSTER = 4, 8
+_TILED_BLOCKS_PER_SM, _TILED_TILES = 2, (32, 16, 8, 4)
+
+
+def _pow2_at_least(n: int) -> int:
+    v = 1
+    while v < n:
+        v <<= 1
+    return v
+
+
+def _onchip_smem_bytes(n_tips, K, S, G, BT, staged) -> int:
+    """``onchip_smem_bytes`` of ``csrc/onchip_walk.cuh``."""
+    n_int, L, T = n_tips - 1, n_tips // 2, BT // G
+    step = 2 * K * S * S
+    words = ((2 * step if staged else n_int * step) + L * K * S * (T | 1)
+             + n_tips * S * T + 3 * n_int + (L + 31) // 32)
+    return (4 * words + 15) // 16 * 16
+
+
+def _walk_at(n_tips, K, S, G, BT, budget) -> str:
+    if G > 32 or K * S > G * _MAX_ITEMS:
+        return "global"
+    if _onchip_smem_bytes(n_tips, K, S, G, BT, False) <= budget:
+        return "whole"
+    if _onchip_smem_bytes(n_tips, K, S, G, BT, True) <= budget:
+        return "staged"
+    return "global"
+
+
+def _tiled_lanes(S: int) -> int:
+    """Lanes of a warp that share a pattern on the tiled walk."""
+    return min(16, _pow2_at_least(-(-S // _TILED_ROWS)))
+
+
+def tiled_cluster(K: int) -> int:
+    """Blocks of a tiled walk's cluster for K categories."""
+    per = -(-K // _TILED_MAX_CLUSTER)
+    return -(-K // per)
+
+
+def _tiled_smem_bytes(n_tips, K, S, T, Q) -> int:
+    """``tiled_smem_bytes`` of ``csrc/tiled_walk.cuh``."""
+    op_words = (S * S + 6) // 4 * 4
+    L1, kq = n_tips // 2 + 1, -(-K // Q)
+    words = (2 * (2 * op_words + 2 * S * T) + L1 * kq * S * T + 2 * T + 8
+             + 3 * (n_tips - 1) + (L1 + 31) // 32)
+    return (4 * words + 15) // 16 * 16
+
+
+def _tiled_threads(S, T, per_sm) -> int:
+    """Consumer warps (four an SM where B allows: per_sm blocks an SM) and
+    the producer warp."""
+    lp = 32 // _tiled_lanes(S)
+    width = min(4, max(1, T // (lp * max(1, 4 // per_sm))))
+    return 32 * (T // (lp * width) + 1)
+
+
+def size_rule(C: int, n_tips: int, K: int, S: int, P: int,
+              smem: int = H100_SMEM_OPTIN, sms: int = H100_SMS) -> dict:
+    """The Python twin of ``pruning_plan`` (``mb_pruning_plan``: the
+    on-chip walk's rule of ``csrc/onchip_walk.cuh:onchip_plan`` for one
+    division, then ``csrc/tiled_walk.cuh:tiled_plan``) for a device with
+    ``smem`` bytes of opt-in shared memory a block and ``sms``
+    multiprocessors, an H100's by default."""
+    most = min(_pow2_at_least(K * S), 32)
+    want = -(-sms * _THREADS_PER_SM // (C * P))
+    G = max(_pow2_at_least(min(want, most)),
+            _pow2_at_least(-(-K * S // _MAX_ITEMS)))
+    BT = 32
+    for cand in (256, 128, 64):
+        same = (_walk_at(n_tips, K, S, G, cand, smem)
+                == _walk_at(n_tips, K, S, G, 32, smem))
+        if same and -(-P // max(1, cand // G)) * C >= sms:
+            BT = cand
+            break
+    walk = _walk_at(n_tips, K, S, G, BT, smem)
+    if walk != "global":
+        return {"walk": walk, "threads": BT, "T": BT // G, "lanes": G,
+                "cluster": 0, "smem_bytes": _onchip_smem_bytes(
+                    n_tips, K, S, G, BT, walk == "staged")}
+    Q = tiled_cluster(K)
+    fits = [T for T in _TILED_TILES if T >= 32 // _tiled_lanes(S)
+            and _tiled_smem_bytes(n_tips, K, S, T, Q) <= smem]
+    pick = next((T for T in fits
+                 if 2 * _tiled_smem_bytes(n_tips, K, S, T, Q) <= smem
+                 and Q * C * -(-P // T) >= _TILED_BLOCKS_PER_SM * sms),
+                fits[0] if fits else 0)
+    if pick:
+        b = _tiled_smem_bytes(n_tips, K, S, pick, Q)
+        return {"walk": "tiled", "threads": _tiled_threads(S, pick, smem // b),
+                "T": pick, "lanes": _tiled_lanes(S), "cluster": Q,
+                "smem_bytes": b}
+    return {"walk": "global", "threads": _GLOBAL_BLOCK, "T": _GLOBAL_BLOCK,
+            "lanes": 1, "cluster": 0, "smem_bytes": 0}
 
 
 def pruning_launch(lr, pstep, tips, scratch, root, ls, plan) -> int:
@@ -273,7 +401,8 @@ def pruning_launch(lr, pstep, tips, scratch, root, ls, plan) -> int:
         None if scratch is None else scratch.data_ptr(), root.data_ptr(),
         ls.data_ptr(), C, n_tips, n_int, K, S, P, WALKS.index(plan["walk"]),
         plan["threads"], plan["smem_bytes"], plan["T"], plan["lanes"],
-        device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+        plan["cluster"], device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream)
 
 
 def pruning_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor):
@@ -333,23 +462,29 @@ def slot_operands(order, left, right, n_tips: int):
     return lr.to(torch.int32), lch, rch
 
 
-def live_slot_map(lr, n_tips: int) -> np.ndarray:
+def live_slot_map(lr, n_tips: int, spare: bool = False) -> np.ndarray:
     """The Python twin of the on-chip walk's live-slot allocator
     (``csrc/onchip_walk.cuh:build_slot_map``), for one chain's child slots
     lr [n_int, 2] (slots below n_tips are tips, slot n_tips + j is step j's
     output).  Walking the steps in order, it frees the slot of each
-    internal child and then takes the lowest free slot for the step.
-    Returns step i's shared-memory slot [n_int] int64; at most
-    n_tips // 2 slots are used."""
+    internal child and then takes the lowest free slot for the step; with
+    ``spare`` (the tiled walk's map) it takes the step's slot first, so a
+    step never writes a slot it reads.  Returns step i's shared-memory
+    slot [n_int] int64; at most n_tips // 2 slots are used (one more with
+    ``spare``)."""
     lr = np.asarray(lr)
     slot = np.empty(lr.shape[0], np.int64)
-    free = [True] * (n_tips // 2)
+    free = [True] * (n_tips // 2 + spare)
     for i, children in enumerate(lr):
+        if spare:
+            slot[i] = free.index(True)
+            free[slot[i]] = False
         for c in children:
             if c >= n_tips:
                 free[slot[c - n_tips]] = True
-        slot[i] = free.index(True)
-        free[slot[i]] = False
+        if not spare:
+            slot[i] = free.index(True)
+            free[slot[i]] = False
     return slot
 
 

@@ -188,12 +188,16 @@ def cuda_device():
 
 
 # primates; the cynmix morphology buckets S = 3 and 8 (whole on-chip walk);
-# S = 20 at 32 tips and S = 61 (operators staged a step ahead) and S = 32
-# with 16 categories (the global-scratch walk), each at C = 4
+# S = 20 at 32 tips and S = 61 (operators staged a step ahead); S = 32
+# with 16 categories, replicase under M10 (K 8 x S 61) and codon data on
+# 114 taxa under M3 (the tiled walk; the first took the global-scratch
+# walk before it), each at C = 4
 GPU_CASES = CASES + [(12, 413, 4, 4), (32, 34, 3, 4), (32, 9, 8, 4),
-                     (32, 100, 20, 4), (6, 40, 61, 3), (9, 70, 32, 16)]
+                     (32, 100, 20, 4), (6, 40, 61, 3), (9, 70, 32, 16),
+                     (9, 239, 61, 8), (114, 240, 61, 3)]
 WALK = {(32, 100, 20, 4): "staged", (6, 40, 61, 3): "staged",
-        (9, 70, 32, 16): "global"}
+        (9, 70, 32, 16): "tiled", (9, 239, 61, 8): "tiled",
+        (114, 240, 61, 3): "tiled"}
 
 
 @pytest.mark.gpu
@@ -216,6 +220,7 @@ def test_kernel_matches_plain_on_gpu(cuda_device, n_tips, P, S, K):
     np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5)
     plan = PC.pruning_plan(4, n_tips, K, S, P, cuda_device)
     assert plan["walk"] == WALK.get((n_tips, P, S, K), "whole"), plan
+    assert plan == PC.size_rule(4, n_tips, K, S, P), plan
 
 
 @pytest.fixture(scope="module")
