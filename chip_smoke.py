@@ -14,7 +14,8 @@ dating phases: each was cut to keep the script within 600 s, and test1's
 always runs the envelope's 20,000).  ``--phases`` runs only the named
 groups after the device and build phases (``PHASE_GROUPS``: kernels 3,
 17, 21; primates 4-5; test1 6-9; cynmix 10-12; sharded 13-16; clock
-18-20; aa_codon 22-26; dating 27-31; kim_codon 32-37); with a subset the
+18-20; aa_codon 22-26; dating 27-31; kim_codon 32-37; covarion 38-41);
+with a subset the
 kernels line names every kernel with its numbers null, and the groups'
 own lines carry what they measured.  Each
 phase's end is logged with the seconds since the start.
@@ -194,7 +195,32 @@ Phases, each fatal on failure:
      5, 5]), exactly 8 pruning.cu launches a generation, six .t files a
      run and six consensus trees, each division's lnL on its own tree
      through pruning.cu against the plain version within 1e-3 and the
-     carried total against their sum, and the sync check.
+     carried total against their sum, and the sync check;
+ 38. covarion and restriction kernels: pruning.cu against its plain
+     version on the operands of this slice's engines (real covarion
+     generators, whose switch blocks no category rate scales; restriction
+     with its coding dummies and root frequencies): avian under Jones+G
+     with covarion (89 tips, 88 patterns, S 40, K 4: the runtime-S staged
+     walk), primates under HKY+G with covarion (12, 413, S 8, K 4: the
+     whole walk) and the restriction matrix under directional root
+     frequencies (6 tips, S 2, K 1 and 4), C = 8 and 32: the walk and block
+     (held to the size rule's twin), ms, before_ms, plain_ms and the
+     bound; eigh.cu at [32|128, 40, 40] on avian covarion's symmetrised
+     generators with phase 21's gates and times;
+ 39. golden covarion and restriction: the primates_covarion_hky,
+     restriction_directional and restriction_mixedfreq rows of
+     tests/golden_extra.json within their tol (1.0, 0.3, 0.3);
+ 40. primates (2 runs) and avian (1 run) under the covarion model, and the
+     restriction matrix under directional and mixed root frequencies (1
+     run each), 4 chains, through the CLI: exactly one pruning.cu launch a
+     generation, eigh.cu once per refresh of avian's 40-state
+     eigensystems (the start and every shape or switch-rate move),
+     carried versus recomputed scores (from fresh eigensystems), the files
+     (rooted [&R] trees under directional root frequencies, the switch
+     rates', rootpi and statefrmod columns), sump and sumt, gens/s;
+ 41. the sync check of every move type of avian covarion and of the
+     restriction mixed model (rooted NNI and SPR, the root-frequency moves
+     and the stationary/directional jump), with eigh.cu's launches.
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -346,6 +372,32 @@ GOLDEN_KIM_CODON = ("kim_hky_g_mixed4", "kim_stems_doublet_gtr",
 # the CLI runs' generations, sampled every 50 (7 samples a run at 300)
 KIM_GENS, M10_GENS, M3_GENS, UNLINKED_GENS = 300, 400, 150, 300
 KIM_SAMPLEFREQ = 50
+# covarion, restriction data and directional root frequencies: the
+# engines whose operands pruning.cu is held at (name -> data, model
+# commands), each at C = 8 and 32: avian under Jones+G with the covarion
+# model (89 tips, 88 patterns, S 40, K 4: the runtime-S staged walk),
+# primates under HKY+G with it (12 tips, 413 patterns, S 8, K 4: the S 8
+# template's whole walk), and the restriction matrix under directional
+# root frequencies with equal and with gamma rates (6 tips, S 2, its two
+# coding dummies among the patterns, K 1 and 4)
+# (envelope.BATCHES entry, extra commands)
+COVARION_ENGINES = {
+    "avian_covarion": ("avian_covarion", ()),
+    "primates_covarion": ("primates_covarion", ()),
+    "restriction_directional": ("restriction_directional", ()),
+    "restriction_directional_gamma": ("restriction_directional",
+                                      ("lset rates=gamma",))}
+COVARION_WALKS = {"avian_covarion": "staged", "primates_covarion": "whole",
+                  "restriction_directional": "whole",
+                  "restriction_directional_gamma": "whole"}
+GOLDEN_COVARION = ("primates_covarion_hky", "restriction_directional",
+                   "restriction_mixedfreq")
+# the CLI runs (envelope.BATCHES): name -> (runs, generations), 4 chains
+# each, sampled every 50
+COVARION_CLI = {"primates_covarion": (2, 300), "avian_covarion": (1, 150),
+                "restriction_directional": (1, 300),
+                "restriction_mixed": (1, 300)}
+COV_SAMPLEFREQ = 50
 # every kernel of the kernels line: name, route, source, the TPU kernel
 KERNEL_IDS = [
     {"name": "pruning_down", "route": "cuda",
@@ -372,7 +424,7 @@ KERNEL_NUMBERS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                   "bound_by", "library_ms")
 # the phase groups of --phases, in the order they run
 PHASE_GROUPS = ("kernels", "primates", "test1", "cynmix", "sharded",
-                "clock", "aa_codon", "dating", "kim_codon")
+                "clock", "aa_codon", "dating", "kim_codon", "covarion")
 
 
 def log(msg):
@@ -624,7 +676,7 @@ def new_walk(torch, lr, pstep, tips):
 
 def pruning_check(torch, shape, seed, expect=None, plain=False, n=100,
                   reps=5, loops=200, before_n=None, before_reps=None,
-                  before_loops=None):
+                  before_loops=None, case=None):
     """pruning.cu at one (n_tips, P, S, K, C) against its plain version on
     seeded operands: the walk and block the size rule chose (held to
     ``expect`` where given, and to its Python twin
@@ -634,10 +686,13 @@ def pruning_check(torch, shape, seed, expect=None, plain=False, n=100,
     unless given), the largest difference of root and ls to the old walk
     (vs_old_max_abs), the Python loops' times (``before_loops`` 0: the old
     walk's is not timed), the bound and, with ``plain``, the plain
-    version's time.  Returns (record, operands, bytes, operations)."""
+    version's time.  ``case`` (lr, pstep, tips, pi) gives the operands
+    (an engine's own) in place of seeded random ones.  Returns (record,
+    operands, bytes, operations)."""
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
     n_tips, P, S, K, C = shape
-    lr, pstep, tips, pi = kernel_case(torch, n_tips, P, S, K, C, seed)
+    lr, pstep, tips, pi = case or kernel_case(torch, n_tips, P, S, K, C,
+                                              seed)
     root_k, ls_k = PC.pruning_down(lr, pstep, tips)
     torch.cuda.synchronize()
     root_p, ls_p = PC.pruning_down_plain(lr, pstep, tips)
@@ -809,8 +864,14 @@ def sync_checked(torch, eng, states, bk, n_gens):
 
 
 def assert_carried(eng, states, bk):
+    """The cold chain's carried lnL and prior components against a
+    recompute from scratch: every cached eigensystem dropped and rebuilt
+    from the state's parameters (a cache a move left stale shows here)."""
+    from mrbayes_tpu_torch.mcmc.engine import SCORE_KEYS
     cold = eng.cold_indices(bk)[0]
-    fresh = eng.score(states)
+    fresh = eng.score(eng.refresh_eigs(
+        {k: v for k, v in states.items()
+         if k not in SCORE_KEYS and not k.startswith("eig")}))
     for k in ("lnL", "lnP_tree", "lnP_par"):
         a, b = states[k][cold].item(), fresh[k][cold].item()
         if abs(a - b) > 1e-3 + 1e-6 * abs(b):
@@ -2870,13 +2931,16 @@ def phase_kim_codon_eigh(torch):
 
 def row_engine(rec):
     """The port's engine on the card for a golden row's commands, its
-    execute pointed at the vendored example."""
+    execute pointed at the file of that name under tests/data or at the
+    vendored example."""
     from mrbayes_tpu_torch.cli import Interpreter
     it = Interpreter(log=lambda m: None, device=DEV)
     for c in rec["commands"]:
         if c.startswith("execute "):
-            c = "execute " + os.path.join(EXAMPLES,
-                                          os.path.basename(c.split()[1]))
+            base = os.path.basename(c.split()[1])
+            local = os.path.join(HERE, "tests", "data", base)
+            c = "execute " + (local if os.path.exists(local)
+                              else os.path.join(EXAMPLES, base))
         it.run_line(c)
     return it.build_engine()
 
@@ -3033,6 +3097,222 @@ def phase_unlinked_lnl(torch, eng, states, power_line):
         raise AssertionError("kim unlinked: a division's lnL or the total "
                              "disagrees")
     return {"division_kernel_vs_plain": d, "total_vs_sum": total}
+
+
+def covarion_engine(torch, name, C):
+    """The port's engine of ``COVARION_ENGINES[name]`` on the card, 1 run
+    x C chains."""
+    from mrbayes_tpu_torch.cli import Interpreter
+    from mrbayes_tpu_torch.envelope import BATCHES
+    batch, extra = COVARION_ENGINES[name]
+    data, model = BATCHES[batch]
+    it = Interpreter(log=lambda m: None, device=DEV, multiwalk=False,
+                     wavefront=False, stacked=False)
+    for line in (f"execute {data}", *model, *extra,
+                 f"mcmcp nruns=1 nchains={C}"):
+        it.run_line(line)
+    return it.build_engine()
+
+
+def covarion_state(torch, eng, rng):
+    """The engine's starting chains (random trees) with seeded substitution
+    parameters: gamma shapes, switch rates, kappa, frequencies, root
+    frequencies; eigensystems refreshed."""
+    from mrbayes_tpu_torch.mcmc.engine import SCORE_KEYS
+    states, _ = eng.init_chains(int(rng.integers(1 << 30)))
+    st = {k: v for k, v in states.items()
+          if k not in SCORE_KEYS and not k.startswith("eig")}
+    draws = {"shape": lambda sh: rng.uniform(0.3, 2.0, sh),
+             "covswitch": lambda sh: rng.uniform(0.2, 5.0, sh),
+             "tratio": lambda sh: rng.uniform(0.5, 8.0, sh),
+             "pi": lambda sh: rng.dirichlet(np.full(sh[-1], 5.0), sh[:-1]),
+             "pi2": lambda sh: rng.dirichlet([3.0, 3.0], sh[:-1]),
+             "rootpi2": lambda sh: rng.dirichlet([1.0, 1.0], sh[:-1])}
+    for k, draw in draws.items():
+        if k in st:
+            st[k] = torch.as_tensor(draw(tuple(st[k].shape)),
+                                    dtype=torch.float32, device=DEV)
+    return eng.refresh_eigs(st)
+
+
+def covarion_operands(torch, eng, st):
+    """pruning.cu's operands (lr, pstep, tips) for division 0 of ``eng``
+    at ``st``, the way its likelihood builds them, and the frequencies of
+    its root reduction: a covarion division's per-category eigensystems
+    with unit category rates and its doubled frequencies, else the generic
+    division's (the root frequencies of a directional one)."""
+    from mrbayes_tpu_torch.ops.pruning import branch_tiprobs
+    from mrbayes_tpu_torch.ops.traversal import postorder_internal
+    blen = eng.branch_lengths(st)
+    pruner = eng._pruners[0]
+    if eng.div_cfg[0].covarion:
+        lam, U, Uinv = eng._division_eig_cached(st, 0)
+        Pm = branch_tiprobs(blen, lam, U, Uinv,
+                            eng._unit_rates.expand(1, pruner.K), 0.0)
+        pi = eng._covarion_pi(st, 0)
+    else:
+        pi, _, lam, U, Uinv, rates, pinv, cmask, mult = \
+            eng._generic_div_params(st, 0)
+        Pm = branch_tiprobs(blen, lam, U, Uinv, rates,
+                            pinv if cmask is not None else 0.0, mult)
+    order = postorder_internal(st["parent"], eng.n_tips)
+    lr, pstep = pruner.operands(order, st["left"], st["right"], Pm)
+    return lr, pstep, pruner.tips, pi
+
+
+def phase_covarion_kernels(torch):
+    """pruning.cu against its plain version on the operands of this
+    slice's engines (``COVARION_ENGINES``: real covarion generators, the
+    switch blocks unscaled by the category rate; restriction with its
+    coding dummies and root frequencies), C = 8 and 32: the walk and block
+    the size rule chose (held to ``COVARION_WALKS`` and to ``size_rule``),
+    ms, before_ms (the old global walk), plain_ms and the bound; then
+    eigh.cu at [C K, 40, 40] on the avian covarion engine's symmetrised
+    generators, with ``eigh_case``'s gates and times."""
+    from mrbayes_tpu_torch.ops import eigh_cuda as E
+    worst, cases, eigh_cases = 0.0, {}, {}
+    for i, name in enumerate(COVARION_ENGINES):
+        for C in (8, 32):
+            eng = covarion_engine(torch, name, C)
+            rng = np.random.default_rng(700 + 2 * i + (C == 32))
+            st = covarion_state(torch, eng, rng)
+            p = eng._pruners[0]
+            shape = (p.n_tips, p.P, p.S, p.K, C)
+            rec, _, _, _ = pruning_check(
+                torch, shape, None, COVARION_WALKS[name], plain=True,
+                n=50, reps=3, loops=50, case=covarion_operands(torch, eng, st))
+            key = f"{name}_n{p.n_tips}_P{p.P}_S{p.S}_K{p.K}_C{C}"
+            cases[key] = rec
+            worst = max(worst, rec["max_abs_err"])
+            if name == "avian_covarion":
+                Qc, pic = eng._covarion_q_pi(st, 0)
+                sq = pic.double().sqrt()
+                B = Qc.double() * (sq[..., :, None] / sq[..., None, :])
+                A = (0.5 * (B + B.transpose(-1, -2))).reshape(-1, p.S, p.S)
+                eigh_cases[f"B{A.shape[0]}_S{p.S}"] = eigh_case(
+                    torch, E, A.contiguous())
+    for key, case in eigh_cases.items():
+        log(f"eigh_cuda covarion timing {key}: {json.dumps(case)}")
+    return worst, cases, eigh_cases
+
+
+def phase_golden_covarion(torch):
+    """The primates_covarion_hky, restriction_directional and
+    restriction_mixedfreq rows of tests/golden_extra.json on the card, each
+    within its row's tol (1.0, 0.3, 0.3).  Returns the worst gap of each
+    and the pruning.cu launches they made."""
+    from mrbayes_tpu_torch.trees import parse_newick
+    rows = [r for r in json.load(open(GOLDEN_EXTRA))
+            if r["name"] in GOLDEN_COVARION]
+    out, engines = {}, {}
+    for rec in rows:
+        name = rec["name"]
+        eng = engines.get(name) or engines.setdefault(name, row_engine(rec))
+        st = tree_state(torch, parse_newick(rec["newick"], eng.data.taxa,
+                                            rooted=rec.get("rooted", False)))
+        for k, v in rec["state"].items():
+            st[k] = torch.tensor([v], device=DEV, dtype=(
+                torch.int64 if k == "dirpi_on" else torch.float32))
+        gap = abs(eng.log_likelihood(eng.refresh_eigs(st))[0].item()
+                  - rec["lnL"])
+        out[name] = max(out.get(name, 0.0), gap)
+        if not gap < rec["tol"]:
+            raise AssertionError(f"golden {name}@{rec['gen']}: |lnL - "
+                                 f"reference| {gap} >= {rec['tol']}")
+    launches = sum(p.launches for e in engines.values() for p in e._pruners)
+    log(f"golden covarion and restriction rows: {len(rows)} rows, max |lnL "
+        f"- reference| {json.dumps(out)} (limits "
+        f"{ {r['name']: r['tol'] for r in rows} }), pruning_down launches "
+        f"{launches}")
+    return out, launches
+
+
+def phase_covarion_cli(torch, name, power_line):
+    """``name`` (``COVARION_CLI``, ``envelope.BATCHES``) through the CLI,
+    4 chains, every kernel-path switch off: one pruning.cu launch a
+    likelihood (ngen + 1), eigh.cu once per refresh of an eigensystem past
+    8 states (avian's 40: the start, and every shape, switch-rate move),
+    carried versus recomputed scores (from fresh eigensystems), complete
+    .p and .t files (rooted [&R] trees under directional root
+    frequencies, the rootpi and statefrmod columns, the switch rates'),
+    sump and sumt, gens/s.  The engine is built inside ``execute_file``:
+    its counts start at 0 there, eigh.cu's is set to 0 just before, and
+    both are read when the run is over."""
+    from mrbayes_tpu_torch.envelope import run_batch
+    from mrbayes_tpu_torch.ops import eigh_cuda as E
+    nruns, ngen = COVARION_CLI[name]
+    workdir = os.path.join(OUT, name)
+    shutil.rmtree(workdir, ignore_errors=True)
+    E.EIGH.launches = 0                       # the main path's run starts
+    it, stats, lines = run_batch(
+        name, workdir, ngen, device=DEV, samplefreq=COV_SAMPLEFREQ,
+        diagnfreq=ngen // 2, nruns=nruns, multiwalk=False, wavefront=False,
+        stacked=False)
+    eigh_launches = E.EIGH.launches           # ... and ends here
+    runner = it._last_runner
+    eng = runner.eng
+    calls = ngen + 1
+    per = [p.launches for p in eng._pruners]
+    if eng._multiwalk_pruners or eng._stacked_pruners \
+            or per != [calls] * eng.n_div:
+        raise AssertionError(f"{name} launches {per}, predicted {calls} for "
+                             f"each of {eng.n_div} divisions")
+    expect_eigh = build_eigh_launches(eng) + solver_divisions(eng) \
+        * solver_q_generations(eng, runner.final_bk)
+    if eigh_launches != expect_eigh:
+        raise AssertionError(f"{name}: {eigh_launches} eigh launches, "
+                             f"predicted {expect_eigh}")
+    assert_carried(eng, runner.final_states, runner.final_bk)
+    phrases = ["Credible sets of trees", "Consensus tree written to"]
+    if nruns > 1:
+        phrases.append("Average PSRF for parameter values")
+    for phrase in phrases:
+        if not any(phrase in ln for ln in lines):
+            raise AssertionError(f"sump/sumt printed no {phrase!r}")
+    prefix = os.path.join(workdir, name)
+    expect_rows = ngen // COV_SAMPLEFREQ + 1
+    want_cols = {"primates_covarion": "s(on->off)",
+                 "avian_covarion": "s(on->off)",
+                 "restriction_directional": "rootpi(1)",
+                 "restriction_mixed": "statefrmod"}[name]
+    rooted = eng.rooted_nonclock
+    for r in range(1, nruns + 1):
+        with open(f"{prefix}.run{r}.p") as f:
+            f.readline()
+            header = f.readline().rstrip("\n").split("\t")
+            rows = [ln for ln in f if ln[:1].isdigit()]
+        with open(f"{prefix}.run{r}.t") as f:
+            text = f.read()
+        if len(rows) != expect_rows or want_cols not in header \
+                or text.count("tree gen.") != expect_rows \
+                or not text.rstrip().endswith("end;") \
+                or (("[&R]" in text) != rooted):
+            raise AssertionError(f"{name}.run{r}: {len(rows)} .p rows "
+                                 f"(expected {expect_rows}), header "
+                                 f"{header[:8]}..., or its .t file")
+    out = {**stats, "launches": sum(per), "launches_per_gen": sum(per) / calls,
+           "eigh_launches": eigh_launches, "nruns": nruns,
+           "rooted_trees": rooted}
+    log(f"{name} through the CLI, {nruns} run(s) x 4 chains, {ngen} gens, "
+        f"switches off: {json.dumps(out)}; card {power_line}")
+    log("\n".join(ln for ln in lines if "PSRF" in ln or "Credible" in ln
+                  or "Consensus" in ln or "lnL" in ln[:40]))
+    return it, out
+
+
+def phase_covarion(torch, power_line):
+    """Phases 38-41: the covarion group (``--phases covarion``)."""
+    err, cases, eigh_cases = phase_covarion_kernels(torch)
+    golden, golden_launches = phase_golden_covarion(torch)
+    runs = {}
+    for name in COVARION_CLI:
+        it, runs[name] = phase_covarion_cli(torch, name, power_line)
+        if name in ("avian_covarion", "restriction_mixed"):
+            eng = it.build_engine()
+            runs[name]["sync_eigh_launches"] = phase_aa_codon_sync(
+                torch, f"{name} moves", eng, power_line,
+                solver=solver_divisions(eng))
+    return err, cases, eigh_cases, golden, golden_launches, runs
 
 
 def main(argv=None) -> int:
@@ -3201,6 +3481,13 @@ def main(argv=None) -> int:
             solver=solver_divisions(eng_u))
         done("kim unlinked trees")
 
+    if "covarion" in groups:
+        # 38.-41. covarion, restriction data and directional root
+        # frequencies, the thirteenth slice's main paths
+        err_cv, cv_cases, cv_eigh, golden_cv, golden_cv_launches, cv_runs = \
+            phase_covarion(torch, power_line)
+        done("covarion and restriction phases")
+
     if groups != set(PHASE_GROUPS):
         # a chosen subset: every kernel named, its numbers in the groups'
         # own lines above
@@ -3232,7 +3519,9 @@ def main(argv=None) -> int:
         "kim_doublet_cli": kim["launches"],
         "replicase_m10_cli": m10["launches"],
         "replicase_m3_cli": m3["launches"],
-        "kim_unlinked_cli": unl["launches"]}
+        "kim_unlinked_cli": unl["launches"],
+        "golden_covarion_rows": golden_cv_launches,
+        **{f"{nm}_cli": r["launches"] for nm, r in cv_runs.items()}}
     eigh_launches = {"golden_codon_rows": golden_aa_launches["eigh"],
                      "avian_cli": avian["eigh_launches"],
                      "avian_gtr_sync": gtr_sync,
@@ -3245,7 +3534,11 @@ def main(argv=None) -> int:
                                       ("replicase_m10", m10),
                                       ("replicase_m3", m3),
                                       ("kim_unlinked", unl))
-                        for what, key in (("cli", ""), ("sync", "sync_"))}}
+                        for what, key in (("cli", ""), ("sync", "sync_"))},
+                     "avian_covarion_cli": cv_runs["avian_covarion"][
+                         "eigh_launches"],
+                     "avian_covarion_sync": cv_runs["avian_covarion"][
+                         "sync_eigh_launches"]}
     aa_keys = ("best_lnl", "tl_mean", "asdsf", "avg_psrf", "run_s",
                "gens_per_s")
     mw_launches = {"test1": t1["multiwalk_launches"],
@@ -3261,8 +3554,10 @@ def main(argv=None) -> int:
             "avian_cli": AA_GENS, "replicase_ny98_cli": CODON_GENS,
             "hymfossil_cli": HYM_GENS, "kim_doublet_cli": KIM_GENS,
             "replicase_m10_cli": M10_GENS, "replicase_m3_cli": M3_GENS,
-            "kim_unlinked_cli": UNLINKED_GENS},
-        "max_abs_err": max(err_pd, err_ck["pruning_down"], err_hym, err_kc),
+            "kim_unlinked_cli": UNLINKED_GENS,
+            **{f"{nm}_cli": g for nm, (_, g) in COVARION_CLI.items()}},
+        "max_abs_err": max(err_pd, err_ck["pruning_down"], err_hym, err_kc,
+                           err_cv),
         **{k: t_pd[4][k] for k in keys + ("before_ms", "walk", "threads",
                                            "T", "lanes")},
         "library_ms": None,
@@ -3290,6 +3585,12 @@ def main(argv=None) -> int:
         "kim_unlinked_lnl": {k: unl[k] for k in (
             "division_kernel_vs_plain", "total_vs_sum")},
         "golden_kim_codon_max_err": golden_kc,
+        "covarion_cases": cv_cases,
+        **{nm: {k: r[k] for k in (
+            "best_lnl", "tl_mean", "asdsf", "avg_psrf", "run_s", "gens_per_s",
+            "launches_per_gen", "eigh_launches", "nruns", "rooted_trees")}
+           for nm, r in cv_runs.items()},
+        "golden_covarion_max_err": golden_cv,
         "gens_per_s": {f"primates_c{C}": r["gens_per_s"]
                        for C, r in runs.items()},
         "gens_per_s_blocks": {f"primates_c{C}": r["gens_per_s_blocks"]
@@ -3406,9 +3707,12 @@ def main(argv=None) -> int:
                          "kim_doublet_cli": KIM_GENS,
                          "replicase_m10_cli": M10_GENS,
                          "replicase_m3_cli": M3_GENS,
-                         "kim_unlinked_cli": UNLINKED_GENS},
+                         "kim_unlinked_cli": UNLINKED_GENS,
+                         "avian_covarion_cli": COVARION_CLI[
+                             "avian_covarion"][1]},
         "max_abs_err": max(c["max_abs_err"] for c in
-                           [*eigh_cases.values(), *kc_eigh.values()]),
+                           [*eigh_cases.values(), *kc_eigh.values(),
+                            *cv_eigh.values()]),
         **{k: eigh_cases["B24_S61"][k] for k in (
             "ms", "before_ms", "wrapper_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "sweeps_mean", "before_sweeps_mean")},
@@ -3416,6 +3720,7 @@ def main(argv=None) -> int:
                  "B=24 S=61",
         "cases": eigh_cases,
         "kim_codon_cases": kc_eigh,
+        "covarion_cases": cv_eigh,
         "ptxas": ptxas["eigh"],
         "golden_max_err": golden_aa,
         "avian": {k: avian[k] for k in aa_keys + ("aamodel_shares",)},

@@ -101,9 +101,8 @@ NOT_PORTED = {
 }
 # prset parameters not carried yet -> their ROADMAP item
 PRSET_NOT_PORTED = {
-    **dict.fromkeys(("ratecorrpr", "covswitchpr", "symdirihyperpr",
-                     "rootfreqpr", "browncorrpr", "brownscalepr"),
-                    "Queue 1 item 13"),
+    **dict.fromkeys(("ratecorrpr", "symdirihyperpr", "browncorrpr",
+                     "brownscalepr"), "Queue 1 item 13c"),
     **dict.fromkeys(("generatepr", "popvarpr", "ploidy"), "Queue 1 item 14"),
 }
 
@@ -556,10 +555,13 @@ class Interpreter:
     AA_CODON_KEYS = ("aamodelpr", "aarevmatpr", "omegapr", "ny98omega1pr",
                      "ny98omega3pr", "codoncatfreqpr", "m3omegapr",
                      "m10betapr", "m10gammapr")
+    # the covarion switch rates' and the directional root frequencies'
+    # prset keys (mrbayes_tpu cli.py:717-720, :763-764)
+    COVARION_ROOT_KEYS = ("covswitchpr", "rootfreqpr")
     PRSET_KEYS = ("applyto", "statefreqpr", "revmatpr", "tratiopr",
                   "shapepr", "pinvarpr", "ratepr", "brlenspr", "topologypr",
                   *CLOCK_KEYS,
-                  *AA_CODON_KEYS, *PRSET_NOT_PORTED)
+                  *AA_CODON_KEYS, *COVARION_ROOT_KEYS, *PRSET_NOT_PORTED)
 
     def do_prset(self, args, base_dir):
         pairs = self._kv_pairs(args)

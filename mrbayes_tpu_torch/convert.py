@@ -8,8 +8,13 @@ torch counterpart: the port seeds its generators from the key words.
 
 Every leaf is carried by name: unlinked trees' [C, n_trees, n_nodes]
 tree arrays, the doublet frequencies ``pi16``, M3's ``m3omega`` and
-``m3probs`` and M10's ``m10beta``, ``m10gamma`` and ``m10catprobs`` cross
-as they are.  A partitioned state keeps each
+``m3probs``, M10's ``m10beta``, ``m10gamma`` and ``m10catprobs``, a
+restriction division's ``pi2``, the directional root frequencies
+``rootpi2`` with the mixed model's indicator ``dirpi_on`` (int32 there,
+int64 here) and the covarion switch rates ``covswitch`` [C, G, 2] cross
+as they are.  A covarion division has no eigensystem cache in the JAX
+package (it rebuilds its eigensystems in every likelihood); the port
+keeps one, built from the carried parameters by ``refresh_eigs``.  A partitioned state keeps each
 division's eigensystem cache (``eigL{i}``, ``eigU{i}``, ``eigV{i}``),
 standard (Mk) divisions' included: the port's engine computes those once
 when it is built and keeps none in its own states, but uses a carried one

@@ -14,6 +14,8 @@ Usage (from the repository root, on a machine with a CUDA GPU):
     python -m mrbayes_tpu_torch.engine_profile --config kim_doublet
     python -m mrbayes_tpu_torch.engine_profile --config replicase_m10
     python -m mrbayes_tpu_torch.engine_profile --config kim_unlinked
+    python -m mrbayes_tpu_torch.engine_profile --config primates_covarion
+    python -m mrbayes_tpu_torch.engine_profile --config avian_covarion
     python -m mrbayes_tpu_torch.engine_profile [--config ...] --sites 4
 
 ``--config primates`` (the default) is primates GTR+I+G, 1 run;
@@ -25,8 +27,12 @@ aamodelpr=fixed(gtr), ``--config replicase_ny98`` replicase under
 NY98 (``replicase_m3``, ``replicase_m10``: under M3 and M10),
 ``--config hymfossil`` hymfossil.nex's fossilized birth-death
 total-evidence dating (114 taxa, 15 divisions), ``--config kim_doublet``
-kim.nex's stem doublets (9 divisions) and ``--config kim_unlinked`` its
-six unlinked gene trees (each built through the CLI's commands,
+kim.nex's stem doublets (9 divisions), ``--config kim_unlinked`` its
+six unlinked gene trees, ``--config primates_covarion`` and
+``avian_covarion`` primates under HKY+G and avian under Jones+G with the
+covarion model (``restriction_directional``, ``restriction_mixed``: the
+restriction matrix under directional and mixed root frequencies) (each
+built through the CLI's commands,
 ``envelope.BATCHES``), 2
 runs, with the kernel-path switches as given.  ``--chains`` is the chain
 count per run; ``--sites k`` shards the engine's patterns over k site
@@ -201,7 +207,8 @@ def parts(eng, states, dev, reps):
 def configs() -> dict:
     """The CLI-built configurations: ``envelope.BATCHES`` (test1, test2,
     cynmix, avian under aamodelpr=mixed, replicase under NY98, hymfossil's
-    FBD dating) and avian
+    FBD dating, kim, primates and avian under the covarion model, the
+    restriction matrix under directional root frequencies) and avian
     under aamodelpr=fixed(gtr), whose every Q move refreshes an S = 20
     eigensystem through ``csrc/eigh.cu``."""
     from .envelope import AVIAN, BATCHES

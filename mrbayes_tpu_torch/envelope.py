@@ -26,8 +26,10 @@ prints one ``ENVELOPE {...}`` JSON line and exits 1 outside the envelope.
 ``run_batch`` also runs cynmix's favored model, avian_ovomucoids.nex under
 ``aamodelpr=mixed``, replicase.nex under the NY98, M3 and M10 codon
 models, hymfossil.nex's fossilized birth-death dating analysis, and
-kim.nex's stem-doublet model and its unlinked gene trees the same way
-(``chip_smoke.py`` drives them on the card).
+kim.nex's stem-doublet model and its unlinked gene trees, primates and
+avian under the covarion model and the restriction matrix under
+directional and mixed root frequencies the same way (``chip_smoke.py``
+drives them on the card).
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ AVIAN = os.path.join(EXAMPLES, "avian_ovomucoids.nex")
 REPLICASE = os.path.join(EXAMPLES, "replicase.nex")
 HYMFOSSIL = os.path.join(EXAMPLES, "hymfossil.nex")
 KIM = os.path.join(EXAMPLES, "kim.nex")
+RESTRICTION = os.path.join(HERE, os.pardir, "tests", "data", "restriction.nex")
 
 # test1's model commands, after its execute
 TEST1_MODEL = ("partition test = 2: 1-400, 401-.",
@@ -158,6 +161,15 @@ HYMFOSSIL_MODEL = (
     "prset nodeagepr=calibrated",
     "prset clockratepr=lognorm(-7.1,0.5)",
 )
+# primates under HKY+G with the covarion model (the primates_covarion_hky
+# rows' model with gamma rates: 8 states, 4 categories), and avian under
+# Jones+G with it (40 states)
+PRIMATES_COVARION_MODEL = ("lset nst=2 rates=gamma covarion=yes",)
+AVIAN_COVARION_MODEL = ("prset aamodelpr=fixed(jones)",
+                        "lset rates=gamma covarion=yes")
+# the restriction_directional and restriction_mixedfreq rows' models
+RESTRICTION_MODEL = ("lset coding=noabsencesites",
+                     "prset statefreqpr=dirichlet(1,1)")
 # the batch runs: name -> (data file, model commands after its execute)
 BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "test2": (PRIMATES, TEST2_MODEL),
            "cynmix": (CYNMIX, CYNMIX_MODEL),
@@ -167,12 +179,18 @@ BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "test2": (PRIMATES, TEST2_MODEL),
            "replicase_m10": (REPLICASE, REPLICASE_M10_MODEL),
            "hymfossil": (HYMFOSSIL, HYMFOSSIL_MODEL),
            "kim_doublet": (KIM, KIM_DOUBLET_MODEL),
-           "kim_unlinked": (KIM, KIM_UNLINKED_MODEL)}
+           "kim_unlinked": (KIM, KIM_UNLINKED_MODEL),
+           "primates_covarion": (PRIMATES, PRIMATES_COVARION_MODEL),
+           "avian_covarion": (AVIAN, AVIAN_COVARION_MODEL),
+           "restriction_directional": (RESTRICTION, RESTRICTION_MODEL + (
+               "lset statefrmod=directional",)),
+           "restriction_mixed": (RESTRICTION, RESTRICTION_MODEL + (
+               "lset statefrmod=mixed",))}
 BATCH = """#NEXUS
 begin mrbayes;
     set autoclose=yes nowarn=yes;
     execute {data};
-{model}    mcmc ngen={ngen} nruns=2 nchains=4 samplefreq={samplefreq}
+{model}    mcmc ngen={ngen} nruns={nruns} nchains=4 samplefreq={samplefreq}
          printfreq={printfreq} diagnfreq={diagnfreq} file={prefix};
     sump;
     sumt;
@@ -181,10 +199,11 @@ end;
 
 
 def write_batch(name: str, workdir: str, ngen: int = 20000,
-                samplefreq: int = 100, diagnfreq: int = 2000) -> str:
+                samplefreq: int = 100, diagnfreq: int = 2000,
+                nruns: int = 2) -> str:
     """Write the batch file of run ``name`` (a key of ``BATCHES``: its
-    data, its model, an mcmc of 2 runs x 4 chains, sump and sumt) into
-    ``workdir``; returns its path."""
+    data, its model, an mcmc of ``nruns`` runs x 4 chains, sump and sumt)
+    into ``workdir``; returns its path."""
     data, model = BATCHES[name]
     os.makedirs(workdir, exist_ok=True)
     path = os.path.join(workdir, f"{name}.nex")
@@ -193,14 +212,14 @@ def write_batch(name: str, workdir: str, ngen: int = 20000,
             data=os.path.abspath(data),
             model="".join(f"    {c};\n" for c in model), ngen=ngen,
             samplefreq=samplefreq, printfreq=min(2000, diagnfreq),
-            diagnfreq=diagnfreq,
+            diagnfreq=diagnfreq, nruns=nruns,
             prefix=os.path.join(os.path.abspath(workdir), name)))
     return path
 
 
 def run_batch(name: str, workdir: str, ngen: int = 20000, device=None,
               log=print, samplefreq: int = 100, diagnfreq: int = 2000,
-              **switches):
+              nruns: int = 2, **switches):
     """Run the batch file of ``name`` through
     ``cli.Interpreter.execute_file``, with the kernel-path switches given
     (``multiwalk=``, ``wavefront=``, ``stacked=``).  Returns (interpreter,
@@ -214,9 +233,10 @@ def run_batch(name: str, workdir: str, ngen: int = 20000, device=None,
 
     it = Interpreter(log=keep, device=device, **switches)
     t0 = time.time()
-    it.execute_file(write_batch(name, workdir, ngen, samplefreq, diagnfreq))
+    it.execute_file(write_batch(name, workdir, ngen, samplefreq, diagnfreq,
+                                nruns))
     wall = time.time() - t0
-    stats = test1_stats(os.path.join(workdir, name), lines)
+    stats = test1_stats(os.path.join(workdir, name), lines, nruns)
     runner = it._last_runner
     stats.update(wall_s=wall, run_s=runner.wall_seconds,
                  gens_per_s=runner.generations / runner.wall_seconds,
@@ -224,13 +244,13 @@ def run_batch(name: str, workdir: str, ngen: int = 20000, device=None,
     return it, stats, lines
 
 
-def test1_stats(prefix: str, lines: list[str]) -> dict:
+def test1_stats(prefix: str, lines: list[str], nruns: int = 2) -> dict:
     """Best lnL, posterior mean TL (summed over unlinked trees), average
-    PSRF (after 25% burn-in) from the two runs' .p files, and the last
-    ASDSF the log printed."""
+    PSRF (after 25% burn-in; None for one run) from the runs' .p files,
+    and the last ASDSF the log printed."""
     best_lnl = -np.inf
     tl_all, runs_cols = [], []
-    for r in (1, 2):
+    for r in range(1, nruns + 1):
         with open(f"{prefix}.run{r}.p") as f:
             f.readline()
             header = f.readline().rstrip("\n").split("\t")
@@ -243,7 +263,7 @@ def test1_stats(prefix: str, lines: list[str]) -> dict:
         tl_all.append(sum(v for h, v in cols.items()
                           if h.startswith("TL"))[burn:])
     vals = []
-    for name in runs_cols[0]:
+    for name in runs_cols[0] if nruns > 1 else ():
         if name in ("Gen", "lnLike", "lnPrior") \
                 or name.startswith(("gtrsubmodel", "aamodel")):
             continue
@@ -257,7 +277,8 @@ def test1_stats(prefix: str, lines: list[str]) -> dict:
             break
     return {"best_lnl": best_lnl,
             "tl_mean": float(np.mean(np.concatenate(tl_all))),
-            "asdsf": asdsf, "avg_psrf": float(np.mean(vals))}
+            "asdsf": asdsf,
+            "avg_psrf": float(np.mean(vals)) if vals else None}
 
 
 def envelope_errors(stats: dict) -> list[str]:

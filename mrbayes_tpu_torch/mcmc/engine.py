@@ -21,8 +21,13 @@ codon models M0, NY98, M3 and M10 (``nucmodel=codon``,
 under the empirical amino-acid models, Poisson, equalin, protein GTR and
 ``aamodelpr=mixed``, and standard (morphology) data under the plain
 unordered Mk model with its ascertainment coding (``coding=variable`` by
-default), each with equal, gamma, propinv or invgamma rates (a codon
-division has none: its category axis holds the omega classes); any
+default), restriction (binary) data with its coding (``noabsencesites``
+by default) and stationary, directional or mixed root frequencies
+(``statefreqmodel``: the last two force a rooted non-clock tree), each
+with equal, gamma, propinv or invgamma rates (a codon division has none:
+its category axis holds the omega classes), nucleotide and protein data
+under the Tuffley-Steel covarion model (``covarion=yes``: a doubled state
+space, one eigensystem a rate category, no propinv); any
 number of divisions (partitions)
 with linked or unlinked parameters and fixed or variable rate
 multipliers, one unrooted non-clock tree with the default priors (or one
@@ -91,9 +96,10 @@ from ..data import DataSet, Division
 from ..models.aa_models import AA_MODELS
 from ..models.codes import CodonCode
 from ..models.rates import GammaRateTable, beta_quantile_breaks
-from ..models.substitution import (DOUBLET_CLS, codon_q, doublet_q, mk_q,
-                                   nuc_q_gtr, nuc_q_nst1, nuc_q_nst2,
-                                   ordered_mk_q, protein_q)
+from ..models.substitution import (DOUBLET_CLS, binary_q, codon_q,
+                                   covarion_q, doublet_q, mk_q, nuc_q_gtr,
+                                   nuc_q_nst1, nuc_q_nst2, ordered_mk_q,
+                                   protein_q)
 from ..nexus.datatypes import DataType
 from ..ops.multiwalk_cuda import PruningCudaMultiwalk
 from ..ops.pruning import (branch_tiprobs, coding_tips, coding_total,
@@ -132,8 +138,8 @@ _CODING = {"all": "all", "variable": "variable",
 AA_MIXED_ORDER = ("poisson", "jones", "dayhoff", "mtrev", "mtmam", "wag",
                   "rtrev", "cprev", "vt", "blosum", "lg")
 # state-frequency fields: the Dirichlet-sampled frequencies of nucleotide,
-# protein, codon and doublet divisions
-PI_FIELDS = ("pi", "pi20", "pi61", "pi16")
+# protein, codon, doublet and restriction divisions
+PI_FIELDS = ("pi", "pi20", "pi61", "pi16", "pi2")
 # the tree fields a non-clock tree move changes; [C, n_trees, n_nodes]
 # with unlinked trees
 TREE_FIELDS = ("left", "right", "parent", "blen")
@@ -152,6 +158,8 @@ class MoveSpec:
     tunable: bool = True
     updates_q: bool = False   # move changes a Q matrix -> re-eigendecompose
                               # (reference upDateCijk, src/likelihood.c:7864)
+    eig_divs: tuple | None = None   # the divisions whose eigensystems it
+                              # changes (None: every division)
     prior_scope: str | None = None  # carried prior component the move can
                               # change: "tree", "params" or "both"; None is
                               # filled by registration position
@@ -182,6 +190,19 @@ class DivCfg:
     aamodel_group: int = -1     # aamodelpr=mixed
     aarevmat_group: int = -1    # protein GTR, sampled exchangeabilities
     fixed_aarevmat: np.ndarray | None = None   # aarevmatpr=fixed(...)
+    rootpi_group: int = -1      # statefreqmodel=directional|mixed
+    fixed_rootpi: np.ndarray | None = None     # rootfreqpr=fixed(...)
+    dirpi_mix: bool = False     # statefreqmodel=mixed (the RJ indicator)
+    covswitch_group: int = -1   # covarion=yes, sampled switch rates
+    fixed_covswitch: np.ndarray | None = None  # covswitchpr=fixed(s01,s10)
+
+    @property
+    def covarion(self) -> bool:
+        return self.covswitch_group >= 0 or self.fixed_covswitch is not None
+
+    @property
+    def directional(self) -> bool:
+        return self.rootpi_group >= 0 or self.fixed_rootpi is not None
 
 
 def _scalar_prior_lpdf(prior: Prior, x):
@@ -304,13 +325,15 @@ class Engine:
                 if sp.kind != "fixed" or (sp.params
                                           and float(sp.params[0]) > 0.0):
                     raise _not_ported("symdirihyperpr (sampled standard "
-                                      "state frequencies)", "item 13")
+                                      "state frequencies)", "item 13c")
             elif div.dtype is DataType.PROTEIN:
                 if s.aamodelpr.kind not in ("fixed", "mixed"):
                     raise ValueError(f"aamodelpr={s.aamodelpr.kind}: "
                                      f"fixed(<model>) or mixed")
+            elif div.dtype is DataType.RESTRICTION:
+                pass
             elif div.dtype not in (DataType.DNA, DataType.RNA):
-                raise _not_ported(f"{div.dtype.value} data", "item 13")
+                raise _not_ported(f"{div.dtype.value} data", "item 13c")
             elif s.nucmodel == "codon":
                 if s.omegavar not in ("equal", "ny98", "m3", "m10"):
                     raise ValueError(f"omegavar={s.omegavar}")
@@ -322,11 +345,10 @@ class Engine:
             elif s.nst not in ("1", "2", "6", "mixed"):
                 raise ValueError(f"nst={s.nst} is not a nucleotide model")
             if s.rates not in ("equal", "gamma", "propinv", "invgamma"):
-                raise _not_ported(f"rates={s.rates}", "item 13")
-            if s.covarion or s.parsmodel \
-                    or s.statefreqmodel != "stationary":
-                raise _not_ported("covarion, parsimony and directional "
-                                  "models", "item 13")
+                raise _not_ported(f"rates={s.rates}", "item 13c")
+            if s.parsmodel:
+                raise _not_ported("the parsimony model (parsmodel)",
+                                  "item 13c")
 
     def _build_dating(self):
         """Static dating and constraint wiring (mrbayes_tpu engine.py:234):
@@ -493,7 +515,16 @@ class Engine:
                 continue
             if prot:
                 cfg.pi_field = "pi20"
-            if div.dtype is DataType.STANDARD:
+            if s.statefreqmodel != "stationary" \
+                    and div.dtype is not DataType.RESTRICTION:
+                # the reference: "non-stationary models only implemented
+                # for data type RESTRICTION" (src/model.c:3973-3977)
+                raise ValueError(
+                    "statefreqmodel=directional|mixed is only available "
+                    "for restriction data (reference parity)")
+            if div.dtype is DataType.RESTRICTION:
+                self._restriction_cfg(cfg, d, group_of)
+            elif div.dtype is DataType.STANDARD:
                 # plain Mk: equal, fixed state frequencies and the
                 # ascertainment coding (variable unless set)
                 cfg.fixed_pi = np.full(div.n_states, 1.0 / div.n_states)
@@ -548,9 +579,26 @@ class Engine:
                 cfg.n_cats = s.ngammacat
             if s.rates in ("propinv", "invgamma"):
                 cfg.pinvar_group = group_of("pinvar", d, repr(s.pinvarpr))
+            if s.covarion and (prot or (nuc and s.nucmodel == "4by4")):
+                # Tuffley-Steel covarion: the doubled state space with
+                # sampled (or fixed) switching rates (reference lset
+                # covarion=yes, prset covswitchpr, src/likelihood.c:8269)
+                if s.rates in ("propinv", "invgamma"):
+                    raise ValueError(
+                        "covarion cannot combine with propinv/invgamma "
+                        "(the reference forbids pinvar under covarion)")
+                if s.covswitchpr.kind == "fixed":
+                    cfg.fixed_covswitch = np.asarray(
+                        s.covswitchpr.params or (1.0, 1.0), np.float64)
+                else:
+                    cfg.covswitch_group = group_of(
+                        "covswitch", d, repr(s.covswitchpr))
             self.div_cfg.append(cfg)
         self.n_groups = {p: len(v) for p, v in counters.items()}
         self.n_div = len(div_settings)
+        # directional root frequencies force a rooted non-clock tree
+        # (TOPOLOGY_RNCL_*, src/model.c:20126; mrbayes_tpu engine.py:649)
+        self.rooted_nonclock = any(c.directional for c in self.div_cfg)
         # per-division rate multipliers (reference ratepr=variable)
         self.ratemult_on = any(s.ratepr == "variable" for s in div_settings)
         # priors per group: use the first division that defined the group
@@ -581,9 +629,41 @@ class Engine:
                                    ("m10beta", cfg.m10_group, s.m10betapr),
                                    ("m10gamma", cfg.m10_group, s.m10gammapr),
                                    ("m10catprobs", cfg.m10_group,
-                                    Prior("dirichlet", (1.0, 1.0)))]:
+                                    Prior("dirichlet", (1.0, 1.0))),
+                                   ("covswitch", cfg.covswitch_group,
+                                    s.covswitchpr)]:
                 if gid >= 0:
                     self.group_priors.setdefault((param, gid), pr)
+
+    def _restriction_cfg(self, cfg, d, group_of):
+        """A restriction division's wiring (mrbayes_tpu/mcmc/engine.py:
+        501-527): the two state frequencies ``pi2`` (sampled under a
+        Dirichlet statefreqpr, else fixed at 1/2), the ascertainment coding
+        (noabsencesites unless set, reference SetModelDefaults,
+        src/model.c:18562-18576), and under statefreqmodel=directional or
+        mixed the root frequencies ``rootpi2`` (DIRPI paramIds,
+        src/model.c:11756-11817), whose model needs a rooted non-clock
+        tree."""
+        s = cfg.settings
+        cfg.pi_field = "pi2"
+        cfg.coding = _CODING.get(s.coding or "noabsencesites", "all")
+        if s.statefreqpr.kind == "dirichlet":
+            cfg.pi_group = group_of("pi2", d, repr(s.statefreqpr))
+        else:
+            cfg.fixed_pi = np.full(2, 0.5)
+        if s.statefreqmodel == "stationary":
+            return
+        if self.tree_settings.clock:
+            raise ValueError("statefreqmodel=directional is a rooted "
+                             "NON-clock model; unset brlenspr=clock")
+        cfg.dirpi_mix = s.statefreqmodel == "mixed"
+        if s.rootfreqpr.kind == "fixed":
+            if cfg.dirpi_mix:
+                raise ValueError("statefreqmodel=mixed needs a sampled "
+                                 "rootfreqpr (dirichlet)")
+            cfg.fixed_rootpi = np.asarray(s.rootfreqpr.params, np.float64)
+        else:
+            cfg.rootpi_group = group_of("rootpi2", d, repr(s.rootfreqpr))
 
     def _build_tree_groups(self, links):
         """``unlink topology brlens`` gives each link group its own tree
@@ -679,7 +759,7 @@ class Engine:
             if k is not None and k not in self._gamma_tables:
                 self._gamma_tables[k] = GammaRateTable(k, device=dev)
         self.tip_partials, self.weights, self.const_masks = [], [], []
-        self._fixed_pi = []
+        self._fixed_pi, self._fixed_rootpi, self._fixed_covswitch = [], [], []
         self._pruners: list = []
         # each division's tip partials under its model [n, P, S]: codon
         # divisions' over codon sites and sense codons
@@ -698,6 +778,10 @@ class Engine:
                 tp = d.tip_partials()
                 cmask = constant_state_mask(d.patterns, d.n_states)
                 wts = np.asarray(d.weights, np.float32).copy()
+                if cfg.covarion:
+                    # an observed state is compatible with its on- and its
+                    # off-copy (mrbayes_tpu/mcmc/engine.py:861-864)
+                    tp = np.concatenate([tp, tp], axis=-1)
             self._model_tips.append(tp)
             if cfg.coding != "all":
                 # the reference excludes characters the coding rules out
@@ -714,6 +798,14 @@ class Engine:
             self._fixed_pi.append(
                 None if cfg.fixed_pi is None else torch.as_tensor(
                     np.asarray(cfg.fixed_pi, np.float32)[None], device=dev))
+            self._fixed_rootpi.append(
+                None if cfg.fixed_rootpi is None else torch.as_tensor(
+                    np.asarray(cfg.fixed_rootpi, np.float32)[None],
+                    device=dev))
+            self._fixed_covswitch.append(
+                None if cfg.fixed_covswitch is None else torch.as_tensor(
+                    np.asarray(cfg.fixed_covswitch, np.float32)[None],
+                    device=dev))
             self._pruners.append(make_pruner(tp, cfg.n_cats, dev, cfg.coding,
                                              self.wavefront))
             # bit-coded state sets for parsimony-guided proposals
@@ -814,8 +906,9 @@ class Engine:
     def _grouped(self, i) -> bool:
         """True where division i may join a multiwalk or stacked group: the
         JAX engine groups only its generic-path divisions, which excludes
-        codon ones (mrbayes_tpu/mcmc/engine.py:2476-2486)."""
-        return self.div_cfg[i].codon is None
+        codon and covarion ones (mrbayes_tpu/mcmc/engine.py:2476-2486)."""
+        cfg = self.div_cfg[i]
+        return cfg.codon is None and not cfg.covarion
 
     def _ungrouped_trees(self, switch: str) -> bool:
         """True with unlinked trees: no multiwalk or stacked group is
@@ -920,6 +1013,9 @@ class Engine:
             self._finish_moves(self._clock_moves(wrap))
             return
         T = self.n_trees
+        if self.rooted_nonclock:
+            self._finish_moves(self._rooted_nonclock_moves(wrap))
+            return
         if T > 1:
             def wrap(base):
                 return self._tree_move(partial(base, n_tips=n))
@@ -966,6 +1062,34 @@ class Engine:
         mk.append(MoveSpec("treelen_mult", wrap(M.move_treelen_multiplier),
                            2.0, 2.0 * np.log(1.6), 0.25, 1, 1e-3, 10.0))
         self._finish_moves(mk)
+
+    def _rooted_nonclock_moves(self, wrap):
+        """The rooted non-clock tree's moves that directional root
+        frequencies force (mrbayes_tpu engine.py:1451-1480; the reference
+        applies its NNI/ExtSPR/ExtTBR to TOPOLOGY_RNCL_*,
+        src/model.c:21868, :22023, :22258): rooted NNI, rooted SPR (whose
+        regraft targets include the root's child edges, so the root itself
+        moves), and the branch-length moves over every non-root branch,
+        tip 0's included."""
+        if self.n_trees > 1:
+            raise ValueError("unlinked topologies with a directional model "
+                             "not supported")
+        n = self.n_tips
+        lam = 2.0 * np.log(1.6)
+
+        def rooted(base):
+            return partial(base, n_tips=n, rooted=True)
+
+        return [MoveSpec("rooted_nni", wrap(M.move_rooted_nni), 8.0, 0.0,
+                         tunable=False),
+                MoveSpec("rooted_spr", wrap(M.move_rooted_spr), 10.0, 0.0,
+                         tunable=False),
+                MoveSpec("blen_mult", rooted(M.move_blen_multiplier), 15.0,
+                         lam, 0.25, 1, 1e-3, 20.0),
+                MoveSpec("node_slider", rooted(M.move_node_slider), 5.0, 0.0,
+                         tunable=False),
+                MoveSpec("treelen_mult", rooted(M.move_treelen_multiplier),
+                         2.0, lam, 0.25, 1, 1e-3, 10.0)]
 
     def _tree_move(self, base, tree: int | None = None):
         """A tree move on unlinked trees (mrbayes_tpu engine.py:1430-1450):
@@ -1135,6 +1259,12 @@ class Engine:
                 2.0, 19000.0, 0.25, -1, 1.0, 1e7))
         if self._mixed_rev:
             mk += self._mixed_gtr_moves()
+        if self.n_groups.get("covswitch"):
+            mk.append(MoveSpec(
+                "covswitch_mult",
+                partial(M.make_multiplier_move("covswitch", 1e-3, 1e3),
+                        n_tips=n), 1.5, 2.0 * np.log(1.5), 0.25, 1,
+                1e-3, 20.0))
         if self.n_groups.get("tratio"):
             mk.append(MoveSpec(
                 "tratio_mult",
@@ -1160,14 +1290,23 @@ class Engine:
         # NY98, M3 and M10 classes are normalised jointly
         # (src/likelihood.c:10702); aamodel_jump gathers the precomputed
         # eigensystem of the new model
-        q_moves = {"pi_dir", "pi20_dir", "pi61_dir", "pi16_dir",
-                   "omega_mult", "omega1_slider", "omega3_mult",
-                   "omegaprobs_dir", "m3omega_slider", "m3probs_dir",
+        q_moves = {"pi_dir", "pi20_dir", "pi61_dir", "pi16_dir", "pi2_dir",
+                   "dirpi_switch", "omega_mult", "omega1_slider",
+                   "omega3_mult", "omegaprobs_dir", "m3omega_slider", "m3probs_dir",
                    "m10beta_mult", "m10gamma_mult", "m10probs_dir",
                    "aamodel_jump", "revmat_dir", "aarevmat_dir",
                    "revmat_splitmerge", "revmat_dirmix", "tratio_mult"}
+        # a covarion division's eigensystem also depends on its rate
+        # categories, switch rates and rate multiplier (the JAX engine
+        # rebuilds it inline in every likelihood, mrbayes_tpu
+        # engine.py:2331-2334): the moves of those refresh it, and only it
+        covarion = tuple(i for i, c in enumerate(self.div_cfg)
+                         if c.covarion)
         for i, m in enumerate(mk):
             m.updates_q = m.name in q_moves
+            if covarion and not m.updates_q and m.name in (
+                    "shape_mult", "covswitch_mult", "ratemult_dir"):
+                m.updates_q, m.eig_divs = True, covarion
             if m.prior_scope is None:
                 m.prior_scope = "tree" if i < n_tree_moves else "params"
         self.moves = mk
@@ -1184,6 +1323,12 @@ class Engine:
             mk.append(MoveSpec("pi20_dir",
                                partial(M.make_simplex_move("pi20"), n_tips=n),
                                2.0, 500.0, 0.25, -1, 1.0, 1e6))
+        if g.get("pi2"):
+            mk.append(MoveSpec("pi2_dir",
+                               partial(M.make_simplex_move("pi2"), n_tips=n),
+                               1.5, 100.0, 0.25, -1, 1.0, 1e5))
+        if g.get("rootpi2"):
+            mk += self._root_freq_moves()
         if g.get("pi61"):
             mk.append(MoveSpec("pi61_dir",
                                partial(M.make_simplex_move("pi61"), n_tips=n),
@@ -1235,12 +1380,107 @@ class Engine:
                         n_tips=n), 2.0, 0.0, tunable=False))
         return mk
 
+    def _root_freq_moves(self):
+        """The root-frequency moves (mrbayes_tpu engine.py:1568-1668;
+        reference Move_StatefreqsRoot and Move_StatefreqsRoot_Slider, 0.5
+        each for DIRPI_*, src/model.c:23111-23152) and, under
+        statefreqmodel=mixed, the stationary <-> directional reversible
+        jump (Move_Statefreqs_SplitMerge, src/model.c:23153-23170,
+        src/proposal.c:16528).  Each chain picks one root-frequency group
+        on the device; a mixed group's root moves are rejected while it is
+        stationary (it has no root frequencies then)."""
+        pairs, seen = [], set()
+        for cfg in self.div_cfg:
+            if cfg.rootpi_group >= 0 and cfg.rootpi_group not in seen:
+                seen.add(cfg.rootpi_group)
+                if cfg.dirpi_mix and cfg.pi_group < 0:
+                    raise ValueError("statefreqmodel=mixed needs a sampled "
+                                     "statefreqpr (dirichlet)")
+                pairs.append((cfg.pi_group, cfg.rootpi_group, cfg.dirpi_mix))
+        mix_on = any(m for _, _, m in pairs)
+        pi_ids = self._rows(p for p, _, _ in pairs)
+        root_ids = self._rows(r for _, r, _ in pairs)
+        mixed = torch.as_tensor([m for _, _, m in pairs], device=self.device)
+
+        def chosen(gen, state):
+            i = M.pick_group(gen, state["rootpi2"], len(pairs))
+            rows = torch.arange(i.shape[0], device=i.device)
+            g = root_ids[i]
+            ok = ~mixed[i]
+            if mix_on:
+                ok = ok | (state["dirpi_on"][rows, g] > 0)
+            return i, rows, g, ok
+
+        def put(arr, rows, g, new):
+            return arr.index_put((rows, g), new)
+
+        def mv_rootpi_dir(gen, state, tuning):
+            _, rows, g, ok = chosen(gen, state)
+            new, lnH = M._dirichlet_proposal(gen, state["rootpi2"][rows, g],
+                                             tuning)
+            return ({**state, "rootpi2": put(state["rootpi2"], rows, g, new)},
+                    torch.where(ok, lnH, NEG_INF))
+
+        def mv_rootpi_slider(gen, state, tuning):
+            _, rows, g, ok = chosen(gen, state)
+            u = torch.rand(tuning.shape, generator=gen, device=tuning.device)
+            # reflect into (0, 1)
+            x = (state["rootpi2"][rows, g, 0] + (u - 0.5) * tuning).abs()
+            x = torch.where(x > 1.0, 2.0 - x, x)
+            new = torch.stack([x, 1.0 - x], -1)
+            return ({**state, "rootpi2": put(state["rootpi2"], rows, g, new)},
+                    torch.where(ok, 0.0, NEG_INF))
+
+        def lndir(alpha, x):
+            return dirichlet_lpdf(x, alpha.clamp_min(1e-4))
+
+        def gamma_draw(gen, alpha):
+            g = torch._standard_gamma(alpha, generator=gen) + 1e-10
+            return g / g.sum(-1, keepdim=True)
+
+        def mv_dirpi_switch(gen, state, tuning):
+            # split (stationary -> directional): the new stationary and
+            # root frequencies from Dir(a old_pi); merge (directional ->
+            # stationary): the new stationary from Dir(a (old_pi +
+            # old_root) / 2)
+            i, rows, gr, _ = chosen(gen, state)
+            gp = pi_ids[i]
+            on = state["dirpi_on"][rows, gr] > 0
+            a = tuning[:, None]
+            old_pi = state["pi2"][rows, gp]
+            old_root = state["rootpi2"][rows, gr]
+            pi_s = gamma_draw(gen, a * old_pi)
+            root_s = gamma_draw(gen, a * old_pi)
+            mid = a * (old_pi + old_root) / 2.0
+            pi_m = gamma_draw(gen, mid)
+            lnH_split = (lndir(a * (pi_s + root_s) / 2.0, old_pi)
+                         - lndir(a * old_pi, pi_s) - lndir(a * old_pi, root_s))
+            lnH_merge = (lndir(a * pi_m, old_pi) + lndir(a * pi_m, old_root)
+                         - lndir(mid, pi_m))
+            new_pi = torch.where(on[:, None], pi_m, pi_s)
+            new_root = torch.where(on[:, None], old_root, root_s)
+            return ({**state,
+                     "pi2": put(state["pi2"], rows, gp, new_pi),
+                     "rootpi2": put(state["rootpi2"], rows, gr, new_root),
+                     "dirpi_on": put(state["dirpi_on"], rows, gr,
+                                     (~on).to(state["dirpi_on"].dtype))},
+                    torch.where(on, lnH_merge, lnH_split))
+
+        mk = [MoveSpec("rootpi_dir", mv_rootpi_dir, 0.5, 200.0,
+                       0.25, -1, 1.0, 1e5),
+              MoveSpec("rootpi_slider", mv_rootpi_slider, 0.5, 0.15,
+                       0.25, 1, 1e-5, 1.0)]
+        if mix_on:
+            mk.append(MoveSpec("dirpi_switch", mv_dirpi_switch, 0.5,
+                               200.0, 0.25, -1, 1.0, 1e4))
+        return mk
+
     def _simplex_width(self, param, gid) -> int:
         """The length of a Dirichlet-sampled group's simplex."""
         if param == "pi61":
             return next(c.codon.n_states for c in self.div_cfg
                         if c.pi_field == "pi61" and c.pi_group == gid)
-        return {"pi": 4, "pi20": 20, "pi16": 16, "revmat": 6,
+        return {"pi": 4, "pi20": 20, "pi16": 16, "pi2": 2, "revmat": 6,
                 "aarevmat": 190}[param]
 
     def _rows(self, values):
@@ -1300,8 +1540,11 @@ class Engine:
         self._tune_min = per_move(m.tmin for m in mv)
         self._tune_max = per_move(m.tmax for m in mv)
         idx = np.arange(self.n_nodes)
+        # the sampled branch lengths: every non-root branch, tip 0's only
+        # on a rooted non-clock tree (mrbayes_tpu engine.py:2806-2812)
         self._blen_mask = torch.as_tensor(
-            (idx != self.n_nodes - 1) & (idx != 0), device=dev)
+            (idx != self.n_nodes - 1) & ((idx != 0) | self.rooted_nonclock),
+            device=dev)
         self._interior = torch.as_tensor(idx >= self.n_tips, device=dev)
         self._unit_rates = torch.ones((1, 1), device=dev)
         self._prior_alpha = {}
@@ -1315,6 +1558,17 @@ class Engine:
                     (self._simplex_width(param, gid),), float(a), device=dev)
         if self.ratemult_on:
             self._ratemult_alpha = torch.ones(self.n_div, device=dev)
+        # the root frequencies' Dirichlet prior a group, and whether a mixed
+        # run's RJ indicator gates it (mrbayes_tpu engine.py:2858-2875)
+        self._rootpi_priors = {}
+        for c in self.div_cfg:
+            if c.rootpi_group >= 0 and c.rootpi_group not in \
+                    self._rootpi_priors:
+                ps = tuple(float(x)
+                           for x in (c.settings.rootfreqpr.params or (1.0,)))
+                self._rootpi_priors[c.rootpi_group] = (torch.tensor(
+                    ps if len(ps) == 2 else (ps[0], ps[0]), device=dev),
+                    c.dirpi_mix)
         self._doublet_cls = torch.as_tensor(DOUBLET_CLS, device=dev)
         # the codon pair classes (single change, transition,
         # nonsynonymous) [S, S] of each codon division
@@ -1347,7 +1601,7 @@ class Engine:
                 self._const_eigs[i] = tuple(
                     x.float() for x in eigh_reversible(
                         self._standard_q(c, pi), pi))
-            elif i in self._aa_exch and c.pi_group < 0:
+            elif i in self._aa_exch and c.pi_group < 0 and not c.covarion:
                 self._const_eigs[i] = _fixed_eig(
                     self._aa_exch[i][None], self._fixed_pi[i])
         # aamodelpr=mixed: every model's exchangeabilities [11, 190],
@@ -1385,11 +1639,17 @@ class Engine:
             return random_unrooted(self.n_tips, rng, mean_blen=0.1)
 
         def arrays(t):
+            blen = np.clip(t.blen, 0.0, M.BRLEN_MAX).astype(np.float32)
+            if self.rooted_nonclock and blen[0] == 0.0:
+                # the root starts on tip 0's pendant edge: split the basal
+                # branch so both root children have a length (mrbayes_tpu
+                # engine.py:2048-2054)
+                basal = int(t.left[self.n_nodes - 1])
+                blen[0] = blen[basal] / 2.0
+                blen[basal] = blen[basal] / 2.0
             return {"left": np.asarray(t.left, np.int64),
                     "right": np.asarray(t.right, np.int64),
-                    "parent": np.asarray(t.parent, np.int64),
-                    "blen": np.clip(t.blen, 0.0, M.BRLEN_MAX).astype(
-                        np.float32)}
+                    "parent": np.asarray(t.parent, np.int64), "blen": blen}
 
         if self.n_trees > 1:
             # one random tree a tree group, [n_trees, n_nodes] each
@@ -1511,6 +1771,16 @@ class Engine:
             st["pi61"] = np.full((g["pi61"], n61), 1.0 / n61, np.float32)
         if g.get("pi16"):
             st["pi16"] = np.full((g["pi16"], 16), 1.0 / 16, np.float32)
+        if g.get("pi2"):
+            st["pi2"] = np.full((g["pi2"], 2), 0.5, np.float32)
+        if g.get("rootpi2"):
+            st["rootpi2"] = np.full((g["rootpi2"], 2), 0.5, np.float32)
+            if any(c.dirpi_mix for c in self.div_cfg):
+                # a mixed run starts directional (the reference's .p prints
+                # statefrmod=1 with its root frequencies at generation 0)
+                st["dirpi_on"] = np.ones(g["rootpi2"], np.int64)
+        if g.get("covswitch"):
+            st["covswitch"] = np.ones((g["covswitch"], 2), np.float32)
         if g.get("omega"):
             st["omega"] = np.ones((g["omega"],), np.float32)
         if g.get("ny98"):
@@ -1630,6 +1900,8 @@ class Engine:
             Q = protein_q(exch, pi)
         elif cfg.div.dtype is DataType.STANDARD:
             Q = self._standard_q(cfg, pi)
+        elif cfg.div.dtype is DataType.RESTRICTION:
+            Q = binary_q(pi)
         elif nst == "1":
             Q = nuc_q_nst1(pi)
         elif nst == "2":
@@ -1731,16 +2003,54 @@ class Engine:
         if cfg.aamodel_group >= 0:
             idx = state["aamodel_idx"][:, cfg.aamodel_group]
             return tuple(x[idx] for x in self._aa_stack[2:])
+        if cfg.covarion:
+            return eigh_reversible(*self._covarion_q_pi(state, i))
         Q, pi = self._division_q_pi(state, i)
         return eigh_reversible(Q, pi if Q.ndim == 3 else pi[:, None])
 
-    def refresh_eigs(self, state):
-        """(Re)compute every division's cached eigensystem.  The cache
-        lives in the chain state so it rides accept/reject; only
-        Q-changing moves call this (reference upDateCijk,
-        src/likelihood.c:10476)."""
+    def _covswitch(self, state, i):
+        """Division i's covarion switch rates (s01, s10) [C|1, 2]."""
+        cfg = self.div_cfg[i]
+        if cfg.covswitch_group >= 0:
+            return state["covswitch"][:, cfg.covswitch_group]
+        return self._fixed_covswitch[i]
+
+    def _covarion_q_pi(self, state, i):
+        """A covarion division's generators [C, K, 2S, 2S], one a rate
+        category, and the doubled frequencies [C, 1, 2S]
+        (``_covarion_loglik``, mrbayes_tpu engine.py:2679-2709; reference
+        TiProbs_GenCov src/likelihood.c:9568, UpDateCijk :10511-10522):
+        the category rate times the rate multiplier scales the
+        substitution block only, the switch rates stay as they are."""
+        cfg = self.div_cfg[i]
+        Q, pi = self._division_q_pi(state, i)
+        if cfg.shape_group >= 0:
+            rates = self._gamma_tables[cfg.n_cats](
+                state["shape"][:, cfg.shape_group])
+        else:
+            rates = self._unit_rates
+        if self.ratemult_on:
+            rates = rates * (state["ratemult"][:, i] / float(
+                self.div_char_frac[i]))[:, None]
+        sw = self._covswitch(state, i)
+        return covarion_q(Q[:, None], pi[:, None], sw[:, :1], sw[:, 1:],
+                          rates)
+
+    def _covarion_pi(self, state, i):
+        """A covarion division's doubled stationary frequencies [C, 2S]:
+        pi times probOn, then pi times 1 - probOn."""
+        pi = self._division_pi(state, i)
+        sw = self._covswitch(state, i)
+        on = sw[:, :1] / (sw[:, :1] + sw[:, 1:])
+        return torch.cat([pi * on, pi * (1.0 - on)], -1)
+
+    def refresh_eigs(self, state, divs=None):
+        """(Re)compute the cached eigensystems of divisions ``divs`` (every
+        division when None).  The cache lives in the chain state so it
+        rides accept/reject; only moves that change an eigensystem call
+        this (reference upDateCijk, src/likelihood.c:10476)."""
         out = dict(state)
-        for i in range(self.n_div):
+        for i in range(self.n_div) if divs is None else divs:
             if i in self._const_eigs:
                 continue
             lam, U, Uinv = self._division_eig(state, i)
@@ -1833,12 +2143,32 @@ class Engine:
                                           weights[i], coding))
         return terms
 
+    def _root_pi(self, state, i):
+        """The frequencies division i's root reduction (and coding-dummy
+        sum) weights with [C, S]: the stationary ones, or under
+        statefreqmodel=directional the root frequencies, and under mixed
+        those of the chains in the directional state (mrbayes_tpu
+        engine.py:2501-2513; reference Likelihood_Res,
+        src/likelihood.c:7155-7165).  Q and P(t) stay built from the
+        stationary frequencies."""
+        cfg = self.div_cfg[i]
+        pi = self._division_pi(state, i)
+        if not cfg.directional:
+            return pi
+        rpi = (state["rootpi2"][:, cfg.rootpi_group]
+               if cfg.rootpi_group >= 0
+               else self._fixed_rootpi[i].expand_as(pi))
+        if cfg.dirpi_mix:
+            on = state["dirpi_on"][:, cfg.rootpi_group, None] > 0
+            return torch.where(on, rpi, pi)
+        return rpi
+
     def _generic_div_params(self, state, i):
         """(pi, coding, lam, U, Uinv, rates, pinv, cmask, mult) of a
         division — the inputs division_loglik needs beyond the tree, with
         the division's resolved ascertainment coding."""
         cfg = self.div_cfg[i]
-        pi = self._division_pi(state, i)
+        pi = self._root_pi(state, i)
         lam, U, Uinv = self._division_eig_cached(state, i)
         if cfg.shape_group >= 0:
             rates = self._gamma_tables[cfg.n_cats](
@@ -1865,6 +2195,8 @@ class Engine:
     def _division_lnL(self, state, i, blen, weights):
         if self.div_cfg[i].codon is not None:
             return self._codon_lnL(state, i, blen, weights)
+        if self.div_cfg[i].covarion:
+            return self._covarion_lnL(state, i, blen, weights)
         pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \
             self._generic_div_params(state, i)
         return division_loglik(
@@ -1892,6 +2224,19 @@ class Engine:
             self._division_pi(state, i), self._unit_rates.expand(
                 1, cfg.n_cats), 0.0, None, self.n_tips, rate_mult=mult,
             cat_weights=cat_w, pruner=self._pruners[i])
+
+    def _covarion_lnL(self, state, i, blen, weights):
+        """A covarion division's lnL [C] (mrbayes_tpu engine :2679-2709):
+        the per-category eigensystems (their rates and the rate multiplier
+        inside) with unit category rates, no pinvar, the doubled
+        stationary frequencies at the root."""
+        K = self.div_cfg[i].n_cats
+        lam, U, Uinv = self._division_eig_cached(state, i)
+        return division_loglik(
+            state["left"], state["right"], state["parent"], blen,
+            self.tip_partials[i], weights, lam, U, Uinv,
+            self._covarion_pi(state, i), self._unit_rates.expand(1, K), 0.0,
+            None, self.n_tips, pruner=self._pruners[i])
 
     def log_prior(self, state):
         """Full log prior [C] = tree component + parameter component."""
@@ -2044,12 +2389,20 @@ class Engine:
                 lp = lp + torch.where(
                     ordered, math.log(36.0) - 4.0 * torch.log1p(x.sum(-1)),
                     NEG_INF)
-            elif param in ("m10beta", "m10gamma"):
-                # both shapes iid under the prior (reference m10betapr,
-                # src/bayes.c:741-748)
+            elif param in ("m10beta", "m10gamma", "covswitch"):
+                # both shapes (both switch rates) iid under the prior
+                # (reference m10betapr, src/bayes.c:741-748; the switch
+                # rates src/model.c:11891-11897)
                 lp = lp + _scalar_prior_lpdf(pr, x).sum(-1)
             else:
                 lp = lp + _scalar_prior_lpdf(pr, x)
+        for g, (alpha, mixed) in self._rootpi_priors.items():
+            # a mixed run's stationary state has no root frequencies
+            # (reference Move_Statefreqs_SplitMerge, src/proposal.c:16646)
+            term = dirichlet_lpdf(state["rootpi2"][:, g], alpha)
+            if mixed:
+                term = torch.where(state["dirpi_on"][:, g] > 0, term, 0.0)
+            lp = lp + term
         if self.ratemult_on:
             lp = lp + dirichlet_lpdf(state["ratemult"], self._ratemult_alpha)
         return lp
@@ -2065,7 +2418,7 @@ class Engine:
         cur = {k: v for k, v in state.items() if k not in SCORE_KEYS}
         new, lnH = spec.fn(gen, cur, tuning)
         if spec.updates_q:
-            new = self.refresh_eigs(new)
+            new = self.refresh_eigs(new, spec.eig_divs)
         lnL = self.log_likelihood(new)
         # recompute only the prior component the move can touch; carry
         # the other (exact: a "params" move leaves every tree-prior input
@@ -2234,7 +2587,8 @@ class Engine:
 
     def extract_tree(self, states, slot: int, tree: int = 0) -> Tree:
         """One chain's tree (unlinked tree ``tree``) as a host ``Tree``
-        (``states`` tensors or host arrays), rooted for a clock model."""
+        (``states`` tensors or host arrays), rooted for a clock model and
+        for the rooted non-clock tree of directional root frequencies."""
         def host(k):
             a = states[k][slot]
             return _host(a[tree] if self.n_trees > 1 else a).astype(np.int32)
@@ -2242,7 +2596,8 @@ class Engine:
         return Tree(parent=host("parent"), left=host("left"),
                     right=host("right"),
                     blen=self.effective_blens(states, slot, tree),
-                    n_tips=self.n_tips, rooted=self.tree_settings.clock)
+                    n_tips=self.n_tips,
+                    rooted=self.tree_settings.clock or self.rooted_nonclock)
 
 
 def _fixed_eig(exch, pi):

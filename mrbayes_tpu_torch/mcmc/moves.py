@@ -656,6 +656,64 @@ def move_node_slider(gen, state, tuning, n_tips, rooted=False):
 
 
 # ---------------------------------------------------------------------------
+# rooted non-clock topology moves (directional root frequencies force a
+# rooted tree with free branch lengths; reference TOPOLOGY_RNCL_*
+# paramIds, src/model.c:20126-20134; mrbayes_tpu/mcmc/moves.py:828-900)
+
+
+def move_rooted_nni(gen, state, tuning, n_tips):
+    """NNI on a rooted tree: swap a random child of a random internal
+    non-root node with that node's sibling.  Symmetric (lnH = 0)."""
+    root = 2 * n_tips - 2
+    parent, left, right = state["parent"], state["left"], state["right"]
+    u = _uniforms(gen, parent, 2)
+    idx = _node_ids(state)
+    mask = ((idx >= n_tips) & (idx != root)).expand_as(parent)
+    v = _masked_choice(u[:, 0], mask)
+    p = _take(parent, v)
+    lp = _take(left, p)
+    s = torch.where(lp == v, _take(right, p), lp)
+    c = torch.where(u[:, 1] < 0.5, _take(left, v), _take(right, v))
+    st = _replace_child(state, v, c, s)
+    st = _replace_child(st, p, s, c)
+    return st, torch.zeros_like(tuning)
+
+
+def move_rooted_spr(gen, state, tuning, n_tips):
+    """Rooted SPR: prune the parent edge of a random node v whose parent
+    is not the root, close the gap, and regraft onto a uniformly chosen
+    edge anywhere outside v's subtree, the root's child edges included,
+    so the root itself moves.  lnH = ln(k_f / k_r) + ln(t_w / merged):
+    the candidate counts before and after (each with its identity
+    target) and the uniform-split length densities."""
+    root = 2 * n_tips - 2
+    parent = state["parent"]
+    u = _uniforms(gen, parent, 3)
+    idx = _node_ids(state)
+    vmask = (idx != root) & (parent != root)
+    v = _masked_choice(u[:, 0], vmask)
+    rows = torch.arange(parent.shape[0], device=parent.device)
+
+    def targets(par, pp):
+        # not the root, not in v's subtree, not v's parent
+        return ((idx != root) & ~descendant_matrix(par)[rows, v]
+                & (idx != pp[:, None]))
+
+    st, p, s, merged = _detach(state, v)
+    wm = targets(parent, p)
+    w = _masked_choice(u[:, 1], wm)
+    # the sibling's edge now carries the merged length: regrafting onto
+    # it splits that edge
+    st, t_w = _regraft(st, p, s, w, u[:, 2])
+    k_f = wm.sum(1)
+    k_r = targets(st["parent"], p).sum(1)
+    lnH = (torch.log(k_f.clamp_min(1).float())
+           - torch.log(k_r.clamp_min(1).float()) + _ln_len_ratio(t_w, merged))
+    ok = vmask.any(1) & wm.any(1) & (w != v)
+    return st, torch.where(ok, lnH, NEG_INF)
+
+
+# ---------------------------------------------------------------------------
 # parameter moves (operate on one random row of a grouped parameter)
 
 

@@ -126,6 +126,11 @@ def param_columns(eng: Engine):
             cols.append((f"pi({nm})" + suffix("pi20", gid),
                          lambda st, s, g=gid, k=k:
                          float(st["pi20"][s, g, k])))
+    for gid in range(eng.n_groups.get("pi2", 0)):
+        for k in range(2):
+            cols.append((f"pi({k})" + suffix("pi2", gid),
+                         lambda st, s, g=gid, k=k: float(st["pi2"][s, g, k])))
+    cols += _root_freq_columns(eng, suffix)
     for gid in range(eng.n_groups.get("pi61", 0)):
         code = next(c.codon for c in eng.div_cfg
                     if c.pi_field == "pi61" and c.pi_group == gid)
@@ -146,6 +151,12 @@ def param_columns(eng: Engine):
     for gid in range(eng.n_groups.get("pinvar", 0)):
         cols.append(("pinvar" + suffix("pinvar", gid),
                      lambda st, s, g=gid: float(st["pinvar"][s, g])))
+    for gid in range(eng.n_groups.get("covswitch", 0)):
+        # the reference's s(off->on) / s(on->off) (mrbayes_tpu run.py:232)
+        for k, nm in enumerate(("s(off->on)", "s(on->off)")):
+            cols.append((nm + suffix("covswitch", gid),
+                         lambda st, s, g=gid, k=k:
+                         float(st["covswitch"][s, g, k])))
     for gid in range(eng.n_groups.get("aamodel", 0)):
         cols.append(("aamodel" + suffix("aamodel", gid),
                      lambda st, s, g=gid: float(st["aamodel_idx"][s, g])))
@@ -154,6 +165,30 @@ def param_columns(eng: Engine):
             cols.append((f"m{{{d + 1}}}",
                          lambda st, s, d=d: float(
                              st["ratemult"][s, d] / eng.div_char_frac[d])))
+    return cols
+
+
+def _root_freq_columns(eng: Engine, suffix):
+    """The directional root frequencies' columns (mrbayes_tpu
+    run.py:180-198): rootpi(0) and rootpi(1) a group, -9999 while a mixed
+    run is in the stationary state, and a mixed group's statefrmod
+    indicator (the reference's .p output)."""
+    cols = []
+    for gid in range(eng.n_groups.get("rootpi2", 0)):
+        mixed = any(c.dirpi_mix for c in eng.div_cfg
+                    if c.rootpi_group == gid)
+
+        def rootv(st, s, g, k, mixed=mixed):
+            if mixed and int(st["dirpi_on"][s, g]) == 0:
+                return -9999.0
+            return float(st["rootpi2"][s, g, k])
+
+        for k in (0, 1):
+            cols.append((f"rootpi({k})" + suffix("rootpi", gid),
+                         lambda st, s, g=gid, k=k: rootv(st, s, g, k)))
+        if mixed:
+            cols.append(("statefrmod", lambda st, s, g=gid:
+                         float(st["dirpi_on"][s, g])))
     return cols
 
 

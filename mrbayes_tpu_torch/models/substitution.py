@@ -1,9 +1,11 @@
 """Substitution-model Q matrices (batched torch).
 
-Reversible Q construction for nucleotide models (nst=1/2/6) and any
-reversible exchangeability vector.  All Q matrices are normalized to one
-expected substitution per unit branch length: ``-sum_i pi_i Q_ii = 1``
-(reference: src/likelihood.c:8166 SetNucQMatrix behavior).  Every function
+Reversible Q construction for nucleotide models (nst=1/2/6), binary
+(restriction) data and any reversible exchangeability vector, and the
+Tuffley-Steel covarion generator over a doubled state space.  All Q
+matrices are normalized to one expected substitution per unit branch
+length: ``-sum_i pi_i Q_ii = 1`` (reference: src/likelihood.c:8166
+SetNucQMatrix behavior).  Every function
 takes leading batch dims (the chain axis) on its tensor arguments.
 """
 from __future__ import annotations
@@ -47,6 +49,48 @@ def nuc_q_gtr(revmat: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
     """GTR: 6 exchangeabilities (scale is irrelevant after
     normalization)."""
     return reversible_q(revmat, pi)
+
+
+def binary_q(pi: torch.Tensor) -> torch.Tensor:
+    """2-state (restriction/binary) model: the one exchangeability of the
+    pair, normalised to mean rate 1 under ``pi`` [..., 2]."""
+    return reversible_q(pi.new_ones(pi.shape[:-1] + (1,)), pi)
+
+
+def covarion_q(qnorm: torch.Tensor, pi: torch.Tensor, s01, s10,
+               rate=1.0):
+    """Tuffley-Steel covarion generators over a doubled state space
+    [on-states, off-states] (mrbayes_tpu/models/substitution.py:136;
+    reference src/likelihood.c:8269-8420 for the 8 x 8 nucleotide case,
+    :8941 for the 40 x 40 protein case).
+
+    ``qnorm`` [..., S, S] is the base reversible generator normalised to
+    mean rate 1 under its stationary ``pi`` [..., S].  The substitution
+    block is scaled by ``rate / probOn`` (probOn = s01 / (s01 + s10)), so
+    the covarion process has mean rate 1 at a unit ``rate``; a rate
+    category scales the substitution block only, the switch rates are the
+    same in every category (the reason for one eigensystem a category,
+    TiProbs_GenCov src/likelihood.c:9568).  ``s01``, ``s10`` and ``rate``
+    broadcast against the batch dims (tensors [...] or floats).
+
+    Returns (Q_cov [..., 2S, 2S], pi_cov [..., 2S]); the process is
+    reversible under pi_cov, so ``eigh_reversible`` applies."""
+    s = qnorm.shape[-1]
+    s01 = torch.as_tensor(s01, dtype=qnorm.dtype, device=qnorm.device)
+    s10 = torch.as_tensor(s10, dtype=qnorm.dtype, device=qnorm.device)
+    rate = torch.as_tensor(rate, dtype=qnorm.dtype, device=qnorm.device)
+    prob_on = s01 / (s01 + s10)
+    eye = torch.eye(s, dtype=qnorm.dtype, device=qnorm.device)
+    off = qnorm * (1.0 - eye) * (rate / prob_on)[..., None, None]
+    top_left = off - eye * (off.sum(-1) + s10[..., None])[..., None]
+    top = torch.cat([top_left, (eye * s10[..., None, None]).expand_as(off)],
+                    -1)
+    bot = torch.cat([(eye * s01[..., None, None]).expand_as(off),
+                     (-eye * s01[..., None, None]).expand_as(off)], -1)
+    Q = torch.cat([top, bot], -2)
+    pi_cov = torch.cat([pi * prob_on[..., None],
+                        pi * (1.0 - prob_on)[..., None]], -1)
+    return Q, pi_cov
 
 
 def mk_q(n_states: int, pi: torch.Tensor | None = None, device=None,

@@ -4,7 +4,8 @@ Reversible Q is similar to a symmetric matrix: with D = diag(pi),
 B = D^{1/2} Q D^{-1/2} is symmetric, so a symmetric eigensolver gives a
 real spectrum and P(t) = D^{-1/2} V exp(Λt) Vᵀ D^{1/2} (replacing the
 reference's EISPACK path, src/utils.c:11201 GetEigens, :14064
-TiProbsUsingEigens).
+TiProbsUsingEigens); ``expm_pade`` is the scaling-and-squaring
+exponential of any generator.
 """
 from __future__ import annotations
 
@@ -59,3 +60,22 @@ def transition_probs(lam: torch.Tensor, U: torch.Tensor, Uinv: torch.Tensor,
     elt = torch.exp(lam * t[..., None])               # [..., s]
     P = (U * elt[..., None, :]) @ Uinv
     return P.clamp(0.0, 1.0)
+
+
+def expm_pade(A: torch.Tensor, squarings: int = 8) -> torch.Tensor:
+    """Scaling-and-squaring matrix exponential of a (batched) generator
+    times a branch length, with a sixth-order Taylor core
+    (mrbayes_tpu/ops/tiprobs.py:55; reference fallback src/utils.c:10332
+    ComputeMatrixExponential): adequate for normalised generators times
+    moderate branch lengths, and a check on ``transition_probs`` for
+    generators that are not reversible."""
+    X = A / 2.0 ** squarings
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    term = eye.expand_as(A)
+    out = term
+    for k in range(1, 7):
+        term = term @ X / k
+        out = out + term
+    for _ in range(squarings):
+        out = out @ out
+    return out

@@ -181,9 +181,9 @@ def test_entry_point_defaults_to_cuda(dataset):
         Engine(dataset, [DivisionSettings(nst="6", rates="invgamma")])
 
 
-@pytest.mark.parametrize("kw", [dict(covarion=True), dict(rates="lnorm"),
+@pytest.mark.parametrize("kw", [dict(rates="kmixture"), dict(rates="lnorm"),
                                 dict(parsmodel=True),
                                 dict(rates="adgamma")])
 def test_settings_outside_the_slice_raise(dataset, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13c"):
         Engine(dataset, [DivisionSettings(**kw)], device="cpu")

@@ -307,7 +307,7 @@ def test_p_header_equals_jax_param_columns(jax_side, port_engine):
 def test_ordered_characters_and_symdiri_raise():
     """Ordered characters are carried since item 10b (the ordered Mk
     generator, tests/test_torch_dating.py and test_torch_hymfossil.py);
-    a sampled symdirihyperpr still raises naming item 13."""
+    a sampled symdirihyperpr still raises naming item 13c."""
     nf = read_nexus_file(example("cynmix.nex"))
     ordered = make_divisions(nf.matrix, ctype={c: "ordered"
                                                for c in range(166)})
@@ -323,7 +323,7 @@ def test_ordered_characters_and_symdiri_raise():
     assert torch.isfinite(states["lnL"]).all()
     divs = make_divisions(nf.matrix)
     ds = DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar, divisions=divs)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13c"):
         Engine(ds, [DivisionSettings(symdirihyperpr=Prior("fixed", (1.0,)))
                     for _ in divs], device="cpu")
 
