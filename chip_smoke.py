@@ -6,15 +6,18 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
                           [--cynmix-gens N] [--switch-blocks N]
                           [--phases GROUP,...]
 
-(defaults 2,000, 3, 600 and 2; primates blocks, cynmix generations and
-switch blocks were 5, 2,000 and 3 before the sharded phases came, and
-test1's generations 20,000 before test2's came and 4,000 before the
-dating phases: each was cut to keep the script within 600 s, and test1's
-20,000-generation envelope is checked by ``--test1-gens 20000``; test2
-always runs the envelope's 20,000).  ``--phases`` runs only the named
+(defaults 2,000, 2, 300 and 1; primates blocks, cynmix generations and
+switch blocks were 5, 2,000 and 3 before the sharded phases came and 3,
+600 and 2 before the families phases, and test1's generations 20,000
+before test2's came and 4,000 before the dating phases: each was cut to
+keep the script within 600 s on a fast host and 700 s on a slow one,
+and test1's 20,000-generation envelope is
+checked by ``--test1-gens 20000``; test2 always runs the envelope's
+20,000).  ``--phases`` runs only the named
 groups after the device and build phases (``PHASE_GROUPS``: kernels 3,
 17, 21; primates 4-5; test1 6-9; cynmix 10-12; sharded 13-16; clock
-18-20; aa_codon 22-26; dating 27-31; kim_codon 32-37; covarion 38-41);
+18-20; aa_codon 22-26; dating 27-31; kim_codon 32-37; covarion 38-41;
+families 42-46);
 with a subset the
 kernels line names every kernel with its numbers null, and the groups'
 own lines carry what they measured.  Each
@@ -123,7 +126,7 @@ Phases, each fatal on failure:
      tests/golden_primates.json and the replicase_ny98 rows of
      tests/golden_extra.json on the card (within 0.05, 0.6 and 1.0);
  23. avian: avian_ovomucoids.nex under the manual's aamodelpr=mixed
-     through the CLI, 2 runs x 4 chains, 600 generations: one pruning.cu
+     through the CLI, 2 runs x 4 chains, 300 generations: one pruning.cu
      launch a likelihood, one eigh.cu launch at the engine's build (the 11
      models' fixed eigensystems as one batch) and none in the loop,
      carried versus recomputed scores, the files, sump
@@ -132,7 +135,7 @@ Phases, each fatal on failure:
      every move type with host synchronisation made an error, eigh.cu
      once per Q move under gtr and never under mixed;
  25. replicase NY98: replicase.nex under lset nucmodel=codon omegavar=ny98
-     through the CLI, 2 runs x 4 chains, 1,200 generations, with phase 23's
+     through the CLI, 2 runs x 4 chains, 600 generations, with phase 23's
      checks and eigh.cu once per refresh; then the sync check of phase 24;
  26. prior-only protein and codon: mcmc data=no from draws of the prior,
      32 runs x 1 chain, 1,200 generations: each amino-acid model's share,
@@ -221,6 +224,36 @@ Phases, each fatal on failure:
  41. the sync check of every move type of avian covarion and of the
      restriction mixed model (rooted NNI and SPR, the root-frequency moves
      and the stationary/directional jump), with eigh.cu's launches.
+
+ 42. the families' kernel: pruning.cu against its plain version on the
+     operands of cynmix's morphology under symdirihyperpr (the binary
+     bucket: 32 tips, 124 patterns with the coding dummies, S 2, its 5
+     beta x 4 gamma categories K 20, each category weighted at the root by
+     its own frequencies; the 3-, 4- and 8-state buckets with sampled
+     frequencies, K 4), C = 8 and 32: the walk and block (held to the
+     whole walk and the size rule's twin), ms, before_ms, plain_ms and the
+     bound;
+ 43. identical states: primates under adgamma, its codon positions under
+     lnorm and kmixture, cynmix with symdirihyperpr or the parsimony model
+     on its morphology and 32 simulated continuous taxa (50 traits), each
+     engine on the card and on the CPU (the plain versions) at one state:
+     each of the family's divisions' lnL per chain within 2e-3, every
+     other division's within 2e-3 + 1.3e-6 |lnL|, and lnPrior within
+     1e-4; adgamma against a float64 sequential forward over the
+     card's own root partials (and its HMM's kernel launches counted:
+     O(log sites)), continuous against the dense multivariate-normal REML
+     oracle, the parsimony model against a numpy Fitch count, each within
+     2e-3;
+ 44. the lnorm + kmixture divisions in one multiwalk.cu launch, each
+     division's per-pattern lnL within 2e-5 of its own pruning.cu launch;
+ 45. the five through the CLI, 300 generations, 4 chains (primates
+     adgamma 2 runs, multiwalk on for lnorm + kmixture): each division's
+     kernel launched once a likelihood (none for a parsimony-model or
+     continuous division), carried versus recomputed scores, finite .p
+     files with the corr, mixturerates and brownScale columns, .t files,
+     sump and sumt, gens/s;
+ 46. a block and one generation of every move type of each of the five
+     with host synchronisation made an error.
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -319,9 +352,10 @@ CLOCK_CHAINS = (8, 32)
 # its two runs, and the draws of the direct sample it is held against
 PRIOR_RUNS, PRIOR_GENS, PRIOR_SEEDS = 32, 3000, (11, 12)
 PRIOR_DRAWS = 100000
-# enough for sump/sumt samples (7 per run at samplefreq 100); cut from
-# 2,000 to make room for the sharded phases within 600 s
-CYNMIX_GENS = 600
+# enough for sump/sumt samples (4 per run at samplefreq 100); cut from
+# 2,000 to make room for the sharded phases within 600 s, and from 600 for
+# the families phases within 700 s on a slow host
+CYNMIX_GENS = 300
 # one division's lnL between kernel paths on one state (the float32 total
 # of 8 divisions near -36,117 is compared with the reference only: one
 # float32 spacing there is 0.0039)
@@ -339,8 +373,8 @@ EIGH_TOL = 1e-10
 # the protein and codon runs through the CLI (2 runs x 4 chains), and
 # their prior-only check: runs x 1 chain, generations, seed (the three
 # runs cut from 1,000, 2,000 and 2,000 to make room for the dating phases
-# within 600 s)
-AA_GENS, CODON_GENS = 600, 1200
+# within 600 s, the CLI runs from 600 and 1,200 for the families phases)
+AA_GENS, CODON_GENS = 300, 600
 AA_PRIOR_RUNS, AA_PRIOR_GENS, AA_PRIOR_SEED = 32, 1200, 13
 
 
@@ -398,6 +432,52 @@ COVARION_CLI = {"primates_covarion": (2, 300), "avian_covarion": (1, 150),
                 "restriction_directional": (1, 300),
                 "restriction_mixed": (1, 300)}
 COV_SAMPLEFREQ = 50
+# the rest of the other likelihood families (lnorm, kmixture, adgamma,
+# symdirihyperpr, parsmodel, continuous data): pruning.cu is held at the
+# operands of cynmix's morphology under symdirihyperpr
+# (envelope.BATCHES["cynmix_symdiri"]), each bucket at C = 8 and 32: the
+# binary one's 5 beta x 4 gamma categories (32 tips, 124 patterns with
+# the coding dummies, S 2, K 20) and the 3-, 4- and 8-state ones with
+# their sampled frequencies (K 4), every one on the whole walk
+FAMILY_KERNEL_DIVS = (0, 1, 2, 3)
+# the CLI runs (envelope.BATCHES): name -> (runs, switches), 4 chains
+# each, FAMILY_GENS generations sampled every FAMILY_SAMPLEFREQ; the .p
+# column each adds (None: none)
+FAMILY_CLI = {"primates_adgamma": (2, {}),
+              "primates_lnorm_kmix": (1, {"multiwalk": True}),
+              "cynmix_symdiri": (1, {}), "cynmix_parsmodel": (1, {}),
+              "continuous": (1, {})}
+FAMILY_COLUMNS = {"primates_adgamma": "corr",
+                  "primates_lnorm_kmix": "mixturerates{2}[4]",
+                  "cynmix_symdiri": None, "cynmix_parsmodel": None,
+                  "continuous": "brownScale"}
+FAMILY_GENS, FAMILY_SAMPLEFREQ, FAMILY_SYNC_GENS = 300, 50, 20
+# the identical-state check: chains; the tolerance of a family
+# division's lnL per chain between the card's engine and the CPU's (the
+# kernels against their plain versions; float64 sums of float32 site
+# lnLs) and of each chain's lnL against the independent references; and
+# the relative term the other divisions (cynmix's GTR+I+G genes) add to
+# it: their float32 P(t) and root sums round differently on the two
+# devices, by up to 1.03e-2 at |lnL| 8,198 on an H100 (1.26e-6 |lnL|;
+# PERF.md)
+FAMILY_STATE_CHAINS = 8
+FAMILY_LNL_TOL = 2e-3
+OTHER_LNL_REL = 1.3e-6
+
+
+def state_tol(lnl, family):
+    """The card-vs-CPU bound of each division's lnL [C, n_div]: family
+    divisions (``family`` [n_div] bool) within ``FAMILY_LNL_TOL``, the
+    others within it plus ``OTHER_LNL_REL`` |lnL|."""
+    return FAMILY_LNL_TOL + np.where(family, 0.0, OTHER_LNL_REL
+                                     * np.abs(lnl))
+
+
+def is_family_div(cfg):
+    """True for a division of this group's families: lnorm, kmixture or
+    adgamma rates, symdirihyperpr, the parsimony model, continuous data."""
+    return (cfg.settings.rates in ("lnorm", "kmixture", "adgamma")
+            or cfg.symdiri or not cfg.prunes)
 # every kernel of the kernels line: name, route, source, the TPU kernel
 KERNEL_IDS = [
     {"name": "pruning_down", "route": "cuda",
@@ -424,7 +504,8 @@ KERNEL_NUMBERS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                   "bound_by", "library_ms")
 # the phase groups of --phases, in the order they run
 PHASE_GROUPS = ("kernels", "primates", "test1", "cynmix", "sharded",
-                "clock", "aa_codon", "dating", "kim_codon", "covarion")
+                "clock", "aa_codon", "dating", "kim_codon", "covarion",
+                "families")
 
 
 def log(msg):
@@ -554,8 +635,11 @@ def multiwalk_case(torch, n_tips, Ps, Ks, S, C, seed):
 
 def site_lnl(torch, root, ls, pi):
     """Per-pattern lnL [C, P] of root [C, K, S, P] and ls [C, P] under pi
-    [S] or [C, S] with equal category weights."""
+    [S] or [C, S], or a category's own [C, K, S], with equal category
+    weights."""
     K = root.shape[1]
+    if pi.ndim == 3:
+        return torch.log(torch.einsum("cksp,cks->cp", root, pi) / K) + ls
     pi = pi.expand(root.shape[0], -1)
     return torch.log(torch.einsum("cksp,cs->cp", root, pi) / K) + ls
 
@@ -3315,12 +3399,348 @@ def phase_covarion(torch, power_line):
     return err, cases, eigh_cases, golden, golden_launches, runs
 
 
+def family_engine(torch, name, C, device=DEV, **switches):
+    """The port's engine of ``envelope.BATCHES[name]`` on ``device``, 1 run
+    x C chains, every kernel-path switch off unless given (a continuous
+    batch's matrix written from its seed under runs/)."""
+    from mrbayes_tpu_torch.cli import Interpreter
+    from mrbayes_tpu_torch.envelope import BATCHES, write_continuous
+    data, model = BATCHES[name]
+    if data is None:
+        os.makedirs(OUT, exist_ok=True)
+        data = write_continuous(os.path.join(OUT, f"{name}_data.nex"))
+    it = Interpreter(log=lambda m: None, device=device, **{
+        "multiwalk": False, "wavefront": False, "stacked": False,
+        **switches})
+    for line in (f"execute {data}", *model,
+                 f"mcmcp nruns=1 nchains={C} seed=3"):
+        it.run_line(line)
+    return it.build_engine()
+
+
+def family_state(torch, eng, rng):
+    """The engine's starting chains (random trees) with seeded parameters:
+    gamma or lognormal shapes, the adgamma correlation, kmixture rates,
+    symbeta and the multistate frequencies under it, the Brownian variance
+    rate; eigensystems refreshed."""
+    from mrbayes_tpu_torch.mcmc.engine import SCORE_KEYS
+    states, _ = eng.init_chains(int(rng.integers(1 << 30)))
+    st = {k: v for k, v in states.items()
+          if k not in SCORE_KEYS and not k.startswith("eig")}
+    for k, v in st.items():
+        sh = tuple(v.shape)
+        if k in ("shape", "symbeta", "brownscale"):
+            new = rng.uniform(0.3, 3.0, sh)
+        elif k == "ratecorr":
+            new = rng.uniform(-0.9, 0.9, sh)
+        elif k == "mixtrates" or k.startswith("sympi"):
+            new = rng.dirichlet(np.full(sh[-1], 3.0), sh[:-1])
+        else:
+            continue
+        st[k] = torch.as_tensor(new, dtype=torch.float32, device=v.device)
+    return eng.refresh_eigs(st)
+
+
+def phase_family_kernels(torch):
+    """Phase 42: pruning.cu against its plain version on the operands of
+    cynmix's morphology under symdirihyperpr (``FAMILY_KERNEL_DIVS``: the
+    binary bucket's 20 beta x gamma categories, each weighted at the root
+    by its own frequencies, and the sampled-frequency buckets), C = 8 and
+    32: the walk and block (held to the whole walk and to the size rule's
+    twin), ms, before_ms (the old global walk), plain_ms and the bound."""
+    from mrbayes_tpu_torch.ops.traversal import postorder_internal
+    worst, cases = 0.0, {}
+    for C in (8, 32):
+        eng = family_engine(torch, "cynmix_symdiri", C)
+        st = family_state(torch, eng, np.random.default_rng(800 + C))
+        order = postorder_internal(st["parent"], eng.n_tips)
+        for i in FAMILY_KERNEL_DIVS:
+            p = eng._pruners[i]
+            Pm, pi = eng.pruner_operands(st, i)
+            lr, pstep = p.operands(order, st["left"], st["right"], Pm)
+            rec, _, _, _ = pruning_check(
+                torch, (p.n_tips, p.P, p.S, p.K, C), None, "whole",
+                plain=True, n=50, reps=3, loops=50,
+                case=(lr, pstep, p.tips, pi))
+            cases[f"cynmix_symdiri_div{i}_n{p.n_tips}_P{p.P}_S{p.S}_K{p.K}"
+                  f"_C{C}"] = rec
+            worst = max(worst, rec["max_abs_err"])
+    return worst, cases
+
+
+def adgamma_forward64(eng, st, root, ls):
+    """The adgamma lnL [C] of chains ``st`` by a float64 sequential forward
+    algorithm over the card's own per-category root partials [C, K, S, P]
+    and scalers, the engine's frequencies and transition matrices (powers
+    taken in float64)."""
+    cfg = eng.div_cfg[0]
+    pi = eng._division_pi(st, 0).double().cpu().numpy()
+    rP = np.einsum("cksp,cs->cpk", root.double().cpu().numpy(), pi)
+    ls = ls.double().cpu().numpy()
+    M = eng._adg_trans[cfg.n_rate_cats](
+        st["ratecorr"][:, cfg.ratecorr_group]).double().cpu().numpy()
+    poc, jump_idx, jumps = (x.cpu().numpy() if hasattr(x, "cpu") else x
+                            for x in eng._adg_maps[0])
+    out = []
+    for c in range(rP.shape[0]):
+        pows = [np.linalg.matrix_power(M[c], j) for j in jumps]
+        F, logs = rP[c, poc[0]].copy(), 0.0
+        for site in range(1, len(poc)):
+            F = rP[c, poc[site]] * (pows[jump_idx[site]] @ F)
+            m = F.max()
+            F /= m
+            logs += np.log(m)
+        out.append(logs + np.log(F.mean()) + ls[c, poc].sum())
+    return np.array(out)
+
+
+def brownian_reml64(eng, st, c):
+    """Chain c's continuous lnL by the dense multivariate-normal REML
+    oracle (the contrasts x_i - x_0 under the tree's variance-covariance
+    matrix, in float64; tests/test_continuous.py)."""
+    t = eng.extract_tree(st, c)
+    n = eng.n_tips
+
+    def ancestors(v):
+        out = set()
+        while v != t.root:
+            out.add(v)
+            v = t.parent[v]
+        return out
+
+    anc = [ancestors(i) for i in range(n)]
+    V = np.array([[sum(t.blen[v] for v in anc[i] & anc[j])
+                   for j in range(n)] for i in range(n)])
+    X = eng._cont_values[0].double().cpu().numpy()
+    s2 = float(st["brownscale"][c, 0])
+    D = np.zeros((n - 1, n))
+    D[:, 0] = -1.0
+    D[np.arange(n - 1), np.arange(1, n)] = 1.0
+    W = D @ V @ D.T * s2
+    _, logdet = np.linalg.slogdet(W)
+    Y = D @ X
+    quad = np.einsum("ic,ic->", Y, np.linalg.solve(W, Y))
+    return float(-0.5 * (X.shape[1] * ((n - 1) * np.log(2 * np.pi)
+                                       + logdet) + quad))
+
+
+def fitch_lnl(eng, st, c, i):
+    """Chain c's parsimony-model lnL of division i from a numpy Fitch
+    count: -(T + n) log k."""
+    t = eng.extract_tree(st, c)
+    d = eng.div_cfg[i].div
+    F = np.zeros((t.n_nodes, d.npat), np.uint32)
+    F[:t.n_tips] = d.patterns
+    T = 0.0
+    for v in t.postorder():
+        a, b = F[t.left[v]], F[t.right[v]]
+        inter = a & b
+        T += d.weights[inter == 0].sum()
+        F[v] = np.where(inter > 0, inter, a | b)
+    return -(T + d.weights.sum()) * np.log(max(2, d.n_states))
+
+
+def phase_family_states(torch):
+    """Phase 43: each family's engine on the card and on the CPU (the
+    plain versions) at one state (the card's eigensystems carried over),
+    ``FAMILY_STATE_CHAINS`` chains: each of the family's divisions' lnL
+    per chain, and every other division's, within ``state_tol`` and lnP
+    within 1e-4; then each family against an independent reference:
+    adgamma against a float64 sequential forward over the card's own root
+    partials (and the HMM's kernel launches counted), continuous against
+    the dense REML oracle, parsmodel against a numpy Fitch count, each
+    within ``FAMILY_LNL_TOL``."""
+    from mrbayes_tpu_torch.ops.traversal import postorder_internal
+    out = {}
+    for n, name in enumerate(FAMILY_CLI):
+        eng = family_engine(torch, name, FAMILY_STATE_CHAINS)
+        cpu = family_engine(torch, name, FAMILY_STATE_CHAINS, device="cpu")
+        st = family_state(torch, eng, np.random.default_rng(900 + n))
+        a = eng.score(st)
+        on_cpu = {k: v.cpu() for k, v in st.items()}
+        b = cpu.score(on_cpu)
+        fam = np.array([is_family_div(c) for c in eng.div_cfg])
+        div_a = eng.division_lnls(st).cpu().numpy()
+        div_b = cpu.division_lnls(on_cpu).numpy()
+        d_div = np.abs(div_a - div_b)
+        bound = state_tol(div_b, fam)
+        d_lnp = (a["lnP"].cpu() - b["lnP"]).abs().max().item()
+        rec = {"card_vs_cpu_lnl_by_division": d_div.max(0).tolist(),
+               "bound_by_division": bound.min(0).tolist(),
+               "abs_lnl_by_division": np.abs(div_b).min(0).tolist(),
+               "family_divisions": np.flatnonzero(fam).tolist(),
+               "card_vs_cpu_lnp": d_lnp, "lnl": a["lnL"].cpu().tolist()}
+        if not (np.all(d_div < bound) and d_lnp < 1e-4):
+            raise AssertionError(f"{name}: card vs CPU engine |dlnL| by "
+                                 f"division {d_div.max(0)} against "
+                                 f"{bound.min(0)}, |dlnP| {d_lnp}")
+        lnl = a["lnL"].double().cpu().numpy()
+        if name == "primates_adgamma":
+            from torch.profiler import ProfilerActivity, profile
+            Pm, _ = eng.pruner_operands(st, 0)
+            order = postorder_internal(st["parent"], eng.n_tips)
+            root, ls = eng._pruners[0](order, st["left"], st["right"], Pm)
+            ref = adgamma_forward64(eng, st, root, ls)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                eng._adgamma_from_root(st, 0, root, ls)
+                torch.cuda.synchronize()
+            rec["hmm_kernel_launches"] = sum(
+                1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+            rec["sites"] = int(eng._adg_maps[0][0].numel())
+            if not 0 < rec["hmm_kernel_launches"] < 200:
+                raise AssertionError(f"adgamma HMM: {rec['hmm_kernel_launches']}"
+                                     f" kernel launches for {rec['sites']} "
+                                     f"sites")
+        elif name == "continuous":
+            ref = np.array([brownian_reml64(eng, st, c)
+                            for c in range(FAMILY_STATE_CHAINS)])
+        elif name == "cynmix_parsmodel":
+            pars = [i for i, c in enumerate(eng.div_cfg) if c.parsimony]
+            lnl = eng.division_lnls(st)[:, pars].sum(-1).cpu().numpy()
+            ref = np.array([sum(fitch_lnl(eng, st, c, i) for i in pars)
+                            for c in range(FAMILY_STATE_CHAINS)])
+        else:
+            ref = None
+        if ref is not None:
+            rec["vs_reference"] = float(np.abs(lnl - ref).max())
+            if not np.all(np.abs(lnl - ref) < FAMILY_LNL_TOL):
+                raise AssertionError(f"{name}: lnL {lnl} against the "
+                                     f"reference {ref}")
+        log(f"{name} at identical states, card vs CPU and reference: "
+            f"{json.dumps(rec)}")
+        out[name] = rec
+    return out
+
+
+def phase_family_multiwalk(torch):
+    """Phase 44: primates by codon position under lnorm (1) and kmixture
+    (2) with the multiwalk switch on: one multiwalk.cu launch for both
+    divisions, each division's per-pattern lnL within 2e-5 of its own
+    pruning.cu launch on the same operators, C = 8; the wrapper times of
+    the group and of the two launches."""
+    from mrbayes_tpu_torch.ops.pruning import site_loglik_from_root
+    from mrbayes_tpu_torch.ops.traversal import postorder_internal
+    eng = family_engine(torch, "primates_lnorm_kmix", 8, multiwalk=True)
+    (idxs, gp), = eng._multiwalk_pruners
+    if list(idxs) != [0, 1]:
+        raise AssertionError(f"lnorm + kmixture group {idxs}")
+    st = family_state(torch, eng, np.random.default_rng(950))
+    ops = [eng.pruner_operands(st, i) for i in idxs]
+    order = postorder_internal(st["parent"], eng.n_tips)
+    args = (order, st["left"], st["right"])
+    root, ls = gp(*args, [P for P, _ in ops])
+    worst = 0.0
+    for gi, i in enumerate(idxs):
+        r, l = gp.div_view(root, ls, gi)
+        r1, l1 = eng._pruners[i](*args, ops[gi][0])
+        worst = max(worst, compare(
+            torch, site_loglik_from_root(r, l, ops[gi][1], 0.0, None),
+            site_loglik_from_root(r1, l1, ops[gi][1], 0.0, None),
+            f"multiwalk lnorm+kmixture division {i + 1} vs pruning.cu"))
+    rec = {"max_abs_err": worst, "ks": [eng.div_cfg[i].n_cats for i in idxs],
+           "multiwalk_ms": time_events(
+               torch, lambda: gp(*args, [P for P, _ in ops]), 50),
+           "pruning_down_per_division_ms": time_events(
+               torch, lambda: [eng._pruners[i](*args, ops[gi][0])
+                               for gi, i in enumerate(idxs)], 50)}
+    log(f"multiwalk lnorm + kmixture: {json.dumps(rec)}")
+    return rec
+
+
+def phase_family_cli(torch, name, power_line):
+    """Phase 45: ``name`` (``FAMILY_CLI``, ``envelope.BATCHES``) through the
+    CLI, 4 chains, ``FAMILY_GENS`` generations: one launch a likelihood of
+    each division's kernel (pruning.cu, or the multiwalk group's; none for
+    a parsimony-model or continuous division), carried versus recomputed
+    scores, complete .p (finite, its family's column) and .t files, sump
+    and sumt, gens/s.  The engine is built inside ``execute_file``: its
+    counts start at 0 there and are read when the run is over."""
+    from mrbayes_tpu_torch.envelope import run_batch
+    nruns, switches = FAMILY_CLI[name]
+    workdir = os.path.join(OUT, name)
+    shutil.rmtree(workdir, ignore_errors=True)
+    it, stats, lines = run_batch(
+        name, workdir, FAMILY_GENS, device=DEV, samplefreq=FAMILY_SAMPLEFREQ,
+        diagnfreq=FAMILY_GENS // 2, nruns=nruns, **{
+            "multiwalk": False, "wavefront": False, "stacked": False,
+            **switches})
+    runner = it._last_runner
+    eng = runner.eng
+    calls = FAMILY_GENS + 1
+    grouped = {i for g, _ in eng._multiwalk_pruners for i in g}
+    per = [0 if p is None else p.launches for p in eng._pruners]
+    expect = [0 if p is None or i in grouped else calls
+              for i, p in enumerate(eng._pruners)]
+    mw = sum(gp.launches for _, gp in eng._multiwalk_pruners)
+    if per != expect or mw != calls * len(eng._multiwalk_pruners) \
+            or eng._stacked_pruners:
+        raise AssertionError(f"{name}: pruning_down launches {per} "
+                             f"(predicted {expect}), multiwalk {mw}")
+    assert_carried(eng, runner.final_states, runner.final_bk)
+    phrases = ["Credible sets of trees", "Consensus tree written to"]
+    if nruns > 1:
+        phrases.append("Average PSRF for parameter values")
+    for phrase in phrases:
+        if not any(phrase in ln for ln in lines):
+            raise AssertionError(f"sump/sumt printed no {phrase!r}")
+    prefix = os.path.join(workdir, name)
+    expect_rows = FAMILY_GENS // FAMILY_SAMPLEFREQ + 1
+    col = FAMILY_COLUMNS[name]
+    for r in range(1, nruns + 1):
+        with open(f"{prefix}.run{r}.p") as f:
+            f.readline()
+            header = f.readline().rstrip("\n").split("\t")
+            rows = np.array([[float(x) for x in ln.split("\t")]
+                             for ln in f if ln[:1].isdigit()])
+        with open(f"{prefix}.run{r}.t") as f:
+            text = f.read()
+        if len(rows) != expect_rows or not np.isfinite(rows).all() \
+                or (col is not None and col not in header) \
+                or text.count("tree gen.") != expect_rows \
+                or not text.rstrip().endswith("end;"):
+            raise AssertionError(f"{name}.run{r}: {len(rows)} .p rows "
+                                 f"(expected {expect_rows}), header "
+                                 f"{header[:8]}..., or its .t file")
+    out = {**stats, "pruning_down_launches": sum(per),
+           "multiwalk_launches": mw,
+           "launches_per_gen": (sum(per) + mw) / calls, "nruns": nruns}
+    log(f"{name} through the CLI, {nruns} run(s) x 4 chains, {FAMILY_GENS} "
+        f"gens, switches {switches or 'off'}: {json.dumps(out)}; card "
+        f"{power_line}")
+    log("\n".join(ln for ln in lines if "PSRF" in ln or "Credible" in ln
+                  or "Consensus" in ln))
+    return it, out
+
+
+def phase_families(torch, power_line):
+    """Phases 42-46: the families group (``--phases families``): the
+    kernel at the symdiri shapes, the identical-state checks, the
+    lnorm + kmixture multiwalk group, the five CLI runs and (46) a block
+    and one generation of every move type of each with host
+    synchronisation made an error."""
+    err, cases = phase_family_kernels(torch)
+    states = phase_family_states(torch)
+    mw = phase_family_multiwalk(torch)
+    runs = {}
+    for name in FAMILY_CLI:
+        it, runs[name] = phase_family_cli(torch, name, power_line)
+        eng = it.build_engine()
+        s, bk = eng.init_chains()
+        sync_checked(torch, eng, s, bk, FAMILY_SYNC_GENS)
+        log(f"{name}: no host sync in a {FAMILY_SYNC_GENS}-gen block or in "
+            f"any of the {len(eng.moves)} move types "
+            f"({', '.join(m.name for m in eng.moves)})")
+    return max(err, mw["max_abs_err"]), cases, states, mw, runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--test1-gens", type=int, default=TEST1_GENS)
-    ap.add_argument("--primates-blocks", type=int, default=3)
+    ap.add_argument("--primates-blocks", type=int, default=2)
     ap.add_argument("--cynmix-gens", type=int, default=CYNMIX_GENS)
-    ap.add_argument("--switch-blocks", type=int, default=2,
+    ap.add_argument("--switch-blocks", type=int, default=1,
                     help="blocks per setting in each switch timing")
     ap.add_argument("--phases", default="all",
                     help="comma-separated phase groups to run (default "
@@ -3488,6 +3908,13 @@ def main(argv=None) -> int:
             phase_covarion(torch, power_line)
         done("covarion and restriction phases")
 
+    if "families" in groups:
+        # 42.-46. lnorm, kmixture and adgamma rates, symdirihyperpr,
+        # parsmodel and continuous data, the fourteenth slice's main paths
+        err_fam, fam_cases, fam_states, fam_mw, fam_runs = phase_families(
+            torch, power_line)
+        done("families phases")
+
     if groups != set(PHASE_GROUPS):
         # a chosen subset: every kernel named, its numbers in the groups'
         # own lines above
@@ -3521,7 +3948,9 @@ def main(argv=None) -> int:
         "replicase_m3_cli": m3["launches"],
         "kim_unlinked_cli": unl["launches"],
         "golden_covarion_rows": golden_cv_launches,
-        **{f"{nm}_cli": r["launches"] for nm, r in cv_runs.items()}}
+        **{f"{nm}_cli": r["launches"] for nm, r in cv_runs.items()},
+        **{f"{nm}_cli": r["pruning_down_launches"]
+           for nm, r in fam_runs.items()}}
     eigh_launches = {"golden_codon_rows": golden_aa_launches["eigh"],
                      "avian_cli": avian["eigh_launches"],
                      "avian_gtr_sync": gtr_sync,
@@ -3542,7 +3971,9 @@ def main(argv=None) -> int:
     aa_keys = ("best_lnl", "tl_mean", "asdsf", "avg_psrf", "run_s",
                "gens_per_s")
     mw_launches = {"test1": t1["multiwalk_launches"],
-                   "test2": t2["multiwalk_launches"]}
+                   "test2": t2["multiwalk_launches"],
+                   "primates_lnorm_kmix_cli": fam_runs[
+                       "primates_lnorm_kmix"]["multiwalk_launches"]}
     kernels = [{
         **KERNEL_IDS[0],
         "launches": sum(pd_launches.values()),
@@ -3555,9 +3986,10 @@ def main(argv=None) -> int:
             "hymfossil_cli": HYM_GENS, "kim_doublet_cli": KIM_GENS,
             "replicase_m10_cli": M10_GENS, "replicase_m3_cli": M3_GENS,
             "kim_unlinked_cli": UNLINKED_GENS,
-            **{f"{nm}_cli": g for nm, (_, g) in COVARION_CLI.items()}},
+            **{f"{nm}_cli": g for nm, (_, g) in COVARION_CLI.items()},
+            **{f"{nm}_cli": FAMILY_GENS for nm in FAMILY_CLI}},
         "max_abs_err": max(err_pd, err_ck["pruning_down"], err_hym, err_kc,
-                           err_cv),
+                           err_cv, err_fam),
         **{k: t_pd[4][k] for k in keys + ("before_ms", "walk", "threads",
                                            "T", "lanes")},
         "library_ms": None,
@@ -3591,6 +4023,11 @@ def main(argv=None) -> int:
             "launches_per_gen", "eigh_launches", "nruns", "rooted_trees")}
            for nm, r in cv_runs.items()},
         "golden_covarion_max_err": golden_cv,
+        "families_cases": fam_cases,
+        "families_identical_states": fam_states,
+        **{nm: {k: r[k] for k in (
+            "best_lnl", "tl_mean", "asdsf", "avg_psrf", "run_s", "gens_per_s",
+            "launches_per_gen", "nruns")} for nm, r in fam_runs.items()},
         "gens_per_s": {f"primates_c{C}": r["gens_per_s"]
                        for C, r in runs.items()},
         "gens_per_s_blocks": {f"primates_c{C}": r["gens_per_s_blocks"]
@@ -3600,8 +4037,10 @@ def main(argv=None) -> int:
         **KERNEL_IDS[1],
         "launches": sum(mw_launches.values()),
         "launches_per_run": mw_launches,
-        "gens_per_run": {"test1": args.test1_gens, "test2": TEST2_GENS},
-        "max_abs_err": max(err_mw, err_ck["multiwalk_down"]),
+        "gens_per_run": {"test1": args.test1_gens, "test2": TEST2_GENS,
+                         "primates_lnorm_kmix_cli": FAMILY_GENS},
+        "max_abs_err": max(err_mw, err_ck["multiwalk_down"],
+                           fam_mw["max_abs_err"]),
         **{k: t_mw[8][k] for k in keys + (
             "loop_ms", "before_ms", "stacked_same_work_ms",
             "pruning_down_per_division_ms",
@@ -3625,6 +4064,7 @@ def main(argv=None) -> int:
                                     "on": switch2["on"]},
         "golden_clock_max_err": golden_clock,
         "prior_only": prior,
+        "lnorm_kmixture_group": fam_mw,
         "card": power_line,
     }, {
         **KERNEL_IDS[2],

@@ -100,11 +100,8 @@ NOT_PORTED = {
                      "help", "manual"), "Queue 1 item 15"),
 }
 # prset parameters not carried yet -> their ROADMAP item
-PRSET_NOT_PORTED = {
-    **dict.fromkeys(("ratecorrpr", "symdirihyperpr", "browncorrpr",
-                     "brownscalepr"), "Queue 1 item 13c"),
-    **dict.fromkeys(("generatepr", "popvarpr", "ploidy"), "Queue 1 item 14"),
-}
+PRSET_NOT_PORTED = dict.fromkeys(("generatepr", "popvarpr", "ploidy"),
+                                 "Queue 1 item 14")
 
 
 # aamodelpr=fixed(<name>) (mrbayes_tpu cli.py:749-760)
@@ -558,10 +555,14 @@ class Interpreter:
     # the covarion switch rates' and the directional root frequencies'
     # prset keys (mrbayes_tpu cli.py:717-720, :763-764)
     COVARION_ROOT_KEYS = ("covswitchpr", "rootfreqpr")
+    # the adgamma correlation's, symdirihyperpr's and continuous data's
+    # prset keys (mrbayes_tpu cli.py:715, :739-748, :815)
+    FAMILY_KEYS = ("ratecorrpr", "symdirihyperpr", "browncorrpr",
+                   "brownscalepr")
     PRSET_KEYS = ("applyto", "statefreqpr", "revmatpr", "tratiopr",
                   "shapepr", "pinvarpr", "ratepr", "brlenspr", "topologypr",
-                  *CLOCK_KEYS,
-                  *AA_CODON_KEYS, *COVARION_ROOT_KEYS, *PRSET_NOT_PORTED)
+                  *CLOCK_KEYS, *AA_CODON_KEYS, *COVARION_ROOT_KEYS,
+                  *FAMILY_KEYS, *PRSET_NOT_PORTED)
 
     def do_prset(self, args, base_dir):
         pairs = self._kv_pairs(args)
@@ -596,6 +597,16 @@ class Interpreter:
                                 f"{', '.join(AA_MODEL_NAMES)})")
                         s.aamodel = name
                     s.aamodelpr = prior
+                elif key == "ratecorrpr":
+                    s.adgammacorpr = prior
+                elif key == "symdirihyperpr":
+                    # fixed(infinity), the default, is equal frequencies;
+                    # fixed(b), uniform(a,b) or exponential(r) turns the
+                    # symmetric Dirichlet on
+                    if prior.kind == "fixed" and prior.params \
+                            and isinstance(prior.params[0], str):
+                        prior = Prior("fixed", (-1.0,))
+                    s.symdirihyperpr = prior
                 elif key == "m3omegapr":
                     # M3's omegas always take the reference's default
                     # exponential order-statistic prior (src/command.c:

@@ -11,10 +11,14 @@ tree arrays, the doublet frequencies ``pi16``, M3's ``m3omega`` and
 ``m3probs``, M10's ``m10beta``, ``m10gamma`` and ``m10catprobs``, a
 restriction division's ``pi2``, the directional root frequencies
 ``rootpi2`` with the mixed model's indicator ``dirpi_on`` (int32 there,
-int64 here) and the covarion switch rates ``covswitch`` [C, G, 2] cross
-as they are.  A covarion division has no eigensystem cache in the JAX
-package (it rebuilds its eigensystems in every likelihood); the port
-keeps one, built from the carried parameters by ``refresh_eigs``.  A partitioned state keeps each
+int64 here), the covarion switch rates ``covswitch`` [C, G, 2], the
+adgamma correlation ``ratecorr``, the kmixture simplex ``mixtrates``,
+symdirihyperpr's ``symbeta`` and multistate frequencies ``sympi<k>`` and
+the Brownian variance rate ``brownscale`` cross as they are.  A covarion
+or symdirihyperpr division has no eigensystem cache in the JAX package
+(it rebuilds its eigensystems in every likelihood); the port keeps one
+(a binary symdiri character's category frequencies ``eigP{i}`` beside
+it), built from the carried parameters by ``refresh_eigs``.  A partitioned state keeps each
 division's eigensystem cache (``eigL{i}``, ``eigU{i}``, ``eigV{i}``),
 standard (Mk) divisions' included: the port's engine computes those once
 when it is built and keeps none in its own states, but uses a carried one

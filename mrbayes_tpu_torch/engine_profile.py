@@ -16,6 +16,8 @@ Usage (from the repository root, on a machine with a CUDA GPU):
     python -m mrbayes_tpu_torch.engine_profile --config kim_unlinked
     python -m mrbayes_tpu_torch.engine_profile --config primates_covarion
     python -m mrbayes_tpu_torch.engine_profile --config avian_covarion
+    python -m mrbayes_tpu_torch.engine_profile --config primates_adgamma
+    python -m mrbayes_tpu_torch.engine_profile --config cynmix_symdiri
     python -m mrbayes_tpu_torch.engine_profile [--config ...] --sites 4
 
 ``--config primates`` (the default) is primates GTR+I+G, 1 run;
@@ -31,7 +33,11 @@ kim.nex's stem doublets (9 divisions), ``--config kim_unlinked`` its
 six unlinked gene trees, ``--config primates_covarion`` and
 ``avian_covarion`` primates under HKY+G and avian under Jones+G with the
 covarion model (``restriction_directional``, ``restriction_mixed``: the
-restriction matrix under directional and mixed root frequencies) (each
+restriction matrix under directional and mixed root frequencies),
+``primates_adgamma`` primates under GTR with autocorrelated gamma rates,
+``primates_lnorm_kmix`` its codon positions under lognormal and kmixture
+rates, ``cynmix_symdiri`` and ``cynmix_parsmodel`` cynmix's favored
+model with symdirihyperpr or the parsimony model on its morphology (each
 built through the CLI's commands,
 ``envelope.BATCHES``), 2
 runs, with the kernel-path switches as given.  ``--chains`` is the chain
@@ -47,7 +53,8 @@ up, and then measures, each on the device it runs on:
   * one generation of each move type alone (host clock around
     ``torch.cuda.synchronize()``), with the move's share of the draws;
   * one ``log_likelihood`` call, one ``refresh_eigs`` call and one pruning
-    kernel call (division 0's own wiring).
+    kernel call (division 0's own wiring), and an adgamma division 0's
+    HMM along the sites.
 
 It prints one JSON object (also written to ``--out``).  ``--device cpu``
 rehearses it on the CPU; those numbers are CPU numbers and are labelled so.
@@ -67,7 +74,6 @@ from .mcmc.engine import Engine
 from .mcmc.settings import DivisionSettings, McmcSettings
 from .nexus.parser import read_nexus_file
 from .ops.traversal import postorder_internal
-from .ops.pruning import branch_tiprobs
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # name fragments of the port's kernels (csrc/*.cu) in a profiler trace
@@ -177,14 +183,13 @@ def per_move(eng, states, bk, dev, reps):
 
 def parts(eng, states, dev, reps):
     """ms of the likelihood, the eigensystem refresh and the kernel call
-    (of division 0, on its own tree where trees are unlinked)."""
+    (of division 0, on its own tree where trees are unlinked; its
+    operators as its likelihood builds them), and for an adgamma division
+    0 the category HMM along the sites from its root partials."""
     pr = eng._pruners[0]
     view = (eng.tree_view(states, eng.div_tree[0]) if eng.n_trees > 1
             else states)
-    _, _, lam, U, Uinv, rates, pinv, _, _ = eng._generic_div_params(
-        view, 0)
-    blen = eng.branch_lengths(view)
-    P = branch_tiprobs(blen, lam, U, Uinv, rates, pinv)
+    P = eng.pruner_operands(view, 0)[0]
     order = postorder_internal(view["parent"], eng.n_tips)
     launches = pr.launches
     out = {
@@ -193,13 +198,16 @@ def parts(eng, states, dev, reps):
         "refresh_eigs_ms": _ms_per_call(
             dev, lambda: eng.refresh_eigs(states), reps),
         "tiprobs_and_postorder_ms": _ms_per_call(
-            dev, lambda: (branch_tiprobs(eng.branch_lengths(view), lam,
-                                         U, Uinv, rates, pinv),
+            dev, lambda: (eng.pruner_operands(view, 0),
                           postorder_internal(view["parent"], eng.n_tips)),
             reps),
         "pruner_call_ms": _ms_per_call(
             dev, lambda: pr(order, view["left"], view["right"], P), reps),
     }
+    if eng.div_cfg[0].ratecorr_group >= 0:
+        root, ls = pr(order, view["left"], view["right"], P)
+        out["adgamma_hmm_ms"] = _ms_per_call(
+            dev, lambda: eng._adgamma_from_root(view, 0, root, ls), reps)
     pr.launches = launches          # these launches are not the main path's
     return out
 
@@ -212,7 +220,7 @@ def configs() -> dict:
     under aamodelpr=fixed(gtr), whose every Q move refreshes an S = 20
     eigensystem through ``csrc/eigh.cu``."""
     from .envelope import AVIAN, BATCHES
-    return {**BATCHES,
+    return {**{k: v for k, v in BATCHES.items() if v[0] is not None},
             "avian_gtr": (AVIAN, ("prset aamodelpr=fixed(gtr)",))}
 
 

@@ -27,9 +27,12 @@ prints one ``ENVELOPE {...}`` JSON line and exits 1 outside the envelope.
 ``aamodelpr=mixed``, replicase.nex under the NY98, M3 and M10 codon
 models, hymfossil.nex's fossilized birth-death dating analysis, and
 kim.nex's stem-doublet model and its unlinked gene trees, primates and
-avian under the covarion model and the restriction matrix under
-directional and mixed root frequencies the same way (``chip_smoke.py``
-drives them on the card).
+avian under the covarion model, the restriction matrix under
+directional and mixed root frequencies, primates under autocorrelated
+gamma and (by codon position) lognormal and kmixture rates, cynmix with
+symdirihyperpr or the parsimony model on its morphology, and simulated
+continuous traits the same way (``chip_smoke.py`` drives them on the
+card).
 """
 from __future__ import annotations
 
@@ -170,7 +173,31 @@ AVIAN_COVARION_MODEL = ("prset aamodelpr=fixed(jones)",
 # the restriction_directional and restriction_mixedfreq rows' models
 RESTRICTION_MODEL = ("lset coding=noabsencesites",
                      "prset statefreqpr=dirichlet(1,1)")
-# the batch runs: name -> (data file, model commands after its execute)
+# the rest of the other likelihood families: primates under GTR with
+# autocorrelated gamma rates, the primates_part2_unlinked_gtr_g rows'
+# partition by codon position under lognormal (first and second
+# positions) and kmixture (third) rates, cynmix's favored model with a
+# sampled symmetric Dirichlet on its morphology's state frequencies or the
+# parsimony model on its morphology, and Brownian-motion traits
+PRIMATES_ADGAMMA_MODEL = ("lset nst=6 rates=adgamma",)
+PRIMATES_LNORM_KMIX_MODEL = (
+    "charset first_second = 1-898\\3 2-898\\3",
+    "charset third = 3-898\\3",
+    "partition bycodon = 2: first_second, third",
+    "set partition = bycodon",
+    "lset applyto=(1) nst=6 rates=lnorm",
+    "lset applyto=(2) nst=6 rates=kmixture nmixtcat=4",
+    "unlink statefreq=(all) revmat=(all) shape=(all)",
+    "prset applyto=(all) ratepr=variable")
+CYNMIX_SYMDIRI_MODEL = CYNMIX_MODEL + (
+    "prset applyto=(1) symdirihyperpr=exponential(1.0)",)
+CYNMIX_PARSMODEL_MODEL = CYNMIX_MODEL + ("lset applyto=(1) parsmodel=yes",)
+# the continuous run's matrix is written from a seed (no data file)
+CONTINUOUS_MODEL = ("prset brownscalepr=gamma(1,10)",)
+CONTINUOUS_SHAPE = (32, 50)          # taxa x traits
+CONTINUOUS_SEED = 1
+# the batch runs: name -> (data file, model commands after its execute);
+# a data file None is written by ``write_continuous`` beside the batch
 BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "test2": (PRIMATES, TEST2_MODEL),
            "cynmix": (CYNMIX, CYNMIX_MODEL),
            "avian": (AVIAN, AVIAN_MODEL),
@@ -185,7 +212,12 @@ BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "test2": (PRIMATES, TEST2_MODEL),
            "restriction_directional": (RESTRICTION, RESTRICTION_MODEL + (
                "lset statefrmod=directional",)),
            "restriction_mixed": (RESTRICTION, RESTRICTION_MODEL + (
-               "lset statefrmod=mixed",))}
+               "lset statefrmod=mixed",)),
+           "primates_adgamma": (PRIMATES, PRIMATES_ADGAMMA_MODEL),
+           "primates_lnorm_kmix": (PRIMATES, PRIMATES_LNORM_KMIX_MODEL),
+           "cynmix_symdiri": (CYNMIX, CYNMIX_SYMDIRI_MODEL),
+           "cynmix_parsmodel": (CYNMIX, CYNMIX_PARSMODEL_MODEL),
+           "continuous": (None, CONTINUOUS_MODEL)}
 BATCH = """#NEXUS
 begin mrbayes;
     set autoclose=yes nowarn=yes;
@@ -206,6 +238,8 @@ def write_batch(name: str, workdir: str, ngen: int = 20000,
     into ``workdir``; returns its path."""
     data, model = BATCHES[name]
     os.makedirs(workdir, exist_ok=True)
+    if data is None:
+        data = write_continuous(os.path.join(workdir, f"{name}_data.nex"))
     path = os.path.join(workdir, f"{name}.nex")
     with open(path, "w") as f:
         f.write(BATCH.format(
@@ -214,6 +248,31 @@ def write_batch(name: str, workdir: str, ngen: int = 20000,
             samplefreq=samplefreq, printfreq=min(2000, diagnfreq),
             diagnfreq=diagnfreq, nruns=nruns,
             prefix=os.path.join(os.path.abspath(workdir), name)))
+    return path
+
+
+def write_continuous(path: str) -> str:
+    """Write a continuous matrix of ``CONTINUOUS_SHAPE`` taxa x traits
+    simulated under Brownian motion (unit rate) down a random tree drawn
+    from ``CONTINUOUS_SEED``; returns its path."""
+    from .trees import random_unrooted
+    ntax, nchar = CONTINUOUS_SHAPE
+    rng = np.random.default_rng(CONTINUOUS_SEED)
+    t = random_unrooted(ntax, rng, mean_blen=0.1)
+    x = np.zeros((t.n_nodes, nchar))
+    todo = [t.root]                          # parents before children
+    while todo:
+        v = todo.pop()
+        if v >= ntax:
+            for c in (t.left[v], t.right[v]):
+                x[c] = x[v] + rng.normal(0.0, np.sqrt(t.blen[c]), nchar)
+                todo.append(c)
+    rows = "\n".join(f"  t{i + 1} " + " ".join(f"{v:.6f}" for v in x[i])
+                     for i in range(ntax))
+    with open(path, "w") as f:
+        f.write(f"#NEXUS\nbegin data;\n  dimensions ntax={ntax} "
+                f"nchar={nchar};\n  format datatype=continuous;\n"
+                f"  matrix\n{rows}\n  ;\nend;\n")
     return path
 
 

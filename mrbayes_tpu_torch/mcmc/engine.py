@@ -27,7 +27,15 @@ by default) and stationary, directional or mixed root frequencies
 with equal, gamma, propinv or invgamma rates (a codon division has none:
 its category axis holds the omega classes), nucleotide and protein data
 under the Tuffley-Steel covarion model (``covarion=yes``: a doubled state
-space, one eigensystem a rate category, no propinv); any
+space, one eigensystem a rate category, no propinv), lognormal
+(``rates=lnorm``), sampled k-category mixture (``rates=kmixture``) and
+autocorrelated gamma rates (``rates=adgamma``: the category HMM along the
+sites, with a sampled correlation), standard data under a symmetric
+Dirichlet on its state frequencies (``symdirihyperpr``: beta categories on
+the category axis of a binary character, sampled frequencies of a
+multistate one), the Tuffley-Steel parsimony model (``parsmodel=yes``)
+and continuous characters under Brownian motion (``datatype=continuous``:
+the independent-contrasts REML density, a sampled variance rate); any
 number of divisions (partitions)
 with linked or unlinked parameters and fixed or variable rate
 multipliers, one unrooted non-clock tree with the default priors (or one
@@ -71,7 +79,11 @@ level-batched pruner (``ops/wavefront_cuda.py``), and ``stacked``
 launch of the stacked kernel, one block per (division, chain, pattern
 tile) (``ops/stacked_cuda.py``, grouped by ``_build_stacked_pruners``).
 The likelihood takes multiwalk groups first, then stacked groups, and
-every remaining division through its own pruner.
+every remaining division through its own pruner.  Only the generic
+family groups (``_grouped``, the JAX engine's ``_is_generic_div``): an
+adgamma, symdirihyperpr, codon or covarion division keeps its own pruner,
+and a parsimony-model or continuous division has none (its likelihood is
+a Fitch count or the contrasts' density, never a pruning pass).
 
 Under a ``sites`` mesh (``parallel/mesh.py:shard_engine_data``, the JAX
 engine's ``_site_sharded`` routing) each division's pattern data is cut
@@ -95,16 +107,20 @@ from .. import resolve_device
 from ..data import DataSet, Division
 from ..models.aa_models import AA_MODELS
 from ..models.codes import CodonCode
-from ..models.rates import GammaRateTable, beta_quantile_breaks
+from ..models.rates import (AdgammaTransition, GammaRateTable,
+                            LognormalRates, beta_quantile_breaks)
+from ..models.special import beta_category_freqs
 from ..models.substitution import (DOUBLET_CLS, binary_q, codon_q,
                                    covarion_q, doublet_q, mk_q, nuc_q_gtr,
                                    nuc_q_nst1, nuc_q_nst2, ordered_mk_q,
                                    protein_q)
 from ..nexus.datatypes import DataType
+from ..ops.brownian import pic_logpdf
 from ..ops.multiwalk_cuda import PruningCudaMultiwalk
-from ..ops.pruning import (branch_tiprobs, coding_tips, coding_total,
-                           constant_state_mask, division_loglik,
-                           make_pruner, site_loglik_from_root)
+from ..ops.pruning import (adgamma_loglik_from_cats, branch_tiprobs,
+                           coding_tips, coding_total, constant_state_mask,
+                           division_loglik, make_pruner, root_clv,
+                           site_loglik_from_root)
 from ..ops.pruning_cuda import check_kernel_shape
 from ..ops.stacked_cuda import PruningCudaStacked
 from ..ops.traversal import ancestor_matrix, postorder_internal
@@ -195,10 +211,37 @@ class DivCfg:
     dirpi_mix: bool = False     # statefreqmodel=mixed (the RJ indicator)
     covswitch_group: int = -1   # covarion=yes, sampled switch rates
     fixed_covswitch: np.ndarray | None = None  # covswitchpr=fixed(s01,s10)
+    n_rate_cats: int = 1        # the rate categories alone (n_cats folds a
+                                # binary symdiri character's beta ones in)
+    mixt_group: int = -1        # rates=kmixture, the sampled mixture rates
+    ratecorr_group: int = -1    # rates=adgamma, the sampled correlation
+    symbeta_group: int = -1     # symdirihyperpr, the sampled beta
+    fixed_symbeta: float = -1.0  # symdirihyperpr=fixed(beta), beta > 0
+    sympi_field: str = ""       # "sympi<k>": a multistate character's
+    sympi_group: int = -1       # sampled frequencies under symdirihyperpr
+    parsimony: bool = False     # parsmodel=yes (Tuffley-Steel)
+    brownscale_group: int = -1  # continuous data, the variance rate
 
     @property
     def covarion(self) -> bool:
         return self.covswitch_group >= 0 or self.fixed_covswitch is not None
+
+    @property
+    def symdiri(self) -> bool:
+        """symdirihyperpr on: beta categories (binary) or sampled
+        frequencies (multistate)."""
+        return (self.sympi_group >= 0 or self.symbeta_group >= 0
+                or self.fixed_symbeta > 0.0)
+
+    @property
+    def continuous(self) -> bool:
+        return self.div.dtype is DataType.CONTINUOUS
+
+    @property
+    def prunes(self) -> bool:
+        """False where the likelihood is no pruning pass (parsimony model,
+        continuous data): no pruner, eigensystem or group."""
+        return not (self.parsimony or self.continuous)
 
     @property
     def directional(self) -> bool:
@@ -321,19 +364,15 @@ class Engine:
                     # the reference rejects irreversible characters at
                     # model setup (src/model.c:16527-16531)
                     raise ValueError(f"ctype {div.ctype} is not supported")
-                sp = s.symdirihyperpr
-                if sp.kind != "fixed" or (sp.params
-                                          and float(sp.params[0]) > 0.0):
-                    raise _not_ported("symdirihyperpr (sampled standard "
-                                      "state frequencies)", "item 13c")
             elif div.dtype is DataType.PROTEIN:
                 if s.aamodelpr.kind not in ("fixed", "mixed"):
                     raise ValueError(f"aamodelpr={s.aamodelpr.kind}: "
                                      f"fixed(<model>) or mixed")
-            elif div.dtype is DataType.RESTRICTION:
+            elif div.dtype in (DataType.RESTRICTION, DataType.CONTINUOUS):
                 pass
             elif div.dtype not in (DataType.DNA, DataType.RNA):
-                raise _not_ported(f"{div.dtype.value} data", "item 13c")
+                raise ValueError(f"{div.dtype.value} data is not a "
+                                 f"division datatype")
             elif s.nucmodel == "codon":
                 if s.omegavar not in ("equal", "ny98", "m3", "m10"):
                     raise ValueError(f"omegavar={s.omegavar}")
@@ -344,11 +383,9 @@ class Engine:
                 raise ValueError(f"nucmodel={s.nucmodel}")
             elif s.nst not in ("1", "2", "6", "mixed"):
                 raise ValueError(f"nst={s.nst} is not a nucleotide model")
-            if s.rates not in ("equal", "gamma", "propinv", "invgamma"):
-                raise _not_ported(f"rates={s.rates}", "item 13c")
-            if s.parsmodel:
-                raise _not_ported("the parsimony model (parsmodel)",
-                                  "item 13c")
+            if s.rates not in ("equal", "gamma", "propinv", "invgamma",
+                               "lnorm", "adgamma", "kmixture"):
+                raise ValueError(f"rates={s.rates}")
 
     def _build_dating(self):
         """Static dating and constraint wiring (mrbayes_tpu engine.py:234):
@@ -494,7 +531,8 @@ class Engine:
                 dv = self.data.divisions[d]
                 dclass = ("nuc" if dv.dtype in (DataType.DNA, DataType.RNA)
                           else dv.dtype.value)
-                dim = dv.n_states if param in PI_FIELDS else 0
+                dim = (dv.n_states if param in PI_FIELDS
+                       or param.startswith("sympi") else 0)
                 key = (param, dclass, dim, signature)
             store = counters.setdefault(param, {})
             if key not in store:
@@ -503,6 +541,17 @@ class Engine:
 
         for d, (div, s) in enumerate(zip(self.data.divisions, div_settings)):
             cfg = DivCfg(div=div, settings=s)
+            if s.parsmodel:
+                # Tuffley-Steel parsimony model: no substitution
+                # parameters (reference lset parsmodel=yes, Likelihood_Pars
+                # src/likelihood.c:7593; mrbayes_tpu engine.py:421-427)
+                cfg.parsimony = True
+                cfg.fixed_pi = np.full(div.n_states, 1.0 / div.n_states)
+                self.div_cfg.append(cfg)
+                continue
+            if div.dtype is DataType.CONTINUOUS:
+                self.div_cfg.append(self._continuous_cfg(cfg, d, group_of))
+                continue
             fixed_params = (s.statefreqpr.kind == "fixed"
                             and s.statefreqpr.params)
             nuc = div.dtype in (DataType.DNA, DataType.RNA)
@@ -574,11 +623,31 @@ class Engine:
                     self._mixed_rev.add(cfg.revmat_group)
             if nuc and s.nst == "2":
                 cfg.tratio_group = group_of("tratio", d, repr(s.tratiopr))
-            if s.rates in ("gamma", "invgamma"):
+            if s.rates in ("gamma", "invgamma", "lnorm", "adgamma"):
+                # lnorm's sigma is the shape parameter's group too
                 cfg.shape_group = group_of("shape", d, repr(s.shapepr))
-                cfg.n_cats = s.ngammacat
+                cfg.n_cats = (s.nlnormcat if s.rates == "lnorm"
+                              else s.ngammacat)
             if s.rates in ("propinv", "invgamma"):
                 cfg.pinvar_group = group_of("pinvar", d, repr(s.pinvarpr))
+            if s.rates == "adgamma":
+                # autocorrelated gamma: the category HMM along the sites
+                # with a sampled correlation (reference rates=adgamma,
+                # ratecorrpr; mrbayes_tpu engine.py:583-591)
+                if s.covarion:
+                    raise ValueError("adgamma+covarion not supported")
+                cfg.ratecorr_group = group_of("ratecorr", d,
+                                              repr(s.adgammacorpr))
+            if s.rates == "kmixture":
+                # the sampled k-component site-rate mixture, kept as a
+                # simplex times k (reference P_MIXTURE_RATES,
+                # src/model.c:19813; mrbayes_tpu engine.py:592-601)
+                cfg.mixt_group = group_of("mixtrates", d,
+                                          repr(("kmix", s.nmixtcat)))
+                cfg.n_cats = s.nmixtcat
+            cfg.n_rate_cats = cfg.n_cats
+            if div.dtype is DataType.STANDARD:
+                self._symdiri_cfg(cfg, d, group_of)
             if s.covarion and (prot or (nuc and s.nucmodel == "4by4")):
                 # Tuffley-Steel covarion: the doubled state space with
                 # sampled (or fixed) switching rates (reference lset
@@ -593,6 +662,11 @@ class Engine:
                 else:
                     cfg.covswitch_group = group_of(
                         "covswitch", d, repr(s.covswitchpr))
+                if cfg.shape_group < 0:
+                    # the covarion path takes gamma or lognormal categories
+                    # only (a kmixture group is sampled but unread, as in
+                    # mrbayes_tpu engine.py:1162-1163, :2690-2697)
+                    cfg.n_cats = cfg.n_rate_cats = 1
             self.div_cfg.append(cfg)
         self.n_groups = {p: len(v) for p, v in counters.items()}
         self.n_div = len(div_settings)
@@ -631,9 +705,58 @@ class Engine:
                                    ("m10catprobs", cfg.m10_group,
                                     Prior("dirichlet", (1.0, 1.0))),
                                    ("covswitch", cfg.covswitch_group,
-                                    s.covswitchpr)]:
+                                    s.covswitchpr),
+                                   ("ratecorr", cfg.ratecorr_group,
+                                    s.adgammacorpr),
+                                   ("mixtrates", cfg.mixt_group,
+                                    Prior("dirichlet", (1.0,))),
+                                   ("symbeta", cfg.symbeta_group,
+                                    s.symdirihyperpr),
+                                   ("brownscale", cfg.brownscale_group,
+                                    s.brownscalepr)]:
                 if gid >= 0:
                     self.group_priors.setdefault((param, gid), pr)
+
+    def _continuous_cfg(self, cfg, d, group_of):
+        """A continuous division's wiring (mrbayes_tpu engine.py:431-440):
+        Brownian-motion characters with one sampled variance rate sigma^2
+        a link group (reference brownscalepr, src/command.c:14605), the
+        characters independent (browncorrpr fixed(0), the only value
+        carried)."""
+        s = cfg.settings
+        cfg.brownscale_group = group_of("brownscale", d, repr(s.brownscalepr))
+        bc = s.browncorrpr
+        if bc.kind != "fixed" or (bc.params and float(bc.params[0]) != 0.0):
+            raise ValueError("browncorrpr: only fixed(0) (independent "
+                             "characters) is supported")
+        return cfg
+
+    def _symdiri_cfg(self, cfg, d, group_of):
+        """symdirihyperpr on a standard division (mrbayes_tpu
+        engine.py:603-629; reference symPiPr, src/model.c:6911): fixed(b)
+        with b > 0 or a prior on b turns it on, except on ordered
+        characters, which keep uniform frequencies.  A binary character
+        integrates over ``nbetacat`` beta categories folded into the
+        category axis (K = rate categories x nbetacat, reference
+        BetaBreaks, src/model.c:12290); a multistate one samples its
+        frequencies ``sympi<k>`` under a symmetric Dirichlet(b)."""
+        s = cfg.settings
+        sp = s.symdirihyperpr
+        fixed_b = (float(sp.params[0]) if sp.kind == "fixed" and sp.params
+                   else -1.0)
+        if not (sp.kind != "fixed" or fixed_b > 0.0) \
+                or cfg.div.ctype == "ordered":
+            return
+        if sp.kind != "fixed":
+            cfg.symbeta_group = group_of("symbeta", d, repr(sp))
+        else:
+            cfg.fixed_symbeta = fixed_b
+        k = cfg.div.n_states
+        if k == 2:
+            cfg.n_cats = cfg.n_rate_cats * s.nbetacat
+        else:
+            cfg.sympi_field = f"sympi{k}"
+            cfg.sympi_group = group_of(cfg.sympi_field, d, repr(sp) + str(k))
 
     def _restriction_cfg(self, cfg, d, group_of):
         """A restriction division's wiring (mrbayes_tpu/mcmc/engine.py:
@@ -735,9 +858,11 @@ class Engine:
             cfg.revmat_group = group_of("revmat", d, repr(s.revmatpr) + s.nst)
         elif s.nst == "2":
             cfg.tratio_group = group_of("tratio", d, repr(s.tratiopr))
-        if s.rates in ("gamma", "invgamma"):
+        if s.rates in ("gamma", "invgamma", "lnorm"):
+            # a doublet division's lognormal categories number ngammacat
+            # (mrbayes_tpu engine.py:486-488)
             cfg.shape_group = group_of("shape", d, repr(s.shapepr))
-            cfg.n_cats = s.ngammacat
+            cfg.n_cats = cfg.n_rate_cats = s.ngammacat
         if s.rates in ("propinv", "invgamma"):
             cfg.pinvar_group = group_of("pinvar", d, repr(s.pinvarpr))
         return cfg
@@ -751,13 +876,22 @@ class Engine:
 
     def _build_data_tensors(self):
         dev = self.device
-        self._gamma_tables = {}
-        for cfg in self.div_cfg:
+        self._gamma_tables, self._lnorm_tables, self._adg_trans = {}, {}, {}
+        self._adg_maps, self._cont_values = {}, {}
+        for i, cfg in enumerate(self.div_cfg):
             # M10's gamma classes read the table of their own count
             k = (cfg.settings.nm10gammacat if cfg.m10_group >= 0
-                 else cfg.n_cats if cfg.shape_group >= 0 else None)
-            if k is not None and k not in self._gamma_tables:
-                self._gamma_tables[k] = GammaRateTable(k, device=dev)
+                 else cfg.n_rate_cats if cfg.shape_group >= 0 else None)
+            tables, make = (
+                (self._lnorm_tables, LognormalRates)
+                if cfg.settings.rates == "lnorm" and cfg.m10_group < 0
+                else (self._gamma_tables, GammaRateTable))
+            if k is not None and k not in tables:
+                tables[k] = make(k, device=dev)
+            if cfg.ratecorr_group >= 0:
+                if k not in self._adg_trans:
+                    self._adg_trans[k] = AdgammaTransition(k, device=dev)
+                self._adg_maps[i] = self._adgamma_maps(cfg.div)
         self.tip_partials, self.weights, self.const_masks = [], [], []
         self._fixed_pi, self._fixed_rootpi, self._fixed_covswitch = [], [], []
         self._pruners: list = []
@@ -766,9 +900,17 @@ class Engine:
         self._model_tips: list[np.ndarray] = []
         masks, factors = [], []
         v_typ = 0.03    # reference default tuningParam[2] (model.c:22598)
-        for cfg in self.div_cfg:
+        for i, cfg in enumerate(self.div_cfg):
             d = cfg.div
-            if cfg.codon is not None:
+            if cfg.continuous:
+                # no tip partials, pruner or coding (mrbayes_tpu
+                # engine.py:838-845): the trait values, and placeholders
+                self._cont_values[i] = torch.as_tensor(
+                    np.asarray(d.cont, np.float32), device=dev)
+                tp = np.zeros((d.ntax, 1, 1), np.float32)
+                cmask = np.zeros((1, 1), np.float32)
+                wts = np.ones(1, np.float32)
+            elif cfg.codon is not None:
                 tp, wts = self._codon_tensors(cfg)
                 # no pinvar on a codon division: the mask is never read
                 cmask = np.all(tp > 0, axis=0).astype(np.float32)
@@ -806,22 +948,65 @@ class Engine:
                 None if cfg.fixed_covswitch is None else torch.as_tensor(
                     np.asarray(cfg.fixed_covswitch, np.float32)[None],
                     device=dev))
-            self._pruners.append(make_pruner(tp, cfg.n_cats, dev, cfg.coding,
-                                             self.wavefront))
+            self._pruners.append(
+                make_pruner(tp, cfg.n_cats, dev, cfg.coding, self.wavefront)
+                if cfg.prunes else None)
             # bit-coded state sets for parsimony-guided proposals
-            # (reference InitParsSets src/mcmc.c:6834)
+            # (reference InitParsSets src/mcmc.c:6834); a continuous
+            # division's weigh nothing (mrbayes_tpu engine.py:1191-1194)
             S = max(2, min(d.n_states, 32))
-            divf = -np.log(max(1e-10, 1.0 / S
-                               - np.exp(-S / (S - 1.0) * v_typ) / S))
+            divf = 0.0 if cfg.continuous else -np.log(max(
+                1e-10, 1.0 / S - np.exp(-S / (S - 1.0) * v_typ) / S))
             masks.append(d.patterns.astype(np.int64))
             factors.append(d.weights * divf)
         self._pars_per_div = list(zip(masks, factors))
+        self._build_pars_lnl()
         self._pars_masks, self._pars_factors = self._pars_tensors(
             range(self.n_div))
         w = np.array([float(c.div.weights.sum()) for c in self.div_cfg])
         self.div_char_frac = w / w.sum()   # ratemult weighting
         self._build_multiwalk_pruners()
         self._build_stacked_pruners()
+
+    def _adgamma_maps(self, div):
+        """The adgamma HMM's static site-order maps (mrbayes_tpu
+        engine.py:821-833): each site's pattern in site order ``poc`` [n]
+        and the index ``jump_idx`` [n] of the distance from the previous
+        site among the distinct distances ``jumps`` (entry 0 unused), on
+        the device."""
+        order = np.argsort(div.char_ids)
+        poc = div.pattern_of_char[order]
+        gaps = np.diff(np.asarray(div.char_ids)[order])
+        jumps = sorted({int(j) for j in gaps}) or [1]
+        lut = {j: k for k, j in enumerate(jumps)}
+        jump_idx = np.zeros(len(poc), np.int64)
+        jump_idx[1:] = [lut[int(j)] for j in gaps]
+        return (torch.as_tensor(poc, dtype=torch.long, device=self.device),
+                torch.as_tensor(jump_idx, device=self.device), tuple(jumps))
+
+    def _build_pars_lnl(self):
+        """The parsimony-model divisions' Fitch wiring: per tree, their
+        bit-coded state sets side by side [n_tips, P] on the device, and
+        each one's (division, pattern slice, weights, character count,
+        log of its state count)."""
+        self._pars_lnl = []
+        for t in range(self.n_trees):
+            divs = [i for i, c in enumerate(self.div_cfg)
+                    if c.parsimony and self.div_tree[i] == t]
+            if not divs:
+                continue
+            members, lo = [], 0
+            for i in divs:
+                d = self.div_cfg[i].div
+                w = torch.as_tensor(np.asarray(d.weights, np.float32),
+                                    device=self.device)
+                members.append((i, lo, lo + d.npat, w, float(d.weights.sum()),
+                                math.log(max(2, d.n_states))))
+                lo += d.npat
+            masks = torch.as_tensor(np.concatenate(
+                [self._pars_per_div[i][0] for i in divs], axis=1),
+                device=self.device)
+            self._pars_lnl.append((t, masks, members))
 
     def _pars_tensors(self, divs):
         """The parsimony proposals' bit-coded state sets and pattern
@@ -905,10 +1090,14 @@ class Engine:
 
     def _grouped(self, i) -> bool:
         """True where division i may join a multiwalk or stacked group: the
-        JAX engine groups only its generic-path divisions, which excludes
-        codon and covarion ones (mrbayes_tpu/mcmc/engine.py:2476-2486)."""
+        JAX engine groups only its generic-path divisions
+        (``_is_generic_div``, mrbayes_tpu/mcmc/engine.py:2476-2486), which
+        excludes continuous, parsimony-model, symdirihyperpr, codon,
+        covarion and adgamma ones; lnorm and kmixture divisions are
+        generic."""
         cfg = self.div_cfg[i]
-        return cfg.codon is None and not cfg.covarion
+        return (cfg.prunes and not cfg.symdiri and cfg.codon is None
+                and not cfg.covarion and cfg.ratecorr_group < 0)
 
     def _ungrouped_trees(self, switch: str) -> bool:
         """True with unlinked trees: no multiwalk or stacked group is
@@ -1259,10 +1448,17 @@ class Engine:
                 2.0, 19000.0, 0.25, -1, 1.0, 1e7))
         if self._mixed_rev:
             mk += self._mixed_gtr_moves()
+        mk += self._family_moves()
         if self.n_groups.get("covswitch"):
             mk.append(MoveSpec(
                 "covswitch_mult",
                 partial(M.make_multiplier_move("covswitch", 1e-3, 1e3),
+                        n_tips=n), 1.5, 2.0 * np.log(1.5), 0.25, 1,
+                1e-3, 20.0))
+        if self.n_groups.get("brownscale"):
+            mk.append(MoveSpec(
+                "brownscale_mult",
+                partial(M.make_multiplier_move("brownscale", 1e-6, 1e6),
                         n_tips=n), 1.5, 2.0 * np.log(1.5), 0.25, 1,
                 1e-3, 20.0))
         if self.n_groups.get("tratio"):
@@ -1302,14 +1498,63 @@ class Engine:
         # engine.py:2331-2334): the moves of those refresh it, and only it
         covarion = tuple(i for i, c in enumerate(self.div_cfg)
                          if c.covarion)
+        # a symdirihyperpr division's eigensystems depend on its own
+        # frequencies or beta alone: the moves of those refresh it, and no
+        # other Q move does (the JAX engine rebuilds them inline in every
+        # likelihood, mrbayes_tpu engine.py:2340-2342, :2646-2666)
+        own = {**{f"{f}_dir": tuple(i for i, c in enumerate(self.div_cfg)
+                                    if c.sympi_field == f)
+                  for f in self.n_groups if f.startswith("sympi")},
+               "symbeta_mult": tuple(i for i, c in enumerate(self.div_cfg)
+                                     if c.symbeta_group >= 0
+                                     and c.sympi_group < 0)}
+        plain = None if not any(c.symdiri for c in self.div_cfg) else tuple(
+            i for i, c in enumerate(self.div_cfg) if not c.symdiri)
         for i, m in enumerate(mk):
             m.updates_q = m.name in q_moves
+            if m.updates_q:
+                m.eig_divs = plain
             if covarion and not m.updates_q and m.name in (
                     "shape_mult", "covswitch_mult", "ratemult_dir"):
                 m.updates_q, m.eig_divs = True, covarion
+            if own.get(m.name):
+                m.updates_q, m.eig_divs = True, own[m.name]
             if m.prior_scope is None:
                 m.prior_scope = "tree" if i < n_tree_moves else "params"
         self.moves = mk
+
+    def _family_moves(self):
+        """The symdirihyperpr, kmixture and adgamma moves with the JAX
+        package's weights, tunings and bounds, in its order (mrbayes_tpu
+        engine.py:1798-1819): the beta multiplier, one Dirichlet move a
+        multistate frequency field, the mixture rates' Dirichlet move and
+        the correlation's slider."""
+        n = self.n_tips
+        g = self.n_groups
+        mk = []
+        if g.get("symbeta"):
+            mk.append(MoveSpec(
+                "symbeta_mult",
+                partial(M.make_multiplier_move("symbeta", 1e-2, 1e4),
+                        n_tips=n), 1.0, 2.0 * np.log(1.5), 0.25, 1,
+                1e-3, 20.0))
+        for field in sorted(g):
+            if field.startswith("sympi"):
+                mk.append(MoveSpec(
+                    f"{field}_dir",
+                    partial(M.make_simplex_move(field), n_tips=n),
+                    1.5, 100.0, 0.25, -1, 1.0, 1e5))
+        if g.get("mixtrates"):
+            mk.append(MoveSpec(
+                "mixtrates_dir",
+                partial(M.make_simplex_move("mixtrates"), n_tips=n),
+                1.5, 100.0, 0.25, -1, 1.0, 1e5))
+        if g.get("ratecorr"):
+            mk.append(MoveSpec(
+                "ratecorr_slider",
+                partial(M.make_slider_move("ratecorr", -1.0, 1.0),
+                        n_tips=n), 1.5, 0.3, 0.25, 1, 1e-3, 2.0))
+        return mk
 
     def _protein_codon_moves(self):
         """The protein, codon and doublet parameter moves with the JAX
@@ -1480,6 +1725,9 @@ class Engine:
         if param == "pi61":
             return next(c.codon.n_states for c in self.div_cfg
                         if c.pi_field == "pi61" and c.pi_group == gid)
+        if param == "mixtrates":
+            return next(c.settings.nmixtcat for c in self.div_cfg
+                        if c.mixt_group == gid)
         return {"pi": 4, "pi20": 20, "pi16": 16, "pi2": 2, "revmat": 6,
                 "aarevmat": 190}[param]
 
@@ -1552,12 +1800,18 @@ class Engine:
             if param in ("omegaprobs", "m3probs", "m10catprobs"):
                 self._prior_alpha[(param, gid)] = torch.tensor(
                     [float(x) for x in pr.params], device=dev)
-            elif param in PI_FIELDS + ("revmat", "aarevmat"):
+            elif param in PI_FIELDS + ("revmat", "aarevmat", "mixtrates"):
                 a = pr.params[0] if pr.params else 1.0
                 self._prior_alpha[(param, gid)] = torch.full(
                     (self._simplex_width(param, gid),), float(a), device=dev)
         if self.ratemult_on:
             self._ratemult_alpha = torch.ones(self.n_div, device=dev)
+        # a multistate frequency group's symmetric Dirichlet(beta) prior:
+        # (field, group, the symbeta group or -1, the fixed beta), once a
+        # group (mrbayes_tpu engine.py:2845-2860)
+        self._sympi_priors = list(dict.fromkeys(
+            (c.sympi_field, c.sympi_group, c.symbeta_group, c.fixed_symbeta)
+            for c in self.div_cfg if c.sympi_group >= 0))
         # the root frequencies' Dirichlet prior a group, and whether a mixed
         # run's RJ indicator gates it (mrbayes_tpu engine.py:2858-2875)
         self._rootpi_priors = {}
@@ -1596,7 +1850,14 @@ class Engine:
         # fixed frequencies)
         self._const_eigs = {}
         for i, c in enumerate(self.div_cfg):
-            if c.div.dtype is DataType.STANDARD:
+            if not c.prunes or c.sympi_group >= 0 or c.symbeta_group >= 0:
+                continue
+            if c.symdiri:
+                # symdirihyperpr=fixed(beta) on a binary character: its
+                # beta categories' eigensystems never change
+                self._const_eigs[i] = self._symdiri_eig(
+                    torch.tensor([c.fixed_symbeta], device=dev), i)
+            elif c.div.dtype is DataType.STANDARD:
                 pi = self._fixed_pi[i].double()                 # [1, S]
                 self._const_eigs[i] = tuple(
                     x.float() for x in eigh_reversible(
@@ -1781,6 +2042,25 @@ class Engine:
                 st["dirpi_on"] = np.ones(g["rootpi2"], np.int64)
         if g.get("covswitch"):
             st["covswitch"] = np.ones((g["covswitch"], 2), np.float32)
+        # the new families' starts (mrbayes_tpu engine.py:2141-2157)
+        if g.get("ratecorr"):
+            st["ratecorr"] = np.zeros((g["ratecorr"],), np.float32)
+        if g.get("symbeta"):
+            st["symbeta"] = np.ones((g["symbeta"],), np.float32)
+        if g.get("brownscale"):
+            st["brownscale"] = np.ones((g["brownscale"],), np.float32)
+        for field, ng in g.items():
+            if field.startswith("sympi"):
+                k = int(field[5:])
+                st[field] = np.full((ng, k), 1.0 / k, np.float32)
+        if g.get("mixtrates"):
+            ks = {c.settings.nmixtcat for c in self.div_cfg
+                  if c.mixt_group >= 0}
+            if len(ks) > 1:
+                raise ValueError("kmixture groups must share nmixtcat")
+            k = ks.pop()
+            st["mixtrates"] = np.full((g["mixtrates"], k), 1.0 / k,
+                                      np.float32)
         if g.get("omega"):
             st["omega"] = np.ones((g["omega"],), np.float32)
         if g.get("ny98"):
@@ -1998,15 +2278,35 @@ class Engine:
         """Division i's eigensystem for every chain: lam [C, S] with U,
         Uinv [C, S, S], or lam [C, K, S] with [C, K, S, S] for a codon
         division.  Under aamodelpr=mixed, each chain's model's precomputed
-        eigensystem."""
+        eigensystem; a binary symdirihyperpr character's (``_symdiri_eig``)
+        has its category frequencies as a fourth element."""
         cfg = self.div_cfg[i]
+        if cfg.symdiri and cfg.sympi_group < 0:
+            return self._symdiri_eig(self._symdiri_beta(state, i), i)
         if cfg.aamodel_group >= 0:
             idx = state["aamodel_idx"][:, cfg.aamodel_group]
             return tuple(x[idx] for x in self._aa_stack[2:])
         if cfg.covarion:
             return eigh_reversible(*self._covarion_q_pi(state, i))
+        if cfg.sympi_group >= 0:
+            pi = state[cfg.sympi_field][:, cfg.sympi_group]
+            return eigh_reversible(mk_q(cfg.div.n_states, pi), pi)
         Q, pi = self._division_q_pi(state, i)
         return eigh_reversible(Q, pi if Q.ndim == 3 else pi[:, None])
+
+    def _symdiri_eig(self, beta, i):
+        """A binary symdirihyperpr character's beta categories (mrbayes_tpu
+        engine.py:2659-2666): the frequencies [C, B, 2] of the symmetric
+        Beta(beta, beta)'s B category quantiles q as [q, 1 - q] and their
+        F81 eigensystems lam [C, B, 2], U, Uinv [C, B, 2, 2]."""
+        q = beta_category_freqs(beta, self.div_cfg[i].settings.nbetacat)
+        q = q.to(torch.float32)
+        pis = torch.stack([q, 1.0 - q], -1)
+        return (*eigh_reversible(binary_q(pis), pis), pis)
+
+    def _symdiri_beta(self, state, i):
+        cfg = self.div_cfg[i]
+        return state["symbeta"][:, cfg.symbeta_group]
 
     def _covswitch(self, state, i):
         """Division i's covarion switch rates (s01, s10) [C|1, 2]."""
@@ -2024,14 +2324,9 @@ class Engine:
         substitution block only, the switch rates stay as they are."""
         cfg = self.div_cfg[i]
         Q, pi = self._division_q_pi(state, i)
-        if cfg.shape_group >= 0:
-            rates = self._gamma_tables[cfg.n_cats](
-                state["shape"][:, cfg.shape_group])
-        else:
-            rates = self._unit_rates
+        rates = self._category_rates(state, cfg)
         if self.ratemult_on:
-            rates = rates * (state["ratemult"][:, i] / float(
-                self.div_char_frac[i]))[:, None]
+            rates = rates * self._rate_mult(state, i)[:, None]
         sw = self._covswitch(state, i)
         return covarion_q(Q[:, None], pi[:, None], sw[:, :1], sw[:, 1:],
                           rates)
@@ -2051,20 +2346,25 @@ class Engine:
         this (reference upDateCijk, src/likelihood.c:10476)."""
         out = dict(state)
         for i in range(self.n_div) if divs is None else divs:
-            if i in self._const_eigs:
+            cfg = self.div_cfg[i]
+            if i in self._const_eigs or not cfg.prunes:
                 continue
-            lam, U, Uinv = self._division_eig(state, i)
-            out[f"eigL{i}"], out[f"eigU{i}"], out[f"eigV{i}"] = lam, U, Uinv
+            # eigL, eigU, eigV and a binary symdiri character's category
+            # frequencies eigP
+            for k, x in zip("LUVP", self._division_eig(state, i)):
+                out[f"eig{k}{i}"] = x
         return out
 
     def _division_eig_cached(self, state, i):
+        """``_division_eig`` from the state's cache, the constant one, or
+        computed."""
         if f"eigL{i}" in state:
-            return state[f"eigL{i}"], state[f"eigU{i}"], state[f"eigV{i}"]
+            return tuple(state[f"eig{k}{i}"] for k in "LUVP"
+                         if f"eig{k}{i}" in state)
         if i in self._const_eigs:
             C = state["parent"].shape[0]
-            lam, U, Uinv = self._const_eigs[i]
-            return lam.expand(C, -1), U.expand(C, -1, -1), \
-                Uinv.expand(C, -1, -1)
+            return tuple(x.expand(C, *x.shape[1:])
+                         for x in self._const_eigs[i])
         return self._division_eig(state, i)
 
     def log_likelihood(self, state):
@@ -2094,20 +2394,21 @@ class Engine:
         if self.n_trees > 1:
             # unlinked trees: each division prunes its own tree
             views = [self.tree_view(state, t) for t in range(self.n_trees)]
-            return [self._division_lnL(views[t], i, views[t]["blen"],
-                                       weights[i])
-                    for i, t in enumerate(self.div_tree)]
-        blen = self.branch_lengths(state)
-        terms = [None] * self.n_div
+            blens = [v["blen"] for v in views]
+        else:
+            views, blens = [state], [self.branch_lengths(state)]
+        pars = self._pars_lnls(views)
+        terms = [pars.get(i) for i in range(self.n_div)]
         for idxs, gpruner in self._multiwalk_pruners + self._stacked_pruners:
             if any(terms[i] is not None for i in idxs):
                 continue
-            for i, term in zip(idxs, self._group_lnl(state, blen, idxs,
+            for i, term in zip(idxs, self._group_lnl(state, blens[0], idxs,
                                                      gpruner, weights)):
                 terms[i] = term
-        for i in range(self.n_div):
+        for i, t in enumerate(self.div_tree):
             if terms[i] is None:
-                terms[i] = self._division_lnL(state, i, blen, weights[i])
+                terms[i] = self._division_lnL(views[t], i, blens[t],
+                                              weights[i])
         return terms
 
     def _group_lnl(self, state, blen, idxs, gpruner, weights):
@@ -2170,11 +2471,7 @@ class Engine:
         cfg = self.div_cfg[i]
         pi = self._root_pi(state, i)
         lam, U, Uinv = self._division_eig_cached(state, i)
-        if cfg.shape_group >= 0:
-            rates = self._gamma_tables[cfg.n_cats](
-                state["shape"][:, cfg.shape_group])
-        else:
-            rates = self._unit_rates
+        rates = self._category_rates(state, cfg)
         if cfg.pinvar_group >= 0:
             # gamma rates describe the variable fraction
             pinv = state["pinvar"][:, cfg.pinvar_group]
@@ -2184,19 +2481,42 @@ class Engine:
         # a doublet site spans two nucleotide columns while branch lengths
         # stay in substitutions per nucleotide (reference TiProbs_Gen
         # correctionFactor 2, src/likelihood.c:9437-9443)
-        mult = 2.0 if cfg.doublet else 1.0
-        if self.ratemult_on:
-            # the stored simplex is weighted by the character fractions;
-            # the branch-length multiplier has mean 1 over characters
-            mult = mult * state["ratemult"][:, i] / float(
-                self.div_char_frac[i])
+        mult = (2.0 if cfg.doublet else 1.0) * self._rate_mult(state, i)
         return pi, cfg.coding, lam, U, Uinv, rates, pinv, cmask, mult
 
+    def _rate_mult(self, state, i):
+        """Division i's rate multiplier [C] (1.0 when fixed): the stored
+        simplex is weighted by the character fractions, the branch-length
+        multiplier has mean 1 over characters."""
+        if not self.ratemult_on:
+            return 1.0
+        return state["ratemult"][:, i] / float(self.div_char_frac[i])
+
+    def _category_rates(self, state, cfg):
+        """The rate categories [C|1, K] of a division (mrbayes_tpu
+        engine.py:2518-2529): discrete gamma (gamma, invgamma, adgamma) or
+        lognormal (lnorm) on the shape group, the kmixture simplex times K
+        (not under covarion), else one unit rate."""
+        if cfg.mixt_group >= 0 and not cfg.covarion:
+            return state["mixtrates"][:, cfg.mixt_group] * cfg.n_rate_cats
+        if cfg.shape_group < 0:
+            return self._unit_rates
+        tables = (self._lnorm_tables if cfg.settings.rates == "lnorm"
+                  else self._gamma_tables)
+        return tables[cfg.n_rate_cats](state["shape"][:, cfg.shape_group])
+
     def _division_lnL(self, state, i, blen, weights):
-        if self.div_cfg[i].codon is not None:
+        cfg = self.div_cfg[i]
+        if cfg.continuous:
+            return self._brownian_lnL(state, i, blen)
+        if cfg.symdiri:
+            return self._symdiri_lnL(state, i, blen, weights)
+        if cfg.codon is not None:
             return self._codon_lnL(state, i, blen, weights)
-        if self.div_cfg[i].covarion:
+        if cfg.covarion:
             return self._covarion_lnL(state, i, blen, weights)
+        if cfg.ratecorr_group >= 0:
+            return self._adgamma_lnL(state, i, blen)
         pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \
             self._generic_div_params(state, i)
         return division_loglik(
@@ -2214,10 +2534,7 @@ class Engine:
         cfg = self.div_cfg[i]
         lam, U, Uinv = self._division_eig_cached(state, i)
         cat_w = self._codon_cat_weights(state, cfg)
-        mult = 3.0
-        if self.ratemult_on:
-            mult = mult * state["ratemult"][:, i] / float(
-                self.div_char_frac[i])
+        mult = 3.0 * self._rate_mult(state, i)
         return division_loglik(
             state["left"], state["right"], state["parent"], blen,
             self.tip_partials[i], weights, lam, U, Uinv,
@@ -2237,6 +2554,128 @@ class Engine:
             self.tip_partials[i], weights, lam, U, Uinv,
             self._covarion_pi(state, i), self._unit_rates.expand(1, K), 0.0,
             None, self.n_tips, pruner=self._pruners[i])
+
+    def _symdiri_lnL(self, state, i, blen, weights):
+        """A standard division's lnL [C] under symdirihyperpr
+        (``_std_symdiri_loglik``, mrbayes_tpu engine.py:2619-2677): a
+        multistate character's sampled frequencies in its Mk generator and
+        at the root; a binary one's B beta categories folded into the
+        category axis next to its K rate categories (category b K + k: the
+        b-th eigensystem, the k-th rate), each weighted at the root (and in
+        the coding dummies' sum) by its own [q_b, 1 - q_b].  Gamma, invgamma
+        or lnorm rates give the categories' rates (pinvar unread), other
+        rates K unit ones."""
+        lam, U, Uinv, pi, rates = self._symdiri_operands(state, i)
+        return division_loglik(
+            state["left"], state["right"], state["parent"], blen,
+            self.tip_partials[i], weights, lam, U, Uinv, pi, rates, 0.0,
+            None, self.n_tips, rate_mult=self._rate_mult(state, i),
+            coding=self.div_cfg[i].coding, pruner=self._pruners[i])
+
+    def _symdiri_operands(self, state, i):
+        """(lam, U, Uinv, pi, rates) of a symdirihyperpr division: its
+        eigensystem(s), root frequencies and category rates, a binary
+        character's B beta categories repeated over its K rate categories
+        (category b K + k)."""
+        cfg = self.div_cfg[i]
+        K = cfg.n_rate_cats
+        rates = (self._category_rates(state, cfg) if cfg.settings.rates in
+                 ("gamma", "invgamma", "lnorm")
+                 else self._unit_rates.expand(1, K))
+        eig = self._division_eig_cached(state, i)
+        if cfg.sympi_group >= 0:
+            return (*eig, state[cfg.sympi_field][:, cfg.sympi_group], rates)
+        # a binary character's eigensystems and frequencies per beta
+        # category, repeated over the rate categories
+        lam, U, Uinv, pi = (x.repeat_interleave(K, 1) for x in eig)
+        return (lam, U, Uinv, pi.expand(lam.shape[0], -1, -1),
+                rates.repeat(1, cfg.settings.nbetacat))
+
+    def pruner_operands(self, state, i):
+        """(P, pi): the per-branch, per-category transition matrices [C,
+        n_nodes, K, S, S] division i's pruner takes at ``state`` and the
+        frequencies of its root reduction, as its likelihood builds them
+        (a generic, lnorm, kmixture, adgamma or symdirihyperpr division),
+        for measuring the kernel at the engine's own operands."""
+        blen = self.branch_lengths(state)
+        if self.div_cfg[i].symdiri:
+            lam, U, Uinv, pi, rates = self._symdiri_operands(state, i)
+            return branch_tiprobs(blen, lam, U, Uinv, rates, 0.0,
+                                  self._rate_mult(state, i)), pi
+        pi, _, lam, U, Uinv, rates, pinv, cmask, mult = \
+            self._generic_div_params(state, i)
+        return branch_tiprobs(blen, lam, U, Uinv, rates,
+                              pinv if cmask is not None else 0.0, mult), pi
+
+    def _adgamma_lnL(self, state, i, blen):
+        """An autocorrelated-gamma division's lnL [C] (``_adgamma_loglik``,
+        mrbayes_tpu engine.py:2711-2750; reference Likelihood_Adgamma
+        src/likelihood.c:5692, CalcLikeAdgamma src/mcmc.c:1575): one
+        pruning pass for the per-pattern category likelihoods at the root,
+        then the category HMM along the sites in their original order
+        (``adgamma_loglik_from_cats``), its transition matrix's powers
+        M^j for the distinct site distances j by repeated squaring."""
+        cfg = self.div_cfg[i]
+        lam, U, Uinv = self._division_eig_cached(state, i)
+        rates = self._category_rates(state, cfg)
+        out = root_clv(state["left"], state["right"], state["parent"], blen,
+                       self.tip_partials[i], lam, U, Uinv, rates, 0.0,
+                       self.n_tips, self._rate_mult(state, i),
+                       pruner=self._pruners[i])
+        if isinstance(out, list):
+            # a site-sharded pruner's (root, logscale) per shard, in
+            # pattern order: the HMM needs every site
+            out = tuple(torch.cat([x[j].to(self.device, non_blocking=True)
+                                   for x in out], -1) for j in (0, 1))
+        return self._adgamma_from_root(state, i, *out)
+
+    def _adgamma_from_root(self, state, i, root, ls):
+        """The adgamma HMM of division i [C] from its root partials [C, K,
+        S, P] and log scalers [C, P]."""
+        cfg = self.div_cfg[i]
+        pi = self._division_pi(state, i)
+        rP = torch.matmul(pi[:, None, None, :], root)[:, :, 0]   # [C, K, P]
+        poc, jump_idx, jumps = self._adg_maps[i]
+        M = self._adg_trans[cfg.n_rate_cats](
+            state["ratecorr"][:, cfg.ratecorr_group])
+        cache = {1: M}
+
+        def mpow(j):
+            if j not in cache:
+                h = mpow(j // 2)
+                cache[j] = h @ h if j % 2 == 0 else h @ h @ M
+            return cache[j]
+
+        pows = torch.stack([mpow(j) for j in jumps], 1)   # [C, U, K, K]
+        return adgamma_loglik_from_cats(rP[:, :, poc].transpose(1, 2),
+                                        ls[:, poc], pows, jump_idx)
+
+    def _brownian_lnL(self, state, i, blen):
+        """A continuous division's lnL [C] (``_brownian_lnL``, mrbayes_tpu
+        engine.py:2607-2617): the REML density of independent contrasts
+        (``ops/brownian.py``) with the sampled variance rate sigma^2; no
+        rate multiplier (sigma^2 absorbs the scale)."""
+        sigma2 = state["brownscale"][:, self.div_cfg[i].brownscale_group]
+        return pic_logpdf(state["left"], state["right"], state["parent"],
+                          blen, self._cont_values[i], sigma2, self.n_tips)
+
+    def _pars_lnls(self, views):
+        """The parsimony-model divisions' lnL [C] by division (``_pars_lnL``,
+        mrbayes_tpu engine.py:2577-2605; reference Likelihood_Pars,
+        src/likelihood.c:7593): -(T + n) log k with T the division's
+        weighted Fitch length and n its character count.  One Fitch pass a
+        tree covers all of its parsimony-model divisions' patterns side by
+        side (``moves._fitch``, int64 state sets), the root's step (tip 0
+        against the basal node of the rooted-at-tip-0 layout) included;
+        the changes are counted per pattern and weighted per division."""
+        out = {}
+        for t, masks, members in self._pars_lnl:
+            st = views[t]
+            _, changes = M._fitch(masks, st["parent"], st["left"],
+                                  st["right"], self.n_tips, count=True)
+            for i, lo, hi, w, n_chars, log_k in members:
+                out[i] = -(changes[:, lo:hi] @ w + n_chars) * log_k
+        return out
 
     def log_prior(self, state):
         """Full log prior [C] = tree component + parameter component."""
@@ -2396,6 +2835,13 @@ class Engine:
                 lp = lp + _scalar_prior_lpdf(pr, x).sum(-1)
             else:
                 lp = lp + _scalar_prior_lpdf(pr, x)
+        for field, g, bg, fixed_b in self._sympi_priors:
+            # a multistate character's frequencies under a symmetric
+            # Dirichlet(beta), beta sampled or fixed
+            x = state[field][:, g]
+            beta = (state["symbeta"][:, bg, None] if bg >= 0
+                    else x.new_full((1, 1), fixed_b))
+            lp = lp + dirichlet_lpdf(x, beta.expand_as(x))
         for g, (alpha, mixed) in self._rootpi_priors.items():
             # a mixed run's stationary state has no root frequencies
             # (reference Move_Statefreqs_SplitMerge, src/proposal.c:16646)

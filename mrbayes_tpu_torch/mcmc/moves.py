@@ -466,21 +466,27 @@ def move_subtree_swap(gen, state, tuning, n_tips):
     return st, torch.where(c_v > 0, lnH, NEG_INF)
 
 
-def _fitch(masks, P2, L2, R2, n_tips):
+def _fitch(masks, P2, L2, R2, n_tips, count=False):
     """Fitch downpass sets [C, n_nodes, Ptot] on bit-coded state sets
-    (reference GetParsDP, src/mcmc.c:4849)."""
+    (reference GetParsDP, src/mcmc.c:4849); with ``count``, also each
+    pattern's number of changes [C, Ptot] (the steps that take the union),
+    the root's step included (the parsimony model's tree length)."""
     C = P2.shape[0]
     F = masks.new_zeros((C, P2.shape[1], masks.shape[1]))
     F[:, :n_tips] = masks
     order = postorder_internal(P2, n_tips)
     rows = torch.arange(C, device=P2.device)
+    changes = torch.zeros(F.shape[::2], device=P2.device) if count else None
     for i in range(n_tips - 1):
         w = order[:, i]
         a = F[rows, _take(L2, w)]
         b = F[rows, _take(R2, w)]
         inter = a & b
-        F[rows, w] = torch.where(inter > 0, inter, a | b)
-    return F
+        empty = inter == 0
+        if count:
+            changes += empty
+        F[rows, w] = torch.where(empty, a | b, inter)
+    return (F, changes) if count else F
 
 
 def _pars_scores(F, Fv, P2, n_tips, factors, warp):

@@ -148,6 +148,18 @@ def param_columns(eng: Engine):
     for gid in range(eng.n_groups.get("shape", 0)):
         cols.append(("alpha" + suffix("shape", gid),
                      lambda st, s, g=gid: float(st["shape"][s, g])))
+    for gid in range(eng.n_groups.get("mixtrates", 0)):
+        # the kmixture rates, stored as a simplex, printed with mean 1
+        # (reference mixturerates columns, src/model.c:19830; mrbayes_tpu
+        # run.py:218-225)
+        km = eng._simplex_width("mixtrates", gid)
+        for k in range(km):
+            cols.append((f"mixturerates{suffix('mixt', gid)}[{k + 1}]",
+                         lambda st, s, g=gid, k=k, km=km:
+                         float(st["mixtrates"][s, g, k]) * km))
+    for gid in range(eng.n_groups.get("ratecorr", 0)):
+        cols.append(("corr" + suffix("ratecorr", gid),
+                     lambda st, s, g=gid: float(st["ratecorr"][s, g])))
     for gid in range(eng.n_groups.get("pinvar", 0)):
         cols.append(("pinvar" + suffix("pinvar", gid),
                      lambda st, s, g=gid: float(st["pinvar"][s, g])))
@@ -160,6 +172,10 @@ def param_columns(eng: Engine):
     for gid in range(eng.n_groups.get("aamodel", 0)):
         cols.append(("aamodel" + suffix("aamodel", gid),
                      lambda st, s, g=gid: float(st["aamodel_idx"][s, g])))
+    for gid in range(eng.n_groups.get("brownscale", 0)):
+        # continuous data's Brownian variance rate sigma^2
+        cols.append(("brownScale" + suffix("brownscale", gid),
+                     lambda st, s, g=gid: float(st["brownscale"][s, g])))
     if eng.ratemult_on:
         for d in range(n_div):
             cols.append((f"m{{{d + 1}}}",

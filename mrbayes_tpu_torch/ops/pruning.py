@@ -161,7 +161,10 @@ def site_loglik_from_root(root, logscale, pi, pinv, const_mask,
     k = root.shape[1]
     if cat_weights is None:
         cat_weights = root.new_full((k,), 1.0 / k)
-    pi4 = pi.reshape(-1, 1, 1, pi.shape[-1])                   # [C|1,1,1,S]
+    if pi.ndim == 3:
+        pi4 = pi[:, :, None, :]                                # [C, K, 1, S]
+    else:
+        pi4 = pi.reshape(-1, 1, 1, pi.shape[-1])               # [C|1,1,1,S]
     per_cat = torch.matmul(pi4, root)[:, :, 0]                 # [C, K, P]
     if cat_weights.ndim == 2:
         site_l = torch.matmul(cat_weights[:, None], per_cat)[:, 0]
@@ -172,7 +175,13 @@ def site_loglik_from_root(root, logscale, pi, pinv, const_mask,
         return ln_var
     pinv = (pinv.reshape(-1, 1) if torch.is_tensor(pinv)
             else ln_var.new_full((1, 1), pinv))               # [C|1, 1]
-    const_l = torch.einsum("ps,cs->cp", const_mask, pi)
+    if pi.ndim == 3:
+        # per-category frequencies: the constant patterns' categories
+        # weighted as the variable ones'
+        const_l = (cat_weights[..., None] * torch.einsum(
+            "ps,cks->ckp", const_mask, pi)).sum(-2)
+    else:
+        const_l = torch.einsum("ps,cs->cp", const_mask, pi)
     ln_inv = torch.log(torch.clamp_min(pinv, _TINY)) + \
         torch.log(torch.clamp_min(const_l, _TINY))
     mixed = torch.logaddexp(
@@ -241,6 +250,40 @@ def coding_total(ln_real, ln_dummy, weights, coding: str):
     """Σ_p w_p ln L_p - Σ_p w_p log(1 - P(unobservable)), per chain."""
     return (weights * ln_real).sum(-1) - coding_correction(
         ln_dummy, weights.sum(), coding)
+
+
+def adgamma_loglik_from_cats(rP, ln_scale, M_pows, jump_idx):
+    """The autocorrelated-gamma HMM's log-likelihood [C] from per-site
+    category likelihoods (mrbayes_tpu/ops/pruning.py:346; reference
+    CalcLikeAdgamma, src/mcmc.c:1575: the forward algorithm with uniform
+    category frequencies).
+
+    rP [C, n, K]: rescaled per-site category likelihoods in site order;
+    ln_scale [C, n] their log scalers; M_pows [C, U, K, K] each chain's
+    powers of the category transition matrix; jump_idx [n] the static
+    index into M_pows of the distance from site c - 1 to c (entry 0
+    unused).  The forward recursion F_c = diag(rP_c) M^{j_c} F_{c-1} is the
+    product of the site operators A_c = diag(rP_c) M^{j_c} (A_0 =
+    diag(rP_0)) applied to the uniform start; only the whole product is
+    needed (the JAX package's scan keeps its last element), so it is
+    reduced pairwise in site order, A_{2i+1} A_{2i}, with an identity
+    appended at an odd count: ceil(log2 n) rounds of batched [K, K]
+    products, each rescaled by its max and the log carried."""
+    C, n, K = rP.shape
+    first = torch.diag_embed(rP[:, :1])                      # [C, 1, K, K]
+    A = torch.cat([first, rP[:, 1:, :, None] * M_pows[:, jump_idx[1:]]], 1)
+    m = torch.clamp_min(A.amax((-2, -1)), _TINY)
+    A = A / m[..., None, None]
+    logs = torch.log(m).sum(-1)
+    eye = torch.eye(K, dtype=A.dtype, device=A.device).expand(C, 1, K, K)
+    while A.shape[1] > 1:
+        if A.shape[1] % 2:
+            A = torch.cat([A, eye], 1)
+        A = A[:, 1::2] @ A[:, 0::2]
+        m = torch.clamp_min(A.amax((-2, -1)), _TINY)
+        A = A / m[..., None, None]
+        logs = logs + torch.log(m).sum(-1)
+    return logs + ln_scale.sum(-1) + torch.log(A[:, 0].sum((-2, -1)) / K)
 
 
 def constant_state_mask(patterns, n_states: int):

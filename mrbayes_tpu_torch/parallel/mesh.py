@@ -90,7 +90,10 @@ def shard_engine_data(eng, mesh: Mesh) -> None:
     holds the tips and, for a coded division, the dummy patterns' pass, so
     the engine's whole-division tips are dropped.  The multiwalk and
     stacked groups are cleared (mrbayes_tpu/parallel/mesh.py:95-98) and a
-    wavefront pruner becomes a sharded one.  The parsimony masks of the
+    wavefront pruner becomes a sharded one.  A division without a pruner
+    (parsimony model, continuous data) keeps its data whole; an adgamma
+    division gathers its shards' root partials for the HMM along the
+    sites.  The parsimony masks of the
     proposals stay whole on the engine's device.  The identity at one site
     shard."""
     k = mesh.shape["sites"]
@@ -101,6 +104,13 @@ def shard_engine_data(eng, mesh: Mesh) -> None:
     devices = mesh.site_devices()
     ws, cms, pruners = [], [], []
     for i, cfg in enumerate(eng.div_cfg):
+        if eng._pruners[i] is None:
+            # a parsimony-model or continuous division prunes nothing:
+            # its data stay whole (mrbayes_tpu/parallel/mesh.py:87-92)
+            ws.append(eng.weights[i])
+            cms.append(eng.const_masks[i])
+            pruners.append(None)
+            continue
         tp, _ = _pad_to_multiple(eng._model_tips[i], 1, k)
         w, _ = _pad_to_multiple(eng.weights[i].cpu().numpy(), 0, k)
         cm, _ = _pad_to_multiple(eng.const_masks[i].cpu().numpy(), 0, k)

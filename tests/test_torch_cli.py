@@ -221,7 +221,7 @@ def test_commands_outside_the_port_name_their_item():
     for line, item in (("ss ngen=10", "item 14"),
                        ("delete 1", "item 15"),
                        ("showmodel", "item 15"),
-                       ("prset ratecorrpr=uniform(-1,1)", "item 13c")):
+                       ("prset popvarpr=variable", "item 14")):
         with pytest.raises(CommandError, match=f"ROADMAP Queue 1 {item}"):
             it.run_line(line)
     with pytest.raises(CommandError, match="unknown command"):

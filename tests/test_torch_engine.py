@@ -185,5 +185,30 @@ def test_entry_point_defaults_to_cuda(dataset):
                                 dict(parsmodel=True),
                                 dict(rates="adgamma")])
 def test_settings_outside_the_slice_raise(dataset, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13c"):
-        Engine(dataset, [DivisionSettings(**kw)], device="cpu")
+    """Settings the port refused until ROADMAP Queue 1 item 13c came: the
+    engine now takes each, and its lnL (JAX's eigensystems carried over)
+    and lnPrior equal the JAX engine's at identical states."""
+    eng = Engine(dataset, [DivisionSettings(**kw)],
+                 mcmc=McmcSettings(nruns=1, nchains=3, seed=3), device="cpu")
+    nf = j_read(example("primates.nex"))
+    jeng = JEngine(JDataSet(taxa=nf.taxa, nchar=nf.matrix.nchar,
+                            divisions=j_make_divisions(nf.matrix)),
+                   [JDiv(**kw)], mcmc=JMcmc(nruns=1, nchains=3, seed=3))
+    states, _ = eng.init_chains()
+    st = {k: v for k, v in state_to_numpy(states).items()
+          if k not in ("lnL", "lnP", "lnP_tree", "lnP_par")
+          and not k.startswith("eig")}
+    rng = np.random.default_rng(4)
+    for k, hi in (("shape", 2.0), ("ratecorr", 0.9)):
+        if k in st:
+            st[k] = rng.uniform(-hi if k == "ratecorr" else 0.2, hi,
+                                st[k].shape).astype(np.float32)
+    jst = {k: np.asarray(v) for k, v in
+           jax.jit(jax.vmap(jeng.refresh_eigs))(st).items()}
+    lnL = np.asarray(jax.jit(jax.vmap(jeng.log_likelihood))(jst))
+    lnP = np.asarray(jax.jit(jax.vmap(jeng.log_prior))(jst))
+    tst = state_from_numpy(jst, "cpu")
+    np.testing.assert_allclose(eng.log_likelihood(tst).numpy(), lnL,
+                               atol=5e-3, rtol=0)
+    np.testing.assert_allclose(eng.log_prior(tst).numpy(), lnP, atol=1e-4,
+                               rtol=0)

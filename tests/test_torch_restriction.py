@@ -383,5 +383,5 @@ def test_prset_keys_of_this_slice_parse():
                                                        (2.0, 3.0))
     assert (s.covswitchpr.kind, s.covswitchpr.params) == ("exponential",
                                                          (2.0,))
-    with pytest.raises(CommandError, match="item 13c"):
-        it.run_line("prset symdirihyperpr=fixed(1.0)")
+    with pytest.raises(CommandError, match="item 14"):
+        it.run_line("prset popvarpr=variable")

@@ -306,8 +306,10 @@ def test_p_header_equals_jax_param_columns(jax_side, port_engine):
 
 def test_ordered_characters_and_symdiri_raise():
     """Ordered characters are carried since item 10b (the ordered Mk
-    generator, tests/test_torch_dating.py and test_torch_hymfossil.py);
-    a sampled symdirihyperpr still raises naming item 13c."""
+    generator, tests/test_torch_dating.py and test_torch_hymfossil.py),
+    and symdirihyperpr since item 13c: the engine takes it, and ordered
+    characters keep uniform frequencies under it, as in the JAX package
+    (mrbayes_tpu engine.py:612-614)."""
     nf = read_nexus_file(example("cynmix.nex"))
     ordered = make_divisions(nf.matrix, ctype={c: "ordered"
                                                for c in range(166)})
@@ -323,9 +325,21 @@ def test_ordered_characters_and_symdiri_raise():
     assert torch.isfinite(states["lnL"]).all()
     divs = make_divisions(nf.matrix)
     ds = DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar, divisions=divs)
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        Engine(ds, [DivisionSettings(symdirihyperpr=Prior("fixed", (1.0,)))
-                    for _ in divs], device="cpu")
+    sym = [DivisionSettings(symdirihyperpr=Prior("fixed", (1.0,)))
+           for _ in divs]
+    eng = Engine(ds, sym, device="cpu")
+    assert {(c.div.n_states, c.symdiri) for c in eng.div_cfg
+            if c.div.dtype is DataType.STANDARD} == {
+                (2, True), (3, True), (4, True), (8, True)}
+    states, _ = eng.init_chains()
+    assert torch.isfinite(states["lnL"]).all()
+    eng = Engine(DataSet(taxa=nf.taxa, nchar=nf.matrix.nchar,
+                         divisions=ordered),
+                 [DivisionSettings(symdirihyperpr=Prior("fixed", (1.0,)))
+                  for _ in ordered], device="cpu")
+    assert {(c.div.n_states, c.symdiri) for c in eng.div_cfg
+            if c.div.dtype is DataType.STANDARD} == {
+                (2, True), (3, False), (4, False), (8, False)}
 
 
 def test_cli_run_writes_complete_files(tmp_path):
