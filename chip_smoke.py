@@ -6,10 +6,11 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
                           [--cynmix-gens N] [--switch-blocks N]
                           [--phases GROUP,...]
 
-(defaults 2,000, 2, 300 and 1; primates blocks, cynmix generations and
+(defaults 1,000, 2, 300 and 1; primates blocks, cynmix generations and
 switch blocks were 5, 2,000 and 3 before the sharded phases came and 3,
 600 and 2 before the families phases, and test1's generations 20,000
-before test2's came and 4,000 before the dating phases: each was cut to
+before test2's came, 4,000 before the dating phases and 2,000 before the
+analyses phases: each was cut to
 keep the script within 600 s on a fast host and 700 s on a slow one,
 and test1's 20,000-generation envelope is
 checked by ``--test1-gens 20000``; test2 always runs the envelope's
@@ -17,7 +18,7 @@ checked by ``--test1-gens 20000``; test2 always runs the envelope's
 groups after the device and build phases (``PHASE_GROUPS``: kernels 3,
 17, 21; primates 4-5; test1 6-9; cynmix 10-12; sharded 13-16; clock
 18-20; aa_codon 22-26; dating 27-31; kim_codon 32-37; covarion 38-41;
-families 42-46);
+families 42-46; analyses 47-52);
 with a subset the
 kernels line names every kernel with its numbers null, and the groups'
 own lines carry what they measured.  Each
@@ -126,7 +127,7 @@ Phases, each fatal on failure:
      tests/golden_primates.json and the replicase_ny98 rows of
      tests/golden_extra.json on the card (within 0.05, 0.6 and 1.0);
  23. avian: avian_ovomucoids.nex under the manual's aamodelpr=mixed
-     through the CLI, 2 runs x 4 chains, 300 generations: one pruning.cu
+     through the CLI, 2 runs x 4 chains, 200 generations: one pruning.cu
      launch a likelihood, one eigh.cu launch at the engine's build (the 11
      models' fixed eigensystems as one batch) and none in the loop,
      carried versus recomputed scores, the files, sump
@@ -155,7 +156,7 @@ Phases, each fatal on failure:
      paths: each path's total within the row's tol (3.0) of the
      reference, each division's lnL within 1e-3 of the other paths';
  29. hymfossil: the FBD analysis through the CLI (45 fossils with fixed
-     ages, 15 divisions, 2 runs x 4 chains, 600 generations), switches
+     ages, 15 divisions, 2 runs x 4 chains, 400 generations), switches
      off: one pruning.cu launch a division and likelihood, carried versus
      recomputed scores, every fixed fossil age held, the pinned ages
      ordered and no constraint broken, the .p/.t/.mcmc files with each
@@ -246,14 +247,39 @@ Phases, each fatal on failure:
      2e-3;
  44. the lnorm + kmixture divisions in one multiwalk.cu launch, each
      division's per-pattern lnL within 2e-5 of its own pruning.cu launch;
- 45. the five through the CLI, 300 generations, 4 chains (primates
+ 45. the five through the CLI, 200 generations, 4 chains (primates
      adgamma 2 runs, multiwalk on for lnorm + kmixture): each division's
      kernel launched once a likelihood (none for a parsimony-model or
      continuous division), carried versus recomputed scores, finite .p
      files with the corr, mixturerates and brownScale columns, .t files,
      sump and sumt, gens/s;
  46. a block and one generation of every move type of each of the five
-     with host synchronisation made an error.
+     with host synchronisation made an error;
+ 47. report, primates GTR+I+G with the apes constraint, 2 runs x 4 chains
+     through the CLI (``report ancstates=yes siterates=yes``): the card's
+     Reporter at the golden rows of tests/golden_ancstates.json within
+     1e-3 max and 2e-4 mean of the reference, site rates within 0.02 of a
+     float64 oracle, every p(.){c@apes} row of the .p files summing to 1
+     within 1e-4, one host sync a sample, the report pass's kernels and ms;
+ 48. report, replicase under NY98 (``possel=yes siteomega=yes``), 1 run x
+     4 chains: card against CPU at the run's final state within 1e-4,
+     each pr+ in [0, 1], each omega within the class omegas;
+ 49. ss on primates GTR+I+G (1 x 4, 5 steps) then sumss: every step in
+     the .ss file, its contributions equal to those recomputed from the
+     sampled lnL within 1e-6, lnZ finite and below the highest lnL; a
+     power-0 block (1 x 4 at temp 0, exponential(10) branch lengths): the
+     mean tree length within 4 batch-means standard errors of 2.1;
+ 50. cynmix with starttree=parsimony, then starttree=nj nperts=2 (1 x 4):
+     the run's gen-0 tree equal to the CPU port's from the same seed,
+     carried = recomputed;
+ 51. tests/test_commands.py's SCRIPT (propset, startvals, plot,
+     comparetree), compareref, outgroup, sump plot=yes, every
+     informational command, delete 2 with an mcmc on the 11 taxa left and
+     restore: each runs, each run's files complete;
+ 52. per-chain moves, primates 1 x 32: the move counts against the move
+     probabilities (chi-square p > 1e-3), one pruning.cu launch a
+     generation, carried = recomputed, no host sync in a block, and ms per
+     generation with and without per-chain moves.
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -341,9 +367,10 @@ SHARD_COUNTS, SHARD_BLOCKS = (1, 2, 4), 3
 DEV = "cuda"
 # the reference's envelope runs 20,000 generations; test1's default run is
 # cut to leave room for test2's and the later phases' within 600 s (its
-# 20,000-generation envelope is a separate call: --test1-gens 20000)
+# 20,000-generation envelope is a separate call: --test1-gens 20000), and
+# from 2,000 for the analyses phases within 700 s on a slow host
 ENVELOPE_GENS = 20000
-TEST1_GENS = 2000
+TEST1_GENS = 1000
 TEST2_GENS = ENVELOPE_GENS
 # the clock-tree kernel cases: test2's divisions (test1's, on a clock
 # tree) at 8 and 32 chains
@@ -373,16 +400,18 @@ EIGH_TOL = 1e-10
 # the protein and codon runs through the CLI (2 runs x 4 chains), and
 # their prior-only check: runs x 1 chain, generations, seed (the three
 # runs cut from 1,000, 2,000 and 2,000 to make room for the dating phases
-# within 600 s, the CLI runs from 600 and 1,200 for the families phases)
-AA_GENS, CODON_GENS = 300, 600
+# within 600 s, the CLI runs from 600 and 1,200 for the families phases,
+# avian's from 300 for the analyses phases)
+AA_GENS, CODON_GENS = 200, 600
 AA_PRIOR_RUNS, AA_PRIOR_GENS, AA_PRIOR_SEED = 32, 1200, 13
 
 
 # hymfossil (the dating slice): the kernel cases' chain counts, the CLI
-# run's generations (7 samples a run at samplefreq 100), and the
+# run's generations (5 samples a run at samplefreq 100; cut from 1,000,
+# then from 600 for the analyses phases), and the
 # prior-only dating checks' runs x 1 chain and generations
 HYM_CHAINS = (8, 32)
-HYM_GENS = 600
+HYM_GENS = 400
 DATING_PRIOR_RUNS, DATING_PRIOR_GENS = 32, 1000
 # kim.nex's stem doublets, codon M3 and M10 and unlinked trees: pruning.cu
 # at the new shapes (n_tips, P, S, K), each at C = 8 and 32: kim's stem
@@ -403,8 +432,9 @@ KIM_CODON_WALKS = {(9, 239, 61, 3): "staged", (9, 239, 61, 8): "tiled",
 KIM_EIGH_CASES = [(8, 16), (32, 16), (64, 61), (256, 61)]
 GOLDEN_KIM_CODON = ("kim_hky_g_mixed4", "kim_stems_doublet_gtr",
                     "kim_protein_gtr", "replicase_m10")
-# the CLI runs' generations, sampled every 50 (7 samples a run at 300)
-KIM_GENS, M10_GENS, M3_GENS, UNLINKED_GENS = 300, 400, 150, 300
+# the CLI runs' generations, sampled every 50 (5 samples a run at 200;
+# kim's and the unlinked run's cut from 300 for the analyses phases)
+KIM_GENS, M10_GENS, M3_GENS, UNLINKED_GENS = 200, 400, 150, 200
 KIM_SAMPLEFREQ = 50
 # covarion, restriction data and directional root frequencies: the
 # engines whose operands pruning.cu is held at (name -> data, model
@@ -451,7 +481,8 @@ FAMILY_COLUMNS = {"primates_adgamma": "corr",
                   "primates_lnorm_kmix": "mixturerates{2}[4]",
                   "cynmix_symdiri": None, "cynmix_parsmodel": None,
                   "continuous": "brownScale"}
-FAMILY_GENS, FAMILY_SAMPLEFREQ, FAMILY_SYNC_GENS = 300, 50, 20
+# (generations cut from 300 for the analyses phases)
+FAMILY_GENS, FAMILY_SAMPLEFREQ, FAMILY_SYNC_GENS = 200, 50, 20
 # the identical-state check: chains; the tolerance of a family
 # division's lnL per chain between the card's engine and the CPU's (the
 # kernels against their plain versions; float64 sums of float32 site
@@ -463,6 +494,19 @@ FAMILY_GENS, FAMILY_SAMPLEFREQ, FAMILY_SYNC_GENS = 300, 50, 20
 FAMILY_STATE_CHAINS = 8
 FAMILY_LNL_TOL = 2e-3
 OTHER_LNL_REL = 1.3e-6
+
+
+# the analyses group (report, steppingstone, start trees, commands,
+# per-chain moves; phases 47-52): the report runs' generations, sampled
+# every ANALYSES_SAMPLEFREQ; the ss run's generations, steps and sample
+# interval; the power-0 block's burn-in and generations; the start-tree
+# runs' generations; each timed per-chain block's generations
+GOLDEN_ANC = os.path.join(HERE, "tests", "golden_ancstates.json")
+REPORT_GENS, REPORT_CODON_GENS, ANALYSES_SAMPLEFREQ = 200, 100, 50
+SS_GENS, SS_STEPS, SS_SAMPLEFREQ = 250, 5, 25
+PRIOR_POWER_BURN, PRIOR_POWER_GENS = 200, 1000
+START_GENS = 40
+PER_CHAIN_GENS = 30
 
 
 def state_tol(lnl, family):
@@ -505,7 +549,7 @@ KERNEL_NUMBERS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 # the phase groups of --phases, in the order they run
 PHASE_GROUPS = ("kernels", "primates", "test1", "cynmix", "sharded",
                 "clock", "aa_codon", "dating", "kim_codon", "covarion",
-                "families")
+                "families", "analyses")
 
 
 def log(msg):
@@ -3735,6 +3779,557 @@ def phase_families(torch, power_line):
     return max(err, mw["max_abs_err"]), cases, states, mw, runs
 
 
+# ---------------------------------------------------------------------------
+# the analyses group (phases 47-52): report, steppingstone, built starting
+# trees, the commands and per-chain moves, each through the CLI
+
+
+def cli_run(lines, device=None, log_to=None):
+    """An ``Interpreter`` on ``device`` (the card by default) that ran
+    ``lines``; returns (interpreter, the lines it logged)."""
+    from mrbayes_tpu_torch.cli import Interpreter
+    out = [] if log_to is None else log_to
+    it = Interpreter(log=out.append, device=device or DEV)
+    for line in lines:
+        it.run_line(line)
+    return it, out
+
+
+def read_p(path):
+    """(header, rows [n, columns]) of a .p file."""
+    with open(path) as f:
+        f.readline()
+        header = f.readline().rstrip("\n").split("\t")
+        rows = np.array([[float(x) for x in ln.split("\t")]
+                         for ln in f if ln[:1].isdigit()])
+    return header, rows
+
+
+def syncs_during(torch, fn):
+    """(fn(), the host synchronisations it made as "file:line" of the
+    Python line that made each): the CUDA sync debug mode's warnings."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's one-time "prototype feature" notice is not a sync
+    return out, [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+                 for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def cuda_kernels_during(torch, fn):
+    """The CUDA kernels ``fn`` launched, by the profiler's device events
+    (None where the profiler records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def golden_anc_engine(torch, ds, device):
+    """The primates GTR+I+G engine with the apes constraint on ``device``
+    and the golden ancestral-state rows' states as chains."""
+    from mrbayes_tpu_torch.mcmc.engine import Engine
+    from mrbayes_tpu_torch.mcmc.settings import (DivisionSettings,
+                                                 McmcSettings, TreeSettings)
+    from mrbayes_tpu_torch.trees import parse_newick
+    with open(GOLDEN_ANC) as f:
+        gold = json.load(f)
+    mask = np.zeros(ds.ntax, bool)
+    mask[[t - 1 for t in gold["constraint_taxa_1based"]]] = True
+    ts = TreeSettings()
+    ts.constraints = [("apes", mask, None)]
+    eng = Engine(ds, [DivisionSettings(nst="6", rates="invgamma")], ts,
+                 mcmc=McmcSettings(nruns=1, nchains=1), device=device)
+    trees = [parse_newick(r["newick"], ds.taxa) for r in gold["rows"]]
+    st = {f: torch.as_tensor(np.stack([getattr(t, f) for t in trees]),
+                             dtype=torch.long, device=device)
+          for f in ("left", "right", "parent")}
+    st["blen"] = torch.as_tensor(np.stack([t.blen for t in trees]),
+                                 dtype=torch.float32, device=device)
+    for k, f in (("pi", "pi"), ("revmat", "revmat"), ("shape", "alpha"),
+                 ("pinvar", "pinvar")):
+        st[k] = torch.tensor([[r[f]] if k in ("pi", "revmat")
+                              else [r[f]] for r in gold["rows"]],
+                             dtype=torch.float32, device=device)
+    return eng, eng.refresh_eigs(st), gold, trees
+
+
+def site_rate_oracle(ds, rec, t):
+    """Posterior-mean site rates [P] of one golden row in float64 numpy
+    (tests/test_report.py's oracle: GTR+G, P(t) by expm)."""
+    from scipy.linalg import expm
+    from scipy.stats import gamma as gamma_dist
+    pi = np.array(rec["pi"])
+    ex = np.array(rec["revmat"])
+    Q = np.zeros((4, 4))
+    k = 0
+    for i in range(4):
+        for j in range(i + 1, 4):
+            Q[i, j], Q[j, i] = ex[k] * pi[j], ex[k] * pi[i]
+            k += 1
+    np.fill_diagonal(Q, -Q.sum(1))
+    Q /= -(pi * np.diag(Q)).sum()
+    a = rec["alpha"]
+    cuts = gamma_dist.ppf(np.arange(1, 4) / 4, a, scale=1.0 / a)
+    rates = 4 * np.diff(gamma_dist.cdf(np.r_[0, cuts * a, np.inf], a + 1))
+    tp = ds.divisions[0].tip_partials(np.float64)
+    P = np.array([[expm(Q * t.blen[v] * r) for r in rates]
+                  for v in range(t.n_nodes)])
+    cl = np.zeros((t.n_nodes, tp.shape[1], 4, 4))
+    cl[:t.n_tips] = tp[:, :, None, :]
+    for v in t.postorder():
+        lc, rc = t.left[v], t.right[v]
+        cl[v] = np.einsum("ksj,pkj->pks", P[lc], cl[lc]) \
+            * np.einsum("ksj,pkj->pks", P[rc], cl[rc])
+    Lk = np.einsum("pks,s->pk", cl[t.root], pi)
+    return (Lk * rates).sum(-1) / Lk.sum(-1)
+
+
+def phase_report_primates(torch, ds, power_line):
+    """Phase 47: primates GTR+I+G with the apes constraint and ``report
+    ancstates=yes siterates=yes`` through the CLI, 2 runs x 4 chains: the
+    card's Reporter at the golden states against the reference's
+    ancestral-state probabilities (1e-3 max, 2e-4 mean) and the float64
+    oracle's site rates (0.02), every p(.){c@apes} row of the .p files
+    summing to 1 within 1e-4, one host sync a sample (the runner's packed
+    copy, the columns inside it), the report pass's kernels and ms."""
+    from mrbayes_tpu_torch.mcmc.report import Reporter
+    opts = {"ancstates": ("yes", (0,)), "siterates": ("yes", (0,))}
+    eng, st, gold, trees = golden_anc_engine(torch, ds, DEV)
+    rep = Reporter(eng, opts, log=lambda m: None)
+    slots = torch.arange(len(gold["rows"]), device=DEV)
+    vals = rep.compute(st, slots).cpu().numpy()
+    errs = []
+    col = {h: j for j, h in enumerate(rep.headers)}
+    for gi, rec in enumerate(gold["rows"]):
+        for c, probs in zip(rec["anc_chars"], rec["anc"]):
+            for b, p_ref in zip("ACGT", probs):
+                errs.append(abs(vals[gi, col[f"p({b}){{{c}@apes}}"]] - p_ref))
+    errs = np.array(errs)
+    if errs.max() >= 1e-3 or errs.mean() >= 2e-4:
+        raise AssertionError(f"ancstates vs the reference: max "
+                             f"{errs.max():.3g}, mean {errs.mean():.3g}")
+    rbar = site_rate_oracle(ds, gold["rows"][0], trees[0])
+    pat = ds.divisions[0].pattern_of_char
+    rate_err = max(abs(vals[0, col[f"r({c})"]] - rbar[pat[c - 1]])
+                   for c in range(1, ds.nchar + 1))
+    if rate_err >= 0.02:
+        raise AssertionError(f"site rates vs float64 oracle {rate_err}")
+    report_ms = time_events(torch, lambda: rep.compute(st, slots), 10)
+    try:
+        report_kernels = cuda_kernels_during(
+            torch, lambda: rep.compute(st, slots))
+    except RuntimeError as e:       # a sandbox without CUPTI tracing
+        log(f"report: the profiler recorded no kernels ({e})")
+        report_kernels = None
+    workdir = os.path.join(OUT, "report_primates")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    prefix = os.path.join(workdir, "rep")
+    t0 = time.perf_counter()
+    it, lines = cli_run([
+        f"execute {PRIMATES}", "lset nst=6 rates=invgamma",
+        "constraint apes = 3-7", "prset topologypr=constraints(apes)",
+        "report ancstates=yes siterates=yes",
+        f"mcmc ngen={REPORT_GENS} nruns=2 nchains=4 samplefreq="
+        f"{ANALYSES_SAMPLEFREQ} printfreq={REPORT_GENS} diagnfreq="
+        f"{REPORT_GENS} seed=5 file={prefix}"])
+    run_s = time.perf_counter() - t0
+    runner = it._last_runner
+    launches = sum(p.launches for p in runner.eng._pruners)
+    assert_carried(runner.eng, runner.final_states, runner.final_bk)
+    worst = 0.0
+    for r in (1, 2):
+        header, rows = read_p(f"{prefix}.run{r}.p")
+        if header[3 + len(runner.cols):] != runner.reporter.headers \
+                or len(rows) != REPORT_GENS // ANALYSES_SAMPLEFREQ + 1 \
+                or not np.isfinite(rows).all():
+            raise AssertionError(f"rep.run{r}.p: header or rows")
+        idx = {h: j for j, h in enumerate(header)}
+        for c in range(1, ds.nchar + 1):
+            s = sum(rows[:, idx[f"p({b}){{{c}@apes}}"]] for b in "ACGT")
+            worst = max(worst, float(np.abs(s - 1.0).max()))
+    if worst >= 1e-4:
+        raise AssertionError(f"p(.){{c@apes}} rows sum to 1 +- {worst}")
+    # the report pass makes no host sync; the sample's packed copy, the
+    # columns inside it, makes one
+    slots_r = runner.reporter.cold_slots(runner.final_bk)
+    _, in_pass = syncs_during(torch, lambda: runner.reporter.compute(
+        runner.final_states, slots_r))
+    _, in_sample = syncs_during(torch, lambda: runner._host(
+        runner.final_states, runner.final_bk))
+    log(f"report: host syncs in the report pass {in_pass}, in a sample's "
+        f"copy {in_sample}")
+    if in_pass or len(in_sample) != 1:
+        raise AssertionError(f"host syncs: {len(in_pass)} in the report "
+                             f"pass (predicted 0), {len(in_sample)} for a "
+                             f"sample (predicted 1)")
+    syncs = len(in_sample)
+    out = {"anc_max_err": float(errs.max()), "anc_mean_err":
+           float(errs.mean()), "site_rate_max_err": float(rate_err),
+           "row_sum_max_err": worst, "columns": len(rep.headers),
+           "host_syncs_per_sample": syncs, "report_ms": report_ms,
+           "report_cuda_kernels": report_kernels,
+           "pruning_down_launches": launches, "gens": REPORT_GENS,
+           "run_s": run_s, "gens_per_s": REPORT_GENS / run_s}
+    log(f"report primates: {json.dumps(out)}; card {power_line}")
+    return out
+
+
+def phase_report_replicase(torch, power_line):
+    """Phase 48: replicase under NY98 with ``report possel=yes
+    siteomega=yes`` through the CLI, 1 run x 4 chains: the card's columns
+    against the CPU's at the run's final state (every state tensor, the
+    eigensystems included, carried over) within 1e-4, each pr+ in [0, 1]
+    and each omega within the class omegas."""
+    from mrbayes_tpu_torch.mcmc.report import Reporter
+    workdir = os.path.join(OUT, "report_replicase")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    prefix = os.path.join(workdir, "rep")
+    model = [f"execute {REPLICASE}", "lset nucmodel=codon omegavar=ny98",
+             "report possel=yes siteomega=yes"]
+    t0 = time.perf_counter()
+    it, _ = cli_run(model + [
+        f"mcmc ngen={REPORT_CODON_GENS} nruns=1 nchains=4 samplefreq="
+        f"{ANALYSES_SAMPLEFREQ} printfreq={REPORT_CODON_GENS} diagnfreq="
+        f"{REPORT_CODON_GENS} seed=5 file={prefix}"])
+    run_s = time.perf_counter() - t0
+    runner = it._last_runner
+    eng = runner.eng
+    launches = sum(p.launches for p in eng._pruners)
+    states = runner.final_states
+    slots = runner.reporter.cold_slots(runner.final_bk)
+    card = runner.reporter.compute(states, slots).cpu().numpy()
+    cpu_it, _ = cli_run(model, device="cpu")
+    cpu_eng = cpu_it.build_engine()
+    cpu = Reporter(cpu_eng, cpu_it.env.report, log=lambda m: None).compute(
+        {k: v.cpu() for k, v in states.items()}, slots.cpu()).numpy()
+    diff = float(np.abs(card - cpu).max())
+    if diff >= 1e-4:
+        raise AssertionError(f"possel/siteomega card vs CPU {diff}")
+    n = card.shape[1] // 2
+    cold = int(slots[0])
+    omegas = [float(states["omega1"][cold, 0]), 1.0,
+              float(states["omega3"][cold, 0])]
+    if not ((card[:, :n] >= 0).all() and (card[:, :n] <= 1).all()
+            and (card[:, n:] >= min(omegas) - 1e-4).all()
+            and (card[:, n:] <= max(omegas) + 1e-4).all()):
+        raise AssertionError("pr+ outside [0, 1] or omega outside the "
+                             "class omegas")
+    header, rows = read_p(f"{prefix}.run1.p")
+    if "pr+(1,2,3)" not in header or not np.isfinite(rows).all():
+        raise AssertionError("replicase .p: no pr+ columns or non-finite")
+    out = {"card_vs_cpu_max": diff, "columns": card.shape[1],
+           "pruning_down_launches": launches, "gens": REPORT_CODON_GENS,
+           "run_s": run_s}
+    log(f"report replicase NY98: {json.dumps(out)}; card {power_line}")
+    return out
+
+
+def phase_steppingstone(torch, ds, power_line):
+    """Phase 49: ``ss`` on primates GTR+I+G (1 run x 4 chains, a short
+    ladder) then ``sumss``, through the CLI: every step in the .ss file,
+    its contributions equal to those recomputed from the sampled lnL
+    within 1e-6, lnZ finite and below the highest lnL sampled; then a
+    prior-only block at power 0 (primates, 1 x 4 at temp 0, exponential(10)
+    branch lengths): the chains' mean tree length within 4 batch-means
+    standard errors of the prior's 2.1 (each chain's batches of 200
+    generations)."""
+    from mrbayes_tpu_torch.mcmc import steppingstone as SS
+    workdir = os.path.join(OUT, "steppingstone")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    prefix = os.path.join(workdir, "ss")
+    sampled = []
+    orig = SS.SsRunner._write_sample
+
+    def record(self, gen, host):
+        sampled.append(float(host["lnL"][self.eng.cold_indices(host)[0]]))
+        orig(self, gen, host)
+
+    SS.SsRunner._write_sample = record
+    t0 = time.perf_counter()
+    try:
+        it, lines = cli_run([
+            f"execute {PRIMATES}", "lset nst=6 rates=invgamma",
+            f"ss ngen={SS_GENS} nsteps={SS_STEPS} samplefreq="
+            f"{SS_SAMPLEFREQ} printfreq={SS_GENS} nruns=1 nchains=4 "
+            f"seed=5 file={prefix}", f"sumss filename={prefix}"])
+    finally:
+        SS.SsRunner._write_sample = orig
+    run_s = time.perf_counter() - t0
+    runner = it._last_runner
+    launches = sum(p.launches for p in runner.eng._pruners)
+    assert_carried(runner.eng, runner.final_states, runner.final_bk)
+    with open(prefix + ".ss") as f:
+        rows = [ln.split() for ln in f if ln[:1].isdigit()]
+    if [int(r[0]) for r in rows] != list(range(1, SS_STEPS + 1)):
+        raise AssertionError(f".ss steps {[r[0] for r in rows]}")
+    per = len(sampled) // SS_STEPS
+    lnl = np.array(sampled).reshape(SS_STEPS, per)
+    betas = SS.beta_ladder(SS_STEPS)
+    worst = max(abs(float(r[3]) - SS.step_contribution(
+        betas[k] - betas[k + 1], lnl[k])) for k, r in enumerate(rows))
+    if worst >= 1e-6:
+        raise AssertionError(f".ss contributions off by {worst}")
+    lnz = sum(float(r[3]) for r in rows)
+    if not (np.isfinite(lnz) and lnz < lnl.max()):
+        raise AssertionError(f"lnZ {lnz} vs highest lnL {lnl.max()}")
+    if not any("Marginal likelihood (SS)" in ln for ln in lines):
+        raise AssertionError("sumss printed no marginal likelihood")
+    # the power-0 block: the likelihood drops out of every ratio; temp=0
+    # makes all four chains cold, four samplers of the prior
+    pit, _ = cli_run([f"execute {PRIMATES}", "lset nst=6 rates=invgamma",
+                      "prset brlenspr=unconstrained:exp(10)",
+                      "mcmcp nruns=1 nchains=4 temp=0 seed=9"])
+    eng = pit.build_engine()
+    states, bk = eng.init_chains()
+    bk = {**bk, "power": 0.0}
+    states, bk = eng.run_block(states, bk, PRIOR_POWER_BURN)
+    tls = []
+    for _ in range(PRIOR_POWER_GENS // 10):
+        states, bk = eng.run_block(states, bk, 10)
+        tls.append((eng.branch_lengths(states) * eng._blen_mask).sum(1))
+    tls = torch.stack(tls).cpu().numpy()                 # [samples, 4]
+    # each chain's batches of 200 generations, past the tree length's
+    # autocorrelation (about 70 generations at power 0 on the CPU): 20
+    # batch means from 4 independent samplers
+    means = tls.T.reshape(4 * PRIOR_POWER_GENS // 200, -1).mean(1)
+    se = float(means.std(ddof=1) / np.sqrt(len(means)))
+    if abs(tls.mean() - 2.1) >= 4 * se:
+        raise AssertionError(f"power-0 tree length {tls.mean()} vs prior "
+                             f"mean 2.1 (4 se = {4 * se})")
+    out = {"steps": len(rows), "lnZ": lnz, "max_lnl": float(lnl.max()),
+           "contribution_max_err": worst, "pruning_down_launches": launches,
+           "gens": SS_GENS + SS_GENS // SS_STEPS, "run_s": run_s,
+           "power0_tl_mean": float(tls.mean()), "power0_tl_se": se}
+    log(f"steppingstone primates: {json.dumps(out)}; card {power_line}")
+    return out
+
+
+def phase_start_trees(torch, power_line):
+    """Phase 50: cynmix (its matrix and model) with starttree=parsimony,
+    then starttree=nj nperts=2, through the CLI (1 run x 4 chains): the
+    cold chain's tree at generation 0 equal to the CPU port's from the same
+    seed, the carried lnL/lnP equal to a recompute."""
+    from mrbayes_tpu_torch.envelope import CYNMIX, CYNMIX_MODEL
+    from mrbayes_tpu_torch.trees import to_newick
+    out = {}
+    for mode in ("starttree=parsimony", "starttree=nj nperts=2"):
+        name = mode.split("=")[1].split()[0]
+        workdir = os.path.join(OUT, f"start_{name}")
+        shutil.rmtree(workdir, ignore_errors=True)
+        os.makedirs(workdir)
+        prefix = os.path.join(workdir, name)
+        model = [f"execute {CYNMIX}", *CYNMIX_MODEL,
+                 f"mcmcp nruns=1 nchains=4 seed=21 {mode}"]
+        t0 = time.perf_counter()
+        it, _ = cli_run(model + [
+            f"mcmc ngen={START_GENS} samplefreq={START_GENS} printfreq="
+            f"{START_GENS} diagnfreq={START_GENS} file={prefix}"])
+        run_s = time.perf_counter() - t0
+        runner = it._last_runner
+        eng = runner.eng
+        launches = sum(p.launches for p in eng._pruners)
+        assert_carried(eng, runner.final_states, runner.final_bk)
+        cpu_it, _ = cli_run(model, device="cpu")
+        first = cpu_it.build_engine().init_state(np.random.default_rng(21))
+        from mrbayes_tpu_torch.trees import Tree
+        t = Tree(parent=first["parent"].astype(np.int32),
+                 left=first["left"].astype(np.int32),
+                 right=first["right"].astype(np.int32),
+                 blen=first["blen"].astype(np.float64), n_tips=eng.n_tips)
+        with open(prefix + ".run1.t") as f:
+            gen0 = next(ln for ln in f if "tree gen.0 " in ln)
+        if gen0.split("] ", 1)[1].strip() != to_newick(t, numbers=True):
+            raise AssertionError(f"{name}: the run's starting tree differs "
+                                 f"from the CPU port's")
+        out[name] = {"pruning_down_launches": launches, "gens": START_GENS,
+                     "run_s": run_s}
+    log(f"start trees cynmix: {json.dumps(out)}; card {power_line}")
+    return out
+
+
+COMMANDS_SCRIPT = """#NEXUS
+begin trees;
+    tree mystart = ((1,2),((3,((4,5),6)),(7,((8,(9,10)),(11,12)))));
+end;
+begin mrbayes;
+    set autoclose=yes nowarnings=yes seed=7 swapseed=9;
+    execute "{primates}";
+    lset nst=2 rates=equal;
+    propset subtree_swap$prob=0 ext_spr$prob=20 ext_spr$tuning=0.7;
+    startvals tau=mystart;
+    mcmc ngen=400 nruns=2 nchains=2 samplefreq=100 printfreq=200
+         diagnfreq=400 file={prefix};
+    plot parameter=LnL;
+    comparetree filename1={prefix}.run1.t filename2={prefix}.run2.t
+                outputname={prefix}.cmp;
+end;
+"""
+INFO_COMMANDS = ("showmodel", "showmatrix", "showmoves", "showparams",
+                 "charstat", "taxastat", "showusertrees", "databreaks",
+                 "citations", "about", "acknowledgments", "disclaimer",
+                 "showbeagle", "showmcmctrees", "version", "help",
+                 "help sumt")
+
+
+def phase_commands(torch, power_line):
+    """Phase 51: tests/test_commands.py's SCRIPT through the CLI (propset,
+    startvals tau=mystart, mcmc, plot, comparetree), then compareref,
+    delete 2 and an mcmc on the 11 taxa left, restore, outgroup, sump
+    plot=yes and every informational command: each runs, each run's files
+    are complete."""
+    from mrbayes_tpu_torch.cli import Interpreter
+    workdir = os.path.join(OUT, "commands")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    prefix = os.path.join(workdir, "out")
+    script = os.path.join(workdir, "cmds.nex")
+    with open(script, "w") as f:
+        f.write(COMMANDS_SCRIPT.format(prefix=prefix, primates=PRIMATES))
+    lines = []
+    it = Interpreter(log=lines.append, device=DEV)
+    t0 = time.perf_counter()
+    it.execute_file(script)
+    runner = it._last_runner
+    launches = sum(p.launches for p in runner.eng._pruners)
+    if "subtree_swap" in [m.name for m in runner.eng.moves]:
+        raise AssertionError("propset subtree_swap$prob=0 not applied")
+    assert_carried(runner.eng, runner.final_states, runner.final_bk)
+    for r in (1, 2):
+        header, rows = read_p(f"{prefix}.run{r}.p")
+        with open(f"{prefix}.run{r}.t") as f:
+            text = f.read()
+        if len(rows) != 5 or text.count("tree gen.") != 5 \
+                or not text.rstrip().endswith("end;"):
+            raise AssertionError(f"out.run{r}: incomplete files")
+    for line in (f"compareref filename1={prefix}.run1.t filename2={prefix} "
+                 f"nruns=2 outputname={prefix}.cref", "outgroup 3",
+                 f"sump filename={prefix} plot=yes", *INFO_COMMANDS,
+                 f"manual {workdir}/commref.txt"):
+        n = len(lines)
+        it.run_line(line)
+        if len(lines) == n and line != "outgroup 3":
+            raise AssertionError(f"{line!r} printed nothing")
+    # delete (in an interpreter of its own: the 12-taxon start tree above
+    # does not fit 11 taxa), an mcmc on the taxa left, restore
+    dprefix = os.path.join(workdir, "deleted")
+    dit, dlines = cli_run([
+        f"execute {PRIMATES}", "lset nst=2 rates=equal", "delete 2",
+        f"mcmc ngen=100 nruns=1 nchains=2 samplefreq=50 file={dprefix}",
+        "taxastat", "restore 2", "taxastat"])
+    run_s = time.perf_counter() - t0
+    launches += sum(p.launches for p in dit._last_runner.eng._pruners)
+    with open(f"{dprefix}.run1.t") as f:
+        text = f.read()
+    if "Lemur_catta" in text or text.count("tree gen.") != 3 \
+            or dit._last_runner.eng.n_tips != 11 \
+            or sum("deleted" in ln for ln in dlines) != 1:
+        raise AssertionError("the run after delete 2, or taxastat")
+    for path in (f"{prefix}.cmp.pairs", f"{prefix}.cref.sdsf",
+                 f"{workdir}/commref.txt"):
+        if not os.path.getsize(path):
+            raise AssertionError(f"{path} is empty")
+    for phrase in ("lnLike trace", "Root-mean-square split frequency",
+                   "Final ASDSF", "Moves that will be used"):
+        if not any(phrase in ln for ln in lines):
+            raise AssertionError(f"no {phrase!r} printed")
+    out = {"commands": 14 + len(INFO_COMMANDS),
+           "pruning_down_launches": launches, "gens": 500, "run_s": run_s}
+    log(f"commands: {json.dumps(out)}; card {power_line}")
+    return out
+
+
+def phase_per_chain(torch, ds, power_line):
+    """Phase 52: primates GTR+I+G, 1 run x 32 chains, with per-chain move
+    selection: two timed blocks, the per-chain move counts against the
+    move probabilities (chi-square p > 1e-3), one pruning.cu launch a
+    generation, carried = recomputed, no host sync in a block; and the
+    ms per generation without per-chain moves on the same engine
+    settings."""
+    from scipy.stats import chisquare
+
+    from mrbayes_tpu_torch.mcmc.engine import Engine
+    from mrbayes_tpu_torch.mcmc.settings import (DivisionSettings,
+                                                 McmcSettings)
+    ms = {}
+    for per_chain in (True, False):
+        eng = Engine(ds, [DivisionSettings(nst="6", rates="invgamma")],
+                     mcmc=McmcSettings(nruns=1, nchains=32, seed=3,
+                                       per_chain_moves=per_chain),
+                     device=DEV)
+        states, bk = eng.init_chains()
+        states, bk = eng.run_block(states, bk, 10)
+        torch.cuda.synchronize()
+        pruner = eng._pruners[0]
+        pruner.launches = 0
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            states, bk = eng.run_block(states, bk, PER_CHAIN_GENS)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0) / PER_CHAIN_GENS)
+        launches = pruner.launches
+        ms[per_chain] = float(np.median(times))
+        if not per_chain:
+            break
+        if launches != 2 * PER_CHAIN_GENS:
+            raise AssertionError(f"per-chain: {launches} pruning.cu "
+                                 f"launches for {2 * PER_CHAIN_GENS} gens")
+        tries = bk["tries_total"].cpu().numpy()
+        if not (tries.sum(1) == 10 + 2 * PER_CHAIN_GENS).all():
+            raise AssertionError("a chain's move counts do not add up")
+        counts = tries.sum(0)
+        p = float(chisquare(counts, eng._move_probs.numpy()
+                            * counts.sum()).pvalue)
+        if p <= 1e-3:
+            raise AssertionError(f"per-chain move counts: chi-square p {p}")
+        assert_carried(eng, states, bk)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            states, bk = eng.run_block(states, bk, 10)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        probs = eng._move_probs.numpy()
+        per = {"launches": launches, "gens": 2 * PER_CHAIN_GENS,
+               "chi2_p": p, "moves": len(probs),
+               # the distinct moves a generation's 32 draws hold on average
+               "distinct_moves_per_gen": float(
+                   (1.0 - (1.0 - probs) ** 32).sum())}
+    out = {**per, "ms_per_gen_per_chain": ms[True],
+           "ms_per_gen_shared": ms[False]}
+    log(f"per-chain moves primates c32: {json.dumps(out)}; no host sync in "
+        f"a 10-gen block; card {power_line}")
+    return out
+
+
+def phase_analyses(torch, ds, power_line):
+    """Phases 47-52: the analyses group (``--phases analyses``)."""
+    t0 = time.perf_counter()
+    runs = {"report_replicase": phase_report_replicase(torch, power_line),
+            "steppingstone": phase_steppingstone(torch, ds, power_line),
+            **{f"start_{k}": v for k, v in
+               phase_start_trees(torch, power_line).items()},
+            "commands": phase_commands(torch, power_line),
+            "per_chain": phase_per_chain(torch, ds, power_line),
+            "report_primates": phase_report_primates(torch, ds, power_line)}
+    log(f"analyses group {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--test1-gens", type=int, default=TEST1_GENS)
@@ -3915,6 +4510,12 @@ def main(argv=None) -> int:
             torch, power_line)
         done("families phases")
 
+    if "analyses" in groups:
+        # 47.-52. report, steppingstone, built starting trees, the
+        # commands and per-chain moves, the fifteenth slice's main paths
+        ana = phase_analyses(torch, ds, power_line)
+        done("analyses phases")
+
     if groups != set(PHASE_GROUPS):
         # a chosen subset: every kernel named, its numbers in the groups'
         # own lines above
@@ -3950,7 +4551,10 @@ def main(argv=None) -> int:
         "golden_covarion_rows": golden_cv_launches,
         **{f"{nm}_cli": r["launches"] for nm, r in cv_runs.items()},
         **{f"{nm}_cli": r["pruning_down_launches"]
-           for nm, r in fam_runs.items()}}
+           for nm, r in fam_runs.items()},
+        **{f"analyses_{nm}": r["pruning_down_launches"]
+           for nm, r in ana.items() if nm != "per_chain"},
+        "analyses_per_chain": ana["per_chain"]["launches"]}
     eigh_launches = {"golden_codon_rows": golden_aa_launches["eigh"],
                      "avian_cli": avian["eigh_launches"],
                      "avian_gtr_sync": gtr_sync,
@@ -3987,7 +4591,8 @@ def main(argv=None) -> int:
             "replicase_m10_cli": M10_GENS, "replicase_m3_cli": M3_GENS,
             "kim_unlinked_cli": UNLINKED_GENS,
             **{f"{nm}_cli": g for nm, (_, g) in COVARION_CLI.items()},
-            **{f"{nm}_cli": FAMILY_GENS for nm in FAMILY_CLI}},
+            **{f"{nm}_cli": FAMILY_GENS for nm in FAMILY_CLI},
+            **{f"analyses_{nm}": r["gens"] for nm, r in ana.items()}},
         "max_abs_err": max(err_pd, err_ck["pruning_down"], err_hym, err_kc,
                            err_cv, err_fam),
         **{k: t_pd[4][k] for k in keys + ("before_ms", "walk", "threads",
@@ -4023,6 +4628,7 @@ def main(argv=None) -> int:
             "launches_per_gen", "eigh_launches", "nruns", "rooted_trees")}
            for nm, r in cv_runs.items()},
         "golden_covarion_max_err": golden_cv,
+        "analyses": ana,
         "families_cases": fam_cases,
         "families_identical_states": fam_states,
         **{nm: {k: r[k] for k in (

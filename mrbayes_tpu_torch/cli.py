@@ -1,12 +1,16 @@
 """``mb``-style command interpreter: runs reference NEXUS batch files on
 the GPU.
 
-Counterpart of ``mrbayes_tpu/cli.py`` for the commands the port carries:
-execute, set, charset, taxset, partition, exclude/include, ctype,
-constraint, calibrate, pairs, lset, prset, link/unlink, mcmc/mcmcp, sump,
-sumt (one consensus a tree under ``unlink topology brlens``), quit.
-Every other command of the reference interpreter raises ``CommandError``
-naming the ROADMAP item that brings it.  Batch
+Counterpart of ``mrbayes_tpu/cli.py``: execute, set, charset, taxset,
+partition, exclude/include, delete/restore, outgroup, ctype, constraint,
+calibrate, pairs, usertree, lset, prset, propset, startvals,
+link/unlink, report, mcmc/mcmcp, ss/ssp, sump (``plot=yes`` too), sumt
+(one consensus a tree under ``unlink topology brlens``), sumss, plot,
+comparetree, compareref, the informational commands (show*, charstat,
+taxastat, databreaks, citations, about, acknowledgments, disclaimer,
+showbeagle, showmcmctrees, version, log, help, manual) and quit.  The
+multispecies coalescent (``speciespartition`` and its prset keys) raises
+``CommandError`` naming the ROADMAP item that brings it.  Batch
 mode: ``python -m mrbayes_tpu_torch.cli file.nex`` (on the GPU; add
 ``--device cpu`` to run on the CPU, and ``--multiwalk``, ``--wavefront``
 or ``--stacked`` to turn on a kernel path, see ``Engine``); interactive
@@ -50,6 +54,14 @@ class Environment:
     mcmc: McmcSettings = field(default_factory=McmcSettings)
     links: dict = field(default_factory=dict)   # param -> list[int] per div
     pairs: tuple = ()       # doublet pairs: ((i, j), ...) 0-based columns
+    report: dict = field(default_factory=dict)   # key -> (value, divisions)
+    # deleted taxa, by their index in the matrix as read (delete/restore)
+    deleted: set = field(default_factory=set)
+    move_overrides: dict = field(default_factory=dict)  # propset
+    start_tree_name: str | None = None          # startvals tau=<tree>
+    user_trees: dict = field(default_factory=dict)      # name -> newick
+    outgroup: int = 0       # the outgroup's index in the matrix as read
+    logfile: object = None  # log start: every message is copied there
     seed: int = 1
     swapseed: int = 2
     autoclose: bool = True
@@ -87,21 +99,10 @@ PARAM_ALIASES = {
 }
 
 # commands of mrbayes_tpu/cli.py not carried yet -> their ROADMAP item
-NOT_PORTED = {
-    **dict.fromkeys(("report", "ss", "ssp", "sumss", "comparetree",
-                     "compareref", "plot", "propset", "startvals",
-                     "speciespartition"), "Queue 1 item 14"),
-    **dict.fromkeys(("delete", "restore", "outgroup", "usertree",
-                     "showmodel",
-                     "showmatrix", "showmoves", "showparams", "charstat",
-                     "taxastat", "showusertrees", "databreaks",
-                     "citations", "about", "acknowledgments", "disclaimer",
-                     "showbeagle", "showmcmctrees", "version", "log",
-                     "help", "manual"), "Queue 1 item 15"),
-}
+NOT_PORTED = {"speciespartition": "Queue 1 item 14e"}
 # prset parameters not carried yet -> their ROADMAP item
 PRSET_NOT_PORTED = dict.fromkeys(("generatepr", "popvarpr", "ploidy"),
-                                 "Queue 1 item 14")
+                                 "Queue 1 item 14e")
 
 
 # aamodelpr=fixed(<name>) (mrbayes_tpu cli.py:749-760)
@@ -131,6 +132,8 @@ class Interpreter:
 
     def log(self, msg: str):
         self._log_fn(msg)
+        if self.env.logfile:
+            self.env.logfile.write(msg + "\n")
 
     # ------------------------------------------------------------------
     def execute_file(self, path: str):
@@ -146,6 +149,12 @@ class Interpreter:
             self.env.current_partition = None
             self.log(f"   Matrix has {nf.matrix.ntax} taxa and "
                      f"{nf.matrix.nchar} characters")
+        # a trees block's trees are user trees (startvals, showusertrees)
+        for tr in nf.trees:
+            self.env.user_trees[tr.name.lower()] = tr.newick
+        if nf.trees:
+            self.log(f"   Read {len(nf.trees)} user tree(s): "
+                     + ", ".join(t.name for t in nf.trees))
         base = os.path.dirname(os.path.abspath(path))
         for cmd in nf.commands:
             self.run_command(cmd, base_dir=base)
@@ -641,7 +650,7 @@ class Interpreter:
             kind = sub.split("(")[0]
             if kind in ("speciestree", "speciestreecoalescence"):
                 raise _not_ported(f"brlenspr=clock:{kind}",
-                                  "Queue 1 item 14")
+                                  "Queue 1 item 14e")
             if kind not in ("uniform", "birthdeath", "coalescence",
                             "fossilization"):
                 raise CommandError(f"unknown clock prior {kind!r}")
@@ -663,9 +672,9 @@ class Interpreter:
 
     def _set_topologypr(self, prior):
         """topologypr=uniform|constraints(<names>) (mrbayes_tpu
-        cli.py:765-773); speciestree is item 14's."""
+        cli.py:765-773); speciestree is item 14e's."""
         if prior.kind == "speciestree":
-            raise _not_ported("topologypr=speciestree", "Queue 1 item 14")
+            raise _not_ported("topologypr=speciestree", "Queue 1 item 14e")
         self.env.enforced_constraints = (
             [str(p).lower() for p in prior.params]
             if prior.kind == "constraints" else [])
@@ -707,6 +716,86 @@ class Interpreter:
         self.env.pairs = tuple(pairs)
         self.log(f"   Defined {len(pairs)} nucleotide pairs")
 
+    REPORT_KEYS = ("applyto", "ancstates", "siterates", "possel",
+                   "siteomega", "tree", "brlens", "apetree")
+
+    def do_report(self, args, base_dir):
+        """report [applyto=(..)] ancstates|siterates|possel|siteomega=yes
+        — posterior reporting options (reference DoReport,
+        src/command.c).  Stored as key -> (value, divisions); the runner
+        appends the matching p(state)/r(i)/pr+/omega columns to the .p
+        samples (mcmc/report.py)."""
+        pairs = self._kv_pairs(args)
+        targets = self._applyto(pairs)
+        for key, val in pairs:
+            key = self._canon_strict(key, self.REPORT_KEYS, "report")
+            if key == "applyto" or not val:
+                continue
+            self.env.report[key] = ("".join(val).lower(), tuple(targets))
+        self.log("   Set report options: "
+                 + " ".join(f"{k}={v}" for k, (v, _)
+                            in self.env.report.items()))
+
+    def do_propset(self, args, base_dir):
+        """propset <move>$<setting>=<value> ... — adjust proposal
+        probabilities/tuning (reference DoPropset, src/model.c:4282).
+        Move names are this engine's (see the acceptance-rate table)."""
+        toks = [t for t in args if t != ","]
+        i = 0
+        while i < len(toks):
+            piece = toks[i]
+            if i + 2 < len(toks) and toks[i + 1] == "=":
+                piece = piece + "=" + toks[i + 2]
+                i += 3
+            else:
+                i += 1
+            if "$" not in piece or "=" not in piece:
+                raise CommandError(f"propset: bad syntax {piece!r} "
+                                   "(want move$setting=value)")
+            mv, rest = piece.split("$", 1)
+            setting, val = rest.split("=", 1)
+            self.env.move_overrides.setdefault(mv.lower(), {})[
+                setting.lower()] = float(val)
+        self.log(f"   Set proposal parameters for "
+                 f"{len(self.env.move_overrides)} moves")
+
+    def do_startvals(self, args, base_dir):
+        """startvals tau=<treename> — user starting tree (reference
+        DoStartvals, src/model.c:10624; scalar params start at defaults)."""
+        for key, val in self._kv_pairs(args):
+            if key in ("tau", "topology", "tree"):
+                self.env.start_tree_name = val[0]
+            else:
+                self.log(f"   startvals: parameter {key!r} ignored "
+                         "(only tau=<tree> supported)")
+
+    def do_usertree(self, args, base_dir):
+        """usertree: accepted; user trees come from a file's trees block,
+        registered when the file is executed."""
+
+    def do_delete(self, args, base_dir):
+        """delete <taxa|taxset|all> — exclude taxa from the analysis
+        (reference DoDelete, src/command.c)."""
+        if args and args[0].lower() == "all":
+            self.env.deleted = set(range(len(self.env.nexus.taxa)))
+        else:
+            self.env.deleted |= set(self._expand_taxa(args))
+
+    def do_restore(self, args, base_dir):
+        """restore <taxa|taxset|all> — bring deleted taxa back (reference
+        DoRestore, src/command.c)."""
+        if args and args[0].lower() == "all":
+            self.env.deleted = set()
+        else:
+            self.env.deleted -= set(self._expand_taxa(args))
+
+    def do_outgroup(self, args, base_dir):
+        """outgroup <taxon> — the outgroup taxon, by name or number
+        (reference DoOutgroup, src/command.c)."""
+        t = args[0]
+        taxa = self.env.nexus.taxa
+        self.env.outgroup = (taxa.index(t) if t in taxa else int(t) - 1)
+
     def do_quit(self, args, base_dir):
         self.env.quit_requested = True
 
@@ -721,13 +810,22 @@ class Interpreter:
         env.ensure_div_settings()
         matrix = env.nexus.matrix
         taxa = list(env.nexus.taxa)
+        # deleted taxa leave the matrix; every taxon index stored against
+        # the matrix as read (constraints, taxsets) is remapped with keep
+        keep = np.array([i not in env.deleted for i in range(len(taxa))])
+        remap = np.cumsum(keep) - 1
+        if env.deleted:
+            taxa = [t for i, t in enumerate(taxa) if keep[i]]
+            matrix = replace(matrix, codes=matrix.codes[keep], taxa=taxa)
         subsets = ([env.partitions[env.current_partition]]
                    if env.current_partition else [])
         divisions = make_divisions(matrix, *subsets, excluded=env.excluded,
                                    ctype=env.ctypes)
+        taxsets = {nm: [int(remap[i]) for i in ids if keep[i]]
+                   for nm, ids in env.taxsets.items()}
         ds = DataSet(taxa=taxa, nchar=matrix.nchar, divisions=divisions,
-                     charsets=env.charsets, taxsets=env.taxsets)
-        self._wire_dating(taxa)
+                     charsets=env.charsets, taxsets=taxsets)
+        self._wire_dating(taxa, keep)
         div_settings = [replace(env.div_settings[d.user_index])
                         for d in divisions]
         for s in div_settings:
@@ -743,15 +841,40 @@ class Interpreter:
                      f"rates={s.rates}")
         eng = Engine(ds, div_settings, env.tree_settings, env.mcmc,
                      links=links, device=self.device,
+                     move_overrides=env.move_overrides,
+                     start_tree=self._start_tree(taxa),
                      **{**self.switches, **switches})
         for note in eng.notes:
             self.log(f"   [{note}]")
         return eng
 
-    def _wire_dating(self, taxa: list[str]):
-        """Resolve the calibrate and constraint declarations into
-        TreeSettings (mrbayes_tpu cli.py:1105-1150; calibrations count only
-        under nodeagepr=calibrated, cli.py:984-987)."""
+    def _start_tree(self, taxa: list[str]):
+        """The user tree that ``startvals tau=`` names, on the analysis's
+        taxa, with the reference's starting length 0.1 on branches the
+        tree gives none (mrbayes_tpu cli.py:931-946); None without one or
+        on a clock model."""
+        env = self.env
+        if not env.start_tree_name:
+            return None
+        nm = env.start_tree_name.lower()
+        if nm not in env.user_trees:
+            raise CommandError(f"startvals: no user tree {nm!r}")
+        if env.tree_settings.clock:
+            self.log("   [startvals tau: clock starting trees not "
+                     "supported yet; using a random calibrated tree]")
+            return None
+        from .trees import parse_newick
+        t = parse_newick(env.user_trees[nm], taxa)
+        free = np.ones(t.n_nodes, bool)
+        free[[0, t.root]] = False
+        t.blen[free & (t.blen <= 1e-9)] = 0.1
+        return t
+
+    def _wire_dating(self, taxa: list[str], keep: np.ndarray):
+        """Resolve the calibrate and constraint declarations against the
+        analysis's taxa (after ``delete``: ``keep`` masks the matrix's
+        taxa) into TreeSettings (mrbayes_tpu cli.py:975-1014; calibrations
+        count only under nodeagepr=calibrated, cli.py:984-987)."""
         env = self.env
         ts = env.tree_settings
         lower = {t.lower(): i for i, t in enumerate(taxa)}
@@ -777,10 +900,13 @@ class Interpreter:
             if name not in env.constraints:
                 raise CommandError(f"constraint {name!r} not defined")
             ctype, mask, mask2 = env.constraints[name]
+            mask = mask[keep]
             if ctype == "hard":
                 cons.append((name, mask, calibs.get(name)))
             else:
-                cons.append((name, ctype, mask, mask2, calibs.get(name)))
+                cons.append((name, ctype, mask,
+                             None if mask2 is None else mask2[keep],
+                             calibs.get(name)))
         ts.constraints = cons
 
     MCMC_KEYS = ("ngen", "nruns", "nchains", "temp", "samplefreq",
@@ -841,8 +967,13 @@ class Interpreter:
                     raise CommandError(
                         f"startparams={v}: expected reset or current")
                 mc.startparams = vl
-            # the rest are the reference's cosmetic or diagnostics-only
-            # options, accepted with no effect
+            elif key in ("reweight", "allchains", "allcomps",
+                         "savetrees"):
+                # the reference's diagnostics and output toggles
+                # (src/command.c:14644-14695), accepted with no effect
+                self.log(f"   [mcmc {key}={v} accepted (no effect)]")
+            # the rest are the reference's cosmetic options or the ss
+            # keys do_ss reads, accepted with no effect here
 
     def do_mcmcp(self, args, base_dir):
         self._set_mcmc_params(args)
@@ -866,13 +997,123 @@ class Interpreter:
         from .mcmc.run import McmcRunner
         self._set_mcmc_params(args)
         eng = self.build_engine()
+        mc = self.env.mcmc
+        if eng.tree_settings.clock and (
+                mc.starttree in ("random", "parsimony", "nj") or mc.nperts):
+            self.log("   [starttree/nperts apply to non-clock trees; "
+                     "clock runs keep their standard starting trees]")
         mesh = self._analysis_mesh()
         if mesh is not None:
             from .parallel.mesh import shard_engine_data
             shard_engine_data(eng, mesh)
-        runner = McmcRunner(eng, log=self.log, mesh=mesh)
+        runner = McmcRunner(eng, log=self.log, report=self.env.report,
+                            mesh=mesh)
         runner.run()
         self._last_runner = runner
+
+    def do_ss(self, args, base_dir):
+        """ss [mcmc keys] nsteps=N alpha=a burninss=N — steppingstone
+        sampling of the marginal likelihood (reference DoSs,
+        src/mcmc.c:4057; mcmc/steppingstone.py)."""
+        from .mcmc.steppingstone import SsRunner
+        self._set_mcmc_params(args)
+        nsteps, alpha, burninss = 50, 0.4, -1
+        for key, val in self._kv_pairs(args):
+            if key == "nsteps":
+                nsteps = int(val[0])
+            elif key == "alpha":
+                alpha = float(val[0])
+            elif key == "burninss":
+                burninss = int(val[0])
+        eng = self.build_engine()
+        runner = SsRunner(eng, nsteps=nsteps, alpha=alpha,
+                          burninss=burninss, log=self.log)
+        runner.run_ss()
+        self._last_runner = runner
+
+    def do_ssp(self, args, base_dir):
+        """ssp — set steppingstone (mcmc) parameters without running."""
+        self._set_mcmc_params(args)
+
+    def do_sumss(self, args, base_dir):
+        """sumss [filename=<prefix>] — summarize a .ss file (reference
+        DoSumSs, src/sumpt.c:534)."""
+        from .mcmc.steppingstone import sumss
+        prefix = self.env.mcmc.filename
+        for key, val in self._kv_pairs(args):
+            if key in ("filename", "file"):
+                prefix = val[0]
+        sumss(prefix, log=self.log)
+
+    COMPARETREE_KEYS = ("filename1", "filename2", "outputname", "burnin",
+                        "burninfrac", "relburnin", "minpartfreq")
+    COMPARETREE_NOOP = ("minpartfreq",)
+    COMPAREREF_KEYS = ("filename1", "filename2", "outputname", "burnin",
+                       "burninfrac", "relburnin", "minpartfreq", "nruns",
+                       "diagnstat")
+    PLOT_KEYS = ("filename", "file", "parameter", "match", "burnin",
+                 "burninfrac", "relburnin")
+
+    def do_comparetree(self, args, base_dir):
+        """comparetree filename1=<.t> filename2=<.t> [outputname=] —
+        split-frequency comparison of two tree samples (reference
+        DoCompareTree, src/sumpt.c:3686)."""
+        from .summarize.compare import comparetree
+        kv = {}
+        for key, val in self._kv_pairs(args):
+            key = self._canon_strict(key, self.COMPARETREE_KEYS,
+                                     "comparetree")
+            if key in self.COMPARETREE_NOOP:
+                self.log(f"   [comparetree option '{key}' accepted but "
+                         f"has no effect here (ignored)]")
+                continue
+            kv[key] = val
+        f1 = kv.get("filename1", [None])[0]
+        f2 = kv.get("filename2", [None])[0]
+        if not f1 or not f2:
+            raise CommandError("comparetree needs filename1 and filename2")
+        comparetree(f1, f2, outputname=kv.get("outputname", [None])[0],
+                    burninfrac=self._burnin_frac(kv), log=self.log)
+
+    def do_compareref(self, args, base_dir):
+        """compareref: running SDSF of a tree-sample file against
+        reference tree samples (reference DoCompRefTree,
+        src/command.c:359, src/sumpt.c:4609; hidden command)."""
+        from .summarize.compare import compareref
+        kv = {}
+        for key, val in self._kv_pairs(args):
+            key = self._canon_strict(key, self.COMPAREREF_KEYS,
+                                     "compareref")
+            kv[key] = val
+        f1 = kv.get("filename1", [None])[0]
+        f2 = kv.get("filename2", [None])[0]
+        if not f1 or not f2:
+            raise CommandError("compareref needs filename1 and filename2")
+        stat = "maxstddev" if kv.get("diagnstat", ["a"])[0].lower() \
+            .startswith("m") else "avgstddev"
+        compareref(f1, f2, outputname=kv.get("outputname", [f1])[0],
+                   nruns=int(kv.get("nruns", [self.env.mcmc.nruns])[0]),
+                   burninfrac=self._burnin_frac(kv),
+                   minpartfreq=float(kv.get("minpartfreq", [0.1])[0]),
+                   stat=stat, log=self.log)
+
+    def do_plot(self, args, base_dir):
+        """plot [filename=<prefix>] [parameter=<column>] — ASCII trace of
+        a sampled parameter (reference DoPlot, src/sumpt.c)."""
+        from .summarize.compare import plot
+        kv = {}
+        for key, val in self._kv_pairs(args):
+            key = self._canon_strict(key, self.PLOT_KEYS, "plot")
+            kv[key] = val
+        prefix = self.env.mcmc.filename
+        if "filename" in kv or "file" in kv:
+            prefix = kv.get("filename", kv.get("file"))[0]
+        if "match" in kv and kv["match"][0].lower() not in (
+                "perfect", "consistentwith", "all"):
+            raise CommandError("plot match must be "
+                               "perfect|consistentwith|all")
+        plot(prefix, parameter=kv.get("parameter", ["LnL"])[0],
+             burninfrac=self._burnin_frac(kv), log=self.log)
 
     SUMP_KEYS = ("filename", "file", "outputname", "burnin", "burninfrac",
                  "relburnin", "nruns", "hpd", "printtofile", "plot",
@@ -918,18 +1159,21 @@ class Interpreter:
         return kv, prefix
 
     def do_sump(self, args, base_dir):
+        from .summarize.compare import plot as trace_plot
         from .summarize.sump import sump
         kv, prefix = self._summary_kv(args, self.SUMP_KEYS, self.SUMP_NOOP,
                                       "sump")
         yes = lambda v: v[0].lower().startswith("y")  # noqa: E731
-        if "plot" in kv and yes(kv["plot"]):
-            raise _not_ported("sump plot=yes", "Queue 1 item 14")
-        sump(prefix, burninfrac=self._burnin_frac(kv), log=self.log,
+        burn = self._burnin_frac(kv)
+        sump(prefix, burninfrac=burn, log=self.log,
              hpd=yes(kv["hpd"]) if "hpd" in kv else True,
              write_files=(yes(kv["printtofile"])
                           if "printtofile" in kv else True),
              outputname=kv.get("outputname", [None])[0],
              nruns=int(kv["nruns"][0]) if "nruns" in kv else None)
+        if "plot" in kv and yes(kv["plot"]):
+            trace_plot(prefix, parameter="LnL", burninfrac=burn,
+                       log=self.log)
 
     def do_sumt(self, args, base_dir):
         from .summarize.sumt import sumt
@@ -973,6 +1217,214 @@ class Interpreter:
             sumt(tp, **topts)
             self.log("   Consensus tree written to "
                      f"\"{(topts['outputname'] or tp)}.con.tre\"")
+
+    # ------------------------------------------------------------------
+    # informational commands (mrbayes_tpu cli.py:1376-1580): a reference
+    # drive file may call them, and they print what the JAX package's
+    # print, except for the lines that name the framework or the device
+
+    def do_showmodel(self, args, base_dir):
+        """showmodel — each division's model and the branch-length prior
+        (reference DoShowModel, src/command.c)."""
+        self.env.ensure_div_settings()
+        for i, s in enumerate(self.env.div_settings):
+            self.log(f"   Division {i + 1}: nst={s.nst} rates={s.rates} "
+                     f"ngammacat={s.ngammacat} statefreqpr="
+                     f"{s.statefreqpr.kind}{s.statefreqpr.params}")
+        ts = self.env.tree_settings
+        self.log(f"   Brlens: {ts.brlenspr.kind}{ts.brlenspr.params} "
+                 f"clock={ts.clock}")
+
+    def do_showmatrix(self, args, base_dir):
+        """showmatrix — the data matrix's size and datatype."""
+        m = self.env.nexus.matrix
+        self.log(f"   Matrix: {m.ntax} x {m.nchar} ({m.fmt.datatype.value})")
+
+    def do_showmoves(self, args, base_dir):
+        """showmoves — every move the sampler will use, with its weight,
+        tuning parameter and autotune target (reference ShowMoves,
+        src/command.c:271; the registry is Engine.moves)."""
+        eng = self.build_engine()
+        total = sum(m.weight for m in eng.moves)
+        self.log("   Moves that will be used by the MCMC sampler:")
+        self.log(f"   {'move':<22}{'rel.prob':>9}{'prob(%)':>9}"
+                 f"{'tuning':>10}{'target':>8}{'autotune':>9}")
+        for m in eng.moves:
+            self.log(f"   {m.name:<22}{m.weight:>9.2f}"
+                     f"{100.0 * m.weight / total:>9.1f}"
+                     f"{m.tuning0:>10.4g}{m.target:>8.2f}"
+                     f"{'yes' if m.tunable else 'no':>9}")
+        self.log(f"   {len(eng.moves)} moves registered")
+
+    def do_showparams(self, args, base_dir):
+        """showparams — the model and prior settings of each division and
+        the chain and run settings (reference 'showparams', src/command.c)."""
+        self.env.ensure_div_settings()
+        for i, s in enumerate(self.env.div_settings):
+            self.log(f"   Division {i + 1}:")
+            self.log(f"      lset: nst={s.nst} rates={s.rates} "
+                     f"ngammacat={s.ngammacat} nucmodel={s.nucmodel} "
+                     f"covarion={s.covarion} coding={s.coding} "
+                     f"omegavar={s.omegavar} parsmodel={s.parsmodel}")
+            for fld in ("statefreqpr", "revmatpr", "tratiopr", "shapepr",
+                        "pinvarpr", "omegapr", "symdirihyperpr",
+                        "aamodelpr"):
+                pr = getattr(s, fld)
+                self.log(f"      {fld} = {pr.kind}{pr.params}")
+        ts = self.env.tree_settings
+        self.log(f"   Tree: brlenspr={ts.brlenspr.kind}{ts.brlenspr.params}"
+                 f" clock={ts.clock} clockpr={ts.clockpr} "
+                 f"clockvarpr={ts.clockvarpr} "
+                 f"topologypr={ts.topologypr.kind}")
+        mc = self.env.mcmc
+        self.log(f"   MCMC: ngen={mc.ngen} nruns={mc.nruns} "
+                 f"nchains={mc.nchains} temp={mc.temp} "
+                 f"samplefreq={mc.samplefreq} seed={mc.seed}")
+
+    def do_charstat(self, args, base_dir):
+        """charstat — included and excluded characters by datatype
+        (reference DoCharStat, src/command.c)."""
+        if self.env.nexus is None or self.env.nexus.matrix is None:
+            raise CommandError("no data matrix read in")
+        m = self.env.nexus.matrix
+        n_excl = len(self.env.excluded)
+        self.log(f"   Number of characters: {m.nchar}")
+        self.log(f"   Included characters:  {m.nchar - n_excl}")
+        self.log(f"   Excluded characters:  {n_excl}")
+        by_dt: dict = {}
+        for c in range(m.nchar):
+            by_dt[m.col_datatype[c]] = by_dt.get(m.col_datatype[c], 0) + 1
+        for dt, n in by_dt.items():
+            self.log(f"      {dt.value}: {n}")
+        if self.env.ctypes:
+            n_ord = sum(1 for v in self.env.ctypes.values()
+                        if v == "ordered")
+            self.log(f"   Ordered characters:   {n_ord}")
+
+    def do_taxastat(self, args, base_dir):
+        """taxastat — each taxon, deleted or included (reference
+        DoTaxaStat, src/command.c)."""
+        if self.env.nexus is None:
+            raise CommandError("no data matrix read in")
+        taxa = self.env.nexus.taxa
+        self.log(f"   Number of taxa: {len(taxa)}")
+        for i, t in enumerate(taxa):
+            mark = "deleted" if i in self.env.deleted else "included"
+            self.log(f"   {i + 1:>4}  {t:<30} {mark}")
+
+    def do_showusertrees(self, args, base_dir):
+        """showusertrees — the user trees read from trees blocks
+        (reference DoShowUserTrees, src/command.c)."""
+        if not self.env.user_trees:
+            self.log("   No user trees have been defined")
+            return
+        for name, nwk in self.env.user_trees.items():
+            short = nwk if len(nwk) < 60 else nwk[:57] + "..."
+            self.log(f"   Tree \"{name}\": {short}")
+
+    def do_databreaks(self, args, base_dir):
+        """databreaks — the datatype boundaries of a mixed matrix
+        (reference DoDatabreaks, src/command.c)."""
+        m = self.env.nexus.matrix
+        breaks = [c for c in range(1, m.nchar)
+                  if m.col_datatype[c] != m.col_datatype[c - 1]]
+        if breaks:
+            self.log("   Data breaks after characters: "
+                     + " ".join(str(b) for b in breaks))
+        else:
+            self.log("   No data breaks (single datatype)")
+
+    def do_citations(self, args, base_dir):
+        """citations — what to cite."""
+        self.log("   Ronquist F. et al. (2012) MrBayes 3.2: efficient "
+                 "Bayesian phylogenetic inference and model choice across "
+                 "a large model space. Syst. Biol. 61:539-542.")
+        self.log("   This reimplementation: mrbayes_tpu_torch (PyTorch "
+                 "and CUDA, with the MrBayes 3.2.8 capability surface).")
+
+    def do_about(self, args, base_dir):
+        """about — what this program is."""
+        self.log("   mrbayes_tpu_torch — Bayesian phylogenetics on PyTorch "
+                 "and CUDA (MrBayes 3.2 capability set)")
+
+    def do_acknowledgments(self, args, base_dir):
+        """acknowledgments — the authors of the original program."""
+        self.log("   MrBayes was originally written by John Huelsenbeck "
+                 "and Fredrik Ronquist;")
+        self.log("   this reimplementation follows the 3.2 capability "
+                 "surface.")
+
+    def do_disclaimer(self, args, base_dir):
+        """disclaimer — the warranty disclaimer."""
+        self.log("   This software is distributed WITHOUT ANY WARRANTY, "
+                 "express or implied.")
+
+    def do_showbeagle(self, args, base_dir):
+        """showbeagle — the likelihood library in use."""
+        self.log("   BEAGLE is not used: likelihood evaluation runs on "
+                 "the built-in CUDA kernels (the role BEAGLE plays in the "
+                 "reference).")
+
+    def do_showmcmctrees(self, args, base_dir):
+        """showmcmctrees — where the chains' trees are kept."""
+        self.log("   No MCMC trees are held between commands: chain "
+                 "state lives on-device during mcmc and in the .ckp "
+                 "checkpoint between runs (see 'mcmc append=yes').")
+
+    def do_version(self, args, base_dir):
+        """version — the program's version."""
+        from . import __version__
+        self.log(f"   Version {__version__}")
+
+    def do_log(self, args, base_dir):
+        """log start [filename=<file>] | stop — copy every message to a
+        file (reference DoLog, src/command.c)."""
+        kv = dict(self._kv_pairs(args))
+        fname = (kv.get("filename") or kv.get("file") or [None])[0]
+        if "stop" in kv or "start" in kv or fname:
+            self._close_log()
+        if "start" in kv or fname:
+            self.env.logfile = open(fname or "log.out", "a")
+
+    def _close_log(self):
+        if self.env.logfile:
+            self.env.logfile.close()
+            self.env.logfile = None
+
+    def do_help(self, args, base_dir):
+        """help [command] — list commands, or show one command's
+        documentation (reference autogenerated help, src/command.c)."""
+        if args:
+            name = args[0].lower()
+            handler = getattr(self, f"do_{name}", None) \
+                or self._abbrev_handler(name)
+            if handler is None:
+                raise CommandError(f"no such command {name!r}")
+            doc = handler.__doc__ or "(no documentation)"
+            for line in doc.splitlines():
+                self.log("   " + line.strip())
+            return
+        cmds = sorted(m[3:] for m in dir(self) if m.startswith("do_"))
+        self.log("   Available commands: " + " ".join(cmds))
+        self.log("   'help <command>' shows details; full dump: 'manual'")
+
+    def do_manual(self, args, base_dir):
+        """manual [filename] — write the full command reference to a
+        text file (reference DoManual, src/command.c:4991; its content is
+        each handler's documentation)."""
+        fname = args[0] if args else "commref.mbtpu.txt"
+        with open(fname, "w") as f:
+            f.write("mrbayes_tpu_torch command reference\n"
+                    "===================================\n\n")
+            for m in sorted(dir(self)):
+                if not m.startswith("do_"):
+                    continue
+                doc = getattr(self, m).__doc__ or "(no documentation)"
+                f.write(m[3:] + "\n" + "-" * len(m[3:]) + "\n")
+                for line in doc.splitlines():
+                    f.write(line.strip() + "\n")
+                f.write("\n")
+        self.log(f"   Command reference written to \"{fname}\"")
 
 
 BANNER = """

@@ -8,7 +8,10 @@ the host for the whole block, to all chains at once (the JAX package's
 shared move index per generation), recomputes lnL and the prior component
 the move can change, and accepts per chain with ``torch.where``.  Heated-
 chain swaps permute a temperature-id vector (states never move, as in the
-reference's MPI design, src/mcmc.c:826-842).
+reference's MPI design, src/mcmc.c:826-842).  With
+``McmcSettings.per_chain_moves`` each chain draws its own move instead
+(``_per_chain_step``: each distinct drawn move proposes once for the
+batch and each chain keeps its own move's proposal).
 
 ``run_block`` never synchronises with the host: move indices come from a
 host generator, every other random number from a device generator, and
@@ -45,7 +48,9 @@ fossilized birth-death node ages, dated tips and sampled ancestors;
 strict, IGR, ILN, WN, TK02, CPP or mixed branch rates; a fixed or sampled
 clock rate), hard, negative and partial topology constraints with
 calibrated clade ages, ordered and unordered standard characters, and any
-number of runs and chains.  Every other setting raises
+number of runs and chains, from random, user (``start_tree``), parsimony
+or neighbor-joining starting trees with ``nperts`` random NNIs, with
+propset's ``move_overrides``.  The multispecies coalescent raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 
 With one tree the tree fields ``left``, ``right``, ``parent`` and
@@ -125,8 +130,10 @@ from ..ops.pruning_cuda import check_kernel_shape
 from ..ops.stacked_cuda import PruningCudaStacked
 from ..ops.traversal import ancestor_matrix, postorder_internal
 from ..ops.tiprobs import eigh_reversible
-from ..trees import (Tree, random_clock_tree, random_clock_tree_constrained,
-                     random_unrooted, random_unrooted_constrained)
+from ..trees import (Tree, neighbor_joining, parsimony_stepwise,
+                     pdistance_matrix, perturb_nni, random_clock_tree,
+                     random_clock_tree_constrained, random_unrooted,
+                     random_unrooted_constrained)
 from . import clock as CL
 from . import mixed_gtr as MG
 from . import moves as M
@@ -198,6 +205,7 @@ class DivCfg:
     fixed_pi: np.ndarray | None = None
     coding: str = "all"         # resolved ascertainment coding
     codon: CodonCode | None = None   # nucmodel=codon
+    codon_site_pattern: np.ndarray | None = None  # codon site -> pattern
     omega_group: int = -1       # omegavar=equal (M0)
     ny98_group: int = -1        # omegavar=ny98
     m3_group: int = -1          # omegavar=m3 (three ordered omegas)
@@ -301,7 +309,9 @@ class Engine:
                  mcmc: McmcSettings | None = None,
                  links: dict[str, list[int]] | None = None,
                  device=None, multiwalk: bool | None = None,
-                 wavefront: bool | None = None, stacked: bool | None = None):
+                 wavefront: bool | None = None, stacked: bool | None = None,
+                 move_overrides: dict | None = None,
+                 start_tree: Tree | None = None):
         self.device = resolve_device(device)
         # the kernel-path switches are read once, here (the JAX package
         # reads its MB_TPU_* flags at trace time, which made a JAX test
@@ -320,6 +330,8 @@ class Engine:
         self.mcmc = mcmc or McmcSettings()
         self.n_tips = dataset.ntax
         self.n_nodes = 2 * self.n_tips - 1
+        # startvals tau=<tree>: every chain's starting tree
+        self.start_tree = start_tree
         # CPP relaxed clock: event slots per branch (the fixed-capacity
         # stand-in for the reference's variable-length event arrays,
         # bayes.h:711-714)
@@ -334,6 +346,7 @@ class Engine:
         self._build_tree_groups(links)
         self._build_data_tensors()
         self._build_moves()
+        self._apply_move_overrides(move_overrides or {})
         self._build_constants()
 
     # ------------------------------------------------------------------
@@ -341,10 +354,10 @@ class Engine:
 
     def _check_slice(self, div_settings, links):
         """Raise for every setting this slice of the port does not carry."""
-        ts, mc = self.tree_settings, self.mcmc
+        ts = self.tree_settings
         if ts.speciestree:
             raise _not_ported("the multispecies coalescent (BEST)",
-                              "item 14")
+                              "item 14e")
         if ts.clock:
             if ts.clockpr not in ("uniform", "birthdeath", "coalescence",
                                   "fossilization"):
@@ -353,11 +366,6 @@ class Engine:
                 raise ValueError(f"clockvarpr {ts.clockvarpr} not supported")
         elif ts.brlenspr.kind not in ("gammadir", "exponential", "uniform"):
             raise ValueError(f"brlenspr {ts.brlenspr.kind} not supported")
-        if mc.per_chain_moves:
-            raise _not_ported("per-chain move selection", "item 14")
-        if mc.starttree not in ("current", "random") or mc.nperts > 0:
-            raise _not_ported("built or perturbed starting trees",
-                              "item 14")
         for div, s in zip(self.data.divisions, div_settings):
             if div.dtype is DataType.STANDARD:
                 if div.ctype not in ("unordered", "ordered"):
@@ -437,6 +445,7 @@ class Engine:
                 cons.append((nm, m, p))
         self.constraint_masks = (np.stack([m for (_, m, _) in cons])
                                  if cons else None)
+        self.constraint_names = [nm for (nm, _, _) in cons]
         self.constraint_priors = [p for (_, _, p) in cons]
         self.negative_masks = np.stack(negs) if negs else None
         self.partial_masks = (
@@ -1078,8 +1087,12 @@ class Engine:
         packed = np.packbits(compat, axis=-1)        # [ntax, sites, bytes]
         key = np.ascontiguousarray(
             packed.transpose(1, 0, 2).reshape(packed.shape[1], -1))
-        _, first, counts = np.unique(key, axis=0, return_index=True,
-                                     return_counts=True)
+        _, first, inverse, counts = np.unique(
+            key, axis=0, return_index=True, return_inverse=True,
+            return_counts=True)
+        # each codon site's pattern, for posterior reporting (report
+        # possel/siteomega/ancstates columns are per codon site)
+        cfg.codon_site_pattern = inverse.reshape(-1).astype(np.int64)
         return (compat[:, first, :].astype(np.float32),
                 counts.astype(np.float32))
 
@@ -1251,6 +1264,50 @@ class Engine:
         mk.append(MoveSpec("treelen_mult", wrap(M.move_treelen_multiplier),
                            2.0, 2.0 * np.log(1.6), 0.25, 1, 1e-3, 10.0))
         self._finish_moves(mk)
+
+    # the reference's move types that it ships with weight 0 (disabled,
+    # src/model.c SetUpMoveTypes relProposalProb=0): not carried, and
+    # propset names them as such (mrbayes_tpu engine.py:195-202)
+    UNCARRIED_MOVES = frozenset((
+        "extss", "extssclock", "lspr", "parseraser1", "parsspr1",
+        "parsspr2", "parstbr1_leaf", "parstbr2", "extspr1", "extspr2",
+        "extspr3", "exttbr1", "exttbr2", "exttbr3", "exttbr4"))
+
+    def _apply_move_overrides(self, overrides: dict):
+        """propset's per-move control: name -> {prob|tuning|target|tunable:
+        value} (reference ``propset ExtSPR$prob=0``, src/model.c
+        DoPropset:4282; mrbayes_tpu engine.py:189-233).  A move whose
+        probability becomes 0 leaves the move set."""
+        if not overrides:
+            return
+        known = {m.name: m for m in self.moves}
+        for name, kv in overrides.items():
+            if name.lower() in self.UNCARRIED_MOVES:
+                raise ValueError(
+                    f"propset: move {name!r} is a reference move type "
+                    f"shipped with default weight 0 (disabled; "
+                    f"src/model.c SetUpMoveTypes) and is intentionally "
+                    f"not carried — every default-active reference move "
+                    f"has a counterpart (COVERAGE.md)")
+            if name not in known:
+                raise ValueError(
+                    f"propset: unknown move {name!r}; active moves: "
+                    f"{sorted(known)}")
+            m = known[name]
+            for k, v in kv.items():
+                if k == "prob":
+                    m.weight = float(v)
+                elif k in ("tuning", "tuningparam"):
+                    m.tuning0 = float(v)
+                elif k in ("target", "targetrate"):
+                    m.target = float(v)
+                elif k == "tunable":
+                    m.tunable = bool(v)
+                else:
+                    raise ValueError(f"propset: unknown setting {k!r}")
+        self.moves = [m for m in self.moves if m.weight > 0.0]
+        if not self.moves:
+            raise ValueError("propset removed every move")
 
     def _rooted_nonclock_moves(self, wrap):
         """The rooted non-clock tree's moves that directional root
@@ -1881,23 +1938,43 @@ class Engine:
     # state
 
     def init_state(self, rng: np.random.Generator, tree: Tree | None = None):
-        """One chain's starting state (host numpy values): ``tree``, or a
-        random unrooted tree drawn from ``rng`` (the same draws as the JAX
-        package's init_state), plus the substitution-parameter defaults.
-        A clock model starts from a random clock tree instead."""
+        """One chain's starting state (host numpy values): ``tree``, the
+        user's starting tree (startvals), a tree built from the data
+        (``mcmc starttree=parsimony|nj``), or a random unrooted tree drawn
+        from ``rng``, then ``nperts`` random NNIs (the same draws as the
+        JAX package's init_state, mrbayes_tpu engine.py:2013-2044), plus
+        the substitution-parameter defaults.  A clock model starts from a
+        random clock tree instead."""
         if self.tree_settings.clock:
             return self._init_substitution_state(self._init_clock_state(rng))
 
         def draw():
-            if tree is not None:
-                return tree
-            if self._start_clade_masks() or self.negative_masks is not None:
-                # a random tree holding the constrained clades
-                return self._retry_negative(
-                    lambda: random_unrooted_constrained(
-                        self.n_tips, rng, self._start_clade_masks(),
-                        mean_blen=0.1), lambda x: x)
-            return random_unrooted(self.n_tips, rng, mean_blen=0.1)
+            # mcmc starttree=/nperts= (reference chainParams startTree/
+            # numStartPerts, src/command.c:14520-14521; RandPerturb
+            # src/mcmc.c:2569).  A constrained run keeps the constrained
+            # random builder: a built or perturbed tree could break a
+            # constraint.
+            constrained = bool(self._start_clade_masks()
+                               or self.negative_masks is not None)
+            mode = self.mcmc.starttree
+            t = tree or self.start_tree
+            if mode == "random":
+                t = tree                # the user's starting tree ignored
+            elif mode in ("parsimony", "nj") and tree is None \
+                    and not constrained:
+                t = self._built_start_tree(mode, rng)
+            if t is None:
+                if constrained:
+                    # a random tree holding the constrained clades
+                    t = self._retry_negative(
+                        lambda: random_unrooted_constrained(
+                            self.n_tips, rng, self._start_clade_masks(),
+                            mean_blen=0.1), lambda x: x)
+                else:
+                    t = random_unrooted(self.n_tips, rng, mean_blen=0.1)
+            if self.mcmc.nperts > 0 and tree is None and not constrained:
+                t = perturb_nni(t, self.mcmc.nperts, rng)
+            return t
 
         def arrays(t):
             blen = np.clip(t.blen, 0.0, M.BRLEN_MAX).astype(np.float32)
@@ -1919,6 +1996,28 @@ class Engine:
         else:
             st = arrays(draw())
         return self._init_substitution_state(st)
+
+    def _built_start_tree(self, mode: str, rng):
+        """starttree=parsimony|nj: a starting tree built from the data
+        (reference BuildParsTrees stepwise addition, or neighbor joining;
+        mrbayes_tpu engine.py:2070-2096).  A parsimony tree takes a fresh
+        random addition order from ``rng`` each call; the NJ tree is
+        deterministic and cached (chains differ by their nperts)."""
+        ms, ws = [], []
+        for d in self.data.divisions:
+            if d.cont is not None or d.patterns.size == 0:
+                continue
+            ms.append(d.patterns.astype(np.uint32))
+            ws.append(np.asarray(d.weights, np.float64))
+        if not ms:
+            return None
+        masks = np.concatenate(ms, axis=1)
+        wts = np.concatenate(ws)
+        if mode == "nj":
+            if not hasattr(self, "_nj_tree"):
+                self._nj_tree = neighbor_joining(pdistance_matrix(masks, wts))
+            return self._nj_tree
+        return parsimony_stepwise(masks, wts, rng)
 
     def _start_clade_masks(self) -> list:
         """Clades the starting tree must hold: the hard constraints and the
@@ -2219,22 +2318,26 @@ class Engine:
         cfg = self.div_cfg[i]
         kappa = (state["tratio"][:, cfg.tratio_group]
                  if cfg.tratio_group >= 0 else 1.0)
+        omegas, weights = self._codon_omegas(state, cfg)
+        return codon_q(omegas, kappa, pi, *self._codon_classes[i],
+                       cat_weights=weights)
+
+    def _codon_omegas(self, state, cfg):
+        """A codon division's class omegas [C, K] and class weights [C, K]
+        (None for M0's one class): NY98's omega1, 1 and omega3, M3's three
+        ordered omegas or M10's B + G classes."""
         if cfg.ny98_group >= 0:
             g = cfg.ny98_group
             w1 = state["omega1"][:, g]
-            omegas = torch.stack([w1, torch.ones_like(w1),
-                                  state["omega3"][:, g]], -1)
-            weights = state["omegaprobs"][:, g]
-        elif cfg.m3_group >= 0:
-            omegas = state["m3omega"][:, cfg.m3_group]
-            weights = state["m3probs"][:, cfg.m3_group]
-        elif cfg.m10_group >= 0:
-            omegas, weights = self._m10_omegas_weights(state, cfg)
-        else:
-            omegas = state["omega"][:, cfg.omega_group][:, None]
-            weights = None
-        return codon_q(omegas, kappa, pi, *self._codon_classes[i],
-                       cat_weights=weights)
+            return (torch.stack([w1, torch.ones_like(w1),
+                                 state["omega3"][:, g]], -1),
+                    state["omegaprobs"][:, g])
+        if cfg.m3_group >= 0:
+            return (state["m3omega"][:, cfg.m3_group],
+                    state["m3probs"][:, cfg.m3_group])
+        if cfg.m10_group >= 0:
+            return self._m10_omegas_weights(state, cfg)
+        return state["omega"][:, cfg.omega_group][:, None], None
 
     def _codon_cat_weights(self, state, cfg):
         """The omega classes' weights [C, K] of a codon division (None for
@@ -2873,6 +2976,16 @@ class Engine:
                     else state["lnP_tree"])
         lnP_par = (self.log_prior_params(new) if spec.prior_scope != "tree"
                    else state["lnP_par"])
+        return self._metropolis(state, new, lnL, lnP_tree, lnP_par, lnH,
+                                heat, power, u_acc)
+
+    @staticmethod
+    def _metropolis(state, new, lnL, lnP_tree, lnP_par, lnH, heat, power,
+                    u_acc):
+        """Accept each chain's proposal ``new`` (scored lnL, lnP_tree,
+        lnP_par; log Hastings ratio lnH) with probability min(1, r) under
+        its heat and the likelihood's power.  Returns (state, accepted
+        [C]); a field no proposal changed keeps its tensor."""
         lnP = lnP_tree + lnP_par
         ln_r = heat * (power * (lnL - state["lnL"])
                        + lnP - state["lnP"]) + lnH
@@ -2888,6 +3001,47 @@ class Engine:
                 a = accept.reshape((-1,) + (1,) * (old.ndim - 1))
                 out[k] = torch.where(a, nv, old)
         return out, accept
+
+    def _per_chain_step(self, gen, state, heat, tuning, power, moves,
+                        sel, u_acc):
+        """One generation in which every chain runs its own move
+        (``McmcSettings.per_chain_moves``; the reference's independent
+        PickProposal per chain, src/mcmc.c:10094).  ``moves`` holds the
+        distinct move indices drawn for this generation (host ints), ``sel``
+        [C] each chain's draw on the device.  Each distinct move proposes
+        once for the whole batch and each chain keeps its own move's
+        proposal (``torch.where`` on ``sel``); the eigensystems the drawn
+        moves change are refreshed once, on the merged proposal, and the
+        likelihood and both prior components are computed once for it.
+        Returns (state, accepted [C])."""
+        cur = {k: v for k, v in state.items() if k not in SCORE_KEYS}
+        prop, lnH = dict(cur), None
+        q_divs, refresh = set(), False
+        for m in moves:
+            spec = self.moves[m]
+            new, lnH_m = spec.fn(gen, cur, tuning[:, m])
+            mine = sel == m
+            for k, old in cur.items():
+                if new[k] is not old:
+                    a = mine.reshape((-1,) + (1,) * (old.ndim - 1))
+                    prop[k] = torch.where(a, new[k], prop[k])
+            lnH = (torch.where(mine, lnH_m, 0.0) if lnH is None
+                   else torch.where(mine, lnH_m, lnH))
+            if spec.updates_q:
+                refresh = True
+                q_divs = (None if q_divs is None or spec.eig_divs is None
+                          else q_divs | set(spec.eig_divs))
+        if refresh:
+            prop = self.refresh_eigs(
+                prop, None if q_divs is None else sorted(q_divs))
+        lnL = self.log_likelihood(prop)
+        scopes = {self.moves[m].prior_scope for m in moves}
+        lnP_tree = (state["lnP_tree"] if scopes == {"params"}
+                    else self.log_prior_tree(prop))
+        lnP_par = (state["lnP_par"] if scopes == {"tree"}
+                   else self.log_prior_params(prop))
+        return self._metropolis(state, prop, lnL, lnP_tree, lnP_par, lnH,
+                                heat, power, u_acc)
 
     def _swap_step(self, draws, states, temp_id, power=1.0):
         """``nswaps`` swap attempts per run between random chain pairs
@@ -2966,8 +3120,22 @@ class Engine:
         bk = {k: (v.clone() if torch.is_tensor(v) else v)
               for k, v in bk.items()}
         gen0 = bk["gen"]
-        midx = torch.multinomial(self._move_probs, n_gens, replacement=True,
-                                 generator=bk["rng_host"]).tolist()
+        if mc.per_chain_moves:
+            # C draws a generation; the host keeps each generation's
+            # distinct moves, the device each chain's draw (one
+            # non-blocking copy from pinned memory a block)
+            drawn = torch.multinomial(
+                self._move_probs, n_gens * C, replacement=True,
+                generator=bk["rng_host"]).reshape(n_gens, C)
+            distinct = [sorted(set(row)) for row in drawn.tolist()]
+            if dev.type == "cuda":
+                drawn = drawn.pin_memory()
+            sel_all = drawn.to(dev, non_blocking=True)
+            nm = len(self.moves)
+        else:
+            midx = torch.multinomial(self._move_probs, n_gens,
+                                     replacement=True,
+                                     generator=bk["rng_host"]).tolist()
         u_acc = torch.rand((n_gens, C), generator=bk["rng"], device=dev)
         swapping = mc.nchains > 1
         if swapping:
@@ -2980,16 +3148,29 @@ class Engine:
         power = bk["power"]
         recs = []
         for g in range(n_gens):
-            m = midx[g]
             heats = 1.0 / (1.0 + mc.temp * bk["temp_id"].float())
-            states, accepted = self._chain_step(
-                bk["rng"], states, heats, bk["tuning"][:, m], power, m,
-                u_acc[g])
-            acc = accepted.to(torch.int32)
-            bk["tries"][:, m] += 1
-            bk["tries_total"][:, m] += 1
-            bk["accepts"][:, m] += acc
-            bk["accepts_total"][:, m] += acc
+            if mc.per_chain_moves:
+                states, accepted = self._per_chain_step(
+                    bk["rng"], states, heats, bk["tuning"], power,
+                    distinct[g], sel_all[g], u_acc[g])
+                # each chain counts its own move (the JAX package's
+                # move_per_chain)
+                tried = torch.nn.functional.one_hot(
+                    sel_all[g], nm).to(torch.int32)
+                acc = tried * accepted.to(torch.int32)[:, None]
+                for key, add in (("tries", tried), ("tries_total", tried),
+                                 ("accepts", acc), ("accepts_total", acc)):
+                    bk[key] += add
+            else:
+                m = midx[g]
+                states, accepted = self._chain_step(
+                    bk["rng"], states, heats, bk["tuning"][:, m], power, m,
+                    u_acc[g])
+                acc = accepted.to(torch.int32)
+                bk["tries"][:, m] += 1
+                bk["tries_total"][:, m] += 1
+                bk["accepts"][:, m] += acc
+                bk["accepts_total"][:, m] += acc
             absolute = gen0 + g + 1
             if swapping and absolute % mc.swapfreq == 0:
                 bk["temp_id"], rec = self._swap_step(

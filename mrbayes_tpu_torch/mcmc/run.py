@@ -12,10 +12,13 @@ follow the reference (PreparePrintFiles src/mcmc.c:10427,
 PrintStatesToFiles :13186), so the reference's own sump/sumt can read
 them.
 
+The ``report`` command's columns (ancestral states, site rates, positive
+selection; ``mcmc/report.py``) are computed on the device for each run's
+cold chain and ride in the same one copy a block.
+
 With a mesh (``parallel/mesh.py``) the engine's data is sharded over the
 ``sites`` axis in this one process (Queue 1 item 11a); the states stay
-whole on the engine's device.  Not ported yet: the ``report`` command's
-extra columns (ROADMAP Queue 1 item 14) and the ``chains`` axis over
+whole on the engine's device.  Not ported yet: the ``chains`` axis over
 processes (item 11b: ``torch.distributed``, a generator per rank, the
 swap all-gather of (lnL, lnP), the gather to rank 0).
 """
@@ -251,17 +254,22 @@ def _clock_columns(eng: Engine, multi: bool):
     return cols
 
 
-def host_states(states: dict, bk: dict) -> dict:
-    """Every chain-state tensor plus ``temp_id`` on the host, with ONE
-    device->host copy: the tensors are packed as float64 into one buffer
-    (float32 values and small integers round-trip exactly) and unpacked
-    into their own dtypes.  The eigensystem cache is left out."""
+def host_states(states: dict, bk: dict, report=None) -> dict:
+    """Every chain-state tensor plus ``temp_id`` (and the report columns
+    [runs, columns], as ``report``) on the host, with ONE device->host
+    copy: the tensors are packed as float64 into one buffer (float32
+    values and small integers round-trip exactly) and unpacked into their
+    own dtypes.  The eigensystem cache is left out."""
     keys = [k for k in states if not k.startswith("eig")]
     parts = [states[k] for k in keys] + [bk["temp_id"]]
+    names = keys + ["temp_id"]
+    if report is not None:
+        parts.append(report)
+        names.append("report")
     flat = torch.cat([t.reshape(-1).to(torch.float64) for t in parts])
     buf = flat.cpu().numpy()
     out, at = {}, 0
-    for k, t in zip(keys + ["temp_id"], parts):
+    for k, t in zip(names, parts):
         n = t.numel()
         dtype = {torch.float32: np.float32, torch.bool: np.bool_}.get(
             t.dtype, np.int64)
@@ -277,13 +285,23 @@ def _rooting(t) -> str:
 
 class McmcRunner:
     def __init__(self, engine: Engine, file_prefix: str | None = None,
-                 log=print, mesh=None):
+                 log=print, report: dict | None = None, mesh=None):
         self.eng = engine
         self.mc = engine.mcmc
         self.prefix = file_prefix or self.mc.filename
         self.mesh = mesh
         self.log = log
         self.cols = param_columns(engine)
+        # the report command's ancstates/siterates/possel/siteomega
+        # columns (mcmc/report.py; reference src/mcmc.c:12456-13147)
+        self.reporter = None
+        if report:
+            from .report import Reporter
+            rep = Reporter(engine, report, log=log)
+            if rep.headers:
+                self.reporter = rep
+                log(f"   Reporting {len(rep.headers)} extra sample "
+                    "columns (report command)")
         self.n_trees = engine.n_trees
         # split frequencies of each tree parameter
         self.splits = [SplitCounter(self.mc.nruns)
@@ -342,8 +360,11 @@ class McmcRunner:
             tfs = [open(path, mode) for path in self._tree_paths(r)]
             if not append:
                 pf.write(f"[ID: {seed_id:010d}]\n")
-                pf.write("Gen\tlnLike\tlnPrior\t"
-                         + "\t".join(n for n, _ in self.cols) + "\n")
+                hdr = "Gen\tlnLike\tlnPrior\t" \
+                    + "\t".join(n for n, _ in self.cols)
+                if self.reporter is not None:
+                    hdr += "\t" + "\t".join(self.reporter.headers)
+                pf.write(hdr + "\n")
                 labels = self.eng.data.taxa
                 for tf in tfs:
                     tf.write(f"#NEXUS\n[ID: {seed_id:010d}]\n"
@@ -357,6 +378,15 @@ class McmcRunner:
         if not append:
             self.mcmcf.write(f"[ID: {seed_id:010d}]\n")
             self.mcmcf.write("Gen\tAvgStdDev(s)\n")
+
+    def _close_files(self):
+        """Close the .p, .t (ending its trees block) and .mcmc files."""
+        for f in self.pf:
+            f.close()
+        for f in (f for tfs in self.tf for f in tfs):
+            f.write("end;\n")
+            f.close()
+        self.mcmcf.close()
 
     def _debug_checks(self, gen: int, host, states):
         """Opt-in in-loop invariants (role of the reference's
@@ -387,14 +417,24 @@ class McmcRunner:
                     f"|dlnP_par|={diff['lnP_par']:.5f} (carried vs "
                     f"recomputed)")
 
+    def _host(self, states, bk) -> dict:
+        """The block's one device->host copy (``host_states``), with the
+        report columns of each run's cold chain when reporting."""
+        rep = None
+        if self.reporter is not None:
+            rep = self.reporter.compute(states, self.reporter.cold_slots(bk))
+        return host_states(states, bk, rep)
+
     def _write_sample(self, gen: int, host):
         for r, slot in enumerate(self.eng.cold_indices(host)):
             lnL = float(host["lnL"][slot])
             lnP = float(host["lnP"][slot])
             vals = [fn(host, slot) for _, fn in self.cols]
+            rep = ([float(x) for x in host["report"][r]]
+                   if "report" in host else [])
             self.pf[r].write(
                 f"{gen}\t{lnL:.6e}\t{lnP:.6e}\t"
-                + "\t".join(f"{v:.6e}" for v in vals) + "\n")
+                + "\t".join(f"{v:.6e}" for v in vals + rep) + "\n")
             for ti in range(self.n_trees):
                 t = self.eng.extract_tree(host, slot, ti)
                 self.tf[r][ti].write(f"   tree gen.{gen} = {_rooting(t)} "
@@ -421,10 +461,13 @@ class McmcRunner:
             return " ".join(f"{float(x):.9e}" for x in flat)
         return " ".join(str(int(x)) for x in flat)
 
-    def write_checkpoint(self, states, bk, gen: int):
+    def write_checkpoint(self, states, bk, gen: int, extra=None):
         """Rotated self-describing NEXUS checkpoint: a standard trees
         block with every chain's current tree, then the exact state in an
-        `mbtpu_state` block (NEXUS readers skip unknown blocks)."""
+        `mbtpu_state` block (NEXUS readers skip unknown blocks), with
+        ``extra`` arrays as ``ss.<key>`` (the steppingstone accumulators;
+        the reference keeps its SS state in the .ckp too,
+        src/mcmc.c:11253-11282)."""
         mc = self.mc
         nc = mc.nchains
         host = host_states(states, bk)
@@ -458,6 +501,8 @@ class McmcRunner:
                         if isinstance(v, torch.Generator)
                         else v.cpu().numpy() if torch.is_tensor(v) else v)
                     for k, v in bk.items()})
+        if extra:
+            dump("ss", {k: np.asarray(v) for k, v in extra.items()})
         lines.append("end;")
         path = f"{self.prefix}.ckp"
         if os.path.exists(path):
@@ -467,9 +512,11 @@ class McmcRunner:
 
     def read_checkpoint(self):
         """(states, bk, generation) from ``<prefix>.ckp``; the scores are
-        recomputed exactly."""
+        recomputed exactly.  Its ``ss.`` arrays go to ``_ckp_extra``."""
         with open(f"{self.prefix}.ckp") as f:
             arrays, gen = self._parse_nexus_ckp(f.read())
+        self._ckp_extra = {k[len("ss."):]: v for k, v in arrays.items()
+                           if k.startswith("ss.")}
         states, bk = self.eng.init_chains()
         dev = self.eng.device
         states = {k: (torch.as_tensor(arrays["states." + k].reshape(
@@ -528,7 +575,7 @@ class McmcRunner:
             self.log(f"   Sharding over mesh {self.mesh.shape} "
                      f"(1 process(es))")
         self._open_files(append=start_gen > 0, start_gen=start_gen)
-        host = host_states(states, bk)
+        host = self._host(states, bk)
         self.log(f"   Running Markov chain ( {mc.nruns} runs x {mc.nchains} "
                  f"chains, {mc.ngen} generations ) on {eng.device}")
         self.log("   Initial log likelihoods: "
@@ -561,7 +608,7 @@ class McmcRunner:
             n = min(mc.samplefreq, mc.ngen - gen)
             tb = time.time()
             states, bk = eng.run_block(states, bk, n)
-            host = host_states(states, bk)   # waits for the device
+            host = self._host(states, bk)   # waits for the device
             self.phase_times["device"] += time.time() - tb
             gen += n
             if self._abort:
@@ -602,12 +649,7 @@ class McmcRunner:
         self.phase_times["checkpoint"] += time.time() - tb
         if prev_handler is not None:
             signal.signal(signal.SIGINT, prev_handler)
-        for f in self.pf:
-            f.close()
-        for f in (f for tfs in self.tf for f in tfs):
-            f.write("end;\n")
-            f.close()
-        self.mcmcf.close()
+        self._close_files()
         dt = time.time() - t0
         self.wall_seconds = dt
         self.generations = gen - start_gen

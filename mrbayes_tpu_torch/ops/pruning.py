@@ -87,10 +87,16 @@ def root_partials(left, right, parent, blen, tip_partials, lam, U, Uinv,
     left/right/parent/blen [C, n_nodes]; tip_partials [n_tips, P, S]
     (shared by all chains); lam [C, S]; U/Uinv [C, S, S]; cat_rates
     [C, K]; pinv [C] or a float."""
+    P = branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult)
+    return _down_partials(P, left, right, parent, tip_partials, n_tips)
+
+
+def _down_partials(P, left, right, parent, tip_partials, n_tips: int):
+    """``root_partials`` from the per-branch operators P [C, n_nodes, K,
+    S, S]."""
     C, n_nodes = parent.shape
     npat, s = tip_partials.shape[1], tip_partials.shape[2]
-    k = cat_rates.shape[-1]
-    P = branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult)
+    k = P.shape[2]
     partials = tip_partials.new_zeros((C, n_nodes, npat, k, s))
     partials[:, :n_tips] = tip_partials[None, :, :, None, :]
     order = postorder_internal(parent, n_tips)
@@ -107,6 +113,55 @@ def root_partials(left, right, parent, blen, tip_partials, lam, U, Uinv,
         partials[rows, v] = cl / m[:, :, None, None]
         logscale = logscale + torch.log(m)
     return partials, logscale
+
+
+def final_partials(left, right, parent, blen, tip_partials, lam, U, Uinv,
+                   cat_rates, pinv, n_tips: int, rate_mult=1.0):
+    """Down-pass and up-pass ("final" conditional likelihoods at every
+    node) for posterior reporting, batched over chains
+    (mrbayes_tpu/ops/pruning.py:110; the reference's CondLikeUp_* family,
+    src/likelihood.c:4574-4938: a node's final partial is its down-pass
+    partial times the parent's final with the node's own message divided
+    out).  Plain PyTorch ops; launched once per sample, not per
+    generation.
+
+    Inputs as ``root_partials``.  Returns (D [C, n_nodes, P, K, S], F [C,
+    n_nodes, P, K, S], flog [C, n_nodes, P], logscale [C, P]): D_root's
+    true value is D[:, root] exp(logscale), F_v's is F[:, v] exp(logscale
+    + flog[:, v]), so per-pattern posteriors need only logscale + flog for
+    absolute terms (the pinvar mixture)."""
+    C, n_nodes = parent.shape
+    # the per-branch operators [C, n_nodes, K, S, S] of both passes
+    P = branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult)
+    D, logscale = _down_partials(P, left, right, parent, tip_partials,
+                                 n_tips)
+    root = n_nodes - 1
+    F = torch.zeros_like(D)
+    F[:, root] = D[:, root]
+    flog = logscale.new_zeros((C, n_nodes, D.shape[2]))
+    rev = postorder_internal(parent, n_tips).flip(-1)   # root first
+    rows = torch.arange(C, device=parent.device)
+    for i in range(n_tips - 1):
+        v = rev[:, i]
+        F_v, flog_v = F[rows, v], flog[rows, v]
+        for side in (left, right):
+            c = side.gather(1, v[:, None])[:, 0]
+            P_c, D_c = P[rows, c], D[rows, c]
+            # c's message to its parent, contracted on P's last axis as in
+            # the down-pass
+            s_c = torch.einsum("cksj,cpkj->cpks", P_c, D_c)
+            up = F_v / torch.clamp_min(s_c, _TINY)
+            # the up-pass contracts the parent's state with P's LAST axis
+            # too, i.e. P[k, node_state, anc_state] read on its first
+            # state axis for the node (the reference's active
+            # CondLikeUp_NUC4 contraction, src/likelihood.c:4574; the
+            # transposed one is off by up to 0.036 on the golden rows,
+            # mrbayes_tpu/ops/pruning.py:151-159)
+            F_c = torch.einsum("cpks,ckjs->cpkj", up, P_c) * D_c
+            m = torch.clamp_min(F_c.amax(dim=(2, 3)), _TINY)   # [C, P]
+            F[rows, c] = F_c / m[:, :, None, None]
+            flog[rows, c] = flog_v + torch.log(m)
+    return D, F, flog, logscale
 
 
 def root_clv(left, right, parent, blen, tip_partials, lam, U, Uinv,

@@ -453,3 +453,219 @@ def random_clock_tree(n_tips: int, rng: np.random.Generator,
     t.blen[t.root] = 0.0
     t.check()
     return t, ages
+
+
+def tree_length(t: Tree) -> float:
+    """Sum of free branch lengths (TL statistic)."""
+    mask = np.ones(t.n_nodes, bool)
+    mask[t.root] = False
+    if not t.rooted:
+        mask[0] = False
+    return float(t.blen[mask].sum())
+
+
+# ---------------------------------------------------------------------------
+# Starting-tree builders (reference `mcmc starttree=`/`nperts=`,
+# src/command.c:14520-14521; RandPerturb src/mcmc.c:2569-2576;
+# BuildParsTrees stepwise addition src/mcmc.c:6871 area)
+
+
+def perturb_nni(t: Tree, n: int, rng: np.random.Generator) -> Tree:
+    """Apply ``n`` random NNI rearrangements to a non-clock tree (role
+    of the reference's RandPerturb on starting trees).  Branch lengths
+    are kept; only the topology changes."""
+    t = t.copy()
+    n_tips = t.n_tips
+    for _ in range(n):
+        cands = [v for v in range(n_tips, t.root)
+                 if t.parent[v] >= 0 and t.parent[v] != t.root]
+        if not cands:
+            break
+        u = int(rng.choice(cands))
+        p = t.parent[u]
+        s = t.left[p] if t.right[p] == u else t.right[p]
+        c = t.left[u] if rng.random() < 0.5 else t.right[u]
+        if t.left[p] == s:
+            t.left[p] = c
+        else:
+            t.right[p] = c
+        if t.left[u] == c:
+            t.left[u] = s
+        else:
+            t.right[u] = s
+        t.parent[c] = p
+        t.parent[s] = u
+    t.check()
+    return t
+
+
+def _adjacency_to_tree(adj: dict, elen: dict, ntax: int) -> Tree:
+    """Unrooted adjacency (node -> neighbor set, frozenset edge ->
+    length) -> Tree in the tip-0-rooted layout, via Newick round trip."""
+    def rec(v, p):
+        l = max(elen[frozenset((v, p))], 1e-6)
+        if v < ntax:
+            return f"{v + 1}:{l:.8g}"
+        kids = [u for u in adj[v] if u != p]
+        return ("(" + ",".join(rec(u, v) for u in kids)
+                + f"):{l:.8g}")
+
+    h = next(iter(adj[0]))
+    l0 = max(elen[frozenset((0, h))], 1e-6)
+    kids = [u for u in adj[h] if u != 0]
+    nwk = ("(" + f"1:{l0:.8g}," + ",".join(rec(u, h) for u in kids)
+           + ");")
+    return parse_newick(nwk, [str(i + 1) for i in range(ntax)])
+
+
+def neighbor_joining(D: np.ndarray) -> Tree:
+    """Neighbor-joining tree from a distance matrix (starttree=nj)."""
+    n = D.shape[0]
+    assert n >= 4
+    size = 2 * n - 2
+    M = np.zeros((size, size))
+    M[:n, :n] = D
+    active = list(range(n))
+    nxt = n
+    adj: dict = {i: set() for i in range(size)}
+    elen: dict = {}
+
+    def join(i, j, li, lj):
+        nonlocal nxt
+        u = nxt
+        nxt += 1
+        adj[u].update((i, j))
+        adj[i].add(u)
+        adj[j].add(u)
+        elen[frozenset((i, u))] = max(li, 1e-6)
+        elen[frozenset((j, u))] = max(lj, 1e-6)
+        return u
+
+    while len(active) > 3:
+        r = len(active)
+        idx = np.array(active)
+        d = M[np.ix_(idx, idx)]
+        R = d.sum(axis=1)
+        Q = (r - 2) * d - R[:, None] - R[None, :]
+        np.fill_diagonal(Q, np.inf)
+        a, b = np.unravel_index(np.argmin(Q), Q.shape)
+        i, j = int(idx[a]), int(idx[b])
+        li = d[a, b] / 2 + (R[a] - R[b]) / (2 * (r - 2))
+        lj = d[a, b] - li
+        u = join(i, j, li, lj)
+        for k in active:
+            if k in (i, j):
+                continue
+            M[u, k] = M[k, u] = (M[i, k] + M[j, k] - M[i, j]) / 2
+        active = [k for k in active if k not in (i, j)] + [u]
+
+    i, j, k = active
+    dij, dik, djk = M[i, j], M[i, k], M[j, k]
+    u = join(i, j, (dij + dik - djk) / 2, (dij + djk - dik) / 2)
+    adj[u].add(k)
+    adj[k].add(u)
+    elen[frozenset((k, u))] = max((dik + djk - dij) / 2, 1e-6)
+    return _adjacency_to_tree(adj, elen, n)
+
+
+def parsimony_stepwise(masks: np.ndarray, weights: np.ndarray,
+                       rng: np.random.Generator,
+                       mean_blen: float = 0.1) -> Tree:
+    """Greedy random-addition-order Fitch stepwise-addition tree
+    (starttree=parsimony; role of the reference's BuildParsTrees).
+
+    ``masks`` [ntax, npat] uint32 state bitmasks, ``weights`` [npat]
+    pattern counts.  Each candidate edge is scored by the standard
+    stepwise heuristic: attaching taxon x on edge e costs one step for
+    every pattern whose state set is disjoint from the union of the
+    Fitch sets on e's two sides."""
+    ntax, npat = masks.shape
+    w = np.asarray(weights, np.float64)
+    order = [int(x) for x in rng.permutation(ntax)]
+    a, b, c = order[:3]
+    hub = ntax
+    nxt = ntax + 1
+    adj: dict = {x: {hub} for x in (a, b, c)}
+    adj[hub] = {a, b, c}
+
+    def comb(x, y):
+        inter = x & y
+        return np.where(inter != 0, inter, x | y)
+
+    for x in order[3:]:
+        # Fitch downpass sets rooted at tip a, then "other side" sets
+        down: dict = {}
+        stack = [(next(iter(adj[a])), a, False)]
+        while stack:
+            v, p, done = stack.pop()
+            if v < ntax:
+                down[v] = masks[v]
+                continue
+            if done:
+                kids = [u for u in adj[v] if u != p]
+                s = down[kids[0]]
+                for u in kids[1:]:
+                    s = comb(s, down[u])
+                down[v] = s
+            else:
+                stack.append((v, p, True))
+                for u in adj[v]:
+                    if u != p:
+                        stack.append((u, v, False))
+        other: dict = {}
+        edges = []
+        stack = [(u, a) for u in adj[a]]
+        other[next(iter(adj[a]))] = masks[a]
+        while stack:
+            v, p = stack.pop()
+            edges.append((p, v))
+            if v >= ntax:
+                kids = [u for u in adj[v] if u != p]
+                for u in kids:
+                    sibs = [down[s2] for s2 in kids if s2 != u]
+                    o = other[v]
+                    for sb in sibs:
+                        o = comb(o, sb)
+                    other[u] = o
+                    stack.append((u, v))
+        xm = masks[x]
+        costs = []
+        for p, v in edges:
+            # Fitch state set OF THE EDGE: soft-combine of the two
+            # sides (intersection where nonempty, else union) — the
+            # plain union under-counts and degenerates to ties
+            f = comb(down[v], other[v])
+            cost = float(w[(xm & f) == 0].sum())
+            costs.append(cost)
+        costs = np.asarray(costs)
+        cand = np.flatnonzero(costs == costs.min())
+        p, v = edges[int(rng.choice(cand))]
+        m = nxt
+        nxt += 1
+        adj[p].remove(v)
+        adj[v].remove(p)
+        adj[m] = {p, v, x}
+        adj[p].add(m)
+        adj[v].add(m)
+        adj[x] = {m}
+
+    elen = {}
+    for v, nbrs in adj.items():
+        for u in nbrs:
+            e = frozenset((u, v))
+            if e not in elen:
+                elen[e] = float(rng.exponential(mean_blen))
+    return _adjacency_to_tree(adj, elen, ntax)
+
+
+def pdistance_matrix(masks: np.ndarray, weights: np.ndarray) -> np.ndarray:
+    """Pairwise mismatch-proportion distances from bit-coded patterns
+    (for the NJ starting tree)."""
+    ntax = masks.shape[0]
+    w = np.asarray(weights, np.float64)
+    tot = w.sum()
+    D = np.zeros((ntax, ntax))
+    for i in range(ntax):
+        dis = (masks[i][None, :] & masks[i + 1:, :]) == 0
+        D[i, i + 1:] = D[i + 1:, i] = (dis * w[None, :]).sum(1) / tot
+    return np.maximum(D, 1e-4) * (1 - np.eye(ntax))

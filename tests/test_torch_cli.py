@@ -215,14 +215,17 @@ def test_entry_points_default_to_cuda(tmp_path):
     assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
-def test_commands_outside_the_port_name_their_item():
+def test_commands_outside_the_port_name_their_item(tmp_path):
     it = Interpreter(log=lambda m: None, device="cpu")
     it.execute_file(example("primates.nex"))
-    for line, item in (("ss ngen=10", "item 14"),
-                       ("delete 1", "item 15"),
-                       ("showmodel", "item 15"),
-                       ("prset popvarpr=variable", "item 14")):
+    for line, item in (("speciespartition sp = A: 1, B: 2", "item 14e"),
+                       ("prset popvarpr=variable", "item 14e")):
         with pytest.raises(CommandError, match=f"ROADMAP Queue 1 {item}"):
             it.run_line(line)
+    # items 14a-14d and 15 are ported: these run
+    for line in (f"ss ngen=10 nsteps=2 samplefreq=5 nruns=1 nchains=1 "
+                 f"filename={tmp_path}/ss", "delete 1", "restore 1",
+                 "showmodel"):
+        it.run_line(line)
     with pytest.raises(CommandError, match="unknown command"):
         it.run_line("frobnicate")
