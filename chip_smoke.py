@@ -18,7 +18,7 @@ checked by ``--test1-gens 20000``; test2 always runs the envelope's
 groups after the device and build phases (``PHASE_GROUPS``: kernels 3,
 17, 21; primates 4-5; test1 6-9; cynmix 10-12; sharded 13-16; clock
 18-20; aa_codon 22-26; dating 27-31; kim_codon 32-37; covarion 38-41;
-families 42-46; analyses 47-52);
+families 42-46; analyses 47-52; best 53-55);
 with a subset the
 kernels line names every kernel with its numbers null, and the groups'
 own lines carry what they measured.  Each
@@ -280,6 +280,23 @@ Phases, each fatal on failure:
      probabilities (chi-square p > 1e-3), one pruning.cu launch a
      generation, carried = recomputed, no host sync in a block, and ms per
      generation with and without per-chain moves.
+ 53. BEST's gene stack: stacked.cu with a tree a member (the JAX engine's
+     vmapped gene pass) at finch's 30 gene shapes (4 tips, S 4, K 1, 5-30
+     patterns, 477 in all) at C = 8 and 32 and at a two-gene primates
+     shape (12 tips, 6 species), on the engine's own operands: every
+     gene's per-pattern lnL within 2e-5 of the plain version and of one
+     pruning.cu launch a gene on the same operands; the CUDA-graph time
+     beside those G launches', the plain version's, the bound and the
+     plan;
+ 54. finch.nex's BEST model through the CLI (2 runs x 4 chains, 300
+     generations): exactly one stacked.cu launch a likelihood and no
+     pruning.cu launch, carried versus recomputed scores, the card against
+     the port's CPU engine at the final state (each gene within 2e-3 +
+     1.3e-6 |lnL|), the species .t files with the 4 species and the 30
+     gene-tree files a run, sump and sumt, gens/s and CUDA kernels a
+     generation;
+ 55. a block and one generation of every BEST move type with host
+     synchronisation made an error.
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -507,6 +524,21 @@ SS_GENS, SS_STEPS, SS_SAMPLEFREQ = 250, 5, 25
 PRIOR_POWER_BURN, PRIOR_POWER_GENS = 200, 1000
 START_GENS = 40
 PER_CHAIN_GENS = 30
+# the best group (phases 53-55): finch's BEST model through the CLI, its
+# generations and sample interval; the gene-stack kernel's chain counts;
+# the sync check's block
+FINCH = os.path.join(EXAMPLES, "finch.nex")
+BEST_GENS, BEST_SAMPLEFREQ = 300, 50
+BEST_KERNEL_CHAINS = (8, 32)
+BEST_SYNC_GENS = 20
+# the two-gene primates shape of phase 53 (tests/test_best.py's engine
+# smoke run: 12 taxa in 6 species of 2, sites 1-400 and 401-898)
+PRIMATES_BEST = ("partition genes = 2: 1-400, 401-.",
+                 "set partition=genes",
+                 "speciespartition sp = A: 1-2, B: 3-4, C: 5-6, D: 7-8, "
+                 "E: 9-10, F: 11-12",
+                 "set speciespartition=sp", "lset nst=2",
+                 "prset topologypr=speciestree brlenspr=clock:speciestree")
 
 
 def state_tol(lnl, family):
@@ -542,14 +574,17 @@ KERNEL_IDS = [
      "replaces": "mrbayes_tpu/ops/pruning_pallas.py:456"},
     {"name": "eigh_jacobi", "route": "cuda",
      "source": "mrbayes_tpu_torch/csrc/eigh.cu",
-     "replaces": "mrbayes_tpu/ops/tiprobs.py:33"}]
+     "replaces": "mrbayes_tpu/ops/tiprobs.py:33"},
+    {"name": "stacked_down_gene_trees", "route": "cuda",
+     "source": "mrbayes_tpu_torch/csrc/stacked.cu",
+     "replaces": "mrbayes_tpu/ops/pruning_pallas.py:767"}]
 # the numbers of the kernels line, measured only when every group runs
 KERNEL_NUMBERS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                   "bound_by", "library_ms")
 # the phase groups of --phases, in the order they run
 PHASE_GROUPS = ("kernels", "primates", "test1", "cynmix", "sharded",
                 "clock", "aa_codon", "dating", "kim_codon", "covarion",
-                "families", "analyses")
+                "families", "analyses", "best")
 
 
 def log(msg):
@@ -753,7 +788,7 @@ def group_walk(torch, lay, lr, pstep, tips, walk=None):
     outputs as ``lay.plan`` gives it (``walk="global"``: every division on
     the kept global-scratch kernel): the launch, the plan and the
     outputs."""
-    C, dev = lr.shape[0], lr.device
+    C, dev = lr.shape[-3], lr.device
     plan = lay.plan(C, dev, walk)
     total = lay.offsets(C)[-1]
     scratch = torch.empty(plan["scratch"], device=dev) \
@@ -4330,6 +4365,199 @@ def phase_analyses(torch, ds, power_line):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the best group (phases 53-55): BEST, the multispecies coalescent, on
+# finch.nex with its 30 gene trees in one stacked.cu launch
+
+
+def best_engine(torch, lines, nruns, nchains, device=None, seed=3):
+    """A BEST engine built through the CLI on ``device`` (the card by
+    default) from ``lines``
+    (after which an mcmcp of ``nruns`` x ``nchains``)."""
+    it, _ = cli_run([*lines, f"mcmcp nruns={nruns} nchains={nchains} "
+                     f"seed={seed}"], device=device)
+    return it.build_engine()
+
+
+def best_kernel_case(torch, name, lines, C):
+    """Phase 53's check at one engine's shape: the gene stack's operands
+    at the engine's starting states (``Engine.gene_stack_operands``),
+    stacked.cu with a tree a member against its plain version (every
+    gene's per-pattern lnL, within RTOL/ATOL) and against each gene's own
+    pruning.cu launch on the same operands; the CUDA-graph time of the one
+    launch, of the G pruning.cu launches, the plain version's time, the
+    bound and the plan."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    from mrbayes_tpu_torch.ops import stacked_cuda as SC
+    eng = best_engine(torch, lines, 1, C)
+    gs = eng._gene_stack
+    if gs is None:
+        raise AssertionError(f"{name}: no gene stack ({eng.notes})")
+    lay = gs.layout
+    states = eng.init_chains()[0]
+    order, left, right, Pm, pi, _ = eng.gene_stack_operands(states)
+    lr, pstep = gs.operands(order, left, right, Pm)
+    root_k, ls_k = SC.stacked_down(lr, pstep, gs.tips, lay)
+    torch.cuda.synchronize()
+    root_p, ls_p = SC.stacked_down_plain(lr, pstep, gs.tips, lay)
+    G, n_int = lay.D, lay.n_int
+    singles, mine, plain, own = [], [], [], []
+    for g in range(G):
+        mine.append(site_lnl(torch, *lay.div_view(root_k, ls_k, g), pi[g]))
+        plain.append(site_lnl(torch, *lay.div_view(root_p, ls_p, g), pi[g]))
+        pst_g, tips_g = lay.div_operands(pstep, gs.tips, C, g)
+        raw, _, root_g, ls_g = new_walk(torch, lr[g].contiguous(),
+                                        pst_g.contiguous(),
+                                        tips_g.contiguous())
+        raw()
+        singles.append(raw)
+        own.append((root_g, ls_g))
+    torch.cuda.synchronize()
+    shape = (f"{name} G={G} n_tips={lay.n_tips} K={lay.ks[0]} "
+             f"S={lay.ss[0]} P={min(lay.ps)}-{max(lay.ps)} "
+             f"(sum {sum(lay.ps)}) C={C}")
+    err = compare(torch, torch.cat([x.reshape(-1) for x in mine]),
+                  torch.cat([x.reshape(-1) for x in plain]),
+                  f"stacked_down with a tree a member, {shape}, vs plain")
+    compare(torch, torch.cat([x.reshape(-1) for x in mine]),
+            torch.cat([site_lnl(torch, r, l_, pi[g]).reshape(-1)
+                       for g, (r, l_) in enumerate(own)]),
+            f"stacked_down with a tree a member, {shape}, vs one "
+            f"pruning.cu launch a gene")
+    plan = lay.plan(C, lr.device)
+    raw = group_walk(torch, lay, lr, pstep, gs.tips)[0]
+
+    def per_gene():
+        for fn in singles:
+            fn()
+
+    flops = 2 * C * n_int * 2 * sum(k * S * S * P for k, S, P in
+                                    zip(lay.ks, lay.ss, lay.ps))
+    nbytes = 4 * (lr.numel() + pstep.numel() + gs.tips.numel()
+                  + root_k.numel() + ls_k.numel())
+    rec = {"max_abs_err": err, "ms": time_graph(torch, raw),
+           "loop_ms": time_events(torch, raw, 300),
+           "pruning_down_per_gene_ms": time_graph(torch, per_gene, 20, 3),
+           "plain_ms": time_events(
+               torch, lambda: SC.stacked_down_plain(lr, pstep, gs.tips, lay),
+               5),
+           "operands_ms": time_events(
+               torch, lambda: gs.operands(order, left, right, Pm), 100),
+           **{k: v for k, v in bound(nbytes, flops).items()},
+           "library_ms": None, "genes": G, "patterns": sum(lay.ps),
+           "threads": plan["threads"], "T": sorted(set(plan["T"])),
+           "lanes": sorted(set(plan["lanes"])),
+           "smem_bytes": plan["smem_bytes"],
+           "walks": sorted(set(plan["walks"])),
+           "tiles": int(plan["tiles"].shape[0]), "shape": shape}
+    log(f"stacked_down_gene_trees timing {shape}: {json.dumps(rec)}")
+    return rec
+
+
+def phase_best_kernels(torch):
+    """Phase 53: stacked.cu with a tree a member at finch's 30 gene shapes
+    (4 tips, S 4, K 1, 5-30 patterns) at C = 8 and 32 and at the two-gene
+    primates shape, against its plain version and one pruning.cu launch a
+    gene."""
+    finch = [f"execute {FINCH}"]
+    cases = {f"finch_c{C}": best_kernel_case(torch, "finch", finch, C)
+             for C in BEST_KERNEL_CHAINS}
+    cases["primates_2genes_c8"] = best_kernel_case(
+        torch, "primates two genes", [f"execute {PRIMATES}",
+                                      *PRIMATES_BEST], 8)
+    return max(c["max_abs_err"] for c in cases.values()), cases
+
+
+def phase_best_cli(torch, power_line):
+    """Phase 54: finch through the CLI (the file's model; 2 runs x 4
+    chains, ``BEST_GENS`` generations): exactly one stacked.cu launch a
+    likelihood and no pruning.cu launch (the engine is built inside
+    ``execute_file``: its counts start at 0 there and are read when the
+    run is over), carried versus recomputed scores, the card against the
+    port's CPU engine at the run's final state (each gene's lnL within
+    FAMILY_LNL_TOL + OTHER_LNL_REL |lnL|), the species .t files with the 4
+    species, the 30 gene-tree files a run, sump and sumt, gens/s and the
+    CUDA kernels a generation."""
+    from mrbayes_tpu_torch.envelope import run_batch
+    from mrbayes_tpu_torch.mcmc.engine import SCORE_KEYS
+    workdir = os.path.join(OUT, "finch")
+    shutil.rmtree(workdir, ignore_errors=True)
+    it, stats, lines = run_batch(
+        "finch", workdir, BEST_GENS, device=DEV, samplefreq=BEST_SAMPLEFREQ,
+        diagnfreq=BEST_GENS // 2, multiwalk=False, wavefront=False,
+        stacked=False)
+    runner = it._last_runner
+    eng = runner.eng
+    calls = BEST_GENS + 1
+    stack = eng._gene_stack.launches
+    pd = sum(p.launches for p in eng._pruners)
+    if stack != calls or pd:
+        raise AssertionError(f"finch: {stack} stacked.cu launches "
+                             f"(predicted {calls}), {pd} pruning.cu")
+    assert_carried(eng, runner.final_states, runner.final_bk)
+    for phrase in ("Average PSRF for parameter values",
+                   "Credible sets of trees", "Consensus tree written to"):
+        if not any(phrase in ln for ln in lines):
+            raise AssertionError(f"sump/sumt printed no {phrase!r}")
+    # the card against the CPU port at the run's final state
+    final = {k: v for k, v in runner.final_states.items()
+             if k not in SCORE_KEYS and not k.startswith("eig")}
+    card = eng.division_lnls(eng.refresh_eigs(final)).cpu().numpy()
+    cpu_eng = best_engine(torch, [f"execute {FINCH}"], 2, 4, device="cpu")
+    cpu = cpu_eng.division_lnls(cpu_eng.refresh_eigs(
+        {k: v.cpu() for k, v in final.items()})).numpy()
+    diff = np.abs(card - cpu)
+    tol = FAMILY_LNL_TOL + OTHER_LNL_REL * np.abs(cpu)
+    if not (diff <= tol).all():
+        raise AssertionError(f"finch card vs CPU: max |dlnL| {diff.max()}")
+    prefix = os.path.join(workdir, "finch")
+    expect_rows = BEST_GENS // BEST_SAMPLEFREQ + 1
+    for r in (1, 2):
+        paths = [f"{prefix}.run{r}.t"] + [f"{prefix}.run{r}.gene{g}.t"
+                                          for g in range(1, eng.n_div + 1)]
+        if len(paths) != 31:
+            raise AssertionError(f"finch: {eng.n_div} genes")
+        for path in paths:
+            with open(path) as f:
+                text = f.read()
+            if text.count("tree gen.") != expect_rows \
+                    or not text.rstrip().endswith("end;"):
+                raise AssertionError(f"{path}: incomplete")
+        with open(paths[0]) as f:
+            head = f.read().split("tree gen.")[0]
+        if not all(f" {sp}" in head for sp in ("SpQ", "SpW", "SpB", "SpO")):
+            raise AssertionError(f"{paths[0]}: translate block {head!r}")
+    states, bk = runner.final_states, runner.final_bk
+    n_k = cuda_kernels_during(torch, lambda: eng.run_block(states, bk, 20))
+    out = {**stats, "stacked_launches": stack, "pruning_down_launches": pd,
+           "launches_per_gen": stack / calls,
+           "cuda_kernels_per_gen": None if n_k is None else n_k / 20,
+           "card_vs_cpu_max_abs": float(diff.max()),
+           "notes": eng.notes, "genes": eng.n_div}
+    log(f"finch through the CLI, 2 runs x 4 chains, {BEST_GENS} gens: "
+        f"{json.dumps(out)}; card {power_line}")
+    log("\n".join(ln for ln in lines if "PSRF" in ln or "Credible" in ln
+                  or "Consensus" in ln or "BEST" in ln))
+    return it, out
+
+
+def phase_best(torch, power_line):
+    """Phases 53-55: the best group (``--phases best``): the gene-stack
+    kernel, finch through the CLI and (55) a block and one generation of
+    every BEST move type with host synchronisation made an error."""
+    t0 = time.perf_counter()
+    err, cases = phase_best_kernels(torch)
+    it, run = phase_best_cli(torch, power_line)
+    eng = it.build_engine()
+    s, bk = eng.init_chains()
+    sync_checked(torch, eng, s, bk, BEST_SYNC_GENS)
+    log(f"finch: no host sync in a {BEST_SYNC_GENS}-gen block or in any of "
+        f"the {len(eng.moves)} move types "
+        f"({', '.join(m.name for m in eng.moves)})")
+    log(f"best group {time.perf_counter() - t0:.1f} s")
+    return err, cases, run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--test1-gens", type=int, default=TEST1_GENS)
@@ -4515,6 +4743,11 @@ def main(argv=None) -> int:
         # commands and per-chain moves, the fifteenth slice's main paths
         ana = phase_analyses(torch, ds, power_line)
         done("analyses phases")
+
+    if "best" in groups:
+        # 53.-55. BEST on finch, the sixteenth slice's main path
+        err_best, best_cases, best_run = phase_best(torch, power_line)
+        done("best phases")
 
     if groups != set(PHASE_GROUPS):
         # a chosen subset: every kernel named, its numbers in the groups'
@@ -4772,6 +5005,19 @@ def main(argv=None) -> int:
         "avian": {k: avian[k] for k in aa_keys + ("aamodel_shares",)},
         "replicase_ny98": {k: ny98[k] for k in aa_keys},
         "prior_only": aa_prior,
+        "card": power_line,
+    }, {
+        **KERNEL_IDS[6],
+        "launches": best_run["stacked_launches"],
+        "gens": BEST_GENS,
+        "max_abs_err": err_best,
+        **{k: best_cases["finch_c8"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "loop_ms", "pruning_down_per_gene_ms", "operands_ms", "threads",
+            "T", "lanes", "smem_bytes", "walks", "tiles")},
+        "shape": best_cases["finch_c8"]["shape"],
+        "cases": best_cases,
+        "finch": best_run,
         "card": power_line,
     }]
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")

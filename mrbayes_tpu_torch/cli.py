@@ -3,14 +3,15 @@ the GPU.
 
 Counterpart of ``mrbayes_tpu/cli.py``: execute, set, charset, taxset,
 partition, exclude/include, delete/restore, outgroup, ctype, constraint,
-calibrate, pairs, usertree, lset, prset, propset, startvals,
-link/unlink, report, mcmc/mcmcp, ss/ssp, sump (``plot=yes`` too), sumt
-(one consensus a tree under ``unlink topology brlens``), sumss, plot,
-comparetree, compareref, the informational commands (show*, charstat,
-taxastat, databreaks, citations, about, acknowledgments, disclaimer,
-showbeagle, showmcmctrees, version, log, help, manual) and quit.  The
-multispecies coalescent (``speciespartition`` and its prset keys) raises
-``CommandError`` naming the ROADMAP item that brings it.  Batch
+calibrate, pairs, usertree, speciespartition, lset, prset (the
+multispecies coalescent's ``topologypr=speciestree``,
+``brlenspr=clock:speciestree``, ``generatepr``, ``popvarpr`` and
+``ploidy`` too), propset, startvals, link/unlink, report, mcmc/mcmcp,
+ss/ssp, sump (``plot=yes`` too), sumt (one consensus a tree under
+``unlink topology brlens``), sumss, plot, comparetree, compareref, the
+informational commands (show*, charstat, taxastat, databreaks, citations,
+about, acknowledgments, disclaimer, showbeagle, showmcmctrees, version,
+log, help, manual) and quit.  Batch
 mode: ``python -m mrbayes_tpu_torch.cli file.nex`` (on the GPU; add
 ``--device cpu`` to run on the CPU, and ``--multiwalk``, ``--wavefront``
 or ``--stacked`` to turn on a kernel path, see ``Engine``); interactive
@@ -46,6 +47,10 @@ class Environment:
     # name -> (hard|negative|partial, taxon mask, second mask or None)
     constraints: dict = field(default_factory=dict)
     calibrations: dict = field(default_factory=dict)  # taxon/name -> Prior
+    # speciespartition name -> [(species name, taxon tokens)], and the
+    # active one (set speciespartition=)
+    speciespartitions: dict = field(default_factory=dict)
+    current_speciespartition: str | None = None
     enforced_constraints: list = field(default_factory=list)  # names
     current_partition: str | None = None
     # settings per user-division (list index = user division)
@@ -98,21 +103,10 @@ PARAM_ALIASES = {
     "topology": "topology", "brlens": "brlens", "aamodel": "aamodel",
 }
 
-# commands of mrbayes_tpu/cli.py not carried yet -> their ROADMAP item
-NOT_PORTED = {"speciespartition": "Queue 1 item 14e"}
-# prset parameters not carried yet -> their ROADMAP item
-PRSET_NOT_PORTED = dict.fromkeys(("generatepr", "popvarpr", "ploidy"),
-                                 "Queue 1 item 14e")
-
 
 # aamodelpr=fixed(<name>) (mrbayes_tpu cli.py:749-760)
 AA_MODEL_NAMES = ("poisson", "jones", "dayhoff", "mtrev", "mtmam", "wag",
                   "rtrev", "cprev", "vt", "blosum", "lg", "equalin", "gtr")
-
-
-def _not_ported(what: str, item: str) -> CommandError:
-    return CommandError(f"{what} is not ported to mrbayes_tpu_torch yet "
-                        f"(ROADMAP {item})")
 
 
 class Interpreter:
@@ -174,12 +168,6 @@ class Interpreter:
         if handler is None:
             handler = self._abbrev_handler(name)
         if handler is None:
-            item = NOT_PORTED.get(name) or next(
-                (v for k, v in NOT_PORTED.items() if k.startswith(name)),
-                None)
-            if item is not None:
-                self.log(f"   [!] Command \"{name}\" is not ported yet")
-                raise _not_ported(f"command {name!r}", item)
             # the reference rejects unknown commands ("Could not find
             # command", src/command.c FindValidCommand)
             self.log(f"   [!] Could not find command \"{name}\"")
@@ -335,7 +323,13 @@ class Interpreter:
                 self.log(f"   Setting partition to {matches[0]} "
                          f"({self.env.n_user_divs()} divisions)")
             elif key == "speciespartition":
-                raise _not_ported("set speciespartition", NOT_PORTED[key])
+                matches = [p for p in self.env.speciespartitions
+                           if p.lower() == val[0].lower()]
+                if not matches:
+                    raise CommandError(
+                        f"unknown speciespartition {val[0]!r}")
+                self.env.current_speciespartition = matches[0]
+                self.log(f"   Setting speciespartition to {matches[0]}")
             # the remaining keys are accepted with no effect
 
     def do_charset(self, args, base_dir):
@@ -474,6 +468,31 @@ class Interpreter:
         for key, val in self._kv_pairs(args):
             self.env.calibrations[key.lower()] = self._parse_prior(val)
 
+    def do_speciespartition(self, args, base_dir):
+        """speciespartition <name> = <species>: <taxa>, ... assigns the
+        taxa to species for a BEST analysis (reference
+        DoSpeciespartition, src/command.c; mrbayes_tpu cli.py:422-453)."""
+        name = args[0]
+        rest = args[1:]
+        if rest and rest[0] == "=":
+            rest = rest[1:]
+        groups: list[tuple[str, list[str]]] = []
+        i = 0
+        while i < len(rest):
+            if i + 1 < len(rest) and rest[i + 1] == ":":
+                groups.append((rest[i], []))
+                i += 2
+                continue
+            if rest[i] != "," and groups:
+                groups[-1][1].append(rest[i])
+            i += 1
+        if not groups:
+            raise CommandError("expected 'speciespartition name = "
+                               "Species: taxa, ...'")
+        self.env.speciespartitions[name] = groups
+        self.log(f"   Defined speciespartition \"{name}\" with "
+                 f"{len(groups)} species")
+
     def do_partition(self, args, base_dir):
         # partition name = N: ranges, ranges, ...
         name = args[0]
@@ -571,7 +590,7 @@ class Interpreter:
     PRSET_KEYS = ("applyto", "statefreqpr", "revmatpr", "tratiopr",
                   "shapepr", "pinvarpr", "ratepr", "brlenspr", "topologypr",
                   *CLOCK_KEYS, *AA_CODON_KEYS, *COVARION_ROOT_KEYS,
-                  *FAMILY_KEYS, *PRSET_NOT_PORTED)
+                  *FAMILY_KEYS, "generatepr", "popvarpr", "ploidy")
 
     def do_prset(self, args, base_dir):
         pairs = self._kv_pairs(args)
@@ -580,8 +599,6 @@ class Interpreter:
             key = self._canon_strict(key, self.PRSET_KEYS, "prset")
             if key == "applyto" or not val:
                 continue
-            if key in PRSET_NOT_PORTED:
-                raise _not_ported(f"prset {key}", PRSET_NOT_PORTED[key])
             if key == "brlenspr":
                 self._set_brlenspr(val)
                 continue
@@ -592,11 +609,18 @@ class Interpreter:
             if key in self.CLOCK_KEYS:
                 self._set_clock_key(key, prior)
                 continue
+            if key in ("popvarpr", "ploidy"):
+                # BEST's theta per population or shared, and the ploidy
+                # factor (mrbayes_tpu cli.py:776-779)
+                setattr(self.env.tree_settings, key, prior.kind)
+                continue
             for d in targets:
                 s = self.env.div_settings[d]
-                if key == "ratepr":
-                    s.ratepr = ("variable" if prior.kind.startswith("var")
-                                or prior.kind == "dirichlet" else "fixed")
+                if key in ("ratepr", "generatepr"):
+                    # generatepr: BEST's per-gene rate multipliers
+                    # (mrbayes_tpu cli.py:734-738)
+                    setattr(s, key, "variable" if prior.kind.startswith(
+                        "var") or prior.kind == "dirichlet" else "fixed")
                 elif key == "aamodelpr":
                     if prior.kind == "fixed" and prior.params:
                         name = str(prior.params[0]).lower()
@@ -649,10 +673,12 @@ class Interpreter:
             sub = text.split(":", 1)[1] if ":" in text else "uniform"
             kind = sub.split("(")[0]
             if kind in ("speciestree", "speciestreecoalescence"):
-                raise _not_ported(f"brlenspr=clock:{kind}",
-                                  "Queue 1 item 14e")
-            if kind not in ("uniform", "birthdeath", "coalescence",
-                            "fossilization"):
+                # BEST: gene trees under the multispecies coalescent in a
+                # species tree (mrbayes_tpu cli.py:855-859)
+                ts.speciestree = True
+                kind = "uniform"
+            elif kind not in ("uniform", "birthdeath", "coalescence",
+                              "fossilization"):
                 raise CommandError(f"unknown clock prior {kind!r}")
             ts.clock = True
             ts.clockpr = kind
@@ -671,10 +697,10 @@ class Interpreter:
             setattr(ts, key, prior)
 
     def _set_topologypr(self, prior):
-        """topologypr=uniform|constraints(<names>) (mrbayes_tpu
-        cli.py:765-773); speciestree is item 14e's."""
+        """topologypr=uniform|constraints(<names>)|speciestree
+        (mrbayes_tpu cli.py:765-775)."""
         if prior.kind == "speciestree":
-            raise _not_ported("topologypr=speciestree", "Queue 1 item 14e")
+            self.env.tree_settings.speciestree = True
         self.env.enforced_constraints = (
             [str(p).lower() for p in prior.params]
             if prior.kind == "constraints" else [])
@@ -826,6 +852,7 @@ class Interpreter:
         ds = DataSet(taxa=taxa, nchar=matrix.nchar, divisions=divisions,
                      charsets=env.charsets, taxsets=taxsets)
         self._wire_dating(taxa, keep)
+        self._wire_species_partition(keep)
         div_settings = [replace(env.div_settings[d.user_index])
                         for d in divisions]
         for s in div_settings:
@@ -847,6 +874,28 @@ class Interpreter:
         for note in eng.notes:
             self.log(f"   [{note}]")
         return eng
+
+    def _wire_species_partition(self, keep: np.ndarray):
+        """The active speciespartition on the analysis's taxa (after
+        ``delete``: ``keep`` masks the matrix's taxa) into TreeSettings
+        when topologypr=speciestree (mrbayes_tpu cli.py:952-973)."""
+        env = self.env
+        ts = env.tree_settings
+        if not ts.speciestree:
+            return
+        if not env.current_speciespartition:
+            raise CommandError(
+                "topologypr=speciestree requires 'speciespartition <name> "
+                "= ...' and 'set speciespartition=<name>'")
+        remap = np.cumsum(keep) - 1
+        parts = []
+        for spname, toks in env.speciespartitions[
+                env.current_speciespartition]:
+            kept = [int(remap[i]) for i in self._expand_taxa(toks)
+                    if keep[i]]
+            if kept:
+                parts.append((spname, kept))
+        ts.species_partition = parts
 
     def _start_tree(self, taxa: list[str]):
         """The user tree that ``startvals tau=`` names, on the analysis's

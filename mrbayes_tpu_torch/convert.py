@@ -14,7 +14,10 @@ restriction division's ``pi2``, the directional root frequencies
 int64 here), the covarion switch rates ``covswitch`` [C, G, 2], the
 adgamma correlation ``ratecorr``, the kmixture simplex ``mixtrates``,
 symdirihyperpr's ``symbeta`` and multistate frequencies ``sympi<k>`` and
-the Brownian variance rate ``brownscale`` cross as they are.  A covarion
+the Brownian variance rate ``brownscale`` cross as they are, and so do a
+BEST state's gene trees ``left``/``right``/``parent`` (int64 here) and
+``age`` [C, G, n_nodes], its species tree ``s_left``/``s_right``/
+``s_parent``/``s_age`` [C, 2S-1] and its ``popsize``.  A covarion
 or symdirihyperpr division has no eigensystem cache in the JAX package
 (it rebuilds its eigensystems in every likelihood); the port keeps one
 (a binary symdiri character's category frequencies ``eigP{i}`` beside

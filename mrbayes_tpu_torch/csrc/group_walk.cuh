@@ -1,7 +1,8 @@
 // What the stacked kernel (stacked.cu) and the multiwalk kernel
-// (multiwalk.cu) share: a group of divisions that share one tree, every
-// (division, chain, pattern tile) in one launch (two where a division
-// takes the global-scratch walk).
+// (multiwalk.cu) share: a group of divisions that share one tree (or, in
+// stacked.cu, that each have their own), every (division, chain, pattern
+// tile) in one launch (two where a division takes the global-scratch
+// walk).
 //
 // Block (c, y) of either kernel is chain c of tile y, T_d patterns of one
 // division d, found through a tile map [n_tiles, 2] = (division, first
@@ -12,7 +13,11 @@
 // of the division's operators [C, n_int, 2, K_d, S_d, S_d], tips
 // [n_tips, S_d, P_d], root partials [C, K_d, S_d, P_d], log-scales
 // [C, P_d] and scratch in the flat buffers, its walk and its lanes a
-// pattern G_d.  An on-chip block runs its division's own walk of
+// pattern G_d, and the element offset of the division's child slots lr in
+// their buffer: 0 for every member of a group that shares one tree
+// (lr [C, n_int, 2]), d * C * n_int * 2 for a group of gene trees, one
+// tree a member (lr [D, C, n_int, 2], the BEST likelihood of
+// mcmc/engine.py).  An on-chip block runs its division's own walk of
 // onchip_walk.cuh at its own K_d and S_d; a global-scratch block runs
 // down_pass.cuh's walk, one thread a pattern, in a second kernel, so that
 // the on-chip kernel's registers are the on-chip walk's alone (scratch is
@@ -31,9 +36,9 @@
 
 namespace mb {
 
-// K, S, P, then the offsets of pstep, tips, root, ls, scratch, the walk
-// and the lanes of a pattern
-constexpr int kTable = 10;
+// K, S, P, then the offsets of pstep, tips, root, ls, scratch, the walk,
+// the lanes of a pattern and the offset of the member's lr block
+constexpr int kTable = 11;
 
 // Division d's chain c: its slots, operators, tips, root partials and
 // log-scales.
@@ -59,7 +64,7 @@ __device__ __forceinline__ Member tile_member(
   m.K = (int)t[0];
   m.S = (int)t[1];
   m.P = (int)t[2];
-  m.lr = lr + (long long)c * n_int * 2;
+  m.lr = lr + t[10] + (long long)c * n_int * 2;
   m.op = pstep + t[3] + (long long)c * n_int * 2 * m.K * m.S * m.S;
   m.tips = tips + t[4];
   m.root = root + t[5] + (long long)c * m.K * m.S * m.P;

@@ -28,6 +28,14 @@
 // sum_d C * n_int * 2 * 2*K_d*S_d^2 * P_d FLOPs (14.0 MFLOP at cynmix's
 // group, C = 8), not the dense union's (sum_d K_d*S_d)^2 per pattern and
 // step that a block-diagonal operator would cost.
+//
+// The same launch carries the gene trees of a BEST analysis, one tree a
+// member: the table's last column points each member at its own block of
+// child slots (lr [D, C, n_int, 2], group_walk.cuh), which makes it the
+// counterpart of the JAX engine's vmapped pass over the genes
+// (mrbayes_tpu/mcmc/engine.py:_best_lnl_batched).  At finch's 30 loci (4
+// tips, S 4, K 1, 5-30 patterns each) every member is one tile, so a
+// launch is D * C blocks of one wave, bound by its launch.
 
 #include <cuda_runtime.h>
 
@@ -40,7 +48,7 @@ using mb::Member;
 
 // Block (c, y): chain c of on-chip tile y (division, first pattern).
 __global__ void __launch_bounds__(256)
-stacked_onchip_kernel(const int* __restrict__ lr,          // [C, n_int, 2]
+stacked_onchip_kernel(const int* __restrict__ lr,  // [(D,) C, n_int, 2]
                       const float* __restrict__ pstep,     // flat operators
                       const float* __restrict__ tips,      // flat tips
                       float* __restrict__ root,            // flat roots
@@ -79,7 +87,7 @@ stacked_onchip_kernel(const int* __restrict__ lr,          // [C, n_int, 2]
 // Block (c, y): chain c of global-scratch tile y, one thread a pattern (the
 // template set of pruning.cu's global walk).
 __global__ void __launch_bounds__(kThreads)
-stacked_global_kernel(const int* __restrict__ lr,          // [C, n_int, 2]
+stacked_global_kernel(const int* __restrict__ lr,  // [(D,) C, n_int, 2]
                       const float* __restrict__ pstep,     // flat operators
                       const float* __restrict__ tips,      // flat tips
                       float* __restrict__ scratch,         // flat scratch

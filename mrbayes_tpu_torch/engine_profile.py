@@ -18,6 +18,7 @@ Usage (from the repository root, on a machine with a CUDA GPU):
     python -m mrbayes_tpu_torch.engine_profile --config avian_covarion
     python -m mrbayes_tpu_torch.engine_profile --config primates_adgamma
     python -m mrbayes_tpu_torch.engine_profile --config cynmix_symdiri
+    python -m mrbayes_tpu_torch.engine_profile --config finch
     python -m mrbayes_tpu_torch.engine_profile [--config ...] --sites 4
 
 ``--config primates`` (the default) is primates GTR+I+G, 1 run;
@@ -37,8 +38,9 @@ restriction matrix under directional and mixed root frequencies),
 ``primates_adgamma`` primates under GTR with autocorrelated gamma rates,
 ``primates_lnorm_kmix`` its codon positions under lognormal and kmixture
 rates, ``cynmix_symdiri`` and ``cynmix_parsmodel`` cynmix's favored
-model with symdirihyperpr or the parsimony model on its morphology (each
-built through the CLI's commands,
+model with symdirihyperpr or the parsimony model on its morphology,
+``finch`` finch.nex's BEST analysis (30 gene trees; ``parts`` then times
+the gene stack's call) (each built through the CLI's commands,
 ``envelope.BATCHES``), 2
 runs, with the kernel-path switches as given.  ``--chains`` is the chain
 count per run; ``--sites k`` shards the engine's patterns over k site
@@ -185,7 +187,24 @@ def parts(eng, states, dev, reps):
     """ms of the likelihood, the eigensystem refresh and the kernel call
     (of division 0, on its own tree where trees are unlinked; its
     operators as its likelihood builds them), and for an adgamma division
-    0 the category HMM along the sites from its root partials."""
+    0 the category HMM along the sites from its root partials.  Under
+    BEST the gene stack's call on the gene trees' operands (or, where the
+    genes' shapes differ, gene 0's pruner on gene 0's tree)."""
+    if eng.best and eng._gene_stack is not None:
+        gs = eng._gene_stack
+        ops = eng.gene_stack_operands(states)[:4]
+        launches = gs.launches
+        out = {"log_likelihood_ms": _ms_per_call(
+                   dev, lambda: eng.log_likelihood(states), reps),
+               "refresh_eigs_ms": _ms_per_call(
+                   dev, lambda: eng.refresh_eigs(states), reps),
+               "tiprobs_and_postorder_ms": _ms_per_call(
+                   dev, lambda: eng.gene_stack_operands(states), reps),
+               "pruner_call_ms": _ms_per_call(dev, lambda: gs(*ops), reps)}
+        gs.launches = launches      # these launches are not the main path's
+        return out
+    if eng.best:
+        states = eng.gene_view(states, 0)
     pr = eng._pruners[0]
     view = (eng.tree_view(states, eng.div_tree[0]) if eng.n_trees > 1
             else states)

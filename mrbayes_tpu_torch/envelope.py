@@ -30,9 +30,9 @@ kim.nex's stem-doublet model and its unlinked gene trees, primates and
 avian under the covarion model, the restriction matrix under
 directional and mixed root frequencies, primates under autocorrelated
 gamma and (by codon position) lognormal and kmixture rates, cynmix with
-symdirihyperpr or the parsimony model on its morphology, and simulated
-continuous traits the same way (``chip_smoke.py`` drives them on the
-card).
+symdirihyperpr or the parsimony model on its morphology, simulated
+continuous traits, and finch.nex's BEST analysis the same way
+(``chip_smoke.py`` drives them on the card).
 """
 from __future__ import annotations
 
@@ -54,6 +54,7 @@ AVIAN = os.path.join(EXAMPLES, "avian_ovomucoids.nex")
 REPLICASE = os.path.join(EXAMPLES, "replicase.nex")
 HYMFOSSIL = os.path.join(EXAMPLES, "hymfossil.nex")
 KIM = os.path.join(EXAMPLES, "kim.nex")
+FINCH = os.path.join(EXAMPLES, "finch.nex")
 RESTRICTION = os.path.join(HERE, os.pardir, "tests", "data", "restriction.nex")
 
 # test1's model commands, after its execute
@@ -217,7 +218,10 @@ BATCHES = {"test1": (PRIMATES, TEST1_MODEL), "test2": (PRIMATES, TEST2_MODEL),
            "primates_lnorm_kmix": (PRIMATES, PRIMATES_LNORM_KMIX_MODEL),
            "cynmix_symdiri": (CYNMIX, CYNMIX_SYMDIRI_MODEL),
            "cynmix_parsmodel": (CYNMIX, CYNMIX_PARSMODEL_MODEL),
-           "continuous": (None, CONTINUOUS_MODEL)}
+           "continuous": (None, CONTINUOUS_MODEL),
+           # finch.nex's own mrbayes block sets its BEST model (30 loci,
+           # popvarpr=variable, popsizepr=gamma(1,100))
+           "finch": (FINCH, ())}
 BATCH = """#NEXUS
 begin mrbayes;
     set autoclose=yes nowarn=yes;

@@ -50,8 +50,17 @@ clock rate), hard, negative and partial topology constraints with
 calibrated clade ages, ordered and unordered standard characters, and any
 number of runs and chains, from random, user (``start_tree``), parsimony
 or neighbor-joining starting trees with ``nperts`` random NNIs, with
-propset's ``move_overrides``.  The multispecies coalescent raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+propset's ``move_overrides``, and the multispecies coalescent (BEST,
+``topologypr=speciestree``; ``mcmc/best.py``): one dated clock tree a
+division (gene), ``left``, ``right``, ``parent`` and ``age`` [C, G,
+n_nodes], inside a species tree ``s_left``, ``s_right``, ``s_parent`` and
+``s_age`` [C, 2S-1] with population sizes ``popsize``.  When every gene
+has one plain nucleotide model shape, a likelihood is one P(t) assembly
+over the [G * C] gene trees and one ``stacked.cu`` launch with a tree a
+member (``ops/stacked_cuda.py:PruningCudaGeneStack``, the counterpart of
+the JAX engine's vmapped gene pass); otherwise each gene takes its own
+``pruning.cu`` launch.  The route is chosen when the engine is built and
+recorded in ``notes``.
 
 With one tree the tree fields ``left``, ``right``, ``parent`` and
 ``blen`` are ``[C, n_nodes]``; with ``n_trees > 1`` (unlinked topologies)
@@ -124,16 +133,17 @@ from ..ops.brownian import pic_logpdf
 from ..ops.multiwalk_cuda import PruningCudaMultiwalk
 from ..ops.pruning import (adgamma_loglik_from_cats, branch_tiprobs,
                            coding_tips, coding_total, constant_state_mask,
-                           division_loglik, make_pruner, root_clv,
-                           site_loglik_from_root)
+                           division_loglik, make_pruner, pinvar_mix,
+                           root_clv, site_loglik_from_root)
 from ..ops.pruning_cuda import check_kernel_shape
-from ..ops.stacked_cuda import PruningCudaStacked
+from ..ops.stacked_cuda import PruningCudaGeneStack, PruningCudaStacked
 from ..ops.traversal import ancestor_matrix, postorder_internal
 from ..ops.tiprobs import eigh_reversible
 from ..trees import (Tree, neighbor_joining, parsimony_stepwise,
                      pdistance_matrix, perturb_nni, random_clock_tree,
                      random_clock_tree_constrained, random_unrooted,
                      random_unrooted_constrained)
+from . import best as B
 from . import clock as CL
 from . import mixed_gtr as MG
 from . import moves as M
@@ -166,6 +176,8 @@ PI_FIELDS = ("pi", "pi20", "pi61", "pi16", "pi2")
 # the tree fields a non-clock tree move changes; [C, n_trees, n_nodes]
 # with unlinked trees
 TREE_FIELDS = ("left", "right", "parent", "blen")
+# a BEST gene tree's fields, [C, G, n_nodes]
+GENE_FIELDS = ("left", "right", "parent", "age")
 
 
 @dataclass
@@ -292,12 +304,6 @@ def _switch(env: str, value: bool | None) -> bool:
     return os.environ.get(env, "0") == "1" if value is None else bool(value)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to mrbayes_tpu_torch yet (ROADMAP Queue 1 "
-        f"{item})")
-
-
 class Engine:
     """Builds and runs one analysis (the analog of SetUpAnalysis + DoMcmc,
     reference src/model.c:21386 / src/mcmc.c:2270).  ``device=None`` means
@@ -341,6 +347,7 @@ class Engine:
         # setup messages for the caller to print (the CLI logs them)
         self.notes: list[str] = []
         self._check_slice(div_settings, links)
+        self._build_species()
         self._build_dating()
         self._build_groups(div_settings, links)
         self._build_tree_groups(links)
@@ -355,9 +362,6 @@ class Engine:
     def _check_slice(self, div_settings, links):
         """Raise for every setting this slice of the port does not carry."""
         ts = self.tree_settings
-        if ts.speciestree:
-            raise _not_ported("the multispecies coalescent (BEST)",
-                              "item 14e")
         if ts.clock:
             if ts.clockpr not in ("uniform", "birthdeath", "coalescence",
                                   "fossilization"):
@@ -394,6 +398,27 @@ class Engine:
             if s.rates not in ("equal", "gamma", "propinv", "invgamma",
                                "lnorm", "adgamma", "kmixture"):
                 raise ValueError(f"rates={s.rates}")
+
+    def _build_species(self):
+        """BEST's static wiring (mrbayes_tpu engine.py:169-181): the
+        species names and each tip's species, on the host and the
+        device."""
+        ts = self.tree_settings
+        self.best = bool(ts.speciestree)
+        if not self.best:
+            return
+        if not ts.species_partition:
+            raise ValueError("topologypr=speciestree requires a "
+                             "speciespartition")
+        self.n_species = len(ts.species_partition)
+        self.species_names = [nm for nm, _ in ts.species_partition]
+        tip_sp = np.full(self.n_tips, -1, np.int64)
+        for si, (_, idxs) in enumerate(ts.species_partition):
+            tip_sp[list(idxs)] = si
+        if (tip_sp < 0).any():
+            raise ValueError("speciespartition must cover every taxon")
+        self.tip_species_host = tip_sp
+        self.tip_species = torch.as_tensor(tip_sp, device=self.device)
 
     def _build_dating(self):
         """Static dating and constraint wiring (mrbayes_tpu engine.py:234):
@@ -682,8 +707,14 @@ class Engine:
         # directional root frequencies force a rooted non-clock tree
         # (TOPOLOGY_RNCL_*, src/model.c:20126; mrbayes_tpu engine.py:649)
         self.rooted_nonclock = any(c.directional for c in self.div_cfg)
-        # per-division rate multipliers (reference ratepr=variable)
-        self.ratemult_on = any(s.ratepr == "variable" for s in div_settings)
+        # per-division rate multipliers (reference ratepr=variable); BEST's
+        # generatepr=variable gives each gene one through the same
+        # machinery, printed as g_m{i} (mrbayes_tpu engine.py:654-662;
+        # reference Move_GeneRate_Dir, src/proposal.c:5537)
+        self.generate_on = self.best and any(s.generatepr == "variable"
+                                             for s in div_settings)
+        self.ratemult_on = (any(s.ratepr == "variable" for s in div_settings)
+                            or self.generate_on)
         # priors per group: use the first division that defined the group
         self.group_priors: dict[tuple, Prior] = {}
         for cfg in self.div_cfg:
@@ -802,9 +833,13 @@ class Engine:
         (mrbayes_tpu engine.py:356-385; reference SetModelParams, one tree
         parameter per unlinked group, src/model.c:19026): the tree groups
         are the refinement of the two link vectors.  With one group the
-        state keeps the flat [C, n_nodes] layout."""
+        state keeps the flat [C, n_nodes] layout.  BEST's gene trees are
+        its own fields: ``unlink topology`` is implied there (finch.nex
+        states it) and forms no groups (mrbayes_tpu engine.py:366)."""
         self.n_trees = 1
         self.div_tree = [0] * self.n_div
+        if self.best:
+            return
         tlink = (links or {}).get("topology")
         blink = (links or {}).get("brlens")
         if tlink is None and blink is None:
@@ -976,6 +1011,55 @@ class Engine:
         self.div_char_frac = w / w.sum()   # ratemult weighting
         self._build_multiwalk_pruners()
         self._build_stacked_pruners()
+        self._build_gene_stack()
+
+    def _build_gene_stack(self):
+        """BEST's likelihood route (mrbayes_tpu engine.py:1055-1091): when
+        every gene runs one plain nucleotide model shape (JAX's condition),
+        one ``PruningCudaGeneStack`` over the genes' tips, with each gene's
+        weights (and constant-pattern masks under pinvar) padded to the
+        longest gene with weight 0; otherwise each gene through its own
+        pruner.  Chosen here, from the static shapes, and noted."""
+        self._gene_stack = None
+        if not self.best:
+            return
+        c0 = self.div_cfg[0]
+        same = self.n_div >= 2 and all(
+            c.div.dtype in (DataType.DNA, DataType.RNA)
+            and c.codon is None and not c.doublet and not c.parsimony
+            and not c.covarion and c.ratecorr_group < 0
+            and c.mixt_group < 0 and c.coding == "all"
+            and c.div.n_states == c0.div.n_states
+            and c.n_cats == c0.n_cats
+            and c.settings.rates == c0.settings.rates
+            and (c.pinvar_group >= 0) == (c0.pinvar_group >= 0)
+            for c in self.div_cfg)
+        if not same:
+            self.notes.append(f"BEST likelihood: {self.n_div} gene(s), one "
+                              f"pruning.cu launch a gene (their model "
+                              f"shapes differ)")
+            return
+        G = self.n_div
+        tips = [self._model_tips[i] for i in range(G)]
+        self._gene_stack = PruningCudaGeneStack(tips, c0.n_cats, self.device)
+        Pm = self._gene_stack.P_max
+
+        def pad(x):
+            x = np.asarray(x, np.float32)
+            return np.pad(x, [(0, Pm - x.shape[0])] + [(0, 0)] * (x.ndim - 1))
+
+        dev = self.device
+        self._gene_wpad = torch.as_tensor(np.stack(
+            [pad(self.weights[i].cpu()) for i in range(G)]), device=dev)
+        self._gene_cmask = (torch.as_tensor(np.stack(
+            [pad(self.const_masks[i].cpu()) for i in range(G)]), device=dev)
+            if c0.pinvar_group >= 0 else None)
+        self._gene_frac = torch.as_tensor(
+            self.div_char_frac.astype(np.float32), device=dev)
+        self.notes.append(f"BEST likelihood: {G} gene trees in one "
+                          f"stacked.cu launch a likelihood (patterns "
+                          f"{sum(self._gene_stack.layout.ps)}, K "
+                          f"{c0.n_cats}, S {c0.div.n_states})")
 
     def _adgamma_maps(self, div):
         """The adgamma HMM's static site-order maps (mrbayes_tpu
@@ -1117,6 +1201,10 @@ class Engine:
         formed (the JAX package's rule, engine.py:946-948, :1023), every
         division takes its own ``pruning.cu`` launch on its own tree, and
         ``notes`` says so for a switch that was asked for."""
+        if self.best:
+            self.notes.append(f"{switch} path off: BEST gene trees (see "
+                              f"the BEST likelihood route)")
+            return True
         if self.n_trees == 1:
             return False
         self.notes.append(f"{switch} path off: {self.n_trees} unlinked "
@@ -1211,6 +1299,9 @@ class Engine:
         def wrap(base):
             return partial(base, n_tips=n)
 
+        if self.best:
+            self._finish_moves(self._best_moves())
+            return
         if self.tree_settings.clock:
             self._finish_moves(self._clock_moves(wrap))
             return
@@ -1337,25 +1428,91 @@ class Engine:
                 MoveSpec("treelen_mult", rooted(M.move_treelen_multiplier),
                          2.0, lam, 0.25, 1, 1e-3, 10.0)]
 
-    def _tree_move(self, base, tree: int | None = None):
-        """A tree move on unlinked trees (mrbayes_tpu engine.py:1430-1450):
-        each chain applies ``base`` to one of its trees, ``tree`` or one
-        drawn uniformly on the device, and its other trees stay as they
-        were."""
-        T = self.n_trees
+    def _tree_move(self, base, tree: int | None = None, fields=TREE_FIELDS,
+                   n_trees: int | None = None):
+        """A tree move on unlinked trees (mrbayes_tpu engine.py:1430-1450)
+        or on BEST's gene trees (``fields`` GENE_FIELDS, ``n_trees`` the
+        genes; engine.py:1215-1230): each chain applies ``base`` to one of
+        its trees, ``tree`` or one drawn uniformly on the device, and its
+        other trees stay as they were.  A field the move leaves unchanged
+        keeps its tensor."""
+        T = n_trees or self.n_trees
 
         def mv(gen, state, tuning):
             parent = state["parent"]
             rows = torch.arange(parent.shape[0], device=parent.device)
             g = (M.pick_group(gen, parent, T) if tree is None
                  else torch.full_like(rows, tree))
-            sub, lnH = base(gen, {f: state[f][rows, g] for f in TREE_FIELDS},
-                            tuning)
+            old = {f: state[f][rows, g] for f in fields}
+            sub, lnH = base(gen, old, tuning)
             out = dict(state)
-            for f in TREE_FIELDS:
-                out[f] = state[f].index_put((rows, g), sub[f])
+            for f in fields:
+                if sub[f] is not old[f]:
+                    out[f] = state[f].index_put((rows, g), sub[f])
             return out, lnH
         return mv
+
+    def _best_moves(self):
+        """BEST's moves with the JAX package's weights, tunings and bounds
+        (mrbayes_tpu engine.py:1210-1290): the clock moves on one gene tree
+        a chain drawn on the device (reference Move_GeneTree1-3 and
+        Move_NodeSliderGeneTree, src/best.c:1113-1714; the MSC prior
+        rejects an inconsistent gene tree), the depth-matrix species-tree
+        move (Move_SpeciesTree, src/best.c:1715), the clock moves on the
+        species tree, the population sizes' multiplier and, under
+        birthdeath, its parameters' moves.  Registered before
+        ``_finish_moves``' split, they all take the tree scope: each
+        changes only inputs of ``log_prior_tree``."""
+        n, S = self.n_tips, self.n_species
+        lam = 2.0 * np.log(1.6)
+
+        def gene(base):
+            return self._tree_move(partial(base, n_tips=n),
+                                   fields=GENE_FIELDS, n_trees=self.n_div)
+
+        def species(base):
+            names = {"left": "s_left", "right": "s_right",
+                     "parent": "s_parent", "age": "s_age"}
+
+            def mv(gen, state, tuning):
+                sub, lnH = base(gen, {k: state[v] for k, v in names.items()},
+                                tuning, n_tips=S)
+                return {**state, **{v: sub[k] for k, v in names.items()}}, lnH
+            return mv
+
+        def param(base):
+            return partial(base, n_tips=n)
+
+        mk = [MoveSpec("gene_nni", gene(CL.move_nni_clock), 5.0, 0.0,
+                       tunable=False),
+              MoveSpec("gene_spr", gene(CL.move_spr_clock), 5.0, 0.0,
+                       tunable=False),
+              MoveSpec("gene_age_slider", gene(CL.move_age_slider), 15.0,
+                       0.0, tunable=False),
+              MoveSpec("gene_root_age", gene(CL.move_root_age), 3.0,
+                       2.0 * np.log(1.2), 0.25, 1, 1e-4, 10.0),
+              MoveSpec("gene_tree_stretch", gene(CL.move_tree_stretch), 3.0,
+                       2.0 * np.log(1.1), 0.25, 1, 1e-4, 5.0),
+              MoveSpec("sp_distmatrix", B.make_species_tree_move(
+                  S, self.tip_species, n), 10.0, 1.2, 0.25, 1, 1e-4, 20.0),
+              MoveSpec("sp_nni", species(CL.move_nni_clock), 3.0, 0.0,
+                       tunable=False),
+              MoveSpec("sp_spr", species(CL.move_spr_clock), 2.0, 0.0,
+                       tunable=False),
+              MoveSpec("sp_age_slider", species(CL.move_age_slider), 6.0,
+                       0.0, tunable=False),
+              MoveSpec("sp_root_age", species(CL.move_root_age), 2.0,
+                       2.0 * np.log(1.2), 0.25, 1, 1e-4, 10.0),
+              MoveSpec("popsize_mult", param(M.make_multiplier_move(
+                  "popsize", 1e-8, 1e8)), 3.0, lam, 0.25, 1, 1e-3, 20.0)]
+        if self.tree_settings.clockpr == "birthdeath":
+            mk += [MoveSpec("speciation_mult", param(M.make_multiplier_move(
+                       "speciation", 1e-6, 1e4)), 1.5, lam, 0.25, 1, 1e-3,
+                       20.0),
+                   MoveSpec("extinction_slider", param(M.make_slider_move(
+                       "extinction", 0.0, 1.0)), 1.5, 0.2, 0.25, 1, 1e-3,
+                       1.0)]
+        return mk
 
     def _clock_moves(self, wrap):
         """The clock tree's moves with the JAX package's weights, tunings
@@ -1944,7 +2101,10 @@ class Engine:
         from ``rng``, then ``nperts`` random NNIs (the same draws as the
         JAX package's init_state, mrbayes_tpu engine.py:2013-2044), plus
         the substitution-parameter defaults.  A clock model starts from a
-        random clock tree instead."""
+        random clock tree instead, and BEST from its species and gene
+        trees."""
+        if self.best:
+            return self._init_substitution_state(self._init_best_state(rng))
         if self.tree_settings.clock:
             return self._init_substitution_state(self._init_clock_state(rng))
 
@@ -2116,6 +2276,41 @@ class Engine:
             if self._samples_ancestors():
                 # the ancestral-fossil flags: every fossil starts as a tip
                 st["sa"] = np.zeros(self.n_tips, np.int64)
+        return st
+
+    def _init_best_state(self, rng):
+        """BEST's starting trees (``best.init_compatible_trees``, the same
+        numpy draws as the JAX package), the population sizes at their
+        prior's centre (a gamma's mean, a lognormal's exp(mu), a uniform's
+        midpoint, an exponential's mean 1/rate) and, under birthdeath, its
+        parameters (mrbayes_tpu engine.py:1918-1952)."""
+        ts = self.tree_settings
+        (st_sp, s_ages), genes = B.init_compatible_trees(
+            self.n_tips, self.n_species, self.tip_species_host, rng,
+            self.n_div)
+
+        def stacked(attr):
+            return np.stack([np.asarray(getattr(t, attr), np.int64)
+                             for t, _ in genes])
+
+        st = {"left": stacked("left"), "right": stacked("right"),
+              "parent": stacked("parent"),
+              "age": np.stack([np.asarray(a, np.float32) for _, a in genes]),
+              "s_left": np.asarray(st_sp.left, np.int64),
+              "s_right": np.asarray(st_sp.right, np.int64),
+              "s_parent": np.asarray(st_sp.parent, np.int64),
+              "s_age": np.asarray(s_ages, np.float32)}
+        m = 2 * self.n_species - 1 if ts.popvarpr == "variable" else 1
+        p = ts.popsizepr.params
+        n0 = {"gamma": lambda: p[0] / p[1],
+              "lognormal": lambda: float(np.exp(p[0])),
+              "uniform": lambda: 0.5 * (p[0] + p[1]),
+              "exponential": lambda: 1.0 / p[0]}.get(
+                  ts.popsizepr.kind, lambda: p[0] if p else 1.0)()
+        st["popsize"] = np.full(m, n0, np.float32)
+        if ts.clockpr == "birthdeath":
+            st["speciation"] = np.asarray([0.1], np.float32)
+            st["extinction"] = np.asarray([0.5], np.float32)
         return st
 
     def _init_substitution_state(self, st):
@@ -2446,15 +2641,23 @@ class Engine:
         """(Re)compute the cached eigensystems of divisions ``divs`` (every
         division when None).  The cache lives in the chain state so it
         rides accept/reject; only moves that change an eigensystem call
-        this (reference upDateCijk, src/likelihood.c:10476)."""
-        out = dict(state)
+        this (reference upDateCijk, src/likelihood.c:10476).  Plain
+        nucleotide divisions whose Q has the same inputs (``_eig_key``:
+        BEST's genes under one linked model) share one computation."""
+        out, done = dict(state), {}
         for i in range(self.n_div) if divs is None else divs:
             cfg = self.div_cfg[i]
             if i in self._const_eigs or not cfg.prunes:
                 continue
+            plain = (cfg.div.dtype in (DataType.DNA, DataType.RNA)
+                     and cfg.codon is None and not cfg.doublet
+                     and not cfg.covarion)
+            key = self._eig_key(i) if plain else ("own", i)
+            if key not in done:
+                done[key] = self._division_eig(state, i)
             # eigL, eigU, eigV and a binary symdiri character's category
             # frequencies eigP
-            for k, x in zip("LUVP", self._division_eig(state, i)):
+            for k, x in zip("LUVP", done[key]):
                 out[f"eig{k}{i}"] = x
         return out
 
@@ -2475,6 +2678,8 @@ class Engine:
         if not self.mcmc.use_data:
             # mcmc data=no: prior-only sampling
             return self._zeros(state)
+        if self.best:
+            return self._gene_lnls(state, self.weights).sum(0)
         total = 0.0
         for term in self._division_terms(state, self.weights):
             total = total + term
@@ -2486,8 +2691,116 @@ class Engine:
         weighted sums over patterns are taken in float64 (float64 weights
         promote them), so two paths compare below float32's spacing of a
         large division's total."""
-        return torch.stack(self._division_terms(
-            state, [w.double() for w in self.weights]), -1)
+        weights = [w.double() for w in self.weights]
+        if self.best:
+            return self._gene_lnls(state, weights).transpose(0, 1)
+        return torch.stack(self._division_terms(state, weights), -1)
+
+    def gene_blens(self, state):
+        """BEST's gene-tree branch lengths [C, G, n_nodes] from their ages,
+        with no clock rate (mrbayes_tpu engine.py:2366-2368)."""
+        par, age = state["parent"], state["age"]
+        return torch.where(par >= 0, age.gather(-1, par.clamp_min(0)) - age,
+                           0.0)
+
+    def gene_view(self, state, g: int):
+        """``state`` with gene g's tree fields [C, n_nodes]."""
+        return {**state, **{f: state[f][:, g] for f in GENE_FIELDS}}
+
+    def _gene_lnls(self, state, weights):
+        """Each gene's lnL [G, C] under the pattern ``weights``: through the
+        gene stack, or each gene through its own pruner (mrbayes_tpu
+        engine.py:2359-2373)."""
+        if self._gene_stack is None:
+            blen = self.gene_blens(state)
+            return torch.stack([self._division_lnL(
+                self.gene_view(state, i), i, blen[:, i], weights[i])
+                for i in range(self.n_div)])
+        return self._gene_stack_lnls(state, weights)
+
+    def _per_gene(self, state, key, value):
+        """[G, C, ...]: ``value(i)`` ([C|1, ...]) of every gene i, computed
+        once per distinct ``key(i)`` (the genes of one link group share
+        it)."""
+        C = state["parent"].shape[0]
+        cache, rows = {}, []
+        for i in range(self.n_div):
+            k = key(i)
+            if k not in cache:
+                x = value(i)
+                cache[k] = x.expand(C, *x.shape[1:])
+            rows.append(cache[k])
+        if len(cache) == 1:
+            return rows[0][None].expand(self.n_div, *rows[0].shape)
+        return torch.stack(rows)
+
+    def _eig_key(self, i):
+        """What division i's eigensystem depends on, a plain nucleotide
+        division being the gene stack's: its frequencies and rates."""
+        c = self.div_cfg[i]
+        return (c.pi_field, c.pi_group if c.pi_group >= 0 else ("fixed", i),
+                c.revmat_group, c.tratio_group, c.settings.nst)
+
+    def gene_stack_operands(self, state):
+        """The gene stack's inputs at ``state``: the G * C gene trees'
+        postorder, left and right [G * C, ...] (gene-major) and their
+        transition matrices P [G * C, n_nodes, K, S, S] in one
+        ``branch_tiprobs`` (the counterpart of the JAX engine's vmapped
+        P(t), engine.py:1093-1140), then each gene's root frequencies
+        [G, C, S] and pinvar ([G * C] or 0.0)."""
+        G, C = self.n_div, state["parent"].shape[0]
+        cfg = self.div_cfg
+
+        def flat(x):
+            return x.reshape(G * C, *x.shape[2:])
+
+        def trees(x):
+            return flat(x.transpose(0, 1))
+
+        lam, U, Uinv = (flat(self._per_gene(
+            state, self._eig_key,
+            lambda i, j=j: self._division_eig_cached(state, i)[j]))
+            for j in range(3))
+        pi = self._per_gene(state, lambda i: (cfg[i].pi_field,
+                                              cfg[i].pi_group
+                                              if cfg[i].pi_group >= 0 else i),
+                            lambda i: self._division_pi(state, i))
+        rates = flat(self._per_gene(
+            state, lambda i: cfg[i].shape_group,
+            lambda i: self._category_rates(state, cfg[i])))
+        pinv = 0.0
+        if self._gene_cmask is not None:
+            pinv = flat(self._per_gene(
+                state, lambda i: cfg[i].pinvar_group,
+                lambda i: state["pinvar"][:, cfg[i].pinvar_group]))
+        mult = (flat((state["ratemult"] / self._gene_frac).transpose(0, 1))
+                if self.ratemult_on else 1.0)
+        P = branch_tiprobs(trees(self.gene_blens(state)), lam, U, Uinv,
+                           rates, pinv, mult)
+        parent = trees(state["parent"])
+        return (postorder_internal(parent, self.n_tips), trees(state["left"]),
+                trees(state["right"]), P, pi, pinv)
+
+    def _gene_stack_lnls(self, state, weights):
+        """Every gene's lnL [G, C] in one pass: ``gene_stack_operands``,
+        one ``stacked.cu`` launch with a tree a member
+        (``PruningCudaGeneStack``) and one root reduction over the genes
+        padded to the longest, pad weight 0."""
+        G, C = self.n_div, state["parent"].shape[0]
+        gs = self._gene_stack
+        order, left, right, P, pi, pinv = self.gene_stack_operands(state)
+        root, ls = gs.padded(*gs(order, left, right, P))
+        pi_f = pi.reshape(G * C, -1)
+        ln_site = site_loglik_from_root(root, ls, pi_f, pinv, None)
+        if self._gene_cmask is not None:
+            const_l = torch.einsum("gps,gcs->gcp", self._gene_cmask, pi)
+            ln_site = pinvar_mix(ln_site, const_l.reshape(G * C, -1), pinv)
+        if weights is self.weights:
+            w = self._gene_wpad
+        else:
+            w = torch.stack([torch.nn.functional.pad(
+                x, (0, gs.P_max - x.shape[0])) for x in weights])
+        return (ln_site.view(G, C, -1) * w[:, None, :]).sum(-1)
 
     def _division_terms(self, state, weights):
         """Each data division's lnL [C] under the pattern ``weights``, in
@@ -2796,8 +3109,11 @@ class Engine:
     def branch_lengths(self, state):
         """Substitution-unit branch lengths [C, n_nodes]: the sampled
         ``blen``, or on a clock tree the lengths its ages and rates give
-        (mrbayes_tpu engine.py:2374-2378)."""
+        (mrbayes_tpu engine.py:2374-2378); under BEST the gene trees'
+        [C, G, n_nodes]."""
         ts = self.tree_settings
+        if self.best:
+            return self.gene_blens(state)
         if ts.clock:
             return CL.clock_blens(CL.pin_sa_ages(state, self.n_tips),
                                   self.n_tips, ts.clockvarpr)
@@ -2812,7 +3128,10 @@ class Engine:
         """Prior over the branch lengths of the unrooted tree (the
         uniform topology prior is a constant and dropped), summed over
         unlinked trees, or over a clock tree's ages, rates and
-        tree-process parameters."""
+        tree-process parameters (under BEST the joint gene-tree/species-
+        tree prior)."""
+        if self.best:
+            return self._log_prior_best(state)
         if self.tree_settings.clock:
             return self._log_prior_clock(state)
         if self.n_trees > 1:
@@ -2836,6 +3155,44 @@ class Engine:
             lp = brlens_uniform_lpdf(blen, self._blen_mask, bp.params[0],
                                      bp.params[1])
         return lp + self._constraint_terms(state)
+
+    def _log_prior_best(self, state):
+        """The joint gene-tree/species-tree prior (mrbayes_tpu
+        engine.py:2929-2975; reference LnJointGeneTreeSpeciesTreePr,
+        src/best.c:775): the MSC density of every gene in one batched call,
+        the species tree's clock prior (uniform or birth-death) with its
+        parameters' priors, the population sizes' prior, and -inf where a
+        parent is not older than its child in the species tree or any gene
+        tree."""
+        ts = self.tree_settings
+        S = self.n_species
+        M_sp = 2 * S - 1
+        pop = state["popsize"]
+        theta = B.ploidy_factor(ts.ploidy) * (
+            pop if ts.popvarpr == "variable" else pop[:, :1].expand(-1, M_sp))
+        lp = B.msc_gene_log_prior(state["parent"], state["age"],
+                                  self.tip_species, state["s_parent"],
+                                  state["s_age"], theta, self.n_tips,
+                                  S).sum(-1)
+
+        def treeage_lpdf(t1):
+            return _scalar_prior_lpdf(ts.treeagepr, t1)
+
+        if ts.clockpr == "birthdeath":
+            sp, ex = state["speciation"][:, 0], state["extinction"][:, 0]
+            lp = (lp + CL.ln_birthdeath(state["s_age"], S, sp, ex,
+                                        ts.sampleprob, treeage_lpdf)
+                  + _scalar_prior_lpdf(ts.speciationpr, sp)
+                  + _scalar_prior_lpdf(ts.extinctionpr, ex))
+        else:
+            lp = lp + CL.ln_uniform_clock(state["s_age"], S, treeage_lpdf)
+        lp = lp + _scalar_prior_lpdf(ts.popsizepr, pop).sum(-1)
+        ok = CL.ages_ordered({"age": state["s_age"],
+                              "parent": state["s_parent"]})
+        gene = CL.ages_ordered({"age": state["age"].flatten(0, 1),
+                                "parent": state["parent"].flatten(0, 1)})
+        ok = ok & gene.view(-1, self.n_div).all(1)
+        return torch.where(ok, lp, NEG_INF)
 
     def _log_prior_clock(self, state):
         """A clock tree's prior (mrbayes_tpu engine.py:2977-3050) on its
@@ -3197,12 +3554,34 @@ class Engine:
         return [int(r * nc + np.argmin(tid[r * nc:(r + 1) * nc]))
                 for r in range(self.mcmc.nruns)]
 
+    @property
+    def tree_taxa_labels(self) -> list[str]:
+        """Tip labels of the headline tree: the species names under BEST,
+        the taxa otherwise (mrbayes_tpu engine.py:3385-3388)."""
+        return self.species_names if self.best else list(self.data.taxa)
+
+    def extract_gene_tree(self, states, slot: int, gene: int) -> Tree:
+        """One chain's gene tree ``gene`` under BEST (``states`` tensors or
+        host arrays), its lengths the age differences in float64."""
+        age = _host(states["age"][slot, gene]).astype(np.float64)
+        parent = _host(states["parent"][slot, gene]).astype(np.int32)
+        blen = np.where(parent >= 0, age[np.maximum(parent, 0)] - age, 0.0)
+        return Tree(parent=parent,
+                    left=_host(states["left"][slot, gene]).astype(np.int32),
+                    right=_host(states["right"][slot, gene]).astype(np.int32),
+                    blen=blen, n_tips=self.n_tips, rooted=True)
+
     def effective_blens(self, states, slot: int,
                         tree: int = 0) -> np.ndarray:
         """One chain's substitution-unit branch lengths (of unlinked tree
-        ``tree``), float64 on the host (``states`` tensors or host arrays);
-        a clock tree's are computed from its ages and rates in float32, as
-        on the device."""
+        ``tree``; under BEST the species tree's age differences), float64
+        on the host (``states`` tensors or host arrays); a clock tree's are
+        computed from its ages and rates in float32, as on the device."""
+        if self.best:
+            age = _host(states["s_age"][slot]).astype(np.float64)
+            parent = _host(states["s_parent"][slot])
+            return np.where(parent >= 0, age[np.maximum(parent, 0)] - age,
+                            0.0)
         if not self.tree_settings.clock:
             blen = states["blen"][slot]
             return _host(blen[tree] if self.n_trees > 1
@@ -3215,7 +3594,16 @@ class Engine:
     def extract_tree(self, states, slot: int, tree: int = 0) -> Tree:
         """One chain's tree (unlinked tree ``tree``) as a host ``Tree``
         (``states`` tensors or host arrays), rooted for a clock model and
-        for the rooted non-clock tree of directional root frequencies."""
+        for the rooted non-clock tree of directional root frequencies; under
+        BEST the species tree on the species (mrbayes_tpu
+        engine.py:3419-3426)."""
+        if self.best:
+            return Tree(parent=_host(states["s_parent"][slot]).astype(
+                np.int32), left=_host(states["s_left"][slot]).astype(np.int32),
+                right=_host(states["s_right"][slot]).astype(np.int32),
+                blen=self.effective_blens(states, slot),
+                n_tips=self.n_species, rooted=True)
+
         def host(k):
             a = states[k][slot]
             return _host(a[tree] if self.n_trees > 1 else a).astype(np.int32)

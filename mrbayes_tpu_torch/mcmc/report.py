@@ -49,13 +49,18 @@ class Reporter:
     Divisions that cannot report (parsimony model, covarion, adgamma,
     symdiri, doublets) are skipped with JAX's log notes, as the reference
     enables printAncStates only for supported models
-    (src/mcmc.c:18012-18060)."""
+    (src/mcmc.c:18012-18060); a BEST run reports nothing
+    (mrbayes_tpu/mcmc/report.py:60-63)."""
 
     def __init__(self, eng: Engine, opts: dict, log=print):
         self.eng = eng
         self.log = log
         self.headers: list[str] = []
         self._div_plan: list[dict] = []
+        if eng.best:
+            if any(v == "yes" for v, _ in opts.values()):
+                log("   [report: not supported for BEST/speciestree runs]")
+            return
 
         def want(key):
             v = opts.get(key)

@@ -6,7 +6,9 @@ generations per block; at each block boundary the driver makes ONE
 device->host copy of the chain states (every state tensor packed into one
 buffer) and from it writes the ``.p``/``.t`` sample rows of each run's
 cold chain (one ``.tree<t>.run<r>.t`` file a tree under unlinked trees,
-with a ``TL{divisions}`` column each), updates the split counters for
+with a ``TL{divisions}`` column each; under BEST the species tree in
+``.run<r>.t`` and each gene tree in ``.run<r>.gene<g>.t``), updates the
+split counters for
 ASDSF (the worst tree's), prints progress and checkpoints.  File formats
 follow the reference (PreparePrintFiles src/mcmc.c:10427,
 PrintStatesToFiles :13186), so the reference's own sump/sumt can read
@@ -180,8 +182,11 @@ def param_columns(eng: Engine):
         cols.append(("brownScale" + suffix("brownscale", gid),
                      lambda st, s, g=gid: float(st["brownscale"][s, g])))
     if eng.ratemult_on:
+        # BEST's gene rates print as g_m{i} (reference P_GENETREERATE,
+        # src/model.c:20048; mrbayes_tpu run.py:246-252)
+        mname = "g_m" if eng.generate_on else "m"
         for d in range(n_div):
-            cols.append((f"m{{{d + 1}}}",
+            cols.append((f"{mname}{{{d + 1}}}",
                          lambda st, s, d=d: float(
                              st["ratemult"][s, d] / eng.div_char_frac[d])))
     return cols
@@ -218,6 +223,8 @@ def _clock_columns(eng: Engine, multi: bool):
     indicator), the tree-process parameters and the number of sampled
     ancestors."""
     ts = eng.tree_settings
+    if eng.best:
+        return _best_columns(eng)
     if not ts.clock:
         return []
     root = eng.n_nodes - 1
@@ -251,6 +258,26 @@ def _clock_columns(eng: Engine, multi: bool):
         if eng._samples_ancestors():
             cols.append(("nSampledAncestors",
                          lambda st, s: float(np.sum(st["sa"][s]))))
+    return cols
+
+
+def _best_columns(eng: Engine):
+    """BEST's columns after TL, where a clock model's TH is dropped
+    (mrbayes_tpu run.py:58-72): the species tree's height, the population
+    sizes (theta[k] with popvarpr=variable, one theta otherwise) and,
+    under birthdeath, its parameters."""
+    ts = eng.tree_settings
+    root = 2 * eng.n_species - 2
+    cols = [("speciesTreeHeight", lambda st, s: float(st["s_age"][s, root]))]
+    npop = 2 * eng.n_species - 1 if ts.popvarpr == "variable" else 1
+    for k in range(npop):
+        cols.append((f"theta[{k + 1}]" if npop > 1 else "theta",
+                     lambda st, s, k=k: float(st["popsize"][s, k])))
+    if ts.clockpr == "birthdeath":
+        cols += [("net_speciation",
+                  lambda st, s: float(st["speciation"][s, 0])),
+                 ("relative_extinction",
+                  lambda st, s: float(st["extinction"][s, 0]))]
     return cols
 
 
@@ -346,18 +373,35 @@ class McmcRunner:
                     for t in range(self.n_trees)]
         return [f"{self.prefix}.run{r + 1}.t"]
 
+    def _gene_paths(self, r: int) -> list[str]:
+        """Run r's gene-tree files under BEST, <prefix>.run<r>.gene<g>.t
+        (mrbayes_tpu run.py:387-395); none otherwise."""
+        if not self.eng.best:
+            return []
+        return [f"{self.prefix}.run{r + 1}.gene{g + 1}.t"
+                for g in range(self.eng.n_div)]
+
     def _open_files(self, append: bool, start_gen: int = 0):
         mode = "a" if append else "w"
-        self.pf, self.tf = [], []
+        self.pf, self.tf, self.gf = [], [], []
         seed_id = self.mc.seed
+
+        def tree_header(f, labels):
+            f.write(f"#NEXUS\n[ID: {seed_id:010d}]\n"
+                    "[Param: tree]\nbegin trees;\n   translate\n")
+            for i, name in enumerate(labels):
+                sep = "," if i < len(labels) - 1 else ";"
+                f.write(f"       {i + 1} {name}{sep}\n")
+
         for r in range(self.mc.nruns):
             base = f"{self.prefix}.run{r + 1}"
             if append:
                 self._truncate_after(base + ".p", start_gen, False)
-                for path in self._tree_paths(r):
+                for path in self._tree_paths(r) + self._gene_paths(r):
                     self._truncate_after(path, start_gen, True)
             pf = open(base + ".p", mode)
             tfs = [open(path, mode) for path in self._tree_paths(r)]
+            gfs = [open(path, mode) for path in self._gene_paths(r)]
             if not append:
                 pf.write(f"[ID: {seed_id:010d}]\n")
                 hdr = "Gen\tlnLike\tlnPrior\t" \
@@ -365,15 +409,13 @@ class McmcRunner:
                 if self.reporter is not None:
                     hdr += "\t" + "\t".join(self.reporter.headers)
                 pf.write(hdr + "\n")
-                labels = self.eng.data.taxa
                 for tf in tfs:
-                    tf.write(f"#NEXUS\n[ID: {seed_id:010d}]\n"
-                             "[Param: tree]\nbegin trees;\n   translate\n")
-                    for i, name in enumerate(labels):
-                        sep = "," if i < len(labels) - 1 else ";"
-                        tf.write(f"       {i + 1} {name}{sep}\n")
+                    tree_header(tf, self.eng.tree_taxa_labels)
+                for gf in gfs:
+                    tree_header(gf, self.eng.data.taxa)
             self.pf.append(pf)
             self.tf.append(tfs)
+            self.gf.append(gfs)
         self.mcmcf = open(f"{self.prefix}.mcmc", mode)
         if not append:
             self.mcmcf.write(f"[ID: {seed_id:010d}]\n")
@@ -383,7 +425,7 @@ class McmcRunner:
         """Close the .p, .t (ending its trees block) and .mcmc files."""
         for f in self.pf:
             f.close()
-        for f in (f for tfs in self.tf for f in tfs):
+        for f in (f for tfs in self.tf + self.gf for f in tfs):
             f.write("end;\n")
             f.close()
         self.mcmcf.close()
@@ -440,6 +482,10 @@ class McmcRunner:
                 self.tf[r][ti].write(f"   tree gen.{gen} = {_rooting(t)} "
                                      + to_newick(t, numbers=True) + "\n")
                 self.splits[ti].add(r, t)
+            for g, gf in enumerate(self.gf[r]):
+                gt = self.eng.extract_gene_tree(host, slot, g)
+                gf.write(f"   tree gen.{gen} = [&R] "
+                         + to_newick(gt, numbers=True) + "\n")
             self.param_samples[r].append(
                 dict(zip(["Gen", "lnLike", "lnPrior"]
                          + [n for n, _ in self.cols], [gen, lnL, lnP] + vals)))
@@ -474,7 +520,7 @@ class McmcRunner:
         lines = ["#NEXUS", f"[ID: {mc.seed:010d}]", f"[generation: {gen}]",
                  f"[seed: {mc.seed}]", f"[swapseed: {mc.swapseed}]",
                  "begin trees;", "   translate"]
-        labels = self.eng.data.taxa
+        labels = self.eng.tree_taxa_labels
         for i, name in enumerate(labels):
             sep = "," if i < len(labels) - 1 else ";"
             lines.append(f"       {i + 1} {name}{sep}")

@@ -228,8 +228,6 @@ def site_loglik_from_root(root, logscale, pi, pinv, const_mask,
     ln_var = torch.log(torch.clamp_min(site_l, _TINY)) + logscale
     if const_mask is None:
         return ln_var
-    pinv = (pinv.reshape(-1, 1) if torch.is_tensor(pinv)
-            else ln_var.new_full((1, 1), pinv))               # [C|1, 1]
     if pi.ndim == 3:
         # per-category frequencies: the constant patterns' categories
         # weighted as the variable ones'
@@ -237,6 +235,16 @@ def site_loglik_from_root(root, logscale, pi, pinv, const_mask,
             "ps,cks->ckp", const_mask, pi)).sum(-2)
     else:
         const_l = torch.einsum("ps,cs->cp", const_mask, pi)
+    return pinvar_mix(ln_var, const_l, pinv)
+
+
+def pinvar_mix(ln_var, const_l, pinv) -> torch.Tensor:
+    """The proportion-of-invariable-sites mixture [C, P] of the variable
+    sites' log-likelihoods ``ln_var`` [C, P] and the constant patterns'
+    likelihoods ``const_l`` [C, P] (sum over s of pi_s 1[pattern p
+    constant at s]) under ``pinv`` [C] or a float."""
+    pinv = (pinv.reshape(-1, 1) if torch.is_tensor(pinv)
+            else ln_var.new_full((1, 1), pinv))               # [C|1, 1]
     ln_inv = torch.log(torch.clamp_min(pinv, _TINY)) + \
         torch.log(torch.clamp_min(const_l, _TINY))
     mixed = torch.logaddexp(

@@ -491,7 +491,11 @@ def live_slot_map(lr, n_tips: int, spare: bool = False) -> np.ndarray:
 class DivisionLayout:
     """Where each division's operands and outputs sit in the flat buffers
     of a group of divisions that share one tree, division d with its own
-    K_d, S_d and P_d, for any chain count C."""
+    K_d, S_d and P_d, for any chain count C.  With ``tree_per_member`` each
+    member has its own tree (the gene trees of a BEST analysis): the child
+    slots are lr [D, C, n_int, 2], member d's block at d * C * n_int * 2."""
+
+    tree_per_member = False
 
     def __init__(self, n_tips: int, ks, ss, ps):
         self.n_tips, self.n_int = n_tips, n_tips - 1
@@ -523,10 +527,13 @@ class DivisionLayout:
             raise TypeError(f"lr must be int32, got {lr.dtype}")
         if pstep.dtype != torch.float32 or tips.dtype != torch.float32:
             raise TypeError("pstep and tips must be float32")
-        if lr.ndim != 3 or lr.shape[1:] != (self.n_int, 2):
-            raise ValueError(f"lr must be [C, {self.n_int}, 2], got "
+        lead = (self.D,) if self.tree_per_member else ()
+        if lr.ndim != 3 + len(lead) or lr.shape[:len(lead)] != lead \
+                or lr.shape[-2:] != (self.n_int, 2):
+            want = "".join(f"{d}, " for d in lead)
+            raise ValueError(f"lr must be [{want}C, {self.n_int}, 2], got "
                              f"{tuple(lr.shape)}")
-        C = lr.shape[0]
+        C = lr.shape[-3]
         total = self.offsets(C)[-1]
         if pstep.ndim != 1 or pstep.numel() != total[2]:
             raise ValueError(f"pstep must be flat with {total[2]} elements, "
@@ -544,6 +551,15 @@ class DivisionLayout:
         K, S, P = self.ks[d], self.ss[d], self.ps[d]
         r = root[o[d, 5]:o[d + 1, 5]].view(C, K, S, P)
         return r, ls[o[d, 6]:o[d + 1, 6]].view(C, P)
+
+    def lr_offset(self, C: int, d: int) -> int:
+        """The element offset of member d's child slots in lr: 0 when the
+        members share the tree."""
+        return d * C * self.n_int * 2 if self.tree_per_member else 0
+
+    def member_lr(self, lr, d: int):
+        """Member d's child slots [C, n_int, 2]."""
+        return lr[d] if self.tree_per_member else lr
 
     def div_operands(self, pstep, tips, C: int, d: int):
         """Division d's (pstep [C, n_int, 2, K_d, S_d, S_d], tips
@@ -578,8 +594,9 @@ class GroupLayout(DivisionLayout):
         library once per C: the size rule's ``threads`` a block and its
         shared memory ``smem_bytes``, each member's ``walks``, patterns a
         block ``T`` and ``lanes`` a pattern; the kernels' ``table``
-        [D, 10] (K_d, S_d, P_d, the offsets of operators, tips, root, ls
-        and scratch, the walk, the lanes) and tile map ``tiles``
+        [D, 11] (K_d, S_d, P_d, the offsets of operators, tips, root, ls
+        and scratch, the walk, the lanes, the offset of the member's child
+        slots) and tile map ``tiles``
         [n_tiles, 2] (member, first pattern) on the device: the
         ``n_onchip`` tiles of the on-chip walks, the costliest members
         first, then the ``n_global`` tiles of the global-scratch walk; and
@@ -608,7 +625,7 @@ class GroupLayout(DivisionLayout):
             table, scratch = [], 0
             for d, (K, S, P) in enumerate(zip(self.ks, self.ss, self.ps)):
                 table.append([K, S, P, *o[d, [2, 3, 5, 6]], scratch,
-                              walks[d], G[d]])
+                              walks[d], G[d], self.lr_offset(C, d)])
                 if WALKS[walks[d]] == "global":
                     scratch += C * self.n_int * K * S * P
             names = [WALKS[w] for w in walks]
@@ -653,7 +670,7 @@ class GroupLayout(DivisionLayout):
             lr.data_ptr(), pstep.data_ptr(), tips.data_ptr(),
             None if scratch is None else scratch.data_ptr(), root.data_ptr(),
             ls.data_ptr(), plan["table"].data_ptr(), plan["tiles"].data_ptr(),
-            *self.launch_args(plan), lr.shape[0], self.n_tips, self.n_int,
+            *self.launch_args(plan), lr.shape[-3], self.n_tips, self.n_int,
             plan["threads"], plan["smem_bytes"], device_index(dev),
             torch.cuda.current_stream(dev).cuda_stream)
 
@@ -686,7 +703,8 @@ class GroupLayout(DivisionLayout):
         roots, lss = [], []
         for d in range(self.D):
             pst, tp = self.div_operands(pstep, tips, C, d)
-            r, l_ = pruning_down_plain(lr, pst.contiguous(), tp.contiguous())
+            r, l_ = pruning_down_plain(self.member_lr(lr, d),
+                                       pst.contiguous(), tp.contiguous())
             roots.append(r.reshape(-1))
             lss.append(l_.reshape(-1))
         return torch.cat(roots), torch.cat(lss)

@@ -22,12 +22,22 @@ S_d]``, tips ``[n_tips, S_d, P_d]`` (once for all chains), root partials
 them through a per-division table and a tile map made once per chain
 count on the device (``csrc/group_walk.cuh``).
 
-The path stays opt-in (``Engine(stacked=True)`` or ``MB_TPU_STACKED=1``),
-as in the JAX package.  ``stacked_down`` launches the kernel and takes
-CUDA tensors only; ``stacked_down_plain`` is its plain PyTorch version
-(each member through ``pruning_down_plain``).  ``PruningCudaStacked``
-sends a CUDA tensor to the kernel and a CPU tensor to the plain version;
-there is no fallback from one to the other.
+The same launch takes a group whose members each have their own tree
+(``GeneStackLayout``, ``PruningCudaGeneStack``): the gene trees of a BEST
+analysis, the port's counterpart of the JAX engine's vmapped pass over the
+genes (``mrbayes_tpu/mcmc/engine.py:_build_best_batched``,
+``_best_lnl_batched``).  Its child slots are ``[G, C, n_int, 2]``; the
+table's last column points each member at its own block.
+
+The shared-tree path stays opt-in (``Engine(stacked=True)`` or
+``MB_TPU_STACKED=1``), as in the JAX package; the gene-tree path is BEST's
+likelihood whenever its genes share one model shape.  ``stacked_down``
+launches the kernel and takes CUDA tensors only; ``stacked_down_plain``
+is its plain PyTorch version (each member through
+``pruning_down_plain``).  ``PruningCudaStacked`` and
+``PruningCudaGeneStack`` send a CUDA tensor to the kernel and a CPU
+tensor to the plain version; there is no fallback from one to the
+other.
 """
 from __future__ import annotations
 
@@ -44,10 +54,18 @@ class StackedLayout(GroupLayout):
     library_name = "stacked"
 
 
+class GeneStackLayout(StackedLayout):
+    """A stacked group whose members each have their own tree: child
+    slots lr [G, C, n_int, 2]."""
+
+    tree_per_member = True
+
+
 def stacked_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor,
                  layout: StackedLayout):
     """Launch the CUDA stacked down-pass.  lr int32 [C, n_int, 2] child
-    slots per chain, shared by the group's members; pstep and tips flat
+    slots per chain, shared by the group's members (``GeneStackLayout``:
+    [G, C, n_int, 2], each member's own); pstep and tips flat
     f32 in ``layout``.  Returns flat (root, ls).  Raises on anything the
     kernel does not take, and when the launch is refused."""
     return layout.down(lr, pstep, tips)
@@ -108,3 +126,77 @@ class PruningCudaStacked:
         """(root [C, K_d, S_d, P_d], ls [C, P_d]) of member d from the flat
         outputs."""
         return self.layout.div_view(root, ls, d)
+
+
+class PruningCudaGeneStack:
+    """Static wiring of the gene trees of a BEST analysis, one tree a
+    member and every member at one (K, S), and the callable pruning op.
+
+    ``tips_list``: each gene's tips [n_tips, P_g, S].  Calling it maps the
+    [G * C] gene trees (gene-major: row g * C + c is gene g of chain c;
+    postorder, left, right) and their transition tensors P [G * C,
+    n_nodes, K, S, S] to flat (root, logscale) in ``GeneStackLayout``:
+    one ``slot_operands`` over the G * C trees, one gather of the
+    operators and one ``stacked.cu`` launch.  ``padded`` gives every
+    gene's outputs on one pattern axis of P_max for a batched root
+    reduction.  ``launches`` counts kernel launches (never plain-version
+    calls)."""
+
+    def __init__(self, tips_list, n_cats: int, device):
+        G = len(tips_list)
+        self.n_tips, _, S = tips_list[0].shape
+        self.G, self.K, self.S = G, n_cats, S
+        ps = [tp.shape[1] for tp in tips_list]
+        self.layout = GeneStackLayout(self.n_tips, [n_cats] * G, [S] * G, ps)
+        self.P_max = max(ps)
+        self.tips = torch.as_tensor(np.concatenate(
+            [np.transpose(np.asarray(tp, np.float32), (0, 2, 1)).ravel()
+             for tp in tips_list]), device=device)
+        self._pad_index: dict = {}
+        self.launches = 0
+
+    def operands(self, order, left, right, P):
+        """(lr int32 [G, C, n_int, 2], flat pstep) from the gene-major
+        order [G * C, n_int], left/right [G * C, n_nodes] and P [G * C,
+        n_nodes, K, S, S]."""
+        lr, lch, rch = slot_operands(order, left, right, self.n_tips)
+        rows = torch.arange(order.shape[0], device=order.device)[:, None,
+                                                                 None]
+        pstep = P[rows, torch.stack([lch, rch], -1)]   # [GC, n_int, 2, ...]
+        return (lr.view(self.G, -1, *lr.shape[1:]),
+                pstep.reshape(-1))
+
+    def __call__(self, order, left, right, P):
+        lr, pstep = self.operands(order, left, right, P)
+        if self.tips.is_cuda:
+            out = stacked_down(lr, pstep, self.tips, self.layout)
+            self.launches += 1
+            return out
+        return stacked_down_plain(lr, pstep, self.tips, self.layout)
+
+    def padded(self, root, ls):
+        """Every gene's (root [G * C, K, S, P_max], ls [G * C, P_max]) from
+        the flat outputs, gene-major; a gene's pad patterns repeat its last
+        one (weigh them 0)."""
+        C = ls.numel() // sum(self.layout.ps)
+        key = (C, root.device)
+        if key not in self._pad_index:
+            self._pad_index[key] = self._make_pad_index(C, root.device)
+        ri, li = self._pad_index[key]
+        return root.take(ri), ls.take(li)
+
+    def _make_pad_index(self, C: int, device):
+        o = self.layout.offsets(C)
+        K, S, Pm = self.K, self.S, self.P_max
+        c = np.arange(C)[:, None, None, None]
+        k = np.arange(K)[None, :, None, None]
+        s = np.arange(S)[None, None, :, None]
+        ri, li = [], []
+        for g, P in enumerate(self.layout.ps):
+            p = np.minimum(np.arange(Pm), P - 1)
+            ri.append(o[g, 5] + ((c * K + k) * S + s) * P + p)
+            li.append(o[g, 6] + np.arange(C)[:, None] * P + p)
+        return (torch.as_tensor(np.concatenate(ri).reshape(-1, K, S, Pm),
+                                device=device),
+                torch.as_tensor(np.concatenate(li).reshape(-1, Pm),
+                                device=device))

@@ -9,6 +9,7 @@ HarmonicArithmeticMeanOnLogs src/utils.c:696).
 from __future__ import annotations
 
 import glob
+import re
 
 import numpy as np
 
@@ -33,7 +34,13 @@ def read_p_file(path: str) -> tuple[list[str], np.ndarray]:
 
 
 def find_run_files(prefix: str, ext: str) -> list[str]:
-    files = sorted(glob.glob(f"{prefix}.run*.{ext}"))
+    """The runs' ``<prefix>.run<r>.<ext>`` files (a BEST run's gene-tree
+    files ``<prefix>.run<r>.gene<g>.t`` are not runs of the species tree:
+    the JAX package's glob counts them, ROADMAP Queue 3), else
+    ``<prefix>.<ext>``."""
+    pat = re.compile(re.escape(prefix) + r"\.run\d+\." + re.escape(ext))
+    files = sorted(f for f in glob.glob(f"{prefix}.run*.{ext}")
+                   if pat.fullmatch(f))
     if not files:
         single = f"{prefix}.{ext}"
         files = [single] if glob.glob(single) else []

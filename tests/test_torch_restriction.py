@@ -41,7 +41,7 @@ import torch
 from mrbayes_tpu.cli import Interpreter as JInterpreter
 from mrbayes_tpu.mcmc.run import param_columns as j_param_columns
 from mrbayes_tpu.models import substitution as JQ
-from mrbayes_tpu_torch.cli import CommandError, Interpreter
+from mrbayes_tpu_torch.cli import Interpreter
 from mrbayes_tpu_torch.convert import state_from_numpy
 from mrbayes_tpu_torch.mcmc import moves as M
 from mrbayes_tpu_torch.mcmc.run import param_columns
@@ -383,5 +383,6 @@ def test_prset_keys_of_this_slice_parse():
                                                        (2.0, 3.0))
     assert (s.covswitchpr.kind, s.covswitchpr.params) == ("exponential",
                                                          (2.0,))
-    with pytest.raises(CommandError, match="item 14"):
-        it.run_line("prset popvarpr=variable")
+    # BEST's prset keys are ported (item 14e): this one now sets its value
+    it.run_line("prset popvarpr=variable")
+    assert it.env.tree_settings.popvarpr == "variable"

@@ -33,7 +33,7 @@ from mrbayes_tpu.cli import Interpreter as JInterpreter
 from mrbayes_tpu.mcmc.run import param_columns as j_param_columns
 from mrbayes_tpu.models import special as JS
 from mrbayes_tpu.ops import brownian as JB
-from mrbayes_tpu_torch.cli import CommandError, Interpreter
+from mrbayes_tpu_torch.cli import Interpreter
 from mrbayes_tpu_torch.convert import state_from_numpy, state_to_numpy
 from mrbayes_tpu_torch.envelope import CYNMIX_MODEL
 from mrbayes_tpu_torch.mcmc.engine import SCORE_KEYS
@@ -379,8 +379,9 @@ def test_continuous_refusals(tmp_path):
     it.run_line("prset browncorrpr=fixed(0.5)")
     with pytest.raises(ValueError, match="browncorrpr: only fixed"):
         it.build_engine()
-    with pytest.raises(CommandError, match="ROADMAP Queue 1 item 14"):
-        it.run_line("prset popvarpr=variable")
+    # BEST's prset keys are ported (item 14e): this one now sets its value
+    it.run_line("prset popvarpr=variable")
+    assert it.env.tree_settings.popvarpr == "variable"
 
 
 def prior_only_means(eng, fields, gens=1000):
