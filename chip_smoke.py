@@ -18,7 +18,7 @@ checked by ``--test1-gens 20000``; test2 always runs the envelope's
 groups after the device and build phases (``PHASE_GROUPS``: kernels 3,
 17, 21; primates 4-5; test1 6-9; cynmix 10-12; sharded 13-16; clock
 18-20; aa_codon 22-26; dating 27-31; kim_codon 32-37; covarion 38-41;
-families 42-46; analyses 47-52; best 53-55);
+families 42-46; analyses 47-52; best 53-55; multiproc 56-58);
 with a subset the
 kernels line names every kernel with its numbers null, and the groups'
 own lines carry what they measured.  Each
@@ -156,7 +156,7 @@ Phases, each fatal on failure:
      paths: each path's total within the row's tol (3.0) of the
      reference, each division's lnL within 1e-3 of the other paths';
  29. hymfossil: the FBD analysis through the CLI (45 fossils with fixed
-     ages, 15 divisions, 2 runs x 4 chains, 400 generations), switches
+     ages, 15 divisions, 2 runs x 4 chains, 300 generations), switches
      off: one pruning.cu launch a division and likelihood, carried versus
      recomputed scores, every fixed fossil age held, the pinned ages
      ordered and no constraint broken, the .p/.t/.mcmc files with each
@@ -247,7 +247,7 @@ Phases, each fatal on failure:
      2e-3;
  44. the lnorm + kmixture divisions in one multiwalk.cu launch, each
      division's per-pattern lnL within 2e-5 of its own pruning.cu launch;
- 45. the five through the CLI, 200 generations, 4 chains (primates
+ 45. the five through the CLI, 150 generations, 4 chains (primates
      adgamma 2 runs, multiwalk on for lnorm + kmixture): each division's
      kernel launched once a likelihood (none for a parsimony-model or
      continuous division), carried versus recomputed scores, finite .p
@@ -297,6 +297,34 @@ Phases, each fatal on failure:
      generation;
  55. a block and one generation of every BEST move type with host
      synchronisation made an error.
+ 56. multiproc, the library: primates GTR+I+G on two ranks of
+     torch.distributed sharing the card (gloo, the backend the rule
+     gives; no MPS daemon), in two layouts, 2 timed blocks of 100
+     generations each through Engine, init_chains, shard_chains and
+     run_block, each block followed by the runner's one gather: (a) 2
+     runs x 4 chains, a run a rank, and (b) 1 run x 8 chains, 4 a rank,
+     E gathered every swap generation.  Each rank's pruning.cu launches
+     one a generation; the gathered starting lnL equal to a one-process
+     engine's on the card within 2e-5 |lnL|; carried versus recomputed on
+     every chain of each rank; temp_id and the swap matrices the same on
+     both ranks after every block, each run's temp_id a permutation; (a)
+     no collective in a block, a block with host synchronisation an
+     error and each rank's idle share over a profiled block, (b) one
+     collective a swap generation; each rank's gens/s beside one
+     process's on the same configuration.  The ranks are this script run as
+     ``--worker`` subprocesses, started once for phases 56 and 57 after
+     the build, under a timeout that kills every one on overrun;
+ 57. multiproc, the CLI: tests/test_multihost.py's DRIVE script (2 runs
+     x 2 chains, nst 2 + gamma, 480 generations) through the CLI's main
+     with --coordinator, --nprocs 2 and --procid on each rank, rank 1 in
+     a directory of its own: rank 0 writes the .p, .t, .ckp, .mcmc,
+     .con.tre, .pstat and .trprobs files and runs sump and sumt, rank 1
+     writes nothing and prints no consensus, each rank's pruning.cu
+     launches one a generation plus the start, the gens/s of both ranks
+     beside the same script's in one process;
+ 58. the ranks' pruning.cu launches (each rank's counts in its JSON
+     record, read and summed here) in the kernels line, beside the
+     group's own line.
 
 It prints one JSON line describing the kernels, then the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -424,11 +452,12 @@ AA_PRIOR_RUNS, AA_PRIOR_GENS, AA_PRIOR_SEED = 32, 1200, 13
 
 
 # hymfossil (the dating slice): the kernel cases' chain counts, the CLI
-# run's generations (5 samples a run at samplefreq 100; cut from 1,000,
-# then from 600 for the analyses phases), and the
+# run's generations (4 samples a run at samplefreq 100; cut from 1,000,
+# then from 600 for the analyses phases and from 400 for the multiproc
+# phases), and the
 # prior-only dating checks' runs x 1 chain and generations
 HYM_CHAINS = (8, 32)
-HYM_GENS = 400
+HYM_GENS = 300
 DATING_PRIOR_RUNS, DATING_PRIOR_GENS = 32, 1000
 # kim.nex's stem doublets, codon M3 and M10 and unlinked trees: pruning.cu
 # at the new shapes (n_tips, P, S, K), each at C = 8 and 32: kim's stem
@@ -498,8 +527,9 @@ FAMILY_COLUMNS = {"primates_adgamma": "corr",
                   "primates_lnorm_kmix": "mixturerates{2}[4]",
                   "cynmix_symdiri": None, "cynmix_parsmodel": None,
                   "continuous": "brownScale"}
-# (generations cut from 300 for the analyses phases)
-FAMILY_GENS, FAMILY_SAMPLEFREQ, FAMILY_SYNC_GENS = 200, 50, 20
+# (generations cut from 300 for the analyses phases, and from 200 for the
+# multiproc phases)
+FAMILY_GENS, FAMILY_SAMPLEFREQ, FAMILY_SYNC_GENS = 150, 50, 20
 # the identical-state check: chains; the tolerance of a family
 # division's lnL per chain between the card's engine and the CPU's (the
 # kernels against their plain versions; float64 sums of float32 site
@@ -539,6 +569,34 @@ PRIMATES_BEST = ("partition genes = 2: 1-400, 401-.",
                  "E: 9-10, F: 11-12",
                  "set speciespartition=sp", "lset nst=2",
                  "prset topologypr=speciestree brlenspr=clock:speciestree")
+
+
+# the multiproc group (phases 56-58): the chains axis over two ranks of
+# torch.distributed sharing the card.  The library phase's layouts (runs,
+# chains) of primates GTR+I+G: (a) a run a rank, (b) one run of 8 chains,
+# 4 a rank; its warm-up, timed blocks and generations a block, and the
+# sync check's and the profiled block's generations.  The CLI phase's
+# generations of tests/test_multihost.py's DRIVE script.  A rank's
+# collectives wait at most MULTIPROC_DIST_TIMEOUT s, and a launch of ranks
+# at most MULTIPROC_TIMEOUT s before every rank is killed.
+MULTIPROC_LAYOUTS = {"a_2x4": (2, 4), "b_1x8": (1, 8)}
+MULTIPROC_WARM, MULTIPROC_BLOCKS, MULTIPROC_GENS = 20, 2, 100
+MULTIPROC_SYNC_GENS, MULTIPROC_PROFILE_GENS = 20, 10
+MULTIPROC_CLI_GENS = 480
+MULTIPROC_TIMEOUT, MULTIPROC_DIST_TIMEOUT = 240, 120
+MULTIPROC_DRIVE = """#NEXUS
+begin mrbayes;
+    set autoclose=yes nowarnings=yes seed=21 swapseed=22;
+    execute {primates};
+    lset nst=2 rates=gamma;
+    mcmc ngen={ngen} nruns=2 nchains=2 samplefreq=40 printfreq=120
+         diagnfreq=120 checkfreq=120 file=dist;
+    sumt;
+    sump;
+end;
+"""
+MULTIPROC_FILES = ("run1.p", "run2.p", "run1.t", "run2.t", "ckp", "mcmc",
+                   "con.tre", "pstat", "trprobs")
 
 
 def state_tol(lnl, family):
@@ -584,7 +642,7 @@ KERNEL_NUMBERS = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
 # the phase groups of --phases, in the order they run
 PHASE_GROUPS = ("kernels", "primates", "test1", "cynmix", "sharded",
                 "clock", "aa_codon", "dating", "kim_codon", "covarion",
-                "families", "analyses", "best")
+                "families", "analyses", "best", "multiproc")
 
 
 def log(msg):
@@ -4558,6 +4616,459 @@ def phase_best(torch, power_line):
     return err, cases, run
 
 
+def primates_engine(torch, ds, nruns, nchains, device=DEV):
+    from mrbayes_tpu_torch.mcmc.engine import Engine
+    from mrbayes_tpu_torch.mcmc.settings import (DivisionSettings,
+                                                 McmcSettings)
+    return Engine(ds, [DivisionSettings(nst="6", rates="invgamma")],
+                  mcmc=McmcSettings(nruns=nruns, nchains=nchains, seed=3),
+                  device=device)
+
+
+def carried_error(eng, states):
+    """The largest |carried - recomputed| / (1e-3 + 1e-6 |recomputed|) of
+    lnL, lnP_tree and lnP_par over every chain the engine holds, the
+    recompute from fresh eigensystems (``assert_carried``'s bound is 1)."""
+    from mrbayes_tpu_torch.mcmc.engine import SCORE_KEYS
+    fresh = eng.score(eng.refresh_eigs(
+        {k: v for k, v in states.items()
+         if k not in SCORE_KEYS and not k.startswith("eig")}))
+    return max(float(((states[k] - fresh[k]).abs()
+                      / (1e-3 + 1e-6 * fresh[k].abs())).max())
+               for k in ("lnL", "lnP_tree", "lnP_par"))
+
+
+def idle_share(torch, fn, gens):
+    """(fn(), the card's idle share over ``fn`` as this process sees it:
+    1 - the summed time of its CUDA kernels over the wall time, and its
+    kernels a generation), under torch.profiler with CUDA activity only."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t_enter = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t_exit = time.perf_counter()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    t_events = time.perf_counter()
+    return out, {"seconds": {"enter": t0 - t_enter,
+                             "exit": t_exit - t0 - wall,
+                             "events": t_events - t_exit},
+                 "gens": gens, "wall_ms": wall * 1e3,
+                 "device_busy_ms": busy * 1e3,
+                 "device_idle_share": 1.0 - busy / wall,
+                 "kernel_launches_per_gen": len(kernels) / gens}
+
+
+def rank_library(torch, rank, world, port):
+    """Phase 56 on one rank: primates GTR+I+G in each layout of
+    MULTIPROC_LAYOUTS through Engine, init_chains, shard_chains and
+    run_block, each block followed by the runner's one gather
+    (gather_to_host) and the bookkeeping put back on the card.  Returns the
+    rank's record: the backend, and for each layout the gathered starting
+    lnL, pruning.cu's launches over the timed blocks, gens/s a block, the
+    collectives of each block and of each gather, the gathered temp_id
+    and swap matrices and the card's temp_id after each block, carried
+    against recomputed on every chain of the rank, the sync check (a run a
+    rank) and a profiled block's idle share."""
+    from mrbayes_tpu_torch.parallel import mesh as PM
+    t_init = time.perf_counter()
+    w = PM.init_distributed(f"127.0.0.1:{port}", world, rank, device=DEV,
+                            timeout=MULTIPROC_DIST_TIMEOUT)
+    ds = primates_dataset()
+    out = {"rank": rank, "backend": w.backend, "device": str(w.device),
+           "seconds": {"init": time.perf_counter() - t_init}}
+    for name, (nruns, nchains) in MULTIPROC_LAYOUTS.items():
+        t_layout = time.perf_counter()
+        eng = primates_engine(torch, ds, nruns, nchains, device=w.device)
+        C = eng.mcmc.n_chains_total
+        states, bk = PM.shard_chains(eng, PM.auto_mesh(C), *eng.init_chains())
+        host, _, _ = PM.gather_to_host(states, bk)
+        rec = {"slice": list(eng.chain_slice),
+               "start_lnL": host["lnL"].tolist()}
+        sec = out["seconds"][name] = {"setup": time.perf_counter()
+                                      - t_layout}
+
+        def block(states, bk, n):
+            c0 = w.collectives
+            states, bk = eng.run_block(states, bk, n)
+            c1 = w.collectives
+            host, hbk, _ = PM.gather_to_host(states, bk)
+            bk = PM.replicate_bookkeeping(bk, hbk, host["temp_id"])
+            return states, bk, host, hbk, c1 - c0, w.collectives - c1
+
+        t1 = time.perf_counter()
+        states, bk, *_ = block(states, bk, MULTIPROC_WARM)
+        torch.cuda.synchronize()
+        sec["warm"] = time.perf_counter() - t1
+        pruner = eng._pruners[0]
+        pruner.launches = 0                  # the main path's run starts
+        rates, blocks = [], []
+        for _ in range(MULTIPROC_BLOCKS):
+            t0 = time.perf_counter()
+            states, bk, host, hbk, n_run, n_gather = block(
+                states, bk, MULTIPROC_GENS)
+            torch.cuda.synchronize()
+            rates.append(MULTIPROC_GENS / (time.perf_counter() - t0))
+            blocks.append({"temp_id": host["temp_id"].tolist(),
+                           "card_temp_id": bk["temp_id"].tolist(),
+                           "swap_tries": hbk["swap_tries"].tolist(),
+                           "swap_accepts": hbk["swap_accepts"].tolist(),
+                           "block_collectives": n_run,
+                           "gather_collectives": n_gather})
+        rec["launches"] = pruner.launches    # ... and ends here
+        t1 = time.perf_counter()
+        rec.update(gens_per_s_blocks=rates, blocks=blocks,
+                   carried_error=carried_error(eng, states),
+                   max_lnL=float(host["lnL"].max()))
+        local = C // world % nchains == 0
+        if local:
+            # whole runs a rank: a block with host synchronisation an error
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                states, bk = eng.run_block(states, bk, MULTIPROC_SYNC_GENS)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            rec["sync_checked_gens"] = MULTIPROC_SYNC_GENS
+        sec["checks"] = time.perf_counter() - t1
+        if local:
+            # and the rank's idle share over a profiled block
+            t1 = time.perf_counter()
+            _, rec["profile"] = idle_share(
+                torch, lambda: eng.run_block(states, bk,
+                                             MULTIPROC_PROFILE_GENS),
+                MULTIPROC_PROFILE_GENS)
+            sec["profile"] = time.perf_counter() - t1
+        sec["total"] = time.perf_counter() - t_layout
+        out[name] = rec
+    PM.shutdown_distributed()
+    return out
+
+
+def rank_cli(torch, rank, world, port, workdir, script):
+    """Phase 57 on one rank: the CLI's main with --coordinator, --nprocs
+    and --procid (what ``python -m mrbayes_tpu_torch.cli`` runs) on
+    ``script`` in ``workdir``; returns the run's generations, gens/s and
+    pruning.cu launches (its engine is built inside the run: its count
+    starts at 0 there and is read when the run is over)."""
+    from mrbayes_tpu_torch import cli
+    from mrbayes_tpu_torch.mcmc import run as R
+    runners = []
+    run = R.McmcRunner.run
+
+    def recorded(self):
+        runners.append(self)
+        return run(self)
+
+    R.McmcRunner.run = recorded
+    os.chdir(workdir)
+    rc = cli.main(["--coordinator", f"127.0.0.1:{port}", "--nprocs",
+                   str(world), "--procid", str(rank), "--device", DEV,
+                   script])
+    r = runners[0]
+    return {"rank": rank, "rc": rc, "generations": r.generations,
+            "gens_per_s": r.generations / r.wall_seconds,
+            "launches": sum(p.launches for p in r.eng._pruners)}
+
+
+def rank_worker(torch, argv):
+    """``--worker RANK WORLD LIBRARY_PORT CLI_PORT WORKDIR SCRIPT``: one
+    rank of the multiproc group, the library phase and then the CLI phase
+    (one process start for both), begun (``main``: before it imports
+    torch) when the parent writes a line to its standard input, so that
+    no rank's start overlaps the parent's one-process runs; prints its
+    records as a ``RANK_RESULT`` JSON line."""
+    rank, world = int(argv[0]), int(argv[1])
+    started = time.time()
+    t0 = time.perf_counter()
+    lib = rank_library(torch, rank, world, argv[2])
+    t1 = time.perf_counter()
+    cli = rank_cli(torch, rank, world, argv[3], argv[4], argv[5])
+    print("RANK_RESULT " + json.dumps({
+        "library": lib, "cli": cli,
+        "seconds": {"started": started, "library": t1 - t0,
+                    "cli": time.perf_counter() - t1}}), flush=True)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def start_ranks(arg_lists, cwds):
+    """Start one ``--worker`` process a rank (the kernels are built
+    already); each waits for its go line (``finish_ranks``)."""
+    env = {**os.environ, "MB_DIST_TIMEOUT": str(MULTIPROC_DIST_TIMEOUT)}
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker",
+         *map(str, args)], cwd=cwd, env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for args, cwd in zip(arg_lists, cwds)]
+
+
+def kill_ranks(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_ranks(procs):
+    """Send every rank its go line, wait for all under MULTIPROC_TIMEOUT
+    s, kill every one on overrun, and fail unless each exits 0 with its
+    record; returns [(record, output)]."""
+    go = time.time()
+    deadline = time.monotonic() + MULTIPROC_TIMEOUT
+    outs = []
+    try:
+        for p in procs:
+            p.stdin.write("go\n")
+            p.stdin.flush()
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        kill_ranks(procs)
+    res = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        recs = [ln[len("RANK_RESULT "):] for ln in out.splitlines()
+                if ln.startswith("RANK_RESULT ")]
+        if p.returncode != 0 or not recs:
+            raise AssertionError(f"rank {i} exited {p.returncode}:\n"
+                                 f"{out[-4000:]}")
+        rec = json.loads(recs[-1])
+        sec = rec["seconds"]
+        sec["started"] -= go
+        log(f"rank {i}: started {sec['started']:.1f} s after its go line "
+            f"(imports, the card), library {sec['library']:.1f} s "
+            f"{json.dumps(rec['library']['seconds'])}, CLI "
+            f"{sec['cli']:.1f} s")
+        res.append((rec, out))
+    return res
+
+
+def one_process_rates(torch, ds, nruns, nchains):
+    """The same configuration in one process on the card: the starting
+    lnL and gens/s over the same blocks, each followed by its one
+    device->host copy, as the runner makes it."""
+    from mrbayes_tpu_torch.mcmc.run import host_states
+    eng = primates_engine(torch, ds, nruns, nchains)
+    states, bk = eng.init_chains()
+    start = states["lnL"].tolist()
+    states, bk = eng.run_block(states, bk, MULTIPROC_WARM)
+    host_states(states, bk)
+    rates = []
+    for _ in range(MULTIPROC_BLOCKS):
+        t0 = time.perf_counter()
+        states, bk = eng.run_block(states, bk, MULTIPROC_GENS)
+        host_states(states, bk)
+        rates.append(MULTIPROC_GENS / (time.perf_counter() - t0))
+    return start, rates
+
+
+def check_multiproc_library(torch, ranks, one, power_line):
+    """Phase 56's checks on the two ranks' library records against one
+    process on the card (``one``: each layout's starting lnL and gens/s).
+    Fatal unless: the backend is the rule's (gloo: the ranks share a
+    card); each rank's pruning.cu launches equal one a generation of the
+    timed blocks; the gathered starting lnL equals the one-process
+    engine's within 2e-5 |lnL| (both score all chains in one launch);
+    carried equals recomputed on every chain of every rank; after every
+    block the gathered temp_id and swap matrices and the card's temp_id
+    are the same on both ranks and each run's temp_id is a permutation; a
+    run a rank makes no collective in a block and passes a block with
+    host synchronisation an error; one run over both ranks makes one
+    collective (the gather of E) a swap generation.  Prints each rank's
+    gens/s beside the one-process gens/s."""
+    from mrbayes_tpu_torch.parallel.mesh import choose_backend
+    backend = choose_backend(torch.device(DEV, 0), 2)
+    out = {"backend": backend, "layouts": {}}
+    for name, (nruns, nchains) in MULTIPROC_LAYOUTS.items():
+        start, one_rates = one[name]
+        C, per = nruns * nchains, nruns * nchains // 2
+        local = per % nchains == 0
+        recs = [r[name] for r in ranks]
+        for r, rec in zip(ranks, recs):
+            if r["backend"] != backend:
+                raise AssertionError(f"rank {r['rank']}: backend "
+                                     f"{r['backend']}, the rule says "
+                                     f"{backend}")
+            want = MULTIPROC_BLOCKS * MULTIPROC_GENS
+            if rec["launches"] != want:
+                raise AssertionError(f"{name} rank {r['rank']}: "
+                                     f"{rec['launches']} pruning.cu "
+                                     f"launches, predicted {want}")
+            diff = np.abs(np.asarray(rec["start_lnL"]) - start)
+            if not (diff <= 2e-5 * np.abs(start)).all():
+                raise AssertionError(f"{name} rank {r['rank']}: starting "
+                                     f"lnL differs by {diff.max()}")
+            if rec["carried_error"] > 1.0:
+                raise AssertionError(f"{name} rank {r['rank']}: carried "
+                                     f"vs recomputed {rec['carried_error']}")
+            for b in rec["blocks"]:
+                want_coll = 0 if local else MULTIPROC_GENS
+                if b["block_collectives"] != want_coll \
+                        or b["gather_collectives"] != 1:
+                    raise AssertionError(
+                        f"{name} rank {r['rank']}: {b['block_collectives']}"
+                        f" collectives in a block (predicted {want_coll}), "
+                        f"{b['gather_collectives']} a gather")
+                tid = np.asarray(b["temp_id"]).reshape(nruns, nchains)
+                if not (np.sort(tid, 1) == np.arange(nchains)).all() \
+                        or b["card_temp_id"] != b["temp_id"]:
+                    raise AssertionError(f"{name}: temp_id {tid}")
+            if local and rec.get("sync_checked_gens") != MULTIPROC_SYNC_GENS:
+                raise AssertionError(f"{name}: no sync check")
+        if recs[0]["blocks"] != recs[1]["blocks"] \
+                or recs[0]["start_lnL"] != recs[1]["start_lnL"]:
+            raise AssertionError(f"{name}: the ranks' gathered views differ")
+        if [r["slice"] for r in recs] != [[0, per], [per, C]]:
+            raise AssertionError(f"{name}: slices "
+                                 f"{[r['slice'] for r in recs]}")
+        lay = {
+            "runs_x_chains": f"{nruns}x{nchains}", "chains_a_rank": per,
+            "swap": "local" if local else "gathered",
+            "gens_per_s_ranks": [float(np.median(r["gens_per_s_blocks"]))
+                                 for r in recs],
+            "gens_per_s_blocks_ranks": [r["gens_per_s_blocks"] for r in recs],
+            "gens_per_s_one_process": float(np.median(one_rates)),
+            "gens_per_s_one_process_blocks": one_rates,
+            "launches_ranks": [r["launches"] for r in recs],
+            "gens": MULTIPROC_BLOCKS * MULTIPROC_GENS,
+            "collectives_per_block": recs[0]["blocks"][0][
+                "block_collectives"] + 1,
+            "start_lnl_exact": bool(recs[0]["start_lnL"] == start),
+            "carried_error_max": max(r["carried_error"] for r in recs),
+            "max_lnL": max(r["max_lnL"] for r in recs),
+            "profile_ranks": [r.get("profile") for r in recs],
+            "sync_checked": local}
+        out["layouts"][name] = lay
+        idle = [p and p["device_idle_share"] for p in lay["profile_ranks"]]
+        log(f"multiproc library {name} ({lay['runs_x_chains']}, {per} "
+            f"chains a rank, swaps {lay['swap']}, backend {backend}): "
+            f"gens/s ranks {lay['gens_per_s_ranks']} vs one process "
+            f"{lay['gens_per_s_one_process']:.1f}; collectives a block "
+            f"{lay['collectives_per_block']}; pruning.cu launches "
+            f"{lay['launches_ranks']} for {lay['gens']} gens a rank; idle "
+            f"share {idle}; card {power_line}")
+    return out
+
+
+def check_multiproc_cli(ranks, outs, one, dirs, power_line):
+    """Phase 57's checks on tests/test_multihost.py's DRIVE script at
+    MULTIPROC_CLI_GENS generations through the CLI on two ranks sharing
+    the card, rank 1 working in a directory of its own.  Fatal unless:
+    both exit 0; rank 0 writes dist.run1.p, run2.p, run1.t, run2.t, ckp,
+    mcmc, con.tre, pstat and trprobs and sump and sumt run (its output
+    logs the sharding, the consensus and the PSRF table); rank 1's
+    directory stays empty and its output has no "Consensus"; each rank's
+    pruning.cu launches equal one a generation plus the starting scores.
+    The gens/s of both ranks beside the same script's in one process
+    (``one``, its runner)."""
+    (r0, r1), (out0, out1) = ranks, outs
+    for suffix in MULTIPROC_FILES:
+        if not os.path.exists(os.path.join(dirs[0], f"dist.{suffix}")):
+            raise AssertionError(f"rank 0 wrote no dist.{suffix}")
+    if os.listdir(dirs[1]):
+        raise AssertionError(f"rank 1 wrote {os.listdir(dirs[1])}")
+    for phrase in ("Sharding over mesh {'chains': 2, 'sites': 1} "
+                   "(2 process(es), backend", "Consensus tree written to",
+                   "Average PSRF for parameter values"):
+        if phrase not in out0:
+            raise AssertionError(f"rank 0 printed no {phrase!r}")
+    if "Consensus" in out1:
+        raise AssertionError("rank 1 printed a consensus")
+    want = MULTIPROC_CLI_GENS + 1
+    for r in (r0, r1):
+        if r["rc"] != 0 or r["generations"] != MULTIPROC_CLI_GENS \
+                or r["launches"] != want:
+            raise AssertionError(f"rank {r['rank']}: {r}, {want} launches "
+                                 f"predicted")
+    with open(os.path.join(dirs[0], "dist.run1.p")) as f:
+        rows = sum(1 for ln in f if ln[:1].isdigit())
+    out = {"gens": MULTIPROC_CLI_GENS,
+           "gens_per_s_ranks": [r0["gens_per_s"], r1["gens_per_s"]],
+           "gens_per_s_one_process": one.generations / one.wall_seconds,
+           "launches_ranks": [r0["launches"], r1["launches"]],
+           "launches_one_process": sum(p.launches
+                                       for p in one.eng._pruners),
+           "p_rows": rows, "files": list(MULTIPROC_FILES)}
+    log(f"multiproc CLI, DRIVE at {MULTIPROC_CLI_GENS} gens, 2 runs x 2 "
+        f"chains over 2 ranks: {json.dumps(out)}; card {power_line}")
+    log("\n".join(ln for ln in out0.splitlines()
+                  if "Sharding" in ln or "Process group" in ln
+                  or "Time breakdown" in ln))
+    return out
+
+
+def phase_multiproc(torch, ds, power_line):
+    """Phases 56-58, the multiproc group (``--phases multiproc``): the
+    same work in one process on the card first (both library layouts and
+    the DRIVE script through the CLI), then two ranks sharing the card,
+    each started once for the library phase (56) and the CLI phase (57),
+    and (58) their pruning.cu launches for the kernels line."""
+    from mrbayes_tpu_torch.cli import Interpreter
+    t0 = time.perf_counter()
+    base = os.path.join(OUT, "multiproc")
+    shutil.rmtree(base, ignore_errors=True)
+    dirs = [os.path.join(base, d) for d in ("rank0", "rank1", "one")]
+    for d in dirs:
+        os.makedirs(d)
+    script = os.path.join(base, "drive.nex")
+    with open(script, "w") as f:
+        f.write(MULTIPROC_DRIVE.format(primates=PRIMATES,
+                                       ngen=MULTIPROC_CLI_GENS))
+    ports = free_port(), free_port()
+    procs = start_ranks([(i, 2, *ports, dirs[i], script)
+                         for i in range(2)], dirs[:2])
+    cwd = os.getcwd()
+    try:
+        one = {name: one_process_rates(torch, ds, *shape)
+               for name, shape in MULTIPROC_LAYOUTS.items()}
+        os.chdir(dirs[2])
+        it = Interpreter(log=lambda msg: None, device=DEV)
+        it.execute_file(script)
+    except BaseException:
+        kill_ranks(procs)
+        raise
+    finally:
+        os.chdir(cwd)
+    t1 = time.perf_counter()
+    res = finish_ranks(procs)
+    t2 = time.perf_counter()
+    lib = check_multiproc_library(torch, [r["library"] for r, _ in res],
+                                  one, power_line)
+    cli = check_multiproc_cli([r["cli"] for r, _ in res],
+                              [o for _, o in res], it._last_runner, dirs,
+                              power_line)
+    launches = {**{f"multiproc_library_{name}_rank{i}": n
+                   for name, lay in lib["layouts"].items()
+                   for i, n in enumerate(lay["launches_ranks"])},
+                **{f"multiproc_cli_rank{i}": n
+                   for i, n in enumerate(cli["launches_ranks"])}}
+    gens = {**{f"multiproc_library_{name}_rank{i}": lay["gens"]
+               for name, lay in lib["layouts"].items() for i in range(2)},
+            **{f"multiproc_cli_rank{i}": cli["gens"] for i in range(2)}}
+    out = {"library": lib, "cli": cli, "pruning_down_launches": launches,
+           "gens_per_run": gens,
+           "seconds": {"one_process": t1 - t0, "ranks": t2 - t1,
+                       "ranks_each": [r["seconds"] for r, _ in res],
+                       "total": time.perf_counter() - t0}}
+    log(f"multiproc group: {json.dumps(out)}; card {power_line}")
+    log(f"multiproc group {out['seconds']['total']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--test1-gens", type=int, default=TEST1_GENS)
@@ -4568,16 +5079,23 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma-separated phase groups to run (default "
                          f"all): {', '.join(PHASE_GROUPS)}")
+    ap.add_argument("--worker", nargs="+", default=None,
+                    help="run one rank of a multiproc phase (the script "
+                         "starts these itself)")
     args = ap.parse_args(argv)
     groups = (set(PHASE_GROUPS) if args.phases == "all"
               else set(args.phases.split(",")))
     if not groups <= set(PHASE_GROUPS):
         ap.error(f"unknown phase groups {sorted(groups - set(PHASE_GROUPS))}")
+    if args.worker and not sys.stdin.readline():
+        raise RuntimeError("the parent closed the ranks' go line unsent")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    if args.worker:
+        return rank_worker(torch, args.worker)
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
     t_start = time.perf_counter()
 
@@ -4749,6 +5267,12 @@ def main(argv=None) -> int:
         err_best, best_cases, best_run = phase_best(torch, power_line)
         done("best phases")
 
+    if "multiproc" in groups:
+        # 56.-58. the chains axis over two ranks sharing the card, the
+        # seventeenth slice's main path
+        multiproc = phase_multiproc(torch, ds, power_line)
+        done("multiproc phases")
+
     if groups != set(PHASE_GROUPS):
         # a chosen subset: every kernel named, its numbers in the groups'
         # own lines above
@@ -4787,7 +5311,8 @@ def main(argv=None) -> int:
            for nm, r in fam_runs.items()},
         **{f"analyses_{nm}": r["pruning_down_launches"]
            for nm, r in ana.items() if nm != "per_chain"},
-        "analyses_per_chain": ana["per_chain"]["launches"]}
+        "analyses_per_chain": ana["per_chain"]["launches"],
+        **multiproc["pruning_down_launches"]}
     eigh_launches = {"golden_codon_rows": golden_aa_launches["eigh"],
                      "avian_cli": avian["eigh_launches"],
                      "avian_gtr_sync": gtr_sync,
@@ -4825,7 +5350,8 @@ def main(argv=None) -> int:
             "kim_unlinked_cli": UNLINKED_GENS,
             **{f"{nm}_cli": g for nm, (_, g) in COVARION_CLI.items()},
             **{f"{nm}_cli": FAMILY_GENS for nm in FAMILY_CLI},
-            **{f"analyses_{nm}": r["gens"] for nm, r in ana.items()}},
+            **{f"analyses_{nm}": r["gens"] for nm, r in ana.items()},
+            **multiproc["gens_per_run"]},
         "max_abs_err": max(err_pd, err_ck["pruning_down"], err_hym, err_kc,
                            err_cv, err_fam),
         **{k: t_pd[4][k] for k in keys + ("before_ms", "walk", "threads",
@@ -4862,6 +5388,7 @@ def main(argv=None) -> int:
            for nm, r in cv_runs.items()},
         "golden_covarion_max_err": golden_cv,
         "analyses": ana,
+        "multiproc": {k: multiproc[k] for k in ("library", "cli")},
         "families_cases": fam_cases,
         "families_identical_states": fam_states,
         **{nm: {k: r[k] for k in (

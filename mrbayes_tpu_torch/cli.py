@@ -17,6 +17,13 @@ mode: ``python -m mrbayes_tpu_torch.cli file.nex`` (on the GPU; add
 or ``--stacked`` to turn on a kernel path, see ``Engine``); interactive
 without arguments.  On a host with several CUDA devices, ``MB_AUTOSHARD=1``
 shards each mcmc run's patterns over them (``_analysis_mesh``).
+
+Over N processes (the reference's ``mpirun -np N``, src/bayes.c:176-195)
+the same command runs on every rank with ``--coordinator host:port
+--nprocs N --procid i`` (or ``MB_COORDINATOR``, ``MB_NPROCS``,
+``MB_PROCID``): each rank holds a chain shard on its own device, rank 0
+prints and writes every file, and the other ranks skip the host-only
+commands (``HOST_ONLY``).
 """
 from __future__ import annotations
 
@@ -123,6 +130,8 @@ class Interpreter:
                          "stacked": stacked}
         self.env = Environment()
         self._log_fn = log or print
+        # a rank other than 0 of a launch over processes (main)
+        self._worker = False
 
     def log(self, msg: str):
         self._log_fn(msg)
@@ -161,9 +170,17 @@ class Interpreter:
             self.run_command(toks, base_dir)
 
     # ------------------------------------------------------------------
+    # host-side summary and plot commands run on rank 0 only in a launch
+    # over processes; the analyses and model commands run on every rank
+    # (mrbayes_tpu/cli.py:142-149)
+    HOST_ONLY = ("sump", "sumt", "sumss", "comparetree", "compareref",
+                 "plot", "log")
+
     def run_command(self, toks: list[str], base_dir: str = "."):
         name = toks[0].lower()
         args = toks[1:]
+        if self._worker and name in self.HOST_ONLY:
+            return
         handler = getattr(self, f"do_{name}", None)
         if handler is None:
             handler = self._abbrev_handler(name)
@@ -1028,19 +1045,32 @@ class Interpreter:
         self._set_mcmc_params(args)
 
     def _analysis_mesh(self):
-        """Device mesh for a run (mrbayes_tpu/cli.py:1123-1135): on a host
-        with more than one CUDA device and ``MB_AUTOSHARD=1``, ``auto_mesh``
-        over every CUDA device; otherwise none.  A mesh of more than one
-        chain shard is not ported yet (ROADMAP Queue 1 item 11b)."""
+        """Device mesh for a run (mrbayes_tpu/cli.py:1123-1135): over
+        several processes always ``auto_mesh`` (one chain shard a process,
+        its device on ``sites``); in one process on a host with more than
+        one CUDA device and ``MB_AUTOSHARD=1``, ``auto_mesh`` over every
+        CUDA device (one chain shard, the devices on ``sites``); otherwise
+        none."""
         import torch
+        from .parallel.mesh import auto_mesh, process_count
+        if process_count() > 1:
+            try:
+                return auto_mesh(self.env.mcmc.n_chains_total)
+            except ValueError as e:
+                raise CommandError(str(e)) from e
         if self.device.type != "cuda" or torch.cuda.device_count() <= 1 \
                 or os.environ.get("MB_AUTOSHARD", "0") != "1":
             return None
-        from .parallel.mesh import auto_mesh
-        try:
-            return auto_mesh(self.env.mcmc.n_chains_total)
-        except NotImplementedError as e:
-            raise CommandError(f"MB_AUTOSHARD=1: {e}") from e
+        return auto_mesh(self.env.mcmc.n_chains_total)
+
+    def _sharded(self, eng):
+        """The mesh of a run on ``eng``, its data sharded over ``sites``
+        (None without a mesh)."""
+        mesh = self._analysis_mesh()
+        if mesh is not None:
+            from .parallel.mesh import shard_engine_data
+            shard_engine_data(eng, mesh)
+        return mesh
 
     def do_mcmc(self, args, base_dir):
         from .mcmc.run import McmcRunner
@@ -1051,12 +1081,8 @@ class Interpreter:
                 mc.starttree in ("random", "parsimony", "nj") or mc.nperts):
             self.log("   [starttree/nperts apply to non-clock trees; "
                      "clock runs keep their standard starting trees]")
-        mesh = self._analysis_mesh()
-        if mesh is not None:
-            from .parallel.mesh import shard_engine_data
-            shard_engine_data(eng, mesh)
         runner = McmcRunner(eng, log=self.log, report=self.env.report,
-                            mesh=mesh)
+                            mesh=self._sharded(eng))
         runner.run()
         self._last_runner = runner
 
@@ -1076,7 +1102,8 @@ class Interpreter:
                 burninss = int(val[0])
         eng = self.build_engine()
         runner = SsRunner(eng, nsteps=nsteps, alpha=alpha,
-                          burninss=burninss, log=self.log)
+                          burninss=burninss, log=self.log,
+                          mesh=self._sharded(eng))
         runner.run_ss()
         self._last_runner = runner
 
@@ -1492,7 +1519,19 @@ def main(argv=None):
     parser.add_argument("files", nargs="*", help="NEXUS batch files")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' to run "
-                             "on the CPU)")
+                             "on the CPU, every rank with gloo)")
+    # a launch over processes (replaces the reference's mpirun,
+    # src/bayes.c:176-195): the same command on every rank with
+    # --nprocs N --procid <i> --coordinator host:port
+    parser.add_argument("--coordinator",
+                        default=os.environ.get("MB_COORDINATOR"),
+                        help="host:port of rank 0's store "
+                             "(torch.distributed)")
+    parser.add_argument("--nprocs", type=int,
+                        default=int(os.environ.get("MB_NPROCS", 0)) or None)
+    parser.add_argument("--procid", type=int,
+                        default=(int(os.environ["MB_PROCID"])
+                                 if "MB_PROCID" in os.environ else None))
     for name, env in (("multiwalk", "MB_TPU_MULTIWALK"),
                       ("wavefront", "MB_TPU_WAVEFRONT"),
                       ("stacked", "MB_TPU_STACKED")):
@@ -1501,12 +1540,33 @@ def main(argv=None):
                                  f"(default: {env}, else off)")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     from . import __version__
-    interp = Interpreter(device=args.device, multiwalk=args.multiwalk,
+    device, is_main, note = args.device, True, None
+    if args.coordinator:
+        from .parallel.mesh import init_distributed
+        if args.nprocs is None or args.procid is None:
+            parser.error("--coordinator needs --nprocs and --procid")
+        w = init_distributed(args.coordinator, args.nprocs, args.procid,
+                             device=args.device)
+        device, is_main = w.device, w.rank == 0
+        note = (f"   Process group: {w.size} processes, backend "
+                f"{w.backend}, rank 0 on {w.device}")
+    interp = Interpreter(device=device, multiwalk=args.multiwalk,
                          wavefront=args.wavefront, stacked=args.stacked)
-    print(BANNER.format(version=__version__))
+    if not is_main:
+        # rank 0 prints, and the host-only commands run there only
+        # (reference MrBayesPrint gating, src/utils.c:1136)
+        interp._log_fn = lambda msg: None
+        interp._worker = True
+    else:
+        print(BANNER.format(version=__version__))
+        if note:
+            print(note)
     if args.files:
         for path in args.files:
             interp.execute_file(path)
+        if args.coordinator:
+            from .parallel.mesh import shutdown_distributed
+            shutdown_distributed()
         return 0
     # interactive REPL
     while not interp.env.quit_requested:

@@ -106,6 +106,19 @@ into one slice per shard and goes through a ``PruningCudaSharded``: one
 device, the [C] partial sums added on the engine's device.  A coded
 division's dummy patterns take a pass of their own inside that pruner,
 and the multiwalk and stacked groups are cleared.
+
+Under a ``chains`` mesh over N processes (``parallel/mesh.py:
+shard_chains``) this process's engine holds chains ``chain_slice`` of
+the flat runs × chains axis: its states, tuning and move counters are
+that slice, its multiwalk groups are sized by it, and ``run_block``
+reads the heats from that slice of the whole ``temp_id``.  ``bk["rng"]``
+is the rank's own generator (``mesh.rank_seed``); the move draws and the
+swap draws come from generators seeded alike on every rank and are drawn
+whole on every rank, so each chain's move and every swap are the
+one-process draws.  A swap needs E of every chain of a run: where this
+process holds whole runs it swaps them alone, otherwise E is gathered
+from every rank (``mesh.all_gather``, one collective a swap generation)
+and every rank computes the same swaps.
 """
 from __future__ import annotations
 
@@ -136,6 +149,7 @@ from ..ops.pruning import (adgamma_loglik_from_cats, branch_tiprobs,
                            division_loglik, make_pruner, pinvar_mix,
                            root_clv, site_loglik_from_root)
 from ..ops.pruning_cuda import check_kernel_shape
+from ..ops.sharded_cuda import PruningCudaSharded
 from ..ops.stacked_cuda import PruningCudaGeneStack, PruningCudaStacked
 from ..ops.traversal import ancestor_matrix, postorder_internal
 from ..ops.tiprobs import eigh_reversible
@@ -346,6 +360,8 @@ class Engine:
             raise ValueError("one DivisionSettings per division required")
         # setup messages for the caller to print (the CLI logs them)
         self.notes: list[str] = []
+        # the chains this process holds (set_chain_slice); None: all
+        self._chain_slice = None
         self._check_slice(div_settings, links)
         self._build_species()
         self._build_dating()
@@ -1222,7 +1238,8 @@ class Engine:
         self._multiwalk_pruners: list = []
         if not self.multiwalk or self._ungrouped_trees("multiwalk"):
             return
-        C = self.mcmc.n_chains_total
+        lo, hi = self.chain_slice
+        C = hi - lo
         n_int = self.n_tips - 1
         by_states: dict = {}
         for i, cfg in enumerate(self.div_cfg):
@@ -1255,6 +1272,22 @@ class Engine:
                      for i in g]
             self._multiwalk_pruners.append(
                 (g, PruningCudaMultiwalk(specs, self.device)))
+
+    @property
+    def chain_slice(self) -> tuple[int, int]:
+        """(lo, hi): the chains of the flat runs × chains axis this
+        process holds; all of them unless ``set_chain_slice`` was called."""
+        if self._chain_slice is None:
+            return 0, self.mcmc.n_chains_total
+        return self._chain_slice
+
+    def set_chain_slice(self, lo: int, hi: int) -> None:
+        """Hold chains [lo, hi) only (``parallel/mesh.py:shard_chains``):
+        the multiwalk groups are formed again for that many chains (unless
+        the data is sharded over sites, which clears them)."""
+        self._chain_slice = (lo, hi)
+        if not any(isinstance(p, PruningCudaSharded) for p in self._pruners):
+            self._build_multiwalk_pruners()
 
     def _build_stacked_pruners(self):
         """Group divisions into stacked launches when the switch is on
@@ -2393,7 +2426,9 @@ class Engine:
 
     def init_chains(self, seed: int | None = None):
         """Starting states for all runs × chains, on the engine's device,
-        plus the bookkeeping dict."""
+        plus the bookkeeping dict.  Every process of a ``chains`` mesh
+        draws and scores all of them alike and keeps its slice in
+        ``parallel/mesh.py:shard_chains``."""
         seed = self.mcmc.seed if seed is None else seed
         rng = np.random.default_rng(seed)
         per = [self.init_state(rng) for _ in range(self.mcmc.n_chains_total)]
@@ -2403,7 +2438,12 @@ class Engine:
         return states, self.init_bookkeeping(seed)
 
     def init_bookkeeping(self, seed: int, swapseed: int | None = None):
-        """Generators, temperatures, tuning and move/swap counters."""
+        """Generators, temperatures, tuning and move/swap counters.
+        ``rng`` (proposals, acceptance) is this process's own: seeded with
+        ``mesh.rank_seed(seed, rank)``, ``seed`` itself without a process
+        group and on rank 0; ``rng_host`` (the move sequence) and
+        ``rng_swap`` are seeded alike on every rank."""
+        from ..parallel.mesh import process_index, rank_seed
         dev = self.device
         mc = self.mcmc
         nt, nm = mc.n_chains_total, len(self.moves)
@@ -2413,7 +2453,8 @@ class Engine:
             return torch.zeros(shape, dtype=torch.int32, device=dev)
 
         return {
-            "rng": torch.Generator(device=dev).manual_seed(seed),
+            "rng": torch.Generator(device=dev).manual_seed(
+                rank_seed(seed, process_index())),
             "rng_host": torch.Generator().manual_seed(seed),
             "rng_swap": torch.Generator(device=dev).manual_seed(swapseed),
             "temp_id": torch.arange(mc.nchains, device=dev).repeat(
@@ -3400,18 +3441,20 @@ class Engine:
         return self._metropolis(state, prop, lnL, lnP_tree, lnP_par, lnH,
                                 heat, power, u_acc)
 
-    def _swap_step(self, draws, states, temp_id, power=1.0):
+    def _swap_step(self, draws, E, temp_id):
         """``nswaps`` swap attempts per run between random chain pairs
         (reference AttemptSwap, src/mcmc.c:591; acceptance math :718), as
-        dense vector math over the [runs, chains] layout.  ``draws`` is
-        (si, sj_off, su) [nswaps, R], pregenerated for the block.
-        Returns (temp_id, (lo, hi, acc) per attempt)."""
+        dense vector math over the [runs, chains] layout of R runs (all of
+        them, or the whole runs one process holds).  ``E`` [R * nchains]
+        is power·lnL + lnP of their chains, ``temp_id`` [R * nchains]
+        their temperature ids and ``draws`` (si, sj_off, su) [nswaps, R],
+        pregenerated for the block.  Returns (temp_id, (lo, hi, acc) per
+        attempt)."""
         si, sj_off, su = draws
         nc = self.mcmc.nchains
-        R = self.mcmc.nruns
         lam = self.mcmc.temp
-        E = (power * states["lnL"] + states["lnP"]).reshape(R, nc)
-        tid = temp_id.reshape(R, nc)
+        E = E.reshape(-1, nc)
+        tid = temp_id.reshape(-1, nc)
         idx = torch.arange(nc, device=tid.device)
         los, his, accs = [], [], []
         for a in range(si.shape[0]):
@@ -3435,12 +3478,27 @@ class Engine:
         rec = (torch.stack(los), torch.stack(his), torch.stack(accs))
         return tid.reshape(-1), rec
 
-    def _accumulate_swap_stats(self, swap_tries, swap_accepts, lo, hi, acc):
-        """Fold a block's swap records ([n, nswaps, R] lo/hi/acc) into the
-        [R, nc, nc] swap-rate matrices with two scatter-adds."""
+    def _swap_draws(self, gen, n_gens: int):
+        """A block's swap draws (si, sj_off, su) [n_gens, nswaps, runs]
+        from ``gen``: every run's, on every process alike."""
+        mc = self.mcmc
+        shape = (n_gens, max(1, mc.nswaps), mc.nruns)
+        si = torch.randint(0, mc.nchains, shape, generator=gen,
+                           device=self.device)
+        sj = torch.randint(1, mc.nchains, shape, generator=gen,
+                           device=self.device)
+        su = torch.rand(shape, generator=gen, device=self.device)
+        return si, sj, su
+
+    def _accumulate_swap_stats(self, swap_tries, swap_accepts, lo, hi, acc,
+                               run0: int = 0):
+        """Fold a block's swap records ([n, nswaps, R'] lo/hi/acc of runs
+        run0 .. run0 + R' - 1) into the [R, nc, nc] swap-rate matrices with
+        two scatter-adds."""
         nc = self.mcmc.nchains
         R = self.mcmc.nruns
-        r_idx = torch.arange(R, device=lo.device).expand_as(lo)
+        r_idx = run0 + torch.arange(lo.shape[-1],
+                                    device=lo.device).expand_as(lo)
         flat = ((r_idx * nc + lo) * nc + hi).reshape(-1)
         tries = torch.zeros(R * nc * nc, dtype=swap_tries.dtype,
                             device=lo.device)
@@ -3470,9 +3528,18 @@ class Engine:
         The block's move indices are drawn up front from the host
         generator (so the host knows which move to run); acceptance
         uniforms and swap draws come from the device generators in one
-        batch each.  Nothing in the loop waits for the device."""
+        batch each.  Nothing in the loop waits for the device, except the
+        gather of E where a run's chains span processes.  Under a
+        ``chains`` mesh the move and swap draws are drawn for every chain
+        and run and this process keeps its own."""
         mc = self.mcmc
-        C = mc.n_chains_total
+        lo, hi = self.chain_slice
+        C = hi - lo
+        nc = mc.nchains
+        # a process holding whole runs swaps them alone; otherwise every
+        # rank gathers E and computes every run's swaps
+        local_swap = C % nc == 0
+        run0, run1 = (lo // nc, hi // nc) if local_swap else (0, mc.nruns)
         dev = self.device
         bk = {k: (v.clone() if torch.is_tensor(v) else v)
               for k, v in bk.items()}
@@ -3482,8 +3549,9 @@ class Engine:
             # distinct moves, the device each chain's draw (one
             # non-blocking copy from pinned memory a block)
             drawn = torch.multinomial(
-                self._move_probs, n_gens * C, replacement=True,
-                generator=bk["rng_host"]).reshape(n_gens, C)
+                self._move_probs, n_gens * mc.n_chains_total,
+                replacement=True, generator=bk["rng_host"]).reshape(
+                    n_gens, mc.n_chains_total)[:, lo:hi].contiguous()
             distinct = [sorted(set(row)) for row in drawn.tolist()]
             if dev.type == "cuda":
                 drawn = drawn.pin_memory()
@@ -3496,16 +3564,11 @@ class Engine:
         u_acc = torch.rand((n_gens, C), generator=bk["rng"], device=dev)
         swapping = mc.nchains > 1
         if swapping:
-            shape = (n_gens, max(1, mc.nswaps), mc.nruns)
-            si = torch.randint(0, mc.nchains, shape,
-                               generator=bk["rng_swap"], device=dev)
-            sj = torch.randint(1, mc.nchains, shape,
-                               generator=bk["rng_swap"], device=dev)
-            su = torch.rand(shape, generator=bk["rng_swap"], device=dev)
+            si, sj, su = self._swap_draws(bk["rng_swap"], n_gens)
         power = bk["power"]
         recs = []
         for g in range(n_gens):
-            heats = 1.0 / (1.0 + mc.temp * bk["temp_id"].float())
+            heats = 1.0 / (1.0 + mc.temp * bk["temp_id"][lo:hi].float())
             if mc.per_chain_moves:
                 states, accepted = self._per_chain_step(
                     bk["rng"], states, heats, bk["tuning"], power,
@@ -3530,16 +3593,24 @@ class Engine:
                 bk["accepts_total"][:, m] += acc
             absolute = gen0 + g + 1
             if swapping and absolute % mc.swapfreq == 0:
-                bk["temp_id"], rec = self._swap_step(
-                    (si[g], sj[g], su[g]), states, bk["temp_id"], power)
+                E = power * states["lnL"] + states["lnP"]
+                if not local_swap:
+                    from ..parallel.mesh import all_gather
+                    E = all_gather(E).reshape(-1)
+                t0, t1 = run0 * nc, run1 * nc
+                tid, rec = self._swap_step(
+                    (si[g][:, run0:run1], sj[g][:, run0:run1],
+                     su[g][:, run0:run1]), E, bk["temp_id"][t0:t1])
+                bk["temp_id"][t0:t1] = tid
                 recs.append(rec)
             if mc.tune and absolute % mc.tunefreq == 0:
                 bk = self._autotune(bk)
         if recs:
-            lo, hi, acc = (torch.stack(x) for x in zip(*recs))
+            lo_, hi_, acc = (torch.stack(x) for x in zip(*recs))
             bk["swap_tries"], bk["swap_accepts"] = \
                 self._accumulate_swap_stats(bk["swap_tries"],
-                                            bk["swap_accepts"], lo, hi, acc)
+                                            bk["swap_accepts"], lo_, hi_,
+                                            acc, run0)
         bk["gen"] = gen0 + n_gens
         return states, bk
 

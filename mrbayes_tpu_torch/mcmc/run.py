@@ -18,11 +18,17 @@ The ``report`` command's columns (ancestral states, site rates, positive
 selection; ``mcmc/report.py``) are computed on the device for each run's
 cold chain and ride in the same one copy a block.
 
-With a mesh (``parallel/mesh.py``) the engine's data is sharded over the
-``sites`` axis in this one process (Queue 1 item 11a); the states stay
-whole on the engine's device.  Not ported yet: the ``chains`` axis over
-processes (item 11b: ``torch.distributed``, a generator per rank, the
-swap all-gather of (lnL, lnP), the gather to rank 0).
+With a mesh (``parallel/mesh.py``) the engine's data may be sharded over
+the ``sites`` axis within the process, and the chains over the
+processes of a ``torch.distributed`` group (the ``chains`` axis, one
+process a chain shard; mrbayes_tpu run.py:281-285).  Then each rank
+holds its slice of the chains, the block's one copy becomes one
+all-gather that gives every rank the full host view
+(``mesh.gather_to_host``), and every rank records the same samples, so
+the stoprule and the ASDSF are decided alike everywhere; a SIGINT on
+any rank rides in that gather, so all stop at the same block.  Only
+rank 0 logs and writes files and checkpoints, after the gather; a
+barrier follows each checkpoint.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 
 from ..models.codes import BASES
 from ..trees import to_newick
+from ..parallel import mesh as PM
 from .diagnostics import SplitCounter
 from .engine import PI_FIELDS, SCORE_KEYS, Engine
 
@@ -305,9 +312,33 @@ def host_states(states: dict, bk: dict, report=None) -> dict:
     return out
 
 
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 def _rooting(t) -> str:
     """The reference's rooting comment of a tree line."""
     return "[&R]" if t.rooted else "[&U]"
+
+
+class _NullFile:
+    """Where a rank other than 0 writes its sample rows: nowhere (the
+    reference's MrBayesPrint gating, src/utils.c:1136)."""
+
+    def write(self, s):
+        return len(s)
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
 
 
 class McmcRunner:
@@ -317,6 +348,15 @@ class McmcRunner:
         self.mc = engine.mcmc
         self.prefix = file_prefix or self.mc.filename
         self.mesh = mesh
+        n_proc = PM.process_count()
+        self.multiprocess = n_proc > 1
+        self.is_main = PM.process_index() == 0
+        if self.multiprocess and (mesh is None
+                                  or mesh.shape["chains"] != n_proc):
+            raise ValueError(f"a run over {n_proc} processes needs a mesh "
+                             f"of {n_proc} chain shards")
+        if not self.is_main:
+            log = lambda msg: None   # noqa: E731  (rank 0 logs)
         self.log = log
         self.cols = param_columns(engine)
         # the report command's ancstates/siterates/possel/siteomega
@@ -381,6 +421,11 @@ class McmcRunner:
         return [f"{self.prefix}.run{r + 1}.gene{g + 1}.t"
                 for g in range(self.eng.n_div)]
 
+    def _open(self, path: str, mode: str):
+        """``path`` opened on rank 0; elsewhere a file that writes
+        nowhere."""
+        return open(path, mode) if self.is_main else _NullFile()
+
     def _open_files(self, append: bool, start_gen: int = 0):
         mode = "a" if append else "w"
         self.pf, self.tf, self.gf = [], [], []
@@ -395,13 +440,13 @@ class McmcRunner:
 
         for r in range(self.mc.nruns):
             base = f"{self.prefix}.run{r + 1}"
-            if append:
+            if append and self.is_main:
                 self._truncate_after(base + ".p", start_gen, False)
                 for path in self._tree_paths(r) + self._gene_paths(r):
                     self._truncate_after(path, start_gen, True)
-            pf = open(base + ".p", mode)
-            tfs = [open(path, mode) for path in self._tree_paths(r)]
-            gfs = [open(path, mode) for path in self._gene_paths(r)]
+            pf = self._open(base + ".p", mode)
+            tfs = [self._open(path, mode) for path in self._tree_paths(r)]
+            gfs = [self._open(path, mode) for path in self._gene_paths(r)]
             if not append:
                 pf.write(f"[ID: {seed_id:010d}]\n")
                 hdr = "Gen\tlnLike\tlnPrior\t" \
@@ -416,7 +461,7 @@ class McmcRunner:
             self.pf.append(pf)
             self.tf.append(tfs)
             self.gf.append(gfs)
-        self.mcmcf = open(f"{self.prefix}.mcmc", mode)
+        self.mcmcf = self._open(f"{self.prefix}.mcmc", mode)
         if not append:
             self.mcmcf.write(f"[ID: {seed_id:010d}]\n")
             self.mcmcf.write("Gen\tAvgStdDev(s)\n")
@@ -444,10 +489,12 @@ class McmcRunner:
                 for t in range(self.n_trees):
                     self.eng.extract_tree(host, slot, t).check()
         if os.environ.get("MB_DEBUG_LNL"):
+            # this process's chains against their rows of the host view
+            sl = slice(*self.eng.chain_slice)
             fresh = self.eng.score({k: v for k, v in states.items()
                                     if k not in SCORE_KEYS})
             diff = {k: float(np.abs(fresh[k].cpu().numpy()
-                                    - host[k]).max()) for k in SCORE_KEYS}
+                                    - host[k][sl]).max()) for k in SCORE_KEYS}
             scale = 1e-6 * float(np.abs(host["lnP"]).max())
             if diff["lnL"] > 0.5 or diff["lnP"] > 0.5 \
                     or diff["lnP_tree"] > 1e-3 + scale \
@@ -466,6 +513,29 @@ class McmcRunner:
         if self.reporter is not None:
             rep = self.reporter.compute(states, self.reporter.cold_slots(bk))
         return host_states(states, bk, rep)
+
+    def _gather(self, states, bk, abort: bool = False):
+        """(host view, bk, abort): in one process ``_host`` and ``bk``
+        unchanged.  Over processes the block's one all-gather
+        (``mesh.gather_to_host``): every rank gets the full host view, the
+        gathered bookkeeping (kept as ``_host_bk`` for the checkpoint and
+        the summaries) and ``temp_id`` and the swap matrices put back on
+        its device, identical on every rank; the report rows of each run
+        come from the rank that holds its cold chain, and ``abort`` is
+        true when any rank's is."""
+        if not self.multiprocess:
+            return self._host(states, bk), bk, abort
+        rep = None
+        if self.reporter is not None:
+            lo, hi = self.eng.chain_slice
+            slots = self.reporter.cold_slots(bk) - lo
+            mine = (slots >= 0) & (slots < hi - lo)
+            rep = torch.where(mine[:, None], self.reporter.compute(
+                states, slots.clamp(0, hi - lo - 1)), 0.0)
+        host, self._host_bk, flags = PM.gather_to_host(
+            states, bk, rep, flags=(float(abort),))
+        bk = PM.replicate_bookkeeping(bk, self._host_bk, host["temp_id"])
+        return host, bk, bool(flags.any())
 
     def _write_sample(self, gen: int, host):
         for r, slot in enumerate(self.eng.cold_indices(host)):
@@ -513,10 +583,24 @@ class McmcRunner:
         `mbtpu_state` block (NEXUS readers skip unknown blocks), with
         ``extra`` arrays as ``ss.<key>`` (the steppingstone accumulators;
         the reference keeps its SS state in the .ckp too,
-        src/mcmc.c:11253-11282)."""
+        src/mcmc.c:11253-11282).  Over processes every rank takes part in
+        a gather of the chains and of every rank's generator states, rank
+        0 writes, and a barrier follows."""
         mc = self.mc
         nc = mc.nchains
-        host = host_states(states, bk)
+        if self.multiprocess:
+            # every rank's chains and generators
+            host, _, _ = self._gather(states, bk)
+            gens = PM.all_gather_object({
+                k: bk[k].get_state().numpy() for k in self._GENERATORS})
+            bk = {**bk, **self._host_bk, "temp_id": host["temp_id"],
+                  **{k: np.stack([g[k] for g in gens])
+                     for k in self._GENERATORS}}
+            if not self.is_main:
+                PM.barrier()
+                return
+        else:
+            host = host_states(states, bk)
         lines = ["#NEXUS", f"[ID: {mc.seed:010d}]", f"[generation: {gen}]",
                  f"[seed: {mc.seed}]", f"[swapseed: {mc.swapseed}]",
                  "begin trees;", "   translate"]
@@ -542,7 +626,8 @@ class McmcRunner:
                 lines.append(f"   array {prefix}.{k} {a.dtype.name} "
                              f"[{shape}] = {self._fmt_array(a)};")
 
-        dump("states", {k: v for k, v in host.items() if k != "temp_id"})
+        dump("states", {k: v for k, v in host.items()
+                        if k not in ("temp_id", "report")})
         dump("bk", {k: (v.get_state().numpy()
                         if isinstance(v, torch.Generator)
                         else v.cpu().numpy() if torch.is_tensor(v) else v)
@@ -555,10 +640,16 @@ class McmcRunner:
             os.replace(path, path + "~")
         with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
+        PM.barrier()
 
     def read_checkpoint(self):
-        """(states, bk, generation) from ``<prefix>.ckp``; the scores are
-        recomputed exactly.  Its ``ss.`` arrays go to ``_ckp_extra``."""
+        """(states, bk, generation) from ``<prefix>.ckp``, all chains (a
+        process of a ``chains`` mesh keeps its slice in ``shard_chains``);
+        the scores are recomputed exactly.  Its ``ss.`` arrays go to
+        ``_ckp_extra``.  A checkpoint of N processes holds a generator
+        state a rank, and rank r takes row r; one of one process gives its
+        ``rng`` to rank 0, and ranks r > 0 keep theirs from
+        ``mesh.rank_seed``."""
         with open(f"{self.prefix}.ckp") as f:
             arrays, gen = self._parse_nexus_ckp(f.read())
         self._ckp_extra = {k[len("ss."):]: v for k, v in arrays.items()
@@ -574,6 +665,15 @@ class McmcRunner:
             if a is None:
                 continue
             if isinstance(v, torch.Generator):
+                if a.ndim == 2:
+                    if a.shape[0] != PM.process_count():
+                        raise ValueError(
+                            f"the checkpoint was written by {a.shape[0]} "
+                            f"processes, this run has "
+                            f"{PM.process_count()}")
+                    a = a[PM.process_index()]
+                elif k == "rng" and PM.process_index() > 0:
+                    continue
                 v.set_state(torch.as_tensor(a.astype(np.uint8)))
             elif torch.is_tensor(v):
                 bk[k] = torch.as_tensor(a.reshape(tuple(v.shape)),
@@ -610,18 +710,14 @@ class McmcRunner:
         mc = self.mc
         eng = self.eng
         start_gen = 0
-        if mc.append and os.path.exists(f"{self.prefix}.ckp"):
+        if self._resuming():
             states, bk, start_gen = self.read_checkpoint()
             self.log(f"   Resuming from checkpoint at generation {start_gen}")
         else:
             states, bk = eng.init_chains()
-        if self.mesh is not None:
-            from ..parallel.mesh import shard_chains
-            states, bk = shard_chains(eng, self.mesh, states, bk)
-            self.log(f"   Sharding over mesh {self.mesh.shape} "
-                     f"(1 process(es))")
+        states, bk = self._shard(states, bk)
         self._open_files(append=start_gen > 0, start_gen=start_gen)
-        host = self._host(states, bk)
+        host, bk, _ = self._gather(states, bk)
         self.log(f"   Running Markov chain ( {mc.nruns} runs x {mc.nchains} "
                  f"chains, {mc.ngen} generations ) on {eng.device}")
         self.log("   Initial log likelihoods: "
@@ -654,7 +750,10 @@ class McmcRunner:
             n = min(mc.samplefreq, mc.ngen - gen)
             tb = time.time()
             states, bk = eng.run_block(states, bk, n)
-            host = self._host(states, bk)   # waits for the device
+            # waits for the device; over processes, any rank's ^C stops
+            # every rank at this block
+            host, bk, abort = self._gather(states, bk, self._abort)
+            self._abort = self._abort or abort
             self.phase_times["device"] += time.time() - tb
             gen += n
             if self._abort:
@@ -712,8 +811,33 @@ class McmcRunner:
                        default=float(host["lnL"][slot]))
             self.log(f"   Likelihood of best state for \"cold\" chain of "
                      f"run {r + 1} was {best:.2f}")
-        self._print_move_summary(bk)
+        self._print_move_summary(self._host_bk if self.multiprocess else bk)
         self.final_states, self.final_bk = states, bk
+        return states, bk
+
+    def _resuming(self) -> bool:
+        """True when ``append=yes`` finds ``<prefix>.ckp``.  Over processes
+        every rank must see it alike (they share a directory); a rank that
+        does not would run another number of generations and hang its
+        peers, so a disagreement raises on every rank."""
+        found = self.mc.append and os.path.exists(f"{self.prefix}.ckp")
+        if self.multiprocess and len(set(PM.all_gather_object(found))) > 1:
+            raise RuntimeError(
+                f"append=yes: {self.prefix}.ckp is visible to some ranks "
+                f"only; launch every rank in one shared directory")
+        return found
+
+    def _shard(self, states, bk):
+        """Place the run on the mesh's ``chains`` axis (this process's
+        slice; the identity without a mesh or at one chain shard) and log
+        it."""
+        if self.mesh is None:
+            return states, bk
+        states, bk = PM.shard_chains(self.eng, self.mesh, states, bk)
+        n = PM.process_count()
+        backend = f", backend {PM.world().backend}" if n > 1 else ""
+        self.log(f"   Sharding over mesh {self.mesh.shape} "
+                 f"({n} process(es){backend})")
         return states, bk
 
     def _burned_asdsf(self) -> float:
@@ -726,8 +850,10 @@ class McmcRunner:
                    for sc in self.splits)
 
     def _print_move_summary(self, bk):
-        tries = bk["tries_total"].sum(0).cpu().numpy()
-        accepts = bk["accepts_total"].sum(0).cpu().numpy()
+        """The move and swap tables from ``bk`` (tensors, or the gathered
+        host arrays over processes)."""
+        tries = _np(bk["tries_total"]).sum(0)
+        accepts = _np(bk["accepts_total"]).sum(0)
         self.log("   Acceptance rates per move (all chains):")
         for i, mv in enumerate(self.eng.moves):
             if tries[i]:
@@ -741,8 +867,8 @@ class McmcRunner:
         src/mcmc.c:13579)."""
         if self.mc.nchains < 2:
             return
-        st = bk["swap_tries"].cpu().numpy()
-        sa = bk["swap_accepts"].cpu().numpy()
+        st = _np(bk["swap_tries"])
+        sa = _np(bk["swap_accepts"])
         nc = self.mc.nchains
         for r in range(self.mc.nruns):
             self.log(f"   Chain swap information for run {r + 1} "

@@ -10,7 +10,10 @@ the cold chain's samples, and the contributions sum to the log marginal
 likelihood.  A step's beta is ``bk["power"]``, a host float that
 ``Engine.run_block`` passes into every acceptance and swap ratio, so the
 ladder adds no host synchronisation: each sample's lnL comes from the
-runner's one device->host copy a block.
+runner's one device->host copy a block.  Over the processes of a
+``chains`` mesh every rank runs the ladder on its chains, gets each
+sample from the runner's one gather a block, and only rank 0 writes the
+.ss file.
 """
 from __future__ import annotations
 
@@ -75,7 +78,7 @@ class SsRunner(McmcRunner):
         start_step, start_sample = 1, 0
         resume_samples = None
         resumed = False
-        if mc.append and os.path.exists(f"{self.prefix}.ckp"):
+        if self._resuming():
             states, bk, gen = self.read_checkpoint()
             ex = self._ckp_extra
             if "lnZ" in ex:
@@ -97,6 +100,7 @@ class SsRunner(McmcRunner):
         if not resumed:
             states, bk = eng.init_chains()
             gen = 0
+        states, bk = self._shard(states, bk)
         self._open_files(append=resumed, start_gen=gen)
         # the .ss rows of completed steps survive a resume
         old_rows = []
@@ -107,7 +111,7 @@ class SsRunner(McmcRunner):
                     if parts and parts[0].isdigit() \
                             and int(parts[0]) < start_step:
                         old_rows.append(line.rstrip("\n"))
-        with open(f"{self.prefix}.ss", "w") as ssf:
+        with self._open(f"{self.prefix}.ss", "w") as ssf:
             ssf.write(f"[ID: {mc.seed:010d}]\n")
             ssf.write("Step\tbeta\tmeanLnL\tcontribution\n")
             for row in old_rows:
@@ -133,7 +137,7 @@ class SsRunner(McmcRunner):
                 for _ in range(first_sample, n_samples):
                     states, bk = eng.run_block(states, bk, mc.samplefreq)
                     gen += mc.samplefreq
-                    host = self._host(states, bk)
+                    host, bk, _ = self._gather(states, bk)
                     for r, slot in enumerate(eng.cold_indices(host)):
                         samples[r].append(float(host["lnL"][slot]))
                     self._write_sample(gen, host)

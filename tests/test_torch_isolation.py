@@ -6,7 +6,8 @@ mesh axis (``parallel.mesh``, ``parallel.dryrun``), on a clock tree
 (``mcmc.clock``, test2's relaxed clock), under the protein and codon
 models (``models.aa_models``, ``models.codes``, the S > 8 eigensolver
 ``ops.eigh_cuda``; codon M3 and M10 with ``models.rates.betainc``) and on
-kim.nex's stem doublets and unlinked trees, loads neither JAX nor any module of the JAX package
+kim.nex's stem doublets and unlinked trees, and a world of one over
+``torch.distributed`` (``parallel.mesh``'s chains axis), loads neither JAX nor any module of the JAX package
 (``mrbayes_tpu``), and ``chip_smoke.py`` imports neither.  Checked in a
 fresh interpreter, since this test process has JAX loaded already.  The
 new entry points run on CUDA unless given the CPU: an engine under a
@@ -56,6 +57,23 @@ import mrbayes_tpu_torch.parallel.dryrun
 from mrbayes_tpu_torch.parallel.mesh import make_mesh, shard_engine_data
 shard_engine_data(eng, make_mesh(1, 2, ["cpu"] * 2))
 states, bk = eng.run_block(*eng.init_chains(), 3)
+# the chains axis over processes: a world of one through gloo, its block
+# gathered as the ranks of a launch over processes gather it
+import socket
+from mrbayes_tpu_torch.parallel import mesh as PM
+sock = socket.socket()
+sock.bind(("127.0.0.1", 0))
+port = sock.getsockname()[1]
+sock.close()
+PM.init_distributed(f"127.0.0.1:{port}", 1, 0, device="cpu", timeout=60)
+eng = Engine(ds, [DivisionSettings(nst="6", rates="invgamma")],
+             mcmc=McmcSettings(nruns=1, nchains=2, seed=1), device="cpu")
+states, bk = PM.shard_chains(eng, PM.auto_mesh(2, ["cpu"]),
+                             *eng.init_chains())
+states, bk = eng.run_block(states, bk, 3)
+host, host_bk, _ = PM.gather_to_host(states, bk)
+assert host["lnL"].shape == (2,) and PM.world().backend == "gloo"
+PM.shutdown_distributed()
 # a clock engine: test2's IGR relaxed clock, with its rooted tree
 it = Interpreter(log=lambda m: None, device="cpu")
 for line in ["execute " + sys.argv[1], "partition p = 2: 1-400, 401-.",

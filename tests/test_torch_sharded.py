@@ -4,8 +4,10 @@ the JAX package's ``shard_engine_data`` on its 8 virtual CPU devices (as
 engine.  The port's meshes here are ``["cpu"] * k``: every shard takes the
 plain version of the pruning kernel.
 
-* mesh shapes, padding and the Queue 1 item 11b errors; ``auto_mesh``'s
-  factorisation equals JAX's for 1-8 devices;
+* mesh shapes, padding and the one-chain-shard-a-process rule (a mesh of
+  more chain shards than processes raises, naming it); ``auto_mesh``'s
+  shape equals JAX's for 1-8 devices wherever JAX's gives one chain shard,
+  and is 1 x devices otherwise;
 * ``PruningCudaSharded`` (plain per shard) against the slices of the
   unsharded root at 2e-5 on per-pattern lnL, for k = 1-4 (two of which
   pad), and its per-shard reduction against the unsharded weighted sum;
@@ -22,7 +24,7 @@ plain version of the pruning kernel.
   rtol 2e-4 of the unsharded run from the same seeds;
 * ``McmcRunner`` with a mesh logs the sharding line and writes its files;
   ``dryrun_sites(2, ["cpu"] * 2)`` passes; the CLI's ``MB_AUTOSHARD``
-  mesh;
+  mesh (one chain shard, every card on ``sites``);
 * on a card (``gpu`` marker): the sharded launch against its plain
   version.
 """
@@ -46,7 +48,7 @@ from mrbayes_tpu.nexus.parser import read_nexus_file as j_read
 from mrbayes_tpu.parallel.mesh import auto_mesh as j_auto_mesh
 from mrbayes_tpu.parallel.mesh import make_mesh as j_make_mesh
 from mrbayes_tpu.parallel.mesh import shard_engine_data as j_shard
-from mrbayes_tpu_torch.cli import CommandError, Interpreter
+from mrbayes_tpu_torch.cli import Interpreter
 from mrbayes_tpu_torch.convert import state_from_numpy
 from mrbayes_tpu_torch.data import DataSet, make_divisions
 from mrbayes_tpu_torch.envelope import CYNMIX_MODEL
@@ -74,6 +76,9 @@ CPU4 = ["cpu"] * 4
 
 
 def test_mesh_shapes_padding_and_item_11b_errors():
+    """The chains axis is ported (item 11b): in one process a mesh of
+    more than one chain shard raises the one-chain-shard-a-process rule
+    instead of NotImplementedError."""
     mesh = make_mesh(1, 4, CPU4)
     assert isinstance(mesh, Mesh)
     assert mesh.axis_names == ("chains", "sites")
@@ -82,7 +87,7 @@ def test_mesh_shapes_padding_and_item_11b_errors():
     assert make_mesh(1, 2, ["cpu", "cpu", "cpu"]).shape["sites"] == 2
     with pytest.raises(ValueError, match="need 4 devices"):
         make_mesh(1, 4, ["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(ValueError, match="launch one process a chain shard"):
         make_mesh(2, 2, CPU4)
     states, bk = {"lnL": torch.zeros(2)}, {"gen": 0}
     assert shard_chains(None, mesh, states, bk) == (states, bk)
@@ -94,14 +99,15 @@ def test_mesh_shapes_padding_and_item_11b_errors():
 
 @pytest.mark.parametrize("n_dev", range(1, 9))
 def test_auto_mesh_factorisation_equals_jax(n_dev):
+    """One process: JAX's shape wherever it gives one chain shard (a
+    process), else one chain shard with every device on ``sites``."""
     for n_chains in (1, 2, 3, 4, 6, 8, 12):
         want = j_auto_mesh(n_chains, jax.devices()[:n_dev]).devices.shape
-        if want[0] > 1:
-            with pytest.raises(NotImplementedError, match="item 11b"):
-                auto_mesh(n_chains, ["cpu"] * n_dev)
+        got = auto_mesh(n_chains, ["cpu"] * n_dev).shape
+        if want[0] == 1:
+            assert got == {"chains": 1, "sites": want[1]}
         else:
-            assert auto_mesh(n_chains, ["cpu"] * n_dev).shape == {
-                "chains": 1, "sites": want[1]}
+            assert got == {"chains": 1, "sites": n_dev}
 
 
 def _kernel_case(n_tips, P, S, K, C, seed):
@@ -357,8 +363,10 @@ def test_cli_autoshard_mesh(monkeypatch):
     monkeypatch.delenv("MB_AUTOSHARD", raising=False)
     assert it._analysis_mesh() is None               # not asked for
     monkeypatch.setenv("MB_AUTOSHARD", "1")
-    with pytest.raises(CommandError, match="item 11b"):
-        it._analysis_mesh()                          # 4 chain shards
+    # JAX would take 4 chain shards; one process holds one, every card on
+    # sites
+    mesh = it._analysis_mesh()
+    assert mesh.shape == {"chains": 1, "sites": 4}
     it.run_line("mcmcp nruns=1 nchains=3")
     mesh = it._analysis_mesh()
     assert mesh.shape == {"chains": 1, "sites": 4}
