@@ -159,9 +159,12 @@ Phases, each fatal on failure:
      ages, 15 divisions, 2 runs x 4 chains, 300 generations), switches
      off: one pruning.cu launch a division and likelihood, carried versus
      recomputed scores, every fixed fossil age held, the pinned ages
-     ordered and no constraint broken, the .p/.t/.mcmc files with each
-     sample's nSampledAncestors equal to its tree's zero-length tip
-     branches, sump and sumt;
+     ordered and no constraint broken, every sampled ancestor's parent at
+     its fossil's age bit for bit on every chain of every sample, the
+     .p/.t/.mcmc files with each sample's nSampledAncestors equal to its
+     tree's zero-length tip branches, sump and sumt; each run's mean
+     nSampledAncestors and the gens/s beside 34.9 before sampled
+     ancestors were accepted (no gate on the count);
  30. dating sync: a block and one generation of every move type with host
      synchronisation made an error, on the hymfossil engine (add_branch,
      del_branch, the fossilization slider) and on small problems with a
@@ -171,7 +174,13 @@ Phases, each fatal on failure:
      fossils and on a CPP problem, 32 runs x 1 chain, 1,000 generations on
      the card and on the port's own CPU engine (held against JAX in
      tests/test_torch_dating.py): the mean root age, sampled ancestors and
-     CPP events within 4 batch-means standard errors of each other;
+     CPP events within 4 batch-means standard errors of each other, and
+     sampled ancestors on both sides; then the three-tip FBD problem of
+     tests/fbd_small_trees.py (two extant tips and a fossil, 512 runs x 1
+     chain drawing its own move, 600 generations of which the last 400
+     are read) against the float64 integral of ln_fbd over its state
+     space: the sampled-ancestor share (> 0), the mean root age and the
+     share of ((A,B),F) within 4 batch-means standard errors;
  32. doublet and M3/M10 kernels: pruning.cu against its plain version at
      kim's stem doublets (27 tips, 78 pair patterns, S 16, K 1 and 4), its
      proteins (P 68 and 32, S 20), replicase under M3 (K 3, staged) and
@@ -309,7 +318,7 @@ Phases, each fatal on failure:
      every chain of each rank; temp_id and the swap matrices the same on
      both ranks after every block, each run's temp_id a permutation; (a)
      no collective in a block, a block with host synchronisation an
-     error and each rank's idle share over a profiled block, (b) one
+     error, (b) one
      collective a swap generation; each rank's gens/s beside one
      process's on the same configuration.  The ranks are this script run as
      ``--worker`` subprocesses, started once for phases 56 and 57 after
@@ -333,6 +342,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -459,6 +469,15 @@ AA_PRIOR_RUNS, AA_PRIOR_GENS, AA_PRIOR_SEED = 32, 1200, 13
 HYM_CHAINS = (8, 32)
 HYM_GENS = 300
 DATING_PRIOR_RUNS, DATING_PRIOR_GENS = 32, 1000
+# hymfossil's gens/s through the CLI before sampled ancestors were accepted,
+# as PERF.md records it from the dating slice's chip runs: printed beside
+# this run's on a log line, never measured here
+HYM_GENS_PER_S_BEFORE = 34.9
+# the three-tip prior-only FBD problem against its float64 integral
+# (tests/fbd_small_trees.py): runs x 1 chain, generations, the first ones not
+# read, seed
+THREE_TIP_RUNS, THREE_TIP_GENS, THREE_TIP_BURN, THREE_TIP_SEED = \
+    512, 600, 200, 1
 # kim.nex's stem doublets, codon M3 and M10 and unlinked trees: pruning.cu
 # at the new shapes (n_tips, P, S, K), each at C = 8 and 32: kim's stem
 # doublets (78 pair patterns, S 16, K 1 and 4), its two proteins (S 20),
@@ -575,13 +594,13 @@ PRIMATES_BEST = ("partition genes = 2: 1-400, 401-.",
 # torch.distributed sharing the card.  The library phase's layouts (runs,
 # chains) of primates GTR+I+G: (a) a run a rank, (b) one run of 8 chains,
 # 4 a rank; its warm-up, timed blocks and generations a block, and the
-# sync check's and the profiled block's generations.  The CLI phase's
+# sync check's generations.  The CLI phase's
 # generations of tests/test_multihost.py's DRIVE script.  A rank's
 # collectives wait at most MULTIPROC_DIST_TIMEOUT s, and a launch of ranks
 # at most MULTIPROC_TIMEOUT s before every rank is killed.
 MULTIPROC_LAYOUTS = {"a_2x4": (2, 4), "b_1x8": (1, 8)}
 MULTIPROC_WARM, MULTIPROC_BLOCKS, MULTIPROC_GENS = 20, 2, 100
-MULTIPROC_SYNC_GENS, MULTIPROC_PROFILE_GENS = 20, 10
+MULTIPROC_SYNC_GENS = 20
 MULTIPROC_CLI_GENS = 480
 MULTIPROC_TIMEOUT, MULTIPROC_DIST_TIMEOUT = 240, 120
 MULTIPROC_DRIVE = """#NEXUS
@@ -2874,20 +2893,53 @@ def zero_length_tips(tree_line):
     return re.findall(r"[(,](\d+):0(?=[,)])", tree_line)
 
 
+@contextlib.contextmanager
+def pinned_samples():
+    """Check every sample a run writes: on every chain of the sample's
+    host states, each sampled ancestor's parent at the fossil's age bit
+    for bit.  Yields the record {"samples", "chains", "sampled_ancestors",
+    "unpinned"}."""
+    from mrbayes_tpu_torch.mcmc.run import McmcRunner
+    rec = {"samples": 0, "chains": 0, "sampled_ancestors": 0, "unpinned": 0}
+    write = McmcRunner._write_sample
+
+    def checked(self, gen, host):
+        age, parent = np.asarray(host["age"]), np.asarray(host["parent"])
+        sa = np.asarray(host["sa"]) > 0
+        n = sa.shape[1]
+        par_age = np.take_along_axis(age, parent[:, :n], 1)
+        rec["samples"] += 1
+        rec["chains"] += age.shape[0]
+        rec["sampled_ancestors"] += int(sa.sum())
+        rec["unpinned"] += int((par_age[sa] != age[:, :n][sa]).sum())
+        return write(self, gen, host)
+
+    McmcRunner._write_sample = checked
+    try:
+        yield rec
+    finally:
+        McmcRunner._write_sample = write
+
+
 def phase_hymfossil_cli(torch, ngen, power_line):
     """hymfossil's FBD analysis through the CLI, 2 runs x 4 chains, every
     kernel-path switch off: one pruning.cu launch a division and
     likelihood, carried versus recomputed scores, every fixed fossil age
-    held, the pinned ages ordered and no constraint broken, complete
-    .p/.t/.mcmc files whose sampled ancestors (nSampledAncestors) are the
-    zero-length tip branches of the same sample's tree, sump and sumt."""
+    held, the pinned ages ordered and no constraint broken, every sampled
+    ancestor's parent at its fossil's age bit for bit on every chain of
+    every sample, complete .p/.t/.mcmc files whose sampled ancestors
+    (nSampledAncestors) are the zero-length tip branches of the same
+    sample's tree, sump and sumt.  Prints each run's mean
+    nSampledAncestors and the gens/s beside HYM_GENS_PER_S_BEFORE (no
+    gate on a count: 300 generations may hold none)."""
     from mrbayes_tpu_torch.envelope import run_batch
     from mrbayes_tpu_torch.mcmc import clock as CL
     workdir = os.path.join(OUT, "hymfossil")
     shutil.rmtree(workdir, ignore_errors=True)
-    it, stats, lines = run_batch(
-        "hymfossil", workdir, ngen, device=DEV, diagnfreq=ngen // 2,
-        multiwalk=False, wavefront=False, stacked=False)
+    with pinned_samples() as pins:
+        it, stats, lines = run_batch(
+            "hymfossil", workdir, ngen, device=DEV, diagnfreq=ngen // 2,
+            multiwalk=False, wavefront=False, stacked=False)
     runner = it._last_runner
     eng = runner.eng
     final = runner.final_states
@@ -2907,13 +2959,17 @@ def phase_hymfossil_cli(torch, ngen, power_line):
             or (eng._constraint_terms(pinned) != 0).any():
         raise AssertionError("hymfossil final states break the ordering or "
                              "a constraint")
+    if pins["samples"] == 0 or pins["unpinned"] \
+            or not torch.equal(pinned["age"], final["age"]):
+        raise AssertionError(f"hymfossil: a sampled ancestor's parent off "
+                             f"its fossil's age ({json.dumps(pins)})")
     for phrase in ("Average PSRF for parameter values",
                    "Credible sets of trees", "Consensus tree written to"):
         if not any(phrase in ln for ln in lines):
             raise AssertionError(f"sump/sumt printed no {phrase!r}")
     sf = eng.mcmc.samplefreq
     expect_rows = ngen // sf + 1 + (ngen % sf > 0)     # the last sample too
-    n_sa = []
+    n_sa, sa_runs = [], {}
     for r in (1, 2):
         prefix = os.path.join(workdir, f"hymfossil.run{r}")
         with open(prefix + ".p") as f:
@@ -2937,11 +2993,22 @@ def phase_hymfossil_cli(torch, ngen, power_line):
                                      f"sampled ancestors, tree has "
                                      f"{zero_length_tips(tree)}")
             n_sa.append(k)
+            sa_runs.setdefault(f"run{r}", []).append(k)
     out = {**stats, "launches": sum(per), "launches_per_gen": sum(per) / calls,
            "sampled_ancestors_max": max(n_sa),
-           "sampled_ancestors_mean": float(np.mean(n_sa))}
+           "sampled_ancestors_mean": float(np.mean(n_sa)),
+           "sampled_ancestors_mean_per_run": {
+               r: float(np.mean(v)) for r, v in sa_runs.items()},
+           "pinned_check": pins}
     log(f"hymfossil through the CLI, switches off: {json.dumps(out)}; card "
         f"{power_line}")
+    log(f"hymfossil nSampledAncestors, mean of each run's samples: "
+        f"{json.dumps(out['sampled_ancestors_mean_per_run'])}; "
+        f"{pins['sampled_ancestors']} sampled ancestors over "
+        f"{pins['chains']} chain samples, every one at its parent's age; "
+        f"{out['gens_per_s']:.1f} gens/s against the {HYM_GENS_PER_S_BEFORE} "
+        f"that PERF.md records from before sampled ancestors were accepted "
+        f"(not measured in this run)")
     return it, out
 
 
@@ -3043,12 +3110,44 @@ def dating_prior_stats(torch, kind, device, seed):
     return x[x.shape[0] // 2:].mean(0), rate           # [runs, 2]
 
 
+def phase_three_tips(torch, power_line):
+    """The three-tip prior-only FBD problem on the card
+    (``tests/fbd_small_trees.py``: two extant tips and a fossil, each
+    chain drawing its own move) against the float64 integral of
+    ``ln_fbd`` over its state space: the sampled-ancestor share (> 0),
+    their mean count, the mean root age and the share of ((A,B),F) within
+    4 batch-means standard errors, one batch a run."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import fbd_small_trees as FS
+    fossil_ages = FS.PROBLEMS["three_tips"]
+    want = FS.integral(fossil_ages)
+    eng = FS.engine(fossil_ages, DEV, THREE_TIP_RUNS, THREE_TIP_SEED)
+    t0 = time.perf_counter()
+    x = FS.sampler(eng, THREE_TIP_GENS, THREE_TIP_BURN, THREE_TIP_SEED)
+    sec = time.perf_counter() - t0
+    mean, se = x.mean(0), x.std(0, ddof=1) / np.sqrt(THREE_TIP_RUNS)
+    names = FS.STATS
+    out = {nm: {"card": float(mean[j]), "integral": want[nm],
+                "se": float(se[j]),
+                "z": float((mean[j] - want[nm]) / se[j])}
+           for j, nm in enumerate(names)}
+    out.update(runs=THREE_TIP_RUNS, gens=THREE_TIP_GENS,
+               burn=THREE_TIP_BURN, seconds=sec,
+               gens_per_s=THREE_TIP_GENS / sec)
+    log(f"three-tip prior-only FBD on the card against its integral: "
+        f"{json.dumps(out)}; card {power_line}")
+    if mean[0] <= 0 or any(abs(out[nm]["z"]) >= 4.0 for nm in names):
+        raise AssertionError("three-tip FBD sampler off its integral")
+    return out
+
+
 def phase_dating_prior(torch, power_line):
     """The prior-only FBD (8 tips, 3 dated fossils) and CPP problems on the
     card against the port's own CPU engine on the same settings and seed:
     the mean root age and the mean number of sampled ancestors or CPP
     events within 4 batch-means standard errors (one batch a run, both
-    sides' errors together)."""
+    sides' errors together), and sampled ancestors on both sides; then
+    the three-tip problem against its integral (``phase_three_tips``)."""
     out, bad = {}, []
     for kind, stat in (("fbd", "sampled_ancestors"), ("cpp", "cpp_events")):
         res = {dev: dating_prior_stats(torch, kind, dev, 21)
@@ -3064,11 +3163,15 @@ def phase_dating_prior(torch, power_line):
                              "z": d / se if se > 0 else 0.0}
             if abs(d) > 4.0 * se:
                 bad.append(f"{kind} {nm}")
+        if kind == "fbd" and not min(r[:, 1].mean()
+                                     for r, _ in res.values()) > 0:
+            bad.append("fbd: no sampled ancestor on one side")
     log(f"prior-only dating, card against the CPU engine, "
         f"{DATING_PRIOR_RUNS} runs x 1 chain, {DATING_PRIOR_GENS} gens: "
         f"{json.dumps(out)}; card {power_line}")
     if bad:
         raise AssertionError(f"prior-only dating marginals disagree: {bad}")
+    out["three_tips"] = phase_three_tips(torch, power_line)
     return out
 
 
@@ -4638,32 +4741,6 @@ def carried_error(eng, states):
                for k in ("lnL", "lnP_tree", "lnP_par"))
 
 
-def idle_share(torch, fn, gens):
-    """(fn(), the card's idle share over ``fn`` as this process sees it:
-    1 - the summed time of its CUDA kernels over the wall time, and its
-    kernels a generation), under torch.profiler with CUDA activity only."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t_enter = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    t_exit = time.perf_counter()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    t_events = time.perf_counter()
-    return out, {"seconds": {"enter": t0 - t_enter,
-                             "exit": t_exit - t0 - wall,
-                             "events": t_events - t_exit},
-                 "gens": gens, "wall_ms": wall * 1e3,
-                 "device_busy_ms": busy * 1e3,
-                 "device_idle_share": 1.0 - busy / wall,
-                 "kernel_launches_per_gen": len(kernels) / gens}
-
-
 def rank_library(torch, rank, world, port):
     """Phase 56 on one rank: primates GTR+I+G in each layout of
     MULTIPROC_LAYOUTS through Engine, init_chains, shard_chains and
@@ -4673,8 +4750,8 @@ def rank_library(torch, rank, world, port):
     lnL, pruning.cu's launches over the timed blocks, gens/s a block, the
     collectives of each block and of each gather, the gathered temp_id
     and swap matrices and the card's temp_id after each block, carried
-    against recomputed on every chain of the rank, the sync check (a run a
-    rank) and a profiled block's idle share."""
+    against recomputed on every chain of the rank and the sync check (a
+    run a rank)."""
     from mrbayes_tpu_torch.parallel import mesh as PM
     t_init = time.perf_counter()
     w = PM.init_distributed(f"127.0.0.1:{port}", world, rank, device=DEV,
@@ -4736,14 +4813,6 @@ def rank_library(torch, rank, world, port):
             torch.cuda.synchronize()
             rec["sync_checked_gens"] = MULTIPROC_SYNC_GENS
         sec["checks"] = time.perf_counter() - t1
-        if local:
-            # and the rank's idle share over a profiled block
-            t1 = time.perf_counter()
-            _, rec["profile"] = idle_share(
-                torch, lambda: eng.run_block(states, bk,
-                                             MULTIPROC_PROFILE_GENS),
-                MULTIPROC_PROFILE_GENS)
-            sec["profile"] = time.perf_counter() - t1
         sec["total"] = time.perf_counter() - t_layout
         out[name] = rec
     PM.shutdown_distributed()
@@ -4950,17 +5019,15 @@ def check_multiproc_library(torch, ranks, one, power_line):
             "start_lnl_exact": bool(recs[0]["start_lnL"] == start),
             "carried_error_max": max(r["carried_error"] for r in recs),
             "max_lnL": max(r["max_lnL"] for r in recs),
-            "profile_ranks": [r.get("profile") for r in recs],
             "sync_checked": local}
         out["layouts"][name] = lay
-        idle = [p and p["device_idle_share"] for p in lay["profile_ranks"]]
         log(f"multiproc library {name} ({lay['runs_x_chains']}, {per} "
             f"chains a rank, swaps {lay['swap']}, backend {backend}): "
             f"gens/s ranks {lay['gens_per_s_ranks']} vs one process "
             f"{lay['gens_per_s_one_process']:.1f}; collectives a block "
             f"{lay['collectives_per_block']}; pruning.cu launches "
-            f"{lay['launches_ranks']} for {lay['gens']} gens a rank; idle "
-            f"share {idle}; card {power_line}")
+            f"{lay['launches_ranks']} for {lay['gens']} gens a rank; card "
+            f"{power_line}")
     return out
 
 
@@ -5365,7 +5432,8 @@ def main(argv=None) -> int:
         "hymfossil_cases": hym_cases,
         "hymfossil": {k: hym[k] for k in (
             "best_lnl", "tl_mean", "asdsf", "avg_psrf", "run_s",
-            "gens_per_s", "launches_per_gen", "sampled_ancestors_max")},
+            "gens_per_s", "launches_per_gen", "sampled_ancestors_max",
+            "sampled_ancestors_mean_per_run")},
         "golden_hymfossil_max_err": golden_hym,
         "golden_hymfossil_path_spread": golden_hym_spread,
         "dating_sync_moves": dating_sync,

@@ -27,11 +27,13 @@ are masked inverse-CDF or Gumbel-max choices on the device).
 Dating (ROADMAP Queue 1 item 10b): tips may carry ages (dated fossils,
 ``age[:n_tips]`` nonzero); a sampled ancestor is a fossil tip on a
 zero-length branch, flagged in ``sa [C, n_tips]``, whose parent's age
-``pin_sa_ages`` pins to the fossil's wherever ages are read.  The
-fossilized birth-death prior (random, fossiltip and diversity sampling,
-src/mcmc.c:8693-9155), the uniform prior with dated tips
-(src/mcmc.c:9460), the add/delete-branch rjMCMC (src/proposal.c:1266,
-:1537) and the tip-date slider follow the JAX package.  The CPP relaxed
+``pin_sa_ages`` pins to the fossil's.  The fossilized birth-death prior
+(random, fossiltip and diversity sampling, src/mcmc.c:8693-9155), the
+uniform prior with dated tips (src/mcmc.c:9460), the add/delete-branch
+rjMCMC (src/proposal.c:1266, :1537) and the tip-date slider follow the
+JAX package.  Unlike the JAX package, the moves treat a pinned parent as
+no free coordinate, so sampled ancestors are accepted (see "sampled
+ancestors" below).  The CPP relaxed
 clock keeps its rate-multiplier events in fixed-capacity slots
 (``cpp_pos``/``cpp_mult [C, n_nodes, K]``, counts ``cpp_n [C, n_nodes]``);
 ``clockvarpr=mixed`` switches each chain between the IGR and ILN
@@ -53,6 +55,9 @@ RELAXED = ("igr", "iln", "wn", "tk02")
 # every clockvarpr with per-branch rates ``brate``: the relaxed clocks and
 # the IGR/ILN switch of clockvarpr=mixed
 BRATE_CLOCKS = RELAXED + ("mixed",)
+# the relaxed clocks whose branch-rate prior depends on the branch length
+# (``ln_branch_rates_prior``): no sampled ancestor under them
+LENGTH_RATE_CLOCKS = ("wn", "tk02")
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +209,10 @@ def make_cpp_adddelete(sigma: float):
                  - _ln_lognormal_mult(m_new, sigma)
                  + torch.where(k == 0, math.log(0.5), 0.0))
         lnH_a = torch.where(k >= K, NEG_INF, lnH_a)
+        if "sa" in state:
+            # no event on an ancestral fossil's zero-length branch
+            lnH_a = torch.where(_take(_sa_tips(state, nn.shape[1]), v),
+                                NEG_INF, lnH_a)
         # delete: a uniform event; the last active slot fills the hole
         kk = k.clamp_min(1)
         j = _slot(u[:, 1], kk)
@@ -377,21 +386,56 @@ def ln_coalescence(age, n_tips: int, theta, growth=0.0,
 # A sampled ancestor is a fossil lying ON a lineage: the reference
 # represents it as a fossil tip with branch length 0 whose parent is the
 # degree-2 sampling vertex (src/proposal.c:1266 Move_AddBranch diagram).
-# The flags ``sa [C, n_tips]`` mark ancestral fossils and ``pin_sa_ages``
-# forces the parent's age to the fossil's wherever ages are read; the raw
-# parent age is an inert coordinate (moves on it leave the posterior
-# unchanged).
+# The flags ``sa [C, n_tips]`` mark ancestral fossils.  A state's
+# coordinates are its topology, its flags and its free ages: a pinned
+# parent's age is the fossil's, never a coordinate of its own.  So every
+# clock move proposes a pinned state (which the engine pins once more,
+# ``pin_sa_ages``), leaves the pinned parents out of the ages it picks or
+# scales (``_pick_internal``, ``move_tree_stretch``), never moves an
+# ancestral fossil off its parent (``_spr_pick_v``, ``_prune_targets``,
+# ``_swap_pairs``, ``move_local_clock``) and moves a fossil's date
+# together with its pinned parent (``make_tip_date_move``).  The root is
+# never a pinned parent: delete-branch refuses it and no move changes an
+# ancestral fossil's parent.  CPP events are kept off the zero-length
+# branch (add-event refuses it, delete-branch refuses a branch that has
+# events).  A per-branch rate on it stays and is moved as on any branch:
+# it multiplies a zero length, and under igr, iln and mixed its prior does
+# not depend on the length, so only that prior counts.  Under wn and tk02
+# the prior depends on the length, so the engine registers no
+# add/delete-branch there and no fossil becomes a sampled ancestor
+# (``LENGTH_RATE_CLOCKS``).  Without ``sa``
+# (clock analyses without the FBD prior, BEST's trees) every function
+# computes what it computed before sampled ancestors were accepted.
+
+
+def _sa_tips(state, n_nodes):
+    """Ancestral-fossil flags [C, n_nodes] bool (False past the tips)."""
+    sa = state["sa"] > 0
+    return torch.cat([sa, sa.new_zeros(sa.shape[0], n_nodes - sa.shape[1])],
+                     1)
+
+
+def _sa_parents(sa, parent, n_tips):
+    """[C, n_nodes] bool: the pinned parents (an ancestral fossil's
+    parent, the degree-2 sampling vertex) of flags ``sa`` [C, n_tips]."""
+    hits = torch.zeros_like(parent).scatter_add(1, parent[:, :n_tips],
+                                                (sa > 0).long())
+    return hits > 0
 
 
 def pin_sa_ages(state: dict, n_tips: int) -> dict:
-    """``state`` with age[parent[v]] pinned to age[v] for every
-    ancestral-fossil tip v (a scatter-min, so duplicates are safe)."""
+    """``state`` with age[parent[v]] set to age[v] for every
+    ancestral-fossil tip v.  A pinned parent has one ancestral fossil
+    (its other child is strictly younger), so the scatter writes each
+    pinned parent once; the other tips write into a spare column."""
     if "sa" not in state:
         return state
     age = state["age"]
-    vals = torch.where(state["sa"] > 0, age[:, :n_tips], math.inf)
-    return {**state, "age": age.scatter_reduce(
-        1, state["parent"][:, :n_tips], vals, "amin", include_self=True)}
+    n = age.shape[1]
+    idx = torch.where(state["sa"] > 0, state["parent"][:, :n_tips], n)
+    pinned = torch.cat([age, age[:, :1]], 1).scatter(1, idx,
+                                                     age[:, :n_tips])
+    return {**state, "age": pinned[:, :n]}
 
 
 def make_add_del_branch(fossil, add: bool):
@@ -400,7 +444,9 @@ def make_add_del_branch(fossil, add: bool):
     and Move_DelBranch :1537.  ``fossil`` [n_tips] bool marks the dated
     fossil tips.  Hastings: add = log k - log(m+1) + log(window); delete =
     log m - log(k+1) - log(window); window = grandparent age - fossil age
-    (the engine recomputes the prior)."""
+    (the engine recomputes the prior).  Delete-branch refuses a fossil
+    whose parent is the root, whose sibling is not strictly younger, or
+    whose branch carries CPP events."""
     def move(gen, state, tuning, n_tips):
         age, parent, left, right = (state["age"], state["parent"],
                                     state["left"], state["right"])
@@ -431,6 +477,9 @@ def make_add_del_branch(fossil, add: bool):
             # aborts, src/proposal.c:1638)
             ok = ((m_tip > 0) & (_take(age, r) < lo) & (hi > lo)
                   & (q != root))
+            if "cpp_n" in state:
+                # CPP events stay off a zero-length branch
+                ok = ok & (_take(state["cpp_n"], v) == 0)
             lnH = (torch.log(m_tip.clamp_min(1)) - torch.log(k_anc + 1.0)
                    - torch.log(win))
         return ({**state, "sa": sa2, "age": age2},
@@ -499,9 +548,7 @@ def _sa_flags(sa, parent, fossil, n_tips):
     """The ancestral fossils [C, n_tips], their parents (degree-2 sampling
     vertices) [C, n_nodes] and their count [C]."""
     sa_t = (sa > 0) & fossil
-    sa_par = torch.zeros_like(parent).scatter_reduce(
-        1, parent[:, :n_tips], sa_t.long(), "amax", include_self=True) > 0
-    return sa_t, sa_par, sa_t.sum(1)
+    return sa_t, _sa_parents(sa_t, parent, n_tips), sa_t.sum(1)
 
 
 def ln_fbd(age, n_tips: int, net_div, turnover, fossil_frac, rho: float,
@@ -737,13 +784,22 @@ def ln_branch_rates_prior(state, n_tips: int, clockvar: str,
 
 def ages_ordered(state) -> torch.Tensor:
     """[C] bool: every parent older than its children (with the JAX
-    package's 1e-12 slack).  As in the JAX package, this holds above a
-    sampled ancestor too, whose parent's pinned age equals its own, so in
-    float32 (where age - 1e-12 rounds to age) every state with a sampled
-    ancestor gets prior 0 (ROADMAP Queue 3)."""
+    package's 1e-12 slack).  With ``sa`` (of a pinned state), an
+    ancestral fossil may have its parent's age exactly, and its sibling
+    must be strictly younger than that pinned parent; every other pair is
+    tested as without ``sa``.  (The JAX package admits no equality, so in
+    float32, where age - 1e-12 rounds to age, it rejects every sampled
+    ancestor.)"""
     age, parent = state["age"], state["parent"]
     par_age = age.gather(1, parent.clamp_min(0))
-    return torch.where(parent >= 0, par_age > age - 1e-12, True).all(1)
+    ok = par_age > age - 1e-12
+    if "sa" in state:
+        fossil = _sa_tips(state, age.shape[1])
+        below_pin = _sa_parents(state["sa"], parent, state["sa"].shape[1]
+                                ).gather(1, parent.clamp_min(0)) & ~fossil
+        ok = ((ok | (fossil & (par_age == age)))
+              & ~(below_pin & ~(par_age > age)))
+    return torch.where(parent >= 0, ok, True).all(1)
 
 
 # ---------------------------------------------------------------------------
@@ -754,6 +810,25 @@ def _internal_nonroot(state, n_tips):
     idx = _node_ids(state)
     mask = (idx >= n_tips) & (idx != 2 * n_tips - 2)
     return mask.expand_as(state["parent"])
+
+
+def _pick_internal(state, n_tips, u):
+    """A uniform internal non-root node v [C] by ``u`` [C], and ok [C]
+    (None without ``sa``).  With ``sa`` the pinned parents are left out;
+    a chain with no other internal node picks among all of them and gets
+    ok False.  The moves that pick this way keep every pinned parent, so
+    the count of candidates is the same in both directions."""
+    mask = _internal_nonroot(state, n_tips)
+    if "sa" not in state:
+        return _masked_choice(u, mask), None
+    free = mask & ~_sa_parents(state["sa"], state["parent"], n_tips)
+    ok = free.any(1)
+    return _masked_choice(u, torch.where(ok[:, None], free, mask)), ok
+
+
+def _refused(lnH, ok):
+    """``lnH`` where ok [C] (None: everywhere), -inf elsewhere."""
+    return lnH if ok is None else torch.where(ok, lnH, NEG_INF)
 
 
 def _child_age_max(state, v):
@@ -767,11 +842,12 @@ def move_age_slider(gen, state, tuning, n_tips):
     age, parent age).  Hastings 0."""
     age = state["age"]
     u = _uniforms(gen, age, 2)
-    v = _masked_choice(u[:, 0], _internal_nonroot(state, n_tips))
+    v, ok = _pick_internal(state, n_tips, u[:, 0])
     lo = _child_age_max(state, v)
     hi = _take(age, _take(state["parent"], v))
     new = lo + (hi - lo) * u[:, 1]
-    return {**state, "age": _put(age, v, new)}, torch.zeros_like(tuning)
+    return ({**state, "age": _put(age, v, new)},
+            _refused(torch.zeros_like(tuning), ok))
 
 
 def move_local_clock(gen, state, tuning, n_tips):
@@ -780,11 +856,12 @@ def move_local_clock(gen, state, tuning, n_tips):
     three subtrees {u's two children, u's sibling} choose uniformly which
     one becomes v's direct child, hang the other two under u, and redraw
     u's age uniformly in (max child age, age[v]).  Hastings = log(W_fwd /
-    W_bwd) for the two uniform age windows."""
+    W_bwd) for the two uniform age windows.  With ``sa``, u is no pinned
+    parent, and where v is one, its ancestral fossil c must go outside."""
     parent, left, right = state["parent"], state["left"], state["right"]
     age = state["age"]
     r = _uniforms(gen, age, 3)
-    u = _masked_choice(r[:, 0], _internal_nonroot(state, n_tips))
+    u, ok = _pick_internal(state, n_tips, r[:, 0])
     v = _take(parent, u)
     a, b = _take(left, u), _take(right, u)
     lv = _take(left, v)
@@ -805,7 +882,11 @@ def move_local_clock(gen, state, tuning, n_tips):
     st["right"] = _put(_put(right, u, in2), v, out_n)
     st["parent"] = _put(_put(_put(parent, in1, u), in2, u), out_n, v)
     st["age"] = _put(age, u, new_age)
-    return st, torch.log(W_f) - torch.log(W_b)
+    if ok is not None:
+        # an ancestral fossil c (v pinned) stays v's child
+        fossil = _sa_tips(state, age.shape[1])
+        ok = ok & ~(_take(fossil, c) & (pick != 2))
+    return st, _refused(torch.log(W_f) - torch.log(W_b), ok)
 
 
 def move_node_slider_clock(gen, state, tuning, n_tips):
@@ -815,7 +896,7 @@ def move_node_slider_clock(gen, state, tuning, n_tips):
     window is the tuned parameter."""
     age = state["age"]
     u = _uniforms(gen, age, 2)
-    v = _masked_choice(u[:, 0], _internal_nonroot(state, n_tips))
+    v, ok = _pick_internal(state, n_tips, u[:, 0])
     lo = _child_age_max(state, v)
     hi = _take(age, _take(state["parent"], v))
     width = (hi - lo).clamp_min(1e-12)
@@ -823,17 +904,25 @@ def move_node_slider_clock(gen, state, tuning, n_tips):
     # fold into (lo, hi) by repeated reflection (period 2 * width)
     x = torch.remainder(new - lo, 2.0 * width)
     new = lo + torch.where(x > width, 2.0 * width - x, x)
-    return {**state, "age": _put(age, v, new)}, torch.zeros_like(tuning)
+    return ({**state, "age": _put(age, v, new)},
+            _refused(torch.zeros_like(tuning), ok))
 
 
 def move_tree_stretch(gen, state, tuning, n_tips):
     """Multiply every internal age by exp(lambda(u-1/2)); Hastings =
-    n_internal * log m (reference Move_TreeStretch src/proposal.c:17250)."""
+    n_internal * log m (reference Move_TreeStretch src/proposal.c:17250).
+    With ``sa`` the pinned parents keep their ages and drop out of the
+    count: n_internal - n_pinned scaled ages."""
     age = state["age"]
     m = torch.exp(tuning * (_uniforms(gen, age, 1)[:, 0] - 0.5))
     mask = _node_ids(state) >= n_tips
-    new = torch.where(mask, age * m[:, None], age)
-    return {**state, "age": new}, (n_tips - 1) * torch.log(m)
+    if "sa" not in state:
+        new = torch.where(mask, age * m[:, None], age)
+        return {**state, "age": new}, (n_tips - 1) * torch.log(m)
+    pinned = _sa_parents(state["sa"], state["parent"], n_tips)
+    new = torch.where(mask & ~pinned, age * m[:, None], age)
+    scaled = (n_tips - 1 - pinned.sum(1)).to(m.dtype)
+    return {**state, "age": new}, scaled * torch.log(m)
 
 
 def move_root_age(gen, state, tuning, n_tips):
@@ -849,10 +938,11 @@ def move_root_age(gen, state, tuning, n_tips):
             torch.where(new > lo, torch.log(m), NEG_INF))
 
 
-def _swap_pairs(parent, age, n_tips):
+def _swap_pairs(parent, age, n_tips, fossil=None):
     """[C, n, n] bool, upper triangle: node pairs (a, b) that are not
     ancestor-related, neither the root, each one's parent older than the
-    other node (a valid clock subtree swap)."""
+    other node (a valid clock subtree swap), and neither an ancestral
+    fossil (``fossil`` [C, n] bool, where given)."""
     n = parent.shape[1]
     root = 2 * n_tips - 2
     D = descendant_matrix(parent)
@@ -862,6 +952,8 @@ def _swap_pairs(parent, age, n_tips):
     ok = ((~rel) & notroot[:, None] & notroot[None, :]
           & (pa[:, :, None] > age[:, None, :] + 1e-12)
           & (pa[:, None, :] > age[:, :, None] + 1e-12))
+    if fossil is not None:
+        ok = ok & ~fossil[:, :, None] & ~fossil[:, None, :]
     return torch.triu(ok, 1)
 
 
@@ -870,18 +962,21 @@ def move_subtree_swap_clock(gen, state, tuning, n_tips):
     exchange the subtrees of two nodes a, b that are not ancestor-related
     and whose receiving parents are older than the arriving subtree roots.
     The pair is uniform among valid pairs, whose count changes with the
-    topology, so lnH = log(n_valid_before) - log(n_valid_after)."""
+    topology, so lnH = log(n_valid_before) - log(n_valid_after).  An
+    ancestral fossil is in no pair (its pinned parent moves with it)."""
     parent, age = state["parent"], state["age"]
     C, n = parent.shape
     u = _uniforms(gen, age, 1)[:, 0]
-    ok_f = _swap_pairs(parent, age, n_tips).reshape(C, n * n)
+    fossil = _sa_tips(state, n) if "sa" in state else None
+    ok_f = _swap_pairs(parent, age, n_tips, fossil).reshape(C, n * n)
     n_f = ok_f.sum(1)
     pick = _masked_choice(u, ok_f)
     a, b = pick // n, pick % n
     pa_, pb_ = _take(parent, a), _take(parent, b)
     st = _replace_child(state, pa_, a, b)
     st = _replace_child(st, pb_, b, a)
-    n_b = _swap_pairs(st["parent"], age, n_tips).reshape(C, n * n).sum(1)
+    n_b = _swap_pairs(st["parent"], age, n_tips, fossil).reshape(
+        C, n * n).sum(1)
     lnH = (torch.log(n_f.clamp_min(1).float())
            - torch.log(n_b.clamp_min(1).float()))
     return st, torch.where(n_f > 0, lnH, NEG_INF)
@@ -890,16 +985,19 @@ def move_subtree_swap_clock(gen, state, tuning, n_tips):
 def move_nni_clock(gen, state, tuning, n_tips):
     """Rooted NNI: swap a child of v with v's sibling; valid only if the
     sibling is younger than v (reference Move_NNIClock
-    src/proposal.c:8127)."""
+    src/proposal.c:8127).  With ``sa``, v is no pinned parent; an
+    ancestral-fossil sibling is never younger than v."""
     parent, left, right = state["parent"], state["left"], state["right"]
     age = state["age"]
     r = _uniforms(gen, age, 2)
-    v = _masked_choice(r[:, 0], _internal_nonroot(state, n_tips))
+    v, pick_ok = _pick_internal(state, n_tips, r[:, 0])
     u = _take(parent, v)
     lu = _take(left, u)
     s = torch.where(lu == v, _take(right, u), lu)
     c = torch.where(r[:, 1] < 0.5, _take(left, v), _take(right, v))
     ok = _take(age, v) > _take(age, s)
+    if pick_ok is not None:
+        ok = ok & pick_ok
     st = _replace_child(state, v, c, s)
     st = _replace_child(st, u, s, c)
     return st, torch.where(ok, 0.0, NEG_INF)
@@ -908,29 +1006,42 @@ def move_nni_clock(gen, state, tuning, n_tips):
 def _prune_targets(state, n_tips, v, p, s, sub):
     """Regraft targets w for the pruned node p carrying v: not the root,
     not in v's subtree, not p, not s, and whose parent is older than both
-    w and v."""
+    w and v; with ``sa``, not an ancestral fossil (which stays on its
+    pinned parent)."""
     parent, age = state["parent"], state["age"]
     idx = _node_ids(state)
     par_age = torch.where(parent >= 0, age.gather(1, parent.clamp_min(0)),
                           -1.0)
     win_lo = torch.maximum(age, _take(age, v)[:, None])
-    return ((~sub) & (idx != 2 * n_tips - 2) & (idx != p[:, None])
+    mask = ((~sub) & (idx != 2 * n_tips - 2) & (idx != p[:, None])
             & (idx != s[:, None]) & (parent >= 0) & (par_age > win_lo))
+    if "sa" in state:
+        mask = mask & ~_sa_tips(state, parent.shape[1])
+    return mask
 
 
 def _spr_pick_v(state, n_tips, u):
     """The pruned node v (its parent p is not the root), p, g = parent of
-    p, v's sibling s and v's subtree mask."""
+    p, v's sibling s, v's subtree mask and ok [C] (None without ``sa``).
+    With ``sa``, p is no pinned parent: neither an ancestral fossil nor
+    its sibling is pruned, and a chain with no other candidate gets ok
+    False.  The count of candidates is the same in both directions."""
     root = 2 * n_tips - 2
     parent, left, right = state["parent"], state["left"], state["right"]
     idx = _node_ids(state)
     vmask = (idx != root) & (parent != root) & (parent >= 0)
+    ok = None
+    if "sa" in state:
+        free = vmask & ~_sa_parents(state["sa"], parent, n_tips).gather(
+            1, parent.clamp_min(0))
+        ok = free.any(1)
+        vmask = torch.where(ok[:, None], free, vmask)
     v = _masked_choice(u, vmask)
     p = _take(parent, v)
     g = _take(parent, p)
     lp = _take(left, p)
     s = torch.where(lp == v, _take(right, p), lp)
-    return v, p, g, s, subtree_mask(parent, v)
+    return v, p, g, s, subtree_mask(parent, v), ok
 
 
 def _regraft_clock(st, state, n_tips, v, p, g, s, w, u_age):
@@ -966,8 +1077,10 @@ def move_spr_clock(gen, state, tuning, n_tips):
     window; Hastings counts targets and window lengths (role of reference
     Move_ExtSPRClock src/proposal.c:3014)."""
     r = _uniforms(gen, state["age"], 3)
-    v, p, g, s, sub = _spr_pick_v(state, n_tips, r[:, 0])
+    v, p, g, s, sub, pick_ok = _spr_pick_v(state, n_tips, r[:, 0])
     wmask = _prune_targets(state, n_tips, v, p, s, sub)
+    if pick_ok is not None:
+        wmask = wmask & pick_ok[:, None]
     n_fwd = wmask.sum(1)
     w = _masked_choice(r[:, 1], wmask)
     st = _replace_child(state, g, p, s)
@@ -995,8 +1108,10 @@ def make_pars_spr_clock_move(pars_masks, pars_factors):
         n = parent.shape[1]
         r = _uniforms(gen, state["age"], 2 + n)
         rows = torch.arange(parent.shape[0], device=parent.device)
-        v, p, g, s, sub = _spr_pick_v(state, n_tips, r[:, 0])
+        v, p, g, s, sub, pick_ok = _spr_pick_v(state, n_tips, r[:, 0])
         wmask = _prune_targets(state, n_tips, v, p, s, sub)
+        if pick_ok is not None:
+            wmask = wmask & pick_ok[:, None]
         st = _replace_child(state, g, p, s)
         F = _fitch(pars_masks, st["parent"], st["left"], st["right"],
                    n_tips)
@@ -1040,16 +1155,30 @@ def make_tip_date_move(tips, los, his):
     bounds intersected with (0, parent age) (role of reference
     Move_NodeSliderClock on dated tips, src/proposal.c:8570).  ``tips``
     [T] long, ``los``/``his`` [T] float on the engine's device.  The window
-    depends only on unchanged quantities, so the proposal is symmetric."""
+    depends only on unchanged quantities, so the proposal is symmetric.
+    An ancestral fossil moves with its pinned parent q, within its bounds
+    intersected with (age of its sibling, age of q's parent)."""
     def move(gen, state, tuning, n_tips):
         age = state["age"]
         u = _uniforms(gen, age, 2)
         i = (u[:, 0] * tips.shape[0]).long().clamp_max(tips.shape[0] - 1)
         v = tips[i]
-        hi = torch.minimum(his[i], _take(age, _take(state["parent"], v)))
+        q = _take(state["parent"], v)
+        hi = torch.minimum(his[i], _take(age, q))
         lo = los[i]
-        return ({**state, "age": _put(age, v, lo + (hi - lo) * u[:, 1])},
-                torch.where(hi > lo, 0.0, NEG_INF))
+        if "sa" not in state:
+            return ({**state, "age": _put(age, v, lo + (hi - lo) * u[:, 1])},
+                    torch.where(hi > lo, 0.0, NEG_INF))
+        anc = _take(state["sa"], v) > 0
+        lq = _take(state["left"], q)
+        r = torch.where(lq == v, _take(state["right"], q), lq)
+        g = _take(state["parent"], q).clamp_min(0)
+        hi = torch.where(anc, torch.minimum(his[i], _take(age, g)), hi)
+        lo = torch.where(anc, torch.maximum(lo, _take(age, r)), lo)
+        new = lo + (hi - lo) * u[:, 1]
+        age2 = _put(age, v, new)
+        age2 = torch.where(anc[:, None], _put(age2, q, new), age2)
+        return ({**state, "age": age2}, torch.where(hi > lo, 0.0, NEG_INF))
 
     move.__name__ = "move_tip_date"
     return move

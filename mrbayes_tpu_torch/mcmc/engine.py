@@ -1336,7 +1336,8 @@ class Engine:
             self._finish_moves(self._best_moves())
             return
         if self.tree_settings.clock:
-            self._finish_moves(self._clock_moves(wrap))
+            self._finish_moves(self._clock_moves(
+                self._pinned(wrap) if self._samples_ancestors() else wrap))
             return
         T = self.n_trees
         if self.rooted_nonclock:
@@ -1555,7 +1556,8 @@ class Engine:
         the sampled ancestors' add/delete-branch pair and the tip-date
         slider.  Every one of them changes only inputs of
         ``log_prior_tree``: registered before ``_finish_moves``' split,
-        they take the tree scope."""
+        they take the tree scope.  Where fossils may be sampled ancestors,
+        ``_build_moves`` passes the pinning ``wrap`` (``_pinned``)."""
         ts = self.tree_settings
         lam = 2.0 * np.log(1.6)
         mk = [
@@ -1643,7 +1645,11 @@ class Engine:
                 MoveSpec("fossilization_slider",
                          wrap(M.make_slider_move("fossilization", 0.0, 1.0)),
                          1.5, 0.2, 0.25, 1, 1e-3, 1.0)]
-            if self._samples_ancestors():
+            # under wn and tk02 a branch rate's prior depends on the
+            # branch's length, which has no proper density on a sampled
+            # ancestor's zero-length branch: no fossil becomes one there
+            if (self._samples_ancestors()
+                    and ts.clockvarpr not in CL.LENGTH_RATE_CLOCKS):
                 mk += [MoveSpec(name, wrap(CL.make_add_del_branch(
                     self._fossil, add)), 2.0, 0.0, tunable=False)
                     for name, add in (("add_branch", True),
@@ -1652,6 +1658,25 @@ class Engine:
             mk.append(MoveSpec("tip_date_slider", wrap(CL.make_tip_date_move(
                 *self._tip_date_bounds)), 3.0, 0.0, tunable=False))
         return mk
+
+    def _pinned(self, wrap):
+        """``wrap`` whose moves return pinned proposals: a proposal that
+        changes the ages, the topology or the ``sa`` flags gets
+        ``clock.pin_sa_ages``, so the state the chain keeps never holds a
+        pinned parent's age apart from its fossil's (the port differs from
+        the JAX package here on purpose: ROADMAP Queue 3)."""
+        n = self.n_tips
+
+        def pinned_wrap(base):
+            fn = wrap(base)
+
+            def move(gen, state, tuning):
+                new, lnH = fn(gen, state, tuning)
+                if all(new[k] is state[k] for k in ("age", "parent", "sa")):
+                    return new, lnH
+                return CL.pin_sa_ages(new, n), lnH
+            return move
+        return pinned_wrap
 
     def _samples_ancestors(self) -> bool:
         """True where fossils may be sampled ancestors (the ``sa`` flags):

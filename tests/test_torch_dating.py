@@ -16,9 +16,11 @@ against the JAX package, on the CPU (tests/test_fbd.py restated).
   JAX's, and short runs stay inside them; the calibrated-node density;
 * the dating commands through both CLIs give equal engine settings;
 * ``ordered_mk_q`` equals JAX's;
-* a prior-only FBD run of 8 tips and 3 fossils against JAX's: the mean
-  root age within 4 batch-means standard errors, and neither engine
-  accepting a sampled ancestor (ROADMAP Queue 3).
+* a prior-only FBD run of 8 tips and 3 fossils against JAX's with the
+  add/delete-branch pair off on both: the mean root age within 4
+  batch-means standard errors (the port accepts sampled ancestors where
+  JAX cannot, ROADMAP Queue 3; tests/test_torch_sampled_ancestors.py
+  holds them).
 
 hymfossil.nex's analysis is held in tests/test_torch_hymfossil.py.
 """
@@ -598,22 +600,28 @@ def test_ordered_mk_q_matches_jax(S):
 def test_prior_only_fbd_matches_jax():
     """mcmc data=no, the FBD prior on 8 tips with 3 dated fossils (two
     fixed, one uniform), 16 runs x 1 chain, 1,500 generations on each
-    engine: the mean root age over the second half within 4 batch-means
-    standard errors (one batch a run) of JAX's.  Neither engine accepts a
-    sampled ancestor: both demand a parent strictly older than its child
-    after pinning, which rounds away in float32 (ROADMAP Queue 3)."""
+    engine, add_branch and del_branch at probability 0 on both (propset's
+    overrides): the mean root age over the second half within 4
+    batch-means standard errors (one batch a run) of JAX's, and no
+    sampled ancestor on either side.  With the pair on, the port samples
+    ancestors and JAX cannot (its ordering check rejects a fossil at its
+    parent's age, ROADMAP Queue 3), so the two agree only without them;
+    tests/test_torch_sampled_ancestors.py holds the port's sampled
+    ancestors against a numerical integral instead."""
     tips = {0: ("fixed", (0.5,)), 1: ("fixed", (0.3,)),
             2: ("uniform", (0.2, 0.8))}
     kw = dict(clock=True, clockpr="fossilization", samplestrat="random",
               sampleprob=0.7)
     runs, gens = 16, 1500
+    off = {k: {"prob": 0.0} for k in ("add_branch", "del_branch")}
     jeng = JEngine(_mini(jax_side=True), [JDiv(nst="1")],
                    tree_settings=JTree(
                        clockratepr=JPrior("exponential", (10.0,)),
                        treeagepr=JPrior("gamma", (2.0, 2.0)),
                        tip_calibrations={t: JPrior(*p)
                                          for t, p in tips.items()}, **kw),
-                   mcmc=JMcmc(nruns=runs, nchains=1, seed=21, use_data=False))
+                   mcmc=JMcmc(nruns=runs, nchains=1, seed=21, use_data=False),
+                   move_overrides=off)
     eng = Engine(_mini(), [DivisionSettings(nst="1")],
                  tree_settings=TreeSettings(
                      clockratepr=Prior("exponential", (10.0,)),
@@ -621,7 +629,9 @@ def test_prior_only_fbd_matches_jax():
                      tip_calibrations={t: Prior(*p) for t, p in tips.items()},
                      **kw),
                  mcmc=McmcSettings(nruns=runs, nchains=1, seed=21,
-                                   use_data=False), device="cpu")
+                                   use_data=False), device="cpu",
+                 move_overrides=off)
+    assert not {"add_branch", "del_branch"} & {m.name for m in eng.moves}
     assert [m.name for m in eng.moves] == [m.name for m in jeng.moves]
     out = {}
     for name, e in (("jax", jeng), ("port", eng)):

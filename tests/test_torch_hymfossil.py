@@ -15,8 +15,9 @@ genes).
   round differently, which an ordered bucket's near-zero entries and a
   gene's 400-700 patterns at 114 tips amplify; cynmix's 32 tips held
   5e-3); with each side's own eigensystems the totals within 0.5;
-  lnPrior within 1e-4 relative (two of the three trees hold sampled
-  ancestors, whose prior both engines make 0, ROADMAP Queue 3);
+  lnPrior within 1e-4 relative (two of the three trees hold a fossil on
+  a zero-length branch that the rows' states do not flag in ``sa``, so
+  both engines make their prior 0);
 * a sampled ancestor is a zero-length tip branch of the extracted rooted
   tree and of its Newick.
 
@@ -174,7 +175,8 @@ def test_scores_match_jax_at_identical_states(port_engine, jax_side):
     np.testing.assert_allclose(port_engine.log_prior(st).numpy(), lnp,
                                rtol=1e-4, atol=0)
     assert np.isfinite(lnp[0]) and lnp[0] > -1e20
-    # the trees of gens 30 and 60 hold a fossil on a zero-length branch
+    # the trees of gens 30 and 60 hold a fossil on a zero-length branch,
+    # unflagged in the rows' states
     assert (lnp[1:] < -1e20).all()
 
 
