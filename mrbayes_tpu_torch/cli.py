@@ -40,6 +40,7 @@ from .mcmc.settings import (DivisionSettings, McmcSettings, Prior,
                             TreeSettings)
 from .nexus.lexer import tokenize
 from .nexus.parser import NexusFile, read_nexus_file
+from .spans import SPANS
 
 
 @dataclass
@@ -1072,17 +1073,26 @@ class Interpreter:
             shard_engine_data(eng, mesh)
         return mesh
 
+    def _timed_build(self):
+        """(engine, spans mark): the engine of an analysis built inside the
+        ``mcmc.engine_build`` span, and the spans' totals from just
+        before it, so the run's ``phase_times`` include its build."""
+        mark = SPANS.mark()
+        SPANS.watch_profiler()
+        with SPANS("mcmc.engine_build"):
+            return self.build_engine(), mark
+
     def do_mcmc(self, args, base_dir):
         from .mcmc.run import McmcRunner
         self._set_mcmc_params(args)
-        eng = self.build_engine()
+        eng, mark = self._timed_build()
         mc = self.env.mcmc
         if eng.tree_settings.clock and (
                 mc.starttree in ("random", "parsimony", "nj") or mc.nperts):
             self.log("   [starttree/nperts apply to non-clock trees; "
                      "clock runs keep their standard starting trees]")
         runner = McmcRunner(eng, log=self.log, report=self.env.report,
-                            mesh=self._sharded(eng))
+                            mesh=self._sharded(eng), span_mark=mark)
         runner.run()
         self._last_runner = runner
 
@@ -1100,7 +1110,7 @@ class Interpreter:
                 alpha = float(val[0])
             elif key == "burninss":
                 burninss = int(val[0])
-        eng = self.build_engine()
+        eng, _ = self._timed_build()
         runner = SsRunner(eng, nsteps=nsteps, alpha=alpha,
                           burninss=burninss, log=self.log,
                           mesh=self._sharded(eng))

@@ -39,24 +39,20 @@ restriction matrix under directional and mixed root frequencies),
 ``primates_lnorm_kmix`` its codon positions under lognormal and kmixture
 rates, ``cynmix_symdiri`` and ``cynmix_parsmodel`` cynmix's favored
 model with symdirihyperpr or the parsimony model on its morphology,
-``finch`` finch.nex's BEST analysis (30 gene trees; ``parts`` then times
-the gene stack's call) (each built through the CLI's commands,
-``envelope.BATCHES``), 2
-runs, with the kernel-path switches as given.  ``--chains`` is the chain
+``finch`` finch.nex's BEST analysis (30 gene trees) (each built through
+the CLI's commands, ``envelope.BATCHES``), 2 runs, with the kernel-path
+switches as given.  ``--chains`` is the chain
 count per run; ``--sites k`` shards the engine's patterns over k site
 shards of its device (``parallel.mesh``).  It builds the engine, warms it
-up, and then measures, each on the device it runs on:
-
-  * ``run_block`` under ``torch.profiler``: wall time, the device's busy
-    and idle share (summed kernel time over the window), kernel launches
-    per generation, the kernels and host operators that take the most
-    time, and each of the port's kernels (``csrc/*.cu``): launches, device
-    ms and share of the busy time and of the wall time;
-  * one generation of each move type alone (host clock around
-    ``torch.cuda.synchronize()``), with the move's share of the draws;
-  * one ``log_likelihood`` call, one ``refresh_eigs`` call and one pruning
-    kernel call (division 0's own wiring), and an adgamma division 0's
-    HMM along the sites.
+up, and then runs ``run_block`` under ``torch.profiler``: wall time, the
+device's busy and idle share (summed kernel time over the window), kernel
+launches per generation, the kernels and host operators that take the
+most time (the program's spans among them: ``gen.propose.<move>``,
+``gen.eigs``, ``gen.lnl`` and the rest, ``spans.py``), and each of the
+port's kernels (``csrc/*.cu``): launches, device ms and share of the busy
+time and of the wall time.  The host time by span and move type without
+the profiler is a CLI run's end-of-run table ("Host self time by span",
+and the host's ms a proposal beside the acceptance rates).
 
 It prints one JSON object (also written to ``--out``).  ``--device cpu``
 rehearses it on the CPU; those numbers are CPU numbers and are labelled so.
@@ -75,7 +71,6 @@ from .data import DataSet, make_divisions
 from .mcmc.engine import Engine
 from .mcmc.settings import DivisionSettings, McmcSettings
 from .nexus.parser import read_nexus_file
-from .ops.traversal import postorder_internal
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # name fragments of the port's kernels (csrc/*.cu) in a profiler trace
@@ -88,16 +83,6 @@ PRIMATES = os.path.join(_ROOT, "tests", "data", "ref", "examples",
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def _ms_per_call(dev, fn, reps):
-    fn()
-    _sync(dev)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    _sync(dev)
-    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def _device_name(dev) -> str:
@@ -164,73 +149,6 @@ def profile_block(eng, states, bk, gens, dev, top=12):
     return out, states, bk
 
 
-def per_move(eng, states, bk, dev, reps):
-    """ms of one generation of each move type alone, and its draw share."""
-    probs = eng._move_probs.tolist()
-    C = eng.mcmc.n_chains_total
-    heats = 1.0 / (1.0 + eng.mcmc.temp * bk["temp_id"].float())
-    u = torch.rand((C,), generator=bk["rng"], device=dev)
-    rows = []
-    for m, spec in enumerate(eng.moves):
-        def step():
-            eng._chain_step(bk["rng"], states, heats, bk["tuning"][:, m],
-                            1.0, m, u)
-        rows.append({"move": spec.name, "share": probs[m],
-                     "ms": _ms_per_call(dev, step, reps)})
-    rows.append({"move": "weighted mean",
-                 "share": 1.0,
-                 "ms": sum(r["share"] * r["ms"] for r in rows)})
-    return rows
-
-
-def parts(eng, states, dev, reps):
-    """ms of the likelihood, the eigensystem refresh and the kernel call
-    (of division 0, on its own tree where trees are unlinked; its
-    operators as its likelihood builds them), and for an adgamma division
-    0 the category HMM along the sites from its root partials.  Under
-    BEST the gene stack's call on the gene trees' operands (or, where the
-    genes' shapes differ, gene 0's pruner on gene 0's tree)."""
-    if eng.best and eng._gene_stack is not None:
-        gs = eng._gene_stack
-        ops = eng.gene_stack_operands(states)[:4]
-        launches = gs.launches
-        out = {"log_likelihood_ms": _ms_per_call(
-                   dev, lambda: eng.log_likelihood(states), reps),
-               "refresh_eigs_ms": _ms_per_call(
-                   dev, lambda: eng.refresh_eigs(states), reps),
-               "tiprobs_and_postorder_ms": _ms_per_call(
-                   dev, lambda: eng.gene_stack_operands(states), reps),
-               "pruner_call_ms": _ms_per_call(dev, lambda: gs(*ops), reps)}
-        gs.launches = launches      # these launches are not the main path's
-        return out
-    if eng.best:
-        states = eng.gene_view(states, 0)
-    pr = eng._pruners[0]
-    view = (eng.tree_view(states, eng.div_tree[0]) if eng.n_trees > 1
-            else states)
-    P = eng.pruner_operands(view, 0)[0]
-    order = postorder_internal(view["parent"], eng.n_tips)
-    launches = pr.launches
-    out = {
-        "log_likelihood_ms": _ms_per_call(
-            dev, lambda: eng.log_likelihood(states), reps),
-        "refresh_eigs_ms": _ms_per_call(
-            dev, lambda: eng.refresh_eigs(states), reps),
-        "tiprobs_and_postorder_ms": _ms_per_call(
-            dev, lambda: (eng.pruner_operands(view, 0),
-                          postorder_internal(view["parent"], eng.n_tips)),
-            reps),
-        "pruner_call_ms": _ms_per_call(
-            dev, lambda: pr(order, view["left"], view["right"], P), reps),
-    }
-    if eng.div_cfg[0].ratecorr_group >= 0:
-        root, ls = pr(order, view["left"], view["right"], P)
-        out["adgamma_hmm_ms"] = _ms_per_call(
-            dev, lambda: eng._adgamma_from_root(view, 0, root, ls), reps)
-    pr.launches = launches          # these launches are not the main path's
-    return out
-
-
 def configs() -> dict:
     """The CLI-built configurations: ``envelope.BATCHES`` (test1, test2,
     cynmix, avian under aamodelpr=mixed, replicase under NY98, hymfossil's
@@ -270,7 +188,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--chains", type=int, default=4)
     ap.add_argument("--gens", type=int, default=100)
-    ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a CUDA device)")
     ap.add_argument("--config", choices=("primates", *configs()),
@@ -303,9 +220,7 @@ def main(argv=None) -> int:
     block, states, bk = profile_block(eng, states, bk, args.gens, dev)
     result = {"device": _device_name(dev), "torch": torch.__version__,
               "config": config,
-              "run_block": block,
-              "per_move": per_move(eng, states, bk, dev, args.reps),
-              "parts": parts(eng, states, dev, args.reps)}
+              "run_block": block}
     text = json.dumps(result, indent=1)
     print(text)
     if args.out:

@@ -124,6 +124,7 @@ from __future__ import annotations
 
 import math
 import os
+from collections import Counter
 from dataclasses import dataclass
 from functools import partial
 
@@ -153,6 +154,7 @@ from ..ops.sharded_cuda import PruningCudaSharded
 from ..ops.stacked_cuda import PruningCudaGeneStack, PruningCudaStacked
 from ..ops.traversal import ancestor_matrix, postorder_internal
 from ..ops.tiprobs import eigh_reversible
+from ..spans import SPANS
 from ..trees import (Tree, neighbor_joining, parsimony_stepwise,
                      pdistance_matrix, perturb_nni, random_clock_tree,
                      random_clock_tree_constrained, random_unrooted,
@@ -187,6 +189,16 @@ AA_MIXED_ORDER = ("poisson", "jones", "dayhoff", "mtrev", "mtmam", "wag",
 # state-frequency fields: the Dirichlet-sampled frequencies of nucleotide,
 # protein, codon, doublet and restriction divisions
 PI_FIELDS = ("pi", "pi20", "pi61", "pi16", "pi2")
+# a Q move's name before its last "_" -> the group whose one row a chain
+# it draws (the frequency and sympi fields name their own field)
+_ROW_GROUPS = {"revmat": "revmat_group", "aarevmat": "aarevmat_group",
+               "tratio": "tratio_group", "omega": "omega_group",
+               "omega1": "ny98_group", "omega3": "ny98_group",
+               "omegaprobs": "ny98_group", "m3omega": "m3_group",
+               "m3probs": "m3_group", "m10beta": "m10_group",
+               "m10gamma": "m10_group", "m10probs": "m10_group",
+               "aamodel": "aamodel_group", "shape": "shape_group",
+               "covswitch": "covswitch_group", "symbeta": "symbeta_group"}
 # the tree fields a non-clock tree move changes; [C, n_trees, n_nodes]
 # with unlinked trees
 TREE_FIELDS = ("left", "right", "parent", "blen")
@@ -371,6 +383,12 @@ class Engine:
         self._build_moves()
         self._apply_move_overrides(move_overrides or {})
         self._build_constants()
+        # refresh plans a set of divisions and eigensystem counts a Q
+        # move, built at first use; the device tally of changed
+        # eigensystems (``take_eig_tally``)
+        self._eig_plans: dict = {}
+        self._eig_changes: dict = {}
+        self._eig_tally = None
 
     # ------------------------------------------------------------------
     # static wiring
@@ -2703,6 +2721,25 @@ class Engine:
         on = sw[:, :1] / (sw[:, :1] + sw[:, 1:])
         return torch.cat([pi * on, pi * (1.0 - on)], -1)
 
+    def _eig_plan(self, divs):
+        """(plan, keys) of ``refresh_eigs(state, divs)``: [(division,
+        key)] of every division it refreshes, keyed by what its
+        eigensystem depends on, and the number of distinct keys, the
+        eigensystems it computes a chain; built once a ``divs``."""
+        got = self._eig_plans.get(divs)
+        if got is None:
+            plan = []
+            for i in range(self.n_div) if divs is None else divs:
+                cfg = self.div_cfg[i]
+                if i in self._const_eigs or not cfg.prunes:
+                    continue
+                plain = (cfg.div.dtype in (DataType.DNA, DataType.RNA)
+                         and cfg.codon is None and not cfg.doublet
+                         and not cfg.covarion)
+                plan.append((i, self._eig_key(i) if plain else ("own", i)))
+            got = self._eig_plans[divs] = (plan, len({k for _, k in plan}))
+        return got
+
     def refresh_eigs(self, state, divs=None):
         """(Re)compute the cached eigensystems of divisions ``divs`` (every
         division when None).  The cache lives in the chain state so it
@@ -2711,14 +2748,8 @@ class Engine:
         nucleotide divisions whose Q has the same inputs (``_eig_key``:
         BEST's genes under one linked model) share one computation."""
         out, done = dict(state), {}
-        for i in range(self.n_div) if divs is None else divs:
-            cfg = self.div_cfg[i]
-            if i in self._const_eigs or not cfg.prunes:
-                continue
-            plain = (cfg.div.dtype in (DataType.DNA, DataType.RNA)
-                     and cfg.codon is None and not cfg.doublet
-                     and not cfg.covarion)
-            key = self._eig_key(i) if plain else ("own", i)
+        plan, _ = self._eig_plan(None if divs is None else tuple(divs))
+        for i, key in plan:
             if key not in done:
                 done[key] = self._division_eig(state, i)
             # eigL, eigU, eigV and a binary symdiri character's category
@@ -2726,6 +2757,87 @@ class Engine:
             for k, x in zip("LUVP", done[key]):
                 out[f"eig{k}{i}"] = x
         return out
+
+    def _row_of(self, name: str):
+        """Division i -> the row of the group a Q move named ``name``
+        draws (-1: none of its rows), or None where the move draws no
+        group row (it changes every division it refreshes)."""
+        field = name.rsplit("_", 1)[0]
+        if field in PI_FIELDS:
+            return lambda i: (self.div_cfg[i].pi_group
+                              if self.div_cfg[i].pi_field == field else -1)
+        if field.startswith("sympi"):
+            return lambda i: (self.div_cfg[i].sympi_group
+                              if self.div_cfg[i].sympi_field == field
+                              else -1)
+        attr = _ROW_GROUPS.get(field)
+        if attr is None:
+            return None
+        return lambda i: getattr(self.div_cfg[i], attr)
+
+    def _eig_rows_changed(self, m: int):
+        """The eigensystems a chain's proposal of Q move ``m`` changes
+        among those its refresh computes: a move that draws one row of a
+        group changes those of the divisions linked to the row, any other
+        all of them.  An int where every row is linked to as many; else
+        [rows] long counts a row, for the device tally."""
+        got = self._eig_changes.get(m)
+        if got is None:
+            spec = self.moves[m]
+            plan, n_keys = self._eig_plan(spec.eig_divs)
+            row = self._row_of(spec.name)
+            got = n_keys
+            if row is not None:
+                linked: dict = {}
+                for i, key in plan:
+                    linked.setdefault(row(i), set()).add(key)
+                n_rows = 1 + max(row(i) for i in range(self.n_div))
+                counts = [len(linked.get(r, ())) for r in range(n_rows)]
+                if counts:
+                    got = (counts[0] if len(set(counts)) == 1 else
+                           torch.tensor(counts, device=self.device))
+            self._eig_changes[m] = got
+        return got
+
+    def _count_eig_rows(self, divs, cur, tried):
+        """Count a generation's refresh of ``divs``: ``eig_rows``, the
+        (eigensystem, chain) pairs it computes, and ``eig_rows_changed``,
+        those whose inputs the proposing move changed in that chain.
+        ``tried``: (Q move, its proposal, the number of chains that made
+        it and their mask [C], both None for all).  Counted on the host,
+        except where a move's rows are linked to unequal numbers of
+        eigensystems: there the rows its proposal changed are tallied on
+        the device."""
+        C = cur["parent"].shape[0]
+        SPANS.add("eig_rows", C * self._eig_plan(divs)[1])
+        for m, new, n, mask in tried:
+            changed = self._eig_rows_changed(m)
+            if not torch.is_tensor(changed):
+                SPANS.add("eig_rows_changed", changed * (C if n is None
+                                                         else n))
+                continue
+            G = changed.shape[0]
+            rows = None
+            for k, old in cur.items():
+                nv = new[k]
+                if nv is not old and nv.ndim >= 2 and nv.shape[1] == G:
+                    d = (nv != old).reshape(C, G, -1).any(-1)
+                    rows = d if rows is None else rows | d
+            if rows is None:
+                continue
+            if mask is not None:
+                rows = rows & mask[:, None]
+            t = (rows.to(torch.int64) * changed).sum()
+            self._eig_tally = t if self._eig_tally is None \
+                else self._eig_tally + t
+
+    def take_eig_tally(self) -> int:
+        """The device tally of changed eigensystems since the last take (0
+        where none was kept), to read once the device has finished: the
+        run driver adds it to ``eig_rows_changed`` after a block's
+        gather."""
+        t, self._eig_tally = self._eig_tally, None
+        return 0 if t is None else int(t)
 
     def _division_eig_cached(self, state, i):
         """``_division_eig`` from the state's cache, the constant one, or
@@ -2854,8 +2966,10 @@ class Engine:
         padded to the longest, pad weight 0."""
         G, C = self.n_div, state["parent"].shape[0]
         gs = self._gene_stack
-        order, left, right, P, pi, pinv = self.gene_stack_operands(state)
-        root, ls = gs.padded(*gs(order, left, right, P))
+        with SPANS("gen.lnl.operands"):
+            order, left, right, P, pi, pinv = self.gene_stack_operands(state)
+            out = gs(order, left, right, P)
+        root, ls = gs.padded(*out)
         pi_f = pi.reshape(G * C, -1)
         ln_site = site_loglik_from_root(root, ls, pi_f, pinv, None)
         if self._gene_cmask is not None:
@@ -2900,15 +3014,16 @@ class Engine:
         division's own K_d, S_d and P_d: the members' lnL [C] in group
         order."""
         P_list, metas = [], []
-        for i in idxs:
-            pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \
-                self._generic_div_params(state, i)
-            P_list.append(branch_tiprobs(
-                blen, lam, U, Uinv, rates,
-                pinv if cmask is not None else 0.0, mult))
-            metas.append((pi, coding, pinv, cmask))
-        order = postorder_internal(state["parent"], self.n_tips)
-        root, ls = gpruner(order, state["left"], state["right"], P_list)
+        with SPANS("gen.lnl.operands"):
+            for i in idxs:
+                pi, coding, lam, U, Uinv, rates, pinv, cmask, mult = \
+                    self._generic_div_params(state, i)
+                P_list.append(branch_tiprobs(
+                    blen, lam, U, Uinv, rates,
+                    pinv if cmask is not None else 0.0, mult))
+                metas.append((pi, coding, pinv, cmask))
+            order = postorder_internal(state["parent"], self.n_tips)
+            root, ls = gpruner(order, state["left"], state["right"], P_list)
         terms = []
         for gi, i in enumerate(idxs):
             pi, coding, pinv, cmask = metas[gi]
@@ -3388,19 +3503,27 @@ class Engine:
         power-posterior sampling; 1.0 for ordinary MCMC."""
         spec = self.moves[move_idx]
         cur = {k: v for k, v in state.items() if k not in SCORE_KEYS}
-        new, lnH = spec.fn(gen, cur, tuning)
+        with SPANS(f"gen.propose.{spec.name}"):
+            new, lnH = spec.fn(gen, cur, tuning)
         if spec.updates_q:
-            new = self.refresh_eigs(new, spec.eig_divs)
-        lnL = self.log_likelihood(new)
+            with SPANS("gen.eigs"):
+                self._count_eig_rows(spec.eig_divs, cur,
+                                     ((move_idx, new, None, None),))
+                new = self.refresh_eigs(new, spec.eig_divs)
+        with SPANS("gen.lnl"):
+            lnL = self.log_likelihood(new)
         # recompute only the prior component the move can touch; carry
         # the other (exact: a "params" move leaves every tree-prior input
         # unchanged, and vice versa)
-        lnP_tree = (self.log_prior_tree(new) if spec.prior_scope != "params"
-                    else state["lnP_tree"])
-        lnP_par = (self.log_prior_params(new) if spec.prior_scope != "tree"
-                   else state["lnP_par"])
-        return self._metropolis(state, new, lnL, lnP_tree, lnP_par, lnH,
-                                heat, power, u_acc)
+        with SPANS("gen.prior"):
+            lnP_tree = (self.log_prior_tree(new)
+                        if spec.prior_scope != "params"
+                        else state["lnP_tree"])
+            lnP_par = (self.log_prior_params(new)
+                       if spec.prior_scope != "tree" else state["lnP_par"])
+        with SPANS("gen.accept"):
+            return self._metropolis(state, new, lnL, lnP_tree, lnP_par, lnH,
+                                    heat, power, u_acc)
 
     @staticmethod
     def _metropolis(state, new, lnL, lnP_tree, lnP_par, lnH, heat, power,
@@ -3429,42 +3552,49 @@ class Engine:
                         sel, u_acc):
         """One generation in which every chain runs its own move
         (``McmcSettings.per_chain_moves``; the reference's independent
-        PickProposal per chain, src/mcmc.c:10094).  ``moves`` holds the
-        distinct move indices drawn for this generation (host ints), ``sel``
-        [C] each chain's draw on the device.  Each distinct move proposes
-        once for the whole batch and each chain keeps its own move's
-        proposal (``torch.where`` on ``sel``); the eigensystems the drawn
-        moves change are refreshed once, on the merged proposal, and the
-        likelihood and both prior components are computed once for it.
-        Returns (state, accepted [C])."""
+        PickProposal per chain, src/mcmc.c:10094).  ``moves`` maps each
+        distinct move index drawn for this generation to the number of
+        chains that drew it (host ints), ``sel`` [C] each chain's draw on
+        the device.  Each distinct move proposes once for the whole batch
+        and each chain keeps its own move's proposal (``torch.where`` on
+        ``sel``); the eigensystems the drawn moves change are refreshed
+        once, on the merged proposal, and the likelihood and both prior
+        components are computed once for it.  Returns (state, accepted
+        [C])."""
         cur = {k: v for k, v in state.items() if k not in SCORE_KEYS}
         prop, lnH = dict(cur), None
-        q_divs, refresh = set(), False
-        for m in moves:
+        q_divs, q_tried = set(), []
+        for m, n in moves.items():
             spec = self.moves[m]
-            new, lnH_m = spec.fn(gen, cur, tuning[:, m])
-            mine = sel == m
-            for k, old in cur.items():
-                if new[k] is not old:
-                    a = mine.reshape((-1,) + (1,) * (old.ndim - 1))
-                    prop[k] = torch.where(a, new[k], prop[k])
-            lnH = (torch.where(mine, lnH_m, 0.0) if lnH is None
-                   else torch.where(mine, lnH_m, lnH))
+            with SPANS(f"gen.propose.{spec.name}"):
+                new, lnH_m = spec.fn(gen, cur, tuning[:, m])
+                mine = sel == m
+                for k, old in cur.items():
+                    if new[k] is not old:
+                        a = mine.reshape((-1,) + (1,) * (old.ndim - 1))
+                        prop[k] = torch.where(a, new[k], prop[k])
+                lnH = (torch.where(mine, lnH_m, 0.0) if lnH is None
+                       else torch.where(mine, lnH_m, lnH))
             if spec.updates_q:
-                refresh = True
+                q_tried.append((m, new, n, mine))
                 q_divs = (None if q_divs is None or spec.eig_divs is None
                           else q_divs | set(spec.eig_divs))
-        if refresh:
-            prop = self.refresh_eigs(
-                prop, None if q_divs is None else sorted(q_divs))
-        lnL = self.log_likelihood(prop)
+        if q_tried:
+            divs = None if q_divs is None else tuple(sorted(q_divs))
+            with SPANS("gen.eigs"):
+                self._count_eig_rows(divs, cur, q_tried)
+                prop = self.refresh_eigs(prop, divs)
+        with SPANS("gen.lnl"):
+            lnL = self.log_likelihood(prop)
         scopes = {self.moves[m].prior_scope for m in moves}
-        lnP_tree = (state["lnP_tree"] if scopes == {"params"}
-                    else self.log_prior_tree(prop))
-        lnP_par = (state["lnP_par"] if scopes == {"tree"}
-                   else self.log_prior_params(prop))
-        return self._metropolis(state, prop, lnL, lnP_tree, lnP_par, lnH,
-                                heat, power, u_acc)
+        with SPANS("gen.prior"):
+            lnP_tree = (state["lnP_tree"] if scopes == {"params"}
+                        else self.log_prior_tree(prop))
+            lnP_par = (state["lnP_par"] if scopes == {"tree"}
+                       else self.log_prior_params(prop))
+        with SPANS("gen.accept"):
+            return self._metropolis(state, prop, lnL, lnP_tree, lnP_par,
+                                    lnH, heat, power, u_acc)
 
     def _swap_step(self, draws, E, temp_id):
         """``nswaps`` swap attempts per run between random chain pairs
@@ -3556,7 +3686,19 @@ class Engine:
         batch each.  Nothing in the loop waits for the device, except the
         gather of E where a run's chains span processes.  Under a
         ``chains`` mesh the move and swap draws are drawn for every chain
-        and run and this process keeps its own."""
+        and run and this process keeps its own.
+
+        The host's work is recorded in spans (``spans.py``): the draws
+        (``gen.draws``), then a generation's proposal
+        (``gen.propose.<move>``), eigensystem refresh (``gen.eigs``, with
+        the ``eig_rows`` and ``eig_rows_changed`` counters), likelihood
+        (``gen.lnl``; a pruner pass's P(t), traversal order and slot
+        tables in ``gen.lnl.operands``, the kernel's call inside it in
+        ``gen.lnl.launch``), prior (``gen.prior``), acceptance
+        (``gen.accept``), the move counters (``gen.tally``), swaps
+        (``gen.swap``, which also recomputes the chains' heats) and
+        autotuning (``gen.tune``)."""
+        SPANS.watch_profiler()
         mc = self.mcmc
         lo, hi = self.chain_slice
         C = hi - lo
@@ -3569,73 +3711,86 @@ class Engine:
         bk = {k: (v.clone() if torch.is_tensor(v) else v)
               for k, v in bk.items()}
         gen0 = bk["gen"]
-        if mc.per_chain_moves:
-            # C draws a generation; the host keeps each generation's
-            # distinct moves, the device each chain's draw (one
-            # non-blocking copy from pinned memory a block)
-            drawn = torch.multinomial(
-                self._move_probs, n_gens * mc.n_chains_total,
-                replacement=True, generator=bk["rng_host"]).reshape(
-                    n_gens, mc.n_chains_total)[:, lo:hi].contiguous()
-            distinct = [sorted(set(row)) for row in drawn.tolist()]
-            if dev.type == "cuda":
-                drawn = drawn.pin_memory()
-            sel_all = drawn.to(dev, non_blocking=True)
-            nm = len(self.moves)
-        else:
-            midx = torch.multinomial(self._move_probs, n_gens,
-                                     replacement=True,
-                                     generator=bk["rng_host"]).tolist()
-        u_acc = torch.rand((n_gens, C), generator=bk["rng"], device=dev)
-        swapping = mc.nchains > 1
-        if swapping:
-            si, sj, su = self._swap_draws(bk["rng_swap"], n_gens)
+        with SPANS("gen.draws"):
+            if mc.per_chain_moves:
+                # C draws a generation; the host keeps each generation's
+                # distinct moves and how many chains drew each, the device
+                # each chain's draw (one non-blocking copy from pinned
+                # memory a block)
+                drawn = torch.multinomial(
+                    self._move_probs, n_gens * mc.n_chains_total,
+                    replacement=True, generator=bk["rng_host"]).reshape(
+                        n_gens, mc.n_chains_total)[:, lo:hi].contiguous()
+                distinct = [dict(sorted(Counter(row).items()))
+                            for row in drawn.tolist()]
+                if dev.type == "cuda":
+                    drawn = drawn.pin_memory()
+                sel_all = drawn.to(dev, non_blocking=True)
+                nm = len(self.moves)
+            else:
+                midx = torch.multinomial(self._move_probs, n_gens,
+                                         replacement=True,
+                                         generator=bk["rng_host"]).tolist()
+            u_acc = torch.rand((n_gens, C), generator=bk["rng"], device=dev)
+            swapping = mc.nchains > 1
+            if swapping:
+                si, sj, su = self._swap_draws(bk["rng_swap"], n_gens)
+            # the chains' heats change with a swap alone
+            heats = 1.0 / (1.0 + mc.temp * bk["temp_id"][lo:hi].float())
         power = bk["power"]
         recs = []
         for g in range(n_gens):
-            heats = 1.0 / (1.0 + mc.temp * bk["temp_id"][lo:hi].float())
             if mc.per_chain_moves:
                 states, accepted = self._per_chain_step(
                     bk["rng"], states, heats, bk["tuning"], power,
                     distinct[g], sel_all[g], u_acc[g])
                 # each chain counts its own move (the JAX package's
                 # move_per_chain)
-                tried = torch.nn.functional.one_hot(
-                    sel_all[g], nm).to(torch.int32)
-                acc = tried * accepted.to(torch.int32)[:, None]
-                for key, add in (("tries", tried), ("tries_total", tried),
-                                 ("accepts", acc), ("accepts_total", acc)):
-                    bk[key] += add
+                with SPANS("gen.tally"):
+                    tried = torch.nn.functional.one_hot(
+                        sel_all[g], nm).to(torch.int32)
+                    acc = tried * accepted.to(torch.int32)[:, None]
+                    for key, add in (("tries", tried),
+                                     ("tries_total", tried),
+                                     ("accepts", acc),
+                                     ("accepts_total", acc)):
+                        bk[key] += add
             else:
                 m = midx[g]
                 states, accepted = self._chain_step(
                     bk["rng"], states, heats, bk["tuning"][:, m], power, m,
                     u_acc[g])
-                acc = accepted.to(torch.int32)
-                bk["tries"][:, m] += 1
-                bk["tries_total"][:, m] += 1
-                bk["accepts"][:, m] += acc
-                bk["accepts_total"][:, m] += acc
+                with SPANS("gen.tally"):
+                    acc = accepted.to(torch.int32)
+                    bk["tries"][:, m] += 1
+                    bk["tries_total"][:, m] += 1
+                    bk["accepts"][:, m] += acc
+                    bk["accepts_total"][:, m] += acc
             absolute = gen0 + g + 1
             if swapping and absolute % mc.swapfreq == 0:
-                E = power * states["lnL"] + states["lnP"]
-                if not local_swap:
-                    from ..parallel.mesh import all_gather
-                    E = all_gather(E).reshape(-1)
-                t0, t1 = run0 * nc, run1 * nc
-                tid, rec = self._swap_step(
-                    (si[g][:, run0:run1], sj[g][:, run0:run1],
-                     su[g][:, run0:run1]), E, bk["temp_id"][t0:t1])
-                bk["temp_id"][t0:t1] = tid
-                recs.append(rec)
+                with SPANS("gen.swap"):
+                    E = power * states["lnL"] + states["lnP"]
+                    if not local_swap:
+                        from ..parallel.mesh import all_gather
+                        E = all_gather(E).reshape(-1)
+                    t0, t1 = run0 * nc, run1 * nc
+                    tid, rec = self._swap_step(
+                        (si[g][:, run0:run1], sj[g][:, run0:run1],
+                         su[g][:, run0:run1]), E, bk["temp_id"][t0:t1])
+                    bk["temp_id"][t0:t1] = tid
+                    recs.append(rec)
+                    heats = 1.0 / (1.0 + mc.temp
+                                   * bk["temp_id"][lo:hi].float())
             if mc.tune and absolute % mc.tunefreq == 0:
-                bk = self._autotune(bk)
+                with SPANS("gen.tune"):
+                    bk = self._autotune(bk)
         if recs:
-            lo_, hi_, acc = (torch.stack(x) for x in zip(*recs))
-            bk["swap_tries"], bk["swap_accepts"] = \
-                self._accumulate_swap_stats(bk["swap_tries"],
-                                            bk["swap_accepts"], lo_, hi_,
-                                            acc, run0)
+            with SPANS("gen.swap"):
+                lo_, hi_, acc = (torch.stack(x) for x in zip(*recs))
+                bk["swap_tries"], bk["swap_accepts"] = \
+                    self._accumulate_swap_stats(bk["swap_tries"],
+                                                bk["swap_accepts"], lo_,
+                                                hi_, acc, run0)
         bk["gen"] = gen0 + n_gens
         return states, bk
 

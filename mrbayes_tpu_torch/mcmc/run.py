@@ -42,6 +42,7 @@ import torch
 from ..models.codes import BASES
 from ..trees import to_newick
 from ..parallel import mesh as PM
+from ..spans import SPANS, self_seconds
 from .diagnostics import SplitCounter
 from .engine import PI_FIELDS, SCORE_KEYS, Engine
 
@@ -343,8 +344,13 @@ class _NullFile:
 
 class McmcRunner:
     def __init__(self, engine: Engine, file_prefix: str | None = None,
-                 log=print, report: dict | None = None, mesh=None):
+                 log=print, report: dict | None = None, mesh=None,
+                 span_mark=None):
         self.eng = engine
+        # the spans' totals at the start of this run's command
+        # (``SPANS.mark()``; None: at ``run``), for ``phase_times``
+        self.span_mark = span_mark
+        self.phase_times: dict = {}
         self.mc = engine.mcmc
         self.prefix = file_prefix or self.mc.filename
         self.mesh = mesh
@@ -586,8 +592,6 @@ class McmcRunner:
         src/mcmc.c:11253-11282).  Over processes every rank takes part in
         a gather of the chains and of every rank's generator states, rank
         0 writes, and a barrier follows."""
-        mc = self.mc
-        nc = mc.nchains
         if self.multiprocess:
             # every rank's chains and generators
             host, _, _ = self._gather(states, bk)
@@ -601,6 +605,17 @@ class McmcRunner:
                 return
         else:
             host = host_states(states, bk)
+        # the text from the host copy: a span of its own, so an idle card
+        # while it is written is named in a device trace
+        with SPANS("run.checkpoint.write"):
+            self._write_ckp(host, bk, gen, extra)
+        PM.barrier()
+
+    def _write_ckp(self, host, bk, gen: int, extra):
+        """``<prefix>.ckp`` from the host view ``host`` (the chains) and
+        the bookkeeping ``bk`` (see ``write_checkpoint``)."""
+        mc = self.mc
+        nc = mc.nchains
         lines = ["#NEXUS", f"[ID: {mc.seed:010d}]", f"[generation: {gen}]",
                  f"[seed: {mc.seed}]", f"[swapseed: {mc.swapseed}]",
                  "begin trees;", "   translate"]
@@ -640,7 +655,6 @@ class McmcRunner:
             os.replace(path, path + "~")
         with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
-        PM.barrier()
 
     def read_checkpoint(self):
         """(states, bk, generation) from ``<prefix>.ckp``, all chains (a
@@ -706,30 +720,41 @@ class McmcRunner:
         return arrays, gen
 
     # --------------------------------------------------------------- run
+    # The run is recorded in host spans (``spans.py``): ``run.chain_start``
+    # (starting or resumed states, output files, the first sample), then
+    # ``run.loop`` over the wall time ``wall_seconds`` counts, its self
+    # time the driver's own remainder, with a block's ``run.block`` (the
+    # host's call of ``Engine.run_block``, its ``gen.*`` spans inside),
+    # ``run.wait`` (the gather, which waits for the card),
+    # ``run.sample_io``, ``run.diagnostics`` and ``run.checkpoint``.
     def run(self):
         mc = self.mc
         eng = self.eng
+        mark = self.span_mark if self.span_mark is not None \
+            else SPANS.mark()
+        SPANS.watch_profiler()
         start_gen = 0
-        if self._resuming():
-            states, bk, start_gen = self.read_checkpoint()
-            self.log(f"   Resuming from checkpoint at generation {start_gen}")
-        else:
-            states, bk = eng.init_chains()
-        states, bk = self._shard(states, bk)
-        self._open_files(append=start_gen > 0, start_gen=start_gen)
-        host, bk, _ = self._gather(states, bk)
-        self.log(f"   Running Markov chain ( {mc.nruns} runs x {mc.nchains} "
-                 f"chains, {mc.ngen} generations ) on {eng.device}")
-        self.log("   Initial log likelihoods: "
-                 + " ".join(f"{v:.2f}" for v in host["lnL"]))
-        if start_gen == 0:
-            self._write_sample(0, host)
+        with SPANS("run.chain_start"):
+            if self._resuming():
+                states, bk, start_gen = self.read_checkpoint()
+                self.log(f"   Resuming from checkpoint at generation "
+                         f"{start_gen}")
+            else:
+                states, bk = eng.init_chains()
+            states, bk = self._shard(states, bk)
+            self._open_files(append=start_gen > 0, start_gen=start_gen)
+            host, bk, _ = self._gather(states, bk)
+            self.log(f"   Running Markov chain ( {mc.nruns} runs x "
+                     f"{mc.nchains} chains, {mc.ngen} generations ) on "
+                     f"{eng.device}")
+            self.log("   Initial log likelihoods: "
+                     + " ".join(f"{v:.2f}" for v in host["lnL"]))
+            if start_gen == 0:
+                self._write_sample(0, host)
         # graceful SIGINT: the first ^C stops at the next block boundary
         # (checkpoint written); a second aborts (reference CatchInterrupt,
         # src/mcmc.c:2205, :15495)
         self._abort = False
-        self.phase_times = {"device": 0.0, "sample_io": 0.0,
-                            "diagnostics": 0.0, "checkpoint": 0.0}
 
         def on_sigint(sig, frame):
             if self._abort:
@@ -743,69 +768,68 @@ class McmcRunner:
             prev_handler = signal.signal(signal.SIGINT, on_sigint)
         except ValueError:       # not the main thread
             prev_handler = None
-        t0 = time.time()
+        t0 = time.perf_counter()
         gen = start_gen
         stopped = False
-        while gen < mc.ngen and not stopped:
-            n = min(mc.samplefreq, mc.ngen - gen)
-            tb = time.time()
-            states, bk = eng.run_block(states, bk, n)
-            # waits for the device; over processes, any rank's ^C stops
-            # every rank at this block
-            host, bk, abort = self._gather(states, bk, self._abort)
-            self._abort = self._abort or abort
-            self.phase_times["device"] += time.time() - tb
-            gen += n
-            if self._abort:
-                self.log(f"   Run aborted by user at generation {gen}")
-                stopped = True
-            tb = time.time()
-            if os.environ.get("MB_DEBUG") or os.environ.get("MB_DEBUG_LNL"):
-                self._debug_checks(gen, host, states)
-            if gen % mc.samplefreq == 0 or gen == mc.ngen or stopped:
-                self._write_sample(gen, host)
-            self.phase_times["sample_io"] += time.time() - tb
-            if gen % mc.printfreq == 0 or gen == mc.ngen:
-                cold = eng.cold_indices(host)
-                rate = (gen - start_gen) / max(time.time() - t0, 1e-9)
-                eta = (mc.ngen - gen) / max(rate, 1e-9)
-                self.log(f"   {gen} -- "
-                         + " ".join(f"[{host['lnL'][c]:.3f}]" for c in cold)
-                         + f" -- {rate:.0f} gen/s -- {eta:.0f} s remaining")
-            tb = time.time()
-            if gen % mc.diagnfreq == 0 and mc.nruns > 1:
-                asdsf = self._burned_asdsf()
-                self.asdsf_series.append((gen, asdsf))
-                self.mcmcf.write(f"{gen}\t{asdsf:.6f}\n")
-                self.mcmcf.flush()
-                self.log(f"   Average standard deviation of split "
-                         f"frequencies: {asdsf:.6f}")
-                if mc.stoprule and asdsf < mc.stopval:
-                    self.log("   Analysis stopped: convergence criterion "
-                             "reached")
+        with SPANS("run.loop"):
+            while gen < mc.ngen and not stopped:
+                n = min(mc.samplefreq, mc.ngen - gen)
+                with SPANS("run.block"):
+                    states, bk = eng.run_block(states, bk, n)
+                # waits for the device; over processes, any rank's ^C
+                # stops every rank at this block
+                with SPANS("run.wait"):
+                    host, bk, abort = self._gather(states, bk, self._abort)
+                    SPANS.add("eig_rows_changed", eng.take_eig_tally())
+                self._abort = self._abort or abort
+                gen += n
+                if self._abort:
+                    self.log(f"   Run aborted by user at generation {gen}")
                     stopped = True
-            self.phase_times["diagnostics"] += time.time() - tb
-            tb = time.time()
-            if mc.checkfreq and gen % mc.checkfreq == 0:
+                with SPANS("run.sample_io"):
+                    if os.environ.get("MB_DEBUG") \
+                            or os.environ.get("MB_DEBUG_LNL"):
+                        self._debug_checks(gen, host, states)
+                    if gen % mc.samplefreq == 0 or gen == mc.ngen \
+                            or stopped:
+                        self._write_sample(gen, host)
+                if gen % mc.printfreq == 0 or gen == mc.ngen:
+                    cold = eng.cold_indices(host)
+                    rate = (gen - start_gen) / max(
+                        time.perf_counter() - t0, 1e-9)
+                    eta = (mc.ngen - gen) / max(rate, 1e-9)
+                    self.log(f"   {gen} -- "
+                             + " ".join(f"[{host['lnL'][c]:.3f}]"
+                                        for c in cold)
+                             + f" -- {rate:.0f} gen/s -- {eta:.0f} s "
+                             "remaining")
+                with SPANS("run.diagnostics"):
+                    if gen % mc.diagnfreq == 0 and mc.nruns > 1:
+                        asdsf = self._burned_asdsf()
+                        self.asdsf_series.append((gen, asdsf))
+                        self.mcmcf.write(f"{gen}\t{asdsf:.6f}\n")
+                        self.mcmcf.flush()
+                        self.log(f"   Average standard deviation of split "
+                                 f"frequencies: {asdsf:.6f}")
+                        if mc.stoprule and asdsf < mc.stopval:
+                            self.log("   Analysis stopped: convergence "
+                                     "criterion reached")
+                            stopped = True
+                with SPANS("run.checkpoint"):
+                    if mc.checkfreq and gen % mc.checkfreq == 0:
+                        self.write_checkpoint(states, bk, gen)
+            with SPANS("run.checkpoint"):
                 self.write_checkpoint(states, bk, gen)
-            self.phase_times["checkpoint"] += time.time() - tb
-        tb = time.time()
-        self.write_checkpoint(states, bk, gen)
-        self.phase_times["checkpoint"] += time.time() - tb
-        if prev_handler is not None:
-            signal.signal(signal.SIGINT, prev_handler)
-        self._close_files()
-        dt = time.time() - t0
+            if prev_handler is not None:
+                signal.signal(signal.SIGINT, prev_handler)
+            self._close_files()
+        dt = time.perf_counter() - t0
         self.wall_seconds = dt
         self.generations = gen - start_gen
+        self.phase_times = self._phase_times(SPANS.since(mark))
         self.log(f"   Analysis completed in {dt:.0f} seconds")
         self.log(f"   Analysis used {dt:.2f} seconds of total time")
-        pt = self.phase_times
-        tracked = sum(pt.values())
-        self.log("   Time breakdown: "
-                 + "  ".join(f"{k} {v:.2f}s ({v / max(dt, 1e-9):.0%})"
-                             for k, v in pt.items())
-                 + f"  other {max(dt - tracked, 0.0):.2f}s")
+        self._print_time_breakdown(dt)
         for r, slot in enumerate(eng.cold_indices(host)):
             best = max((s["lnLike"] for s in self.param_samples[r]),
                        default=float(host["lnL"][slot]))
@@ -814,6 +838,41 @@ class McmcRunner:
         self._print_move_summary(self._host_bk if self.multiprocess else bk)
         self.final_states, self.final_bk = states, bk
         return states, bk
+
+    @staticmethod
+    def _phase_times(view: dict) -> dict:
+        """The run's host time by phase, seconds: ``device`` (the block's
+        call and the wait for it), ``sample_io``, ``diagnostics`` and
+        ``checkpoint`` (inclusive), then every span's ``.count``,
+        ``.incl_s`` and ``.self_s`` and the counters of ``view``."""
+        def incl(name):
+            return view.get(f"{name}.incl_s", 0.0)
+
+        return {"device": incl("run.block") + incl("run.wait"),
+                "sample_io": incl("run.sample_io"),
+                "diagnostics": incl("run.diagnostics"),
+                "checkpoint": incl("run.checkpoint"), **view}
+
+    def _print_time_breakdown(self, dt: float):
+        """The phases over the wall time, then every span's self time and
+        the eigensystem counts."""
+        pt = self.phase_times
+        phases = ("device", "sample_io", "diagnostics", "checkpoint")
+        tracked = sum(pt[k] for k in phases)
+        self.log("   Time breakdown: "
+                 + "  ".join(f"{k} {pt[k]:.2f}s ({pt[k] / max(dt, 1e-9):.0%})"
+                             for k in phases)
+                 + f"  other {max(dt - tracked, 0.0):.2f}s")
+        # the command's time in spans: the engine build, the chain start
+        # and the loop
+        own = self_seconds(pt)
+        base = max(sum(own.values()), 1e-9)
+        self.log(f"   Host self time by span, of {base:.2f}s in spans: "
+                 + "  ".join(f"{k} {v:.3f}s ({v / base:.1%})"
+                             for k, v in own.items()))
+        if pt.get("eig_rows"):
+            self.log(f"   Eigensystems: {pt['eig_rows']} computed, "
+                     f"{pt['eig_rows_changed']} with changed inputs")
 
     def _resuming(self) -> bool:
         """True when ``append=yes`` finds ``<prefix>.ckp``.  Over processes
@@ -854,11 +913,17 @@ class McmcRunner:
         host arrays over processes)."""
         tries = _np(bk["tries_total"]).sum(0)
         accepts = _np(bk["accepts_total"]).sum(0)
-        self.log("   Acceptance rates per move (all chains):")
+        pt = self.phase_times
+        self.log("   Acceptance rates per move (all chains), and the "
+                 "host's ms a proposal:")
         for i, mv in enumerate(self.eng.moves):
             if tries[i]:
+                span = f"gen.propose.{mv.name}"
+                n = pt.get(f"{span}.count")
+                ms = (f"{1e3 * pt[f'{span}.self_s'] / n:8.3f}" if n
+                      else f"{'--':>8s}")
                 self.log(f"      {accepts[i] / tries[i]:6.1%}  "
-                         f"({int(tries[i]):9d} tries)  {mv.name}")
+                         f"({int(tries[i]):9d} tries)  {ms} ms  {mv.name}")
         self._print_swap_info(bk)
 
     def _print_swap_info(self, bk):

@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..spans import SPANS
 from .pruning_cuda import GroupLayout, slot_operands
 
 
@@ -131,11 +132,12 @@ class PruningCudaMultiwalk:
 
     def __call__(self, order, left, right, P_list):
         lr, pstep = self.operands(order, left, right, P_list)
-        if self.tips.is_cuda:
-            out = multiwalk_down(lr, pstep, self.tips, self.layout)
-            self.launches += 1
-            return out
-        return multiwalk_down_plain(lr, pstep, self.tips, self.layout)
+        with SPANS("gen.lnl.launch"):
+            if self.tips.is_cuda:
+                out = multiwalk_down(lr, pstep, self.tips, self.layout)
+                self.launches += 1
+                return out
+            return multiwalk_down_plain(lr, pstep, self.tips, self.layout)
 
     def div_view(self, root, ls, d: int):
         return self.layout.div_view(root, ls, d)

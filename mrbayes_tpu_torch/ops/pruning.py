@@ -12,12 +12,18 @@ CUDA kernel in ``pruning_cuda.py``: the kernel is held against it.
 Root reduction: lnL = Σ_p w_p log( (1-pinv) Σ_k f_k Σ_s π_s CL[p,k,s]
 + pinv Σ_s π_s 1[pattern p constant at s] ), reference
 src/likelihood.c:6238-6368 (Likelihood_NUC4 family).
+
+Through a pruner, a pass is a host span (``spans.py``),
+``gen.lnl.operands``: P(t), the traversal order and the pruner's slot
+tables, with the kernel's call (or its plain twin's) in the pruner's
+``gen.lnl.launch`` inside it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..spans import SPANS
 from .pruning_cuda import PruningCuda
 from .tiprobs import transition_probs
 from .traversal import postorder_internal
@@ -172,9 +178,11 @@ def root_clv(left, right, parent, blen, tip_partials, lam, U, Uinv,
     tensors, its plain version for CPU tensors); otherwise through
     ``root_partials``."""
     if pruner is not None:
-        P = branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv, rate_mult)
-        order = postorder_internal(parent, n_tips)
-        return pruner(order, left, right, P)
+        with SPANS("gen.lnl.operands"):
+            P = branch_tiprobs(blen, lam, U, Uinv, cat_rates, pinv,
+                               rate_mult)
+            order = postorder_internal(parent, n_tips)
+            return pruner(order, left, right, P)
     partials, logscale = root_partials(
         left, right, parent, blen, tip_partials, lam, U, Uinv,
         cat_rates, pinv, n_tips, rate_mult)
@@ -272,11 +280,13 @@ def division_loglik(left, right, parent, blen, tip_partials, weights,
     (mrbayes_tpu/ops/pruning.py:288-303); ``tip_partials`` is not read.
     """
     if hasattr(pruner, "loglik"):
-        P = branch_tiprobs(blen, lam, U, Uinv, cat_rates,
-                           pinv if const_mask is not None else 0.0, rate_mult)
-        order = postorder_internal(parent, n_tips)
-        return pruner.loglik(order, left, right, P, pi, pinv, const_mask,
-                             weights, cat_weights)
+        with SPANS("gen.lnl.operands"):
+            P = branch_tiprobs(blen, lam, U, Uinv, cat_rates,
+                               pinv if const_mask is not None else 0.0,
+                               rate_mult)
+            order = postorder_internal(parent, n_tips)
+            return pruner.loglik(order, left, right, P, pi, pinv,
+                                 const_mask, weights, cat_weights)
     s = tip_partials.shape[-1]
     if coding != "all" and pruner is None:
         dummy = torch.eye(s, dtype=tip_partials.dtype,

@@ -59,6 +59,8 @@ import time
 import numpy as np
 import torch
 
+from ..spans import SPANS
+
 _TINY = 1e-30
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
                      "csrc")
@@ -739,8 +741,9 @@ class PruningCuda:
 
     def __call__(self, order, left, right, Pmat):
         lr, pstep = self.operands(order, left, right, Pmat)
-        if self.tips.is_cuda:
-            root, ls = pruning_down(lr, pstep, self.tips)
-            self.launches += 1
-            return root, ls
-        return pruning_down_plain(lr, pstep, self.tips)
+        with SPANS("gen.lnl.launch"):
+            if self.tips.is_cuda:
+                root, ls = pruning_down(lr, pstep, self.tips)
+                self.launches += 1
+                return root, ls
+            return pruning_down_plain(lr, pstep, self.tips)

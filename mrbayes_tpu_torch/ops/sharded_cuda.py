@@ -39,6 +39,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from ..spans import SPANS
 from .pruning import coding_correction, site_loglik_from_root
 from .pruning_cuda import PruningCuda, pruning_down, pruning_down_plain
 
@@ -121,11 +122,12 @@ class PruningCudaSharded:
         for dev, tips in zip(self.devices, self.tips):
             lr_d = lr.to(dev, non_blocking=True)
             pstep_d = pstep.to(dev, non_blocking=True)
-            if tips.is_cuda:
-                out.append(pruning_down(lr_d, pstep_d, tips))
-                self.launches += 1
-            else:
-                out.append(pruning_down_plain(lr_d, pstep_d, tips))
+            with SPANS("gen.lnl.launch"):
+                if tips.is_cuda:
+                    out.append(pruning_down(lr_d, pstep_d, tips))
+                    self.launches += 1
+                else:
+                    out.append(pruning_down_plain(lr_d, pstep_d, tips))
         return out
 
     def loglik(self, order, left, right, Pmat, pi, pinv, const_mask,

@@ -44,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..spans import SPANS
 from .pruning_cuda import GroupLayout, slot_operands
 
 
@@ -116,11 +117,12 @@ class PruningCudaStacked:
 
     def __call__(self, order, left, right, P_list):
         lr, pstep = self.operands(order, left, right, P_list)
-        if self.tips.is_cuda:
-            out = stacked_down(lr, pstep, self.tips, self.layout)
-            self.launches += 1
-            return out
-        return stacked_down_plain(lr, pstep, self.tips, self.layout)
+        with SPANS("gen.lnl.launch"):
+            if self.tips.is_cuda:
+                out = stacked_down(lr, pstep, self.tips, self.layout)
+                self.launches += 1
+                return out
+            return stacked_down_plain(lr, pstep, self.tips, self.layout)
 
     def div_view(self, root, ls, d: int):
         """(root [C, K_d, S_d, P_d], ls [C, P_d]) of member d from the flat
@@ -168,11 +170,12 @@ class PruningCudaGeneStack:
 
     def __call__(self, order, left, right, P):
         lr, pstep = self.operands(order, left, right, P)
-        if self.tips.is_cuda:
-            out = stacked_down(lr, pstep, self.tips, self.layout)
-            self.launches += 1
-            return out
-        return stacked_down_plain(lr, pstep, self.tips, self.layout)
+        with SPANS("gen.lnl.launch"):
+            if self.tips.is_cuda:
+                out = stacked_down(lr, pstep, self.tips, self.layout)
+                self.launches += 1
+                return out
+            return stacked_down_plain(lr, pstep, self.tips, self.layout)
 
     def padded(self, root, ls):
         """Every gene's (root [G * C, K, S, P_max], ls [G * C, P_max]) from

@@ -37,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from ..spans import SPANS
 from .pruning_cuda import (WALKS, PruningCuda, check_step_operands,
                            check_cuda_operands, check_kernel_shape,
                            device_index, launch_error, library)
@@ -293,8 +294,9 @@ class PruningCudaWavefront(PruningCuda):
 
     def __call__(self, order, left, right, Pmat):
         lr, pstep = self.operands(order, left, right, Pmat)
-        if self.tips.is_cuda:
-            out = wavefront_down(lr, pstep, self.tips, self.W)
-            self.launches += 1
-            return out
-        return wavefront_down_plain(lr, pstep, self.tips, self.W)
+        with SPANS("gen.lnl.launch"):
+            if self.tips.is_cuda:
+                out = wavefront_down(lr, pstep, self.tips, self.W)
+                self.launches += 1
+                return out
+            return wavefront_down_plain(lr, pstep, self.tips, self.W)
