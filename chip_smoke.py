@@ -402,9 +402,19 @@ KERNEL_CASES += [(n, P, S, K, 8) for n, P, S, K, _ in CYNMIX_SHAPES
 AA_CODON_SHAPES = [(89, 88, 20, 4), (89, 88, 20, 1), (9, 239, 61, 1),
                    (9, 239, 61, 3)]
 KERNEL_CASES += [shape + (C,) for shape in AA_CODON_SHAPES for C in (8, 32)]
+# the benchmark's 169 taxa (phylobench/configs): a division of the 19-loci
+# cell at its 16 chains and a slice of the unpartitioned one at its 32, on
+# the Strahler walk (csrc/strahler_walk.cuh); every case above keeps the
+# walk it had before that walk, with its tips packed or not
+HACKETT_SHAPES = [(169, 1270, 4, 4, 16), (169, 2048, 4, 4, 32)]
+KERNEL_CASES += HACKETT_SHAPES
+# the unpartitioned cell's whole launch (~23,000 patterns at 32 chains),
+# timed beside the walk it took before
+HACKETT_CELL = (169, 23000, 4, 4, 32)
 KERNEL_WALKS = {(6, 40, 61, 3): "staged", (9, 70, 32, 16): "tiled",
                 (32, 100, 20, 4): "staged",
-                **{shape: "staged" for shape in AA_CODON_SHAPES}}
+                **{shape: "staged" for shape in AA_CODON_SHAPES},
+                **{shape[:4]: "strahler_staged" for shape in HACKETT_SHAPES}}
 # a stacked group on 9 tips, C = 4, whose members (P, S, K) take the
 # global-scratch, staged and whole walks
 STACKED_MIXED = ((70, 32, 16), (30, 61, 3), (40, 4, 4))
@@ -486,12 +496,14 @@ THREE_TIP_RUNS, THREE_TIP_GENS, THREE_TIP_BURN, THREE_TIP_SEED = \
 # operators on 9 taxa and sends M10 (K S = 488 entries a step, more than
 # 32 lanes x 8) and the 114-taxon shapes (a step's operators and 57 live
 # slots beyond a block) to the tiled walk (the global-scratch walk before
-# it)
+# it); the doublets under K 4, their 0/1 tips packed, take the Strahler
+# walk (a block of 64 threads held 2 warps an SM; csrc/strahler_walk.cuh)
 KIM_CODON_SHAPES = [(27, 78, 16, 1), (27, 78, 16, 4), (27, 68, 20, 1),
                     (27, 32, 20, 1), (9, 239, 61, 3), (9, 239, 61, 8),
                     (114, 240, 61, 3), (114, 240, 61, 8)]
 KIM_CODON_WALKS = {(9, 239, 61, 3): "staged", (9, 239, 61, 8): "tiled",
-                   (114, 240, 61, 3): "tiled", (114, 240, 61, 8): "tiled"}
+                   (114, 240, 61, 3): "tiled", (114, 240, 61, 8): "tiled",
+                   (27, 78, 16, 4): "strahler_staged"}
 # eigh.cu's batches (matrices, S): the doublet's 8 and 32 chains, M10's 8
 # and 32 chains x 8 omega classes
 KIM_EIGH_CASES = [(8, 16), (32, 16), (64, 61), (256, 61)]
@@ -895,22 +907,24 @@ def old_walk(torch, lr, pstep, tips, outputs=False):
     return raw, root.view(C, K, S, P), ls.view(C, P)
 
 
-def new_walk(torch, lr, pstep, tips):
+def new_walk(torch, lr, pstep, tips, masks=None, plan=None):
     """A raw pruning.cu launch on preallocated outputs on the operands'
-    device (scratch only where the size rule gives the global-scratch
-    walk), the rule's plan and the outputs."""
+    device (scratch only where the walk needs it), the rule's plan (with
+    the packed tips ``masks``, or without; ``plan`` forces one) and the
+    outputs."""
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
     C, n_int, _, K, S = pstep.shape[:5]
     n_tips, _, P = tips.shape
     dev = lr.device
-    plan = PC.pruning_plan(C, n_tips, K, S, P, dev)
-    scratch = torch.empty((C, n_int, K, S, P), device=dev) \
-        if plan["walk"] == "global" else None
+    plan = plan or PC.pruning_plan(C, n_tips, K, S, P, dev,
+                                   masks is not None)
+    scratch, sched = PC.launch_buffers(plan, C, n_int, K, S, P, dev)
     root = torch.empty((C, K, S, P), device=dev)
     ls = torch.empty((C, P), device=dev)
 
     def raw():
-        PC.pruning_launch(lr, pstep, tips, scratch, root, ls, plan)
+        PC.pruning_launch(lr, pstep, tips, scratch, root, ls, plan, masks,
+                          sched)
     return raw, plan, root, ls
 
 
@@ -918,25 +932,31 @@ def pruning_check(torch, shape, seed, expect=None, plain=False, n=100,
                   reps=5, loops=200, before_n=None, before_reps=None,
                   before_loops=None, case=None):
     """pruning.cu at one (n_tips, P, S, K, C) against its plain version on
-    seeded operands: the walk and block the size rule chose (held to
-    ``expect`` where given, and to its Python twin
-    ``pruning_cuda.size_rule`` at an H100's limits), its CUDA-graph time
+    seeded operands, with the tips packed (``pruning_cuda.pack_tips``)
+    where they are 0/1, as the engine's wiring packs them: the walk and
+    block the size rule chose (held to ``expect`` where given, and to its
+    Python twin ``pruning_cuda.size_rule`` at an H100's limits; on a
+    Strahler walk its pre-pass's schedule to ``strahler_schedule``), the
+    SM's busy warps under it (``busy_warps``), its CUDA-graph time
     and the old global-scratch walk's on the same operands (before_ms,
     ``before_n`` launches a graph and ``before_reps`` replays, n and reps
     unless given), the largest difference of root and ls to the old walk
     (vs_old_max_abs), the Python loops' times (``before_loops`` 0: the old
     walk's is not timed), the bound and, with ``plain``, the plain
-    version's time.  ``case`` (lr, pstep, tips, pi) gives the operands
+    version's time; where the packed tips changed the walk, the walk of
+    the float tips beside it (onchip_ms).  ``case`` (lr, pstep, tips, pi)
+    gives the operands
     (an engine's own) in place of seeded random ones.  Returns (record,
     operands, bytes, operations)."""
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
     n_tips, P, S, K, C = shape
     lr, pstep, tips, pi = case or kernel_case(torch, n_tips, P, S, K, C,
                                               seed)
-    root_k, ls_k = PC.pruning_down(lr, pstep, tips)
+    masks = PC.pack_tips(tips)
+    root_k, ls_k = PC.pruning_down(lr, pstep, tips, masks)
     torch.cuda.synchronize()
     root_p, ls_p = PC.pruning_down_plain(lr, pstep, tips)
-    raw, plan, root, ls = new_walk(torch, lr, pstep, tips)
+    raw, plan, root, ls = new_walk(torch, lr, pstep, tips, masks)
     err = compare(
         torch, site_lnl(torch, root_k, ls_k, pi),
         site_lnl(torch, root_p, ls_p, pi),
@@ -947,9 +967,18 @@ def pruning_check(torch, shape, seed, expect=None, plain=False, n=100,
     if expect is not None and plan["walk"] != expect:
         raise AssertionError(f"pruning_down n_tips={n_tips} S={S} K={K}: "
                              f"{plan['walk']} walk, expected {expect}")
-    twin = PC.size_rule(C, n_tips, K, S, P)
+    twin = PC.size_rule(C, n_tips, K, S, P, packed=masks is not None)
     if plan != twin:
         raise AssertionError(f"pruning_plan {plan} != size_rule {twin}")
+    if plan["walk"] in PC.STRAHLER_WALKS:
+        # the pre-pass's schedule against its twin on every chain
+        sched = PC.strahler_schedule_cuda(lr).cpu().numpy()
+        for c in range(C):
+            if (sched[c] != PC.strahler_schedule(lr[c].cpu().numpy(),
+                                                 n_tips)).any():
+                raise AssertionError(f"strahler_schedule n_tips={n_tips} "
+                                     f"C={C}: chain {c} differs from its "
+                                     f"twin")
     flops = 2 * C * (n_tips - 1) * 2 * K * S * S * P
     nbytes = 4 * (lr.numel() + pstep.numel() + tips.numel()
                   + root.numel() + ls.numel())
@@ -957,7 +986,8 @@ def pruning_check(torch, shape, seed, expect=None, plain=False, n=100,
     before()
     torch.cuda.synchronize()
     before_loops = loops if before_loops is None else before_loops
-    rec = {**plan, "max_abs_err": err,
+    rec = {**plan, "max_abs_err": err, "packed": masks is not None,
+           "busy_warps": PC.busy_warps(plan, C, P),
            "vs_old_max_abs": max((root_o - root_k).abs().max().item(),
                                  (ls_o - ls_k).abs().max().item()),
            "ms": time_graph(torch, raw, n, reps),
@@ -968,6 +998,14 @@ def pruning_check(torch, shape, seed, expect=None, plain=False, n=100,
                               if before_loops else None),
            **{k: v for k, v in bound(nbytes, flops).items()
               if k in ("bound_ms", "bound_by")}}
+    onchip = PC.pruning_plan(C, n_tips, K, S, P, lr.device)
+    if onchip != plan:
+        # the walk the shape takes with its tips as floats
+        rec.update({"onchip_walk": onchip["walk"],
+                    "onchip_busy_warps": PC.busy_warps(onchip, C, P),
+                    "onchip_ms": time_graph(
+                        torch, new_walk(torch, lr, pstep, tips)[0],
+                        before_n or n, before_reps or reps)})
     if plain:
         rec["plain_ms"] = time_events(
             torch, lambda: PC.pruning_down_plain(lr, pstep, tips), 5)
@@ -986,10 +1024,14 @@ def phase_kernels(torch):
     timing, cases = {}, {}
     for i, (n_tips, P, S, K, C) in enumerate(KERNEL_CASES):
         key = f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"
+        # the old walk takes some ms at 169 taxa: fewer launches of it
+        few = {"n": 20, "reps": 3, "loops": 20, "before_n": 5,
+               "before_reps": 2, "before_loops": 0} \
+            if (n_tips, P, S, K, C) in HACKETT_SHAPES else {}
         cases[key], (lr, pstep, tips), nbytes, flops = pruning_check(
             torch, (n_tips, P, S, K, C), 100 + i,
             KERNEL_WALKS.get((n_tips, P, S, K), "whole"),
-            plain=(n_tips, P, S, K) in AA_CODON_SHAPES)
+            plain=(n_tips, P, S, K) in AA_CODON_SHAPES, **few)
         worst = max(worst, cases[key]["max_abs_err"])
         if (n_tips, P, S, K) != (12, 413, 4, 4):
             continue
@@ -1003,7 +1045,54 @@ def phase_kernels(torch):
                 torch, lambda: PC.pruning_down_plain(lr, pstep, tips), 20),
             **bound(nbytes, flops)}
         log(f"pruning_down timing primates C={C}: {json.dumps(timing[C])}")
+    n_tips, P, S, K, C = HACKETT_CELL
+    cases[f"n{n_tips}_P{P}_S{S}_K{K}_C{C}"] = hackett_cell_timing(torch)
     return worst, timing, cases
+
+
+def hackett_cell_timing(torch):
+    """pruning.cu at the unpartitioned benchmark cell's whole launch
+    (HACKETT_CELL) on seeded operands: the size rule's Strahler walk
+    (held to its twin), the same walk with the whole chain's operators on
+    chip and the walk that the shape took before it (the tips as floats),
+    each CUDA-graph timed; the root partials of all three the same bits,
+    and ls's largest difference to the walk before (summed in another
+    step order)."""
+    from mrbayes_tpu_torch.ops import pruning_cuda as PC
+    n_tips, P, S, K, C = HACKETT_CELL
+    lr, pstep, tips, _ = kernel_case(torch, n_tips, P, S, K, C, 169)
+    masks = PC.pack_tips(tips)
+    raw, plan, root, ls = new_walk(torch, lr, pstep, tips, masks)
+    twin = PC.size_rule(C, n_tips, K, S, P, packed=True)
+    if plan != twin or plan["walk"] != "strahler_staged":
+        raise AssertionError(f"pruning_plan {plan} (size_rule {twin}) at "
+                             f"{HACKETT_CELL}: expected the staged Strahler "
+                             f"walk")
+    whole = PC.strahler_block(n_tips, K, S, plan["lanes"], plan["threads"],
+                              staged=False)
+    raw_w, _, root_w, ls_w = new_walk(torch, lr, pstep, tips, masks, whole)
+    raw_b, before, root_b, ls_b = new_walk(torch, lr, pstep, tips)
+    rec = {**plan, "busy_warps": PC.busy_warps(plan, C, P),
+           "ms": time_graph(torch, raw, 20, 3),
+           "whole_operators": {**whole, "busy_warps": PC.busy_warps(
+               whole, C, P), "ms": time_graph(torch, raw_w, 10, 2)},
+           "before": {**before, "busy_warps": PC.busy_warps(before, C, P),
+                      "ms": time_graph(torch, raw_b, 2, 2)}}
+    torch.cuda.synchronize()
+    if not (torch.equal(root, root_b) and torch.equal(root_w, root_b)):
+        raise AssertionError(f"pruning_down at {HACKETT_CELL}: the Strahler "
+                             f"walk's root partials differ from the walk's "
+                             f"before it")
+    rec["ls_vs_before_max_abs"] = max((ls - ls_b).abs().max().item(),
+                                      (ls_w - ls_b).abs().max().item())
+    flops = 2 * C * (n_tips - 1) * 2 * K * S * S * P
+    nbytes = 4 * (lr.numel() + pstep.numel() + tips.numel() + root.numel()
+                  + ls.numel())
+    rec.update({k: v for k, v in bound(nbytes, flops).items()
+                if k in ("bound_ms", "bound_by")})
+    log(f"pruning_down timing hackett cell n_tips={n_tips} P={P} S={S} "
+        f"K={K} C={C}: {json.dumps(rec)}")
+    return rec
 
 
 def phase_multiwalk_kernels(torch):
@@ -1399,7 +1488,8 @@ def phase_wavefront_kernels(torch):
                 torch.cuda.synchronize()
                 root_p, ls_p = WF.wavefront_down_plain(lr, pstep, pruner.tips,
                                                        W)
-                root_s, _ = PC.pruning_down(lr, pstep, pruner.tips)
+                root_s, _ = PC.pruning_down(lr, pstep, pruner.tips,
+                                            pruner.masks)
                 diff = (root_k - root_s).abs().max().item()
                 root_diff = max(root_diff, diff)
                 plan = WF.wavefront_plan(C, n_tips, K, S, P, W, lr.device)
@@ -1428,8 +1518,8 @@ def phase_wavefront_kernels(torch):
                         "ms": time_graph(torch, lambda: WF.wavefront_launch(
                             lr, pstep, pruner.tips, root, ls, W, plan)),
                         "pruning_down_same_work_ms": time_graph(
-                            torch, new_walk(torch, lr, pstep,
-                                            pruner.tips)[0])}
+                            torch, new_walk(torch, lr, pstep, pruner.tips,
+                                            pruner.masks)[0])}
                     log(f"wavefront_down timing cynmix P={P} C={C} {shape}: "
                         f"{json.dumps(timing[f'P={P} C={C} {shape}'])}")
     log(f"wavefront_down: root partials against pruning.cu's on the same "
@@ -1551,11 +1641,12 @@ def phase_stacked(torch):
             f"plain"))
         single = eng._pruners[i]
         lr1, pst1 = single.operands(*walk, P_list[d])
-        root1, ls1 = PC.pruning_down(lr1, pst1, single.tips)
+        root1, ls1 = PC.pruning_down(lr1, pst1, single.tips, single.masks)
         worst = max(worst, compare(
             torch, a, site_lnl(torch, root1, ls1, pis[d]),
             f"stacked_down division {i} vs its own pruning_down launch"))
-        singles.append(new_walk(torch, lr1, pst1, single.tips)[0])
+        singles.append(new_walk(torch, lr1, pst1, single.tips,
+                                single.masks)[0])
     err_mixed, mixed_walks = stacked_mixed(torch)
     worst = max(worst, err_mixed)
     raw = group_walk(torch, lay, lr, pstep, stack.tips)[0]
@@ -2118,10 +2209,12 @@ def phase_clock_kernels(torch):
             pis.append(pi)
             pruner = PC.PruningCuda(tips, K, torch.device(DEV))
             lr, pstep = pruner.operands(order, left, right, Pm)
-            root_k, ls_k = PC.pruning_down(lr, pstep, pruner.tips)
+            root_k, ls_k = PC.pruning_down(lr, pstep, pruner.tips,
+                                           pruner.masks)
             torch.cuda.synchronize()
             root_p, ls_p = PC.pruning_down_plain(lr, pstep, pruner.tips)
-            raw, plan, root, ls = new_walk(torch, lr, pstep, pruner.tips)
+            raw, plan, root, ls = new_walk(torch, lr, pstep, pruner.tips,
+                                           pruner.masks)
             err = compare(
                 torch, site_lnl(torch, root_k, ls_k, pi),
                 site_lnl(torch, root_p, ls_p, pi),
@@ -2769,9 +2862,11 @@ def phase_hymfossil_kernels(torch):
     shape (114 tips; P with the coding dummies; S 2-7 and 4; K 4) at
     C = 8 and 32, on the engine's own operands for the reference's dated
     trees with sampled ancestors on zero-length branches
-    (``hymfossil_kernel_states``): the walk the size rule took, the
-    CUDA-graph time beside the old walk's (before_ms), the plain
-    version's and the bound."""
+    (``hymfossil_kernel_states``): the walk the size rule took with the
+    engine's packed tips, the CUDA-graph time beside the old walk's
+    (before_ms) and, where the packed tips changed the walk, the on-chip
+    walk's with the tips as floats (onchip_ms), the plain version's and
+    the bound."""
     from mrbayes_tpu_torch.ops import pruning_cuda as PC
     from mrbayes_tpu_torch.ops.pruning import branch_tiprobs
     from mrbayes_tpu_torch.ops.traversal import postorder_internal
@@ -2793,11 +2888,11 @@ def phase_hymfossil_kernels(torch):
             Pm = branch_tiprobs(blen, lam, U, Uinv, rates,
                                 pinv if cmask is not None else 0.0, mult)
             lr, pstep = pruner.operands(order, st["left"], st["right"], Pm)
-            tips = pruner.tips
-            root_k, ls_k = PC.pruning_down(lr, pstep, tips)
+            tips, masks = pruner.tips, pruner.masks
+            root_k, ls_k = PC.pruning_down(lr, pstep, tips, masks)
             torch.cuda.synchronize()
             root_p, ls_p = PC.pruning_down_plain(lr, pstep, tips)
-            raw, plan, root, ls = new_walk(torch, lr, pstep, tips)
+            raw, plan, root, ls = new_walk(torch, lr, pstep, tips, masks)
             K, S, P = pruner.K, pruner.S, pruner.P
             name = f"d{i}_n{n}_P{P}_S{S}_K{K}_C{C}"
             err = compare(
@@ -2814,6 +2909,7 @@ def phase_hymfossil_kernels(torch):
                           + root.numel() + ls.numel())
             cases[name] = {
                 **plan, "max_abs_err": err,
+                "busy_warps": PC.busy_warps(plan, C, P),
                 "ms": time_graph(torch, raw),
                 "before_ms": time_graph(torch, old_walk(torch, lr, pstep,
                                                         tips)),
@@ -2821,6 +2917,13 @@ def phase_hymfossil_kernels(torch):
                     torch, lambda: PC.pruning_down_plain(lr, pstep, tips), 3),
                 **{k: v for k, v in bound(nbytes, flops).items()
                    if k in ("bound_ms", "bound_by")}}
+            raw_o, onchip, _, _ = new_walk(torch, lr, pstep, tips)
+            if onchip != plan:
+                # the on-chip walk the shape took before the Strahler walk
+                cases[name].update({
+                    "onchip_walk": onchip["walk"],
+                    "onchip_busy_warps": PC.busy_warps(onchip, C, P),
+                    "onchip_ms": time_graph(torch, raw_o)})
             log(f"pruning_down hymfossil timing {name}: "
                 f"{json.dumps(cases[name])}")
     return worst, cases
@@ -3215,7 +3318,7 @@ def phase_kim_codon_kernels(torch):
     """pruning.cu against its plain version at the shapes this slice's
     main paths give it (``KIM_CODON_SHAPES``), C = 8 and 32: the walk and
     block the size rule chose (M3 staged, M10 and the 114-taxon codon
-    shapes the tiled walk), ms, before_ms (the old global walk, one launch
+    shapes the tiled walk, the doublets under K 4 the Strahler walk), ms, before_ms (the old global walk, one launch
     a graph and two replays at 114 taxa, where it takes 0.1-0.3 s), the
     largest difference to it, plain_ms and the bound; at the tiled shapes
     also the tiled walk's other designs (``tiled_designs``)."""

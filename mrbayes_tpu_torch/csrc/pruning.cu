@@ -23,6 +23,17 @@
 //     memory.  No padding of P or K*S (the ragged pattern edge is
 //     masked), per-category S x S operators (no block-diagonal folding of
 //     the K categories).
+//   * the Strahler walk (strahler_walk.cuh) where every tip entry is 0 or
+//     1 and S <= 32 (the tips then packed as masks of S bits, 1 or 4
+//     bytes a tip and pattern against 4*S): the on-chip walk's step on
+//     the same operands, its steps in a Strahler postorder that a pre-pass
+//     kernel (one warp a chain) writes from lr before the walk, so at most
+//     floor(log2 n_tips) slots are live (7 at 169 tips, against the
+//     on-chip walk's n_tips / 2 = 84), and the operators staged a step
+//     ahead or whole; the root partials are the on-chip walk's bit for
+//     bit, ls the same terms summed in the new order.  At 169 tips it
+//     holds 64 patterns in a block of 43,648 B against 16 in 222,704 B,
+//     so an SM runs 16 warps of it instead of 1-2;
 //   * the tiled walk (tiled_walk.cuh) for a shape whose slots do not fit
 //     the on-chip walk in a block of 32 threads (large n_tips or K*S) or
 //     whose K*S needs more than 8 entries a lane (replicase under M10,
@@ -34,8 +45,10 @@
 //     max combined through distributed shared memory; templates for S 61
 //     and runtime S.
 //   * the size rule in onchip_walk.cuh picks the walk and the block: the
-//     whole chain's operators on chip, or staged a step ahead, or the
-//     tiled walk (tiled_plan), or, only where the tiled walk's slots do
+//     whole chain's operators on chip, or staged a step ahead, then, with
+//     packed tips, the Strahler walk where its block keeps more than twice
+//     the threads busy on an SM (strahler_plan), or the tiled walk
+//     (tiled_plan), or, only where the tiled walk's slots do
 //     not fit either (the formula in tiled_walk.cuh: beyond 335 tips at
 //     S 61), the global-scratch walk of down_pass.cuh
 //     (grid (ceil(P/128), C), partials in a scratch tensor
@@ -45,7 +58,11 @@
 // n_int-step dependent chain, each step a few S-long dot products per
 // lane on shared-memory operands, log2(G) shuffles and a division, plus
 // the block start (the operator and tip copies and thread 0's slot map)
-// and the launch.  The tiled walk: shared-memory loads of its products
+// and the launch; hidden only as far as the warps an SM holds, which the
+// shared memory a pattern sets.  At 169 tips (the benchmark's cells) the
+// on-chip walk fits 16 patterns in a block and one block an SM: one warp,
+// 88 ms a call at 32 chains x 23,000 patterns (0.5% of the bound); the
+// Strahler walk runs 16 warps an SM there, 5.9 ms (PERF.md section 6).  The tiled walk: shared-memory loads of its products
 // and a cluster barrier a step (its header); the global-scratch walk:
 // latency through L2 (down_pass.cuh).
 // At primates C = 4 (n_tips 12, P 413, K 4, S 4) the work is about 4.7
@@ -58,6 +75,7 @@
 
 #include "down_pass.cuh"
 #include "onchip_walk.cuh"
+#include "strahler_walk.cuh"
 #include "tiled_walk.cuh"
 
 namespace {
@@ -116,6 +134,58 @@ cudaError_t launch_onchip(const mb::DeviceLimits& lim, int device, dim3 grid,
   if (err != cudaSuccess) return err;
   pruning_onchip_kernel<S_T><<<grid, T, bytes, st>>>(
       a, b, t, r, l, n_tips, n_int, K, S, P, G, staged);
+  return cudaGetLastError();
+}
+
+template <int S_T, typename M>
+__global__ void __launch_bounds__(mb::kStrahlerThreads,
+                                  mb::kThreadsPerSM / mb::kStrahlerThreads)
+pruning_strahler_kernel(const int4* __restrict__ sched,  // [C, n_int]
+                        const float* __restrict__ pstep, // [C, n_int, 2, K, S, S]
+                        const M* __restrict__ masks,     // [n_tips, pitch]
+                        float* __restrict__ root,        // [C, K, S, P]
+                        float* __restrict__ ls,          // [C, P]
+                        int n_tips, int n_int, int K, int S_rt, int P, int G,
+                        int staged) {
+  extern __shared__ float4 smem4[];
+  const int S = S_T > 0 ? S_T : S_rt;
+  const int c = blockIdx.y;
+  mb::strahler_walk<S_T, M>(sched + (long long)c * n_int,
+                            pstep + (long long)c * n_int * 2 * K * S * S,
+                            masks, root + (long long)c * K * S * P,
+                            ls + (long long)c * P, n_tips, n_int, K, S, P,
+                            blockIdx.x * (blockDim.x / G), G, staged != 0,
+                            reinterpret_cast<float*>(smem4));
+}
+
+// The schedule's pre-pass, then the walk, on one stream.
+template <int S_T, typename M>
+cudaError_t launch_strahler(const mb::DeviceLimits& lim, int device, int C,
+                            int T, int threads, int bytes, cudaStream_t st,
+                            const int* a, const float* b, const void* masks,
+                            int4* sched, float* r, float* l, int n_tips,
+                            int n_int, int K, int S, int P, int G,
+                            int staged) {
+  static bool done[64] = {}, carved[64] = {};
+  cudaError_t err = mb::allow_smem(pruning_strahler_kernel<S_T, M>, device,
+                                   bytes, done, lim);
+  if (err != cudaSuccess) return err;
+  if (device >= 0 && device < 64 && !carved[device]) {
+    // the most shared memory an SM can give, so that its blocks fit
+    err = cudaFuncSetAttribute(pruning_strahler_kernel<S_T, M>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    carved[device] = true;
+  }
+  mb::strahler_schedule_kernel<<<C, 32, 4 * n_int * sizeof(int), st>>>(
+      a, sched, n_tips, n_int);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((P + T - 1) / T, C);
+  pruning_strahler_kernel<S_T, M><<<grid, threads, bytes, st>>>(
+      sched, b, reinterpret_cast<const M*>(masks), r, l, n_tips, n_int, K, S,
+      P, G, staged);
   return cudaGetLastError();
 }
 
@@ -215,21 +285,37 @@ int mb_tiled_plan(int C, int n_tips, int K, int S, int P, int device,
 }
 
 // The size rule's choice for one launch (onchip_walk.cuh, then
+// strahler_walk.cuh where the tips are `packed` as masks, then
 // tiled_walk.cuh where no on-chip walk fits): out[0] the walk (0 whole,
-// 1 staged, 2 global scratch, 3 tiled), out[1] the threads of a block,
-// out[2] its dynamic shared memory in bytes, out[3] its patterns, out[4]
-// the lanes of a pattern (along s on the tiled walk), out[5] the blocks
-// of a cluster (0 off the tiled walk).  Returns a CUDA error code
-// (0 = success).
+// 1 staged, 2 global scratch, 3 tiled, 4 Strahler, 5 Strahler staged),
+// out[1] the threads of a block, out[2] its dynamic shared memory in
+// bytes, out[3] its patterns, out[4] the lanes of a pattern (along s on
+// the tiled walk), out[5] the blocks of a cluster (0 off the tiled walk).
+// Returns a CUDA error code (0 = success).
 int mb_pruning_plan(int C, int n_tips, int K, int S, int P, int device,
-                    int* out) {
+                    int packed, int* out) {
   mb::DeviceLimits lim;
   cudaError_t err = mb::device_limits(device, &lim);
   if (err != cudaSuccess) return (int)err;
   out[5] = 0;
   mb::onchip_plan(1, &K, &S, &P, C, n_tips, lim, out + 4, out, out + 3,
                   out + 1, out + 2);
-  if (out[0] != mb::kWalkGlobal) return 0;
+  if (out[0] != mb::kWalkGlobal) {
+    if (!packed) return 0;
+    mb::SmLimits sm;
+    err = mb::sm_limits(device, &sm);
+    if (err != cudaSuccess) return (int)err;
+    int walk, BT, bytes, T, G;
+    if (mb::strahler_plan(C, n_tips, K, S, P, lim, sm, out[1], out[2],
+                          out[4], &walk, &BT, &bytes, &T, &G)) {
+      out[0] = walk;
+      out[1] = BT;
+      out[2] = bytes;
+      out[3] = T;
+      out[4] = G;
+    }
+    return 0;
+  }
   if (mb::tiled_plan(C, n_tips, K, S, P, lim, 0, 0, out + 3, out + 1,
                      out + 2, out + 4, out + 5)) {
     out[0] = mb::kWalkTiled;
@@ -241,16 +327,35 @@ int mb_pruning_plan(int C, int n_tips, int K, int S, int P, int device,
   return 0;
 }
 
+// The Strahler walk's schedule alone (strahler_walk.cuh's pre-pass) of
+// child slots lr [C, n_int, 2] into sched [C, n_int, 4], on `stream`.
+// Returns a CUDA error code (0 = success).
+int mb_strahler_schedule(const void* lr, void* sched, int C, int n_tips,
+                         int n_int, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_tips < 3 || n_tips > mb::kStrahlerMaxTips || n_int != n_tips - 1)
+    return (int)cudaErrorInvalidValue;
+  mb::strahler_schedule_kernel<<<C, 32, 4 * n_int * sizeof(int),
+                                 (cudaStream_t)stream>>>(
+      (const int*)lr, (int4*)sched, n_tips, n_int);
+  return (int)cudaGetLastError();
+}
+
 // Launch on `stream` (a cudaStream_t from PyTorch) on device `device` as
 // mb_pruning_plan (or mb_tiled_plan) chose for this shape and device: its
 // walk, threads of a block, shared-memory bytes, patterns a block, lanes
 // a pattern and blocks of a cluster.  `scratch` [C, n_int, K, S, P] is
-// read only by the global-scratch walk and may be null otherwise.
+// read only by the global-scratch walk and may be null otherwise; the
+// Strahler walks read `masks` (pack_tips: uint8 [n_tips, pitch] for
+// S <= 8, 32-bit [n_tips, P] up to S 32) in place of `tips` and write the
+// schedule to `sched` [C, n_int, 4] int32, both null otherwise.
 // Returns the launch's error code, else the cudaGetLastError() code after
 // it (0 = success); the kernel itself runs asynchronously.  A cluster
 // launch the device refuses returns its error: nothing is retried.
 int mb_pruning_down(const void* lr, const void* pstep, const void* tips,
-                    void* scratch, void* root, void* ls, int C, int n_tips,
+                    void* scratch, void* root, void* ls, const void* masks,
+                    void* sched, int C, int n_tips,
                     int n_int, int K, int S, int P, int walk, int threads,
                     int bytes, int patterns, int lanes, int cluster,
                     int device, void* stream) {
@@ -310,6 +415,45 @@ int mb_pruning_down(const void* lr, const void* pstep, const void* tips,
                                   bytes, cluster, st, a, b, t, r, l, n_tips,
                                   n_int, K, S, P);
     return (int)err;
+  }
+  if (walk == mb::kWalkStrahler || walk == mb::kWalkStrahlerStaged) {
+    if (masks == nullptr || sched == nullptr || S > 32 || n_tips < 3 ||
+        n_tips > mb::kStrahlerMaxTips || lanes < 1 || lanes > 32 ||
+        threads % 32 != 0 || threads > mb::kStrahlerThreads ||
+        patterns * lanes != threads || K * S > lanes * mb::kMaxItems)
+      return (int)cudaErrorInvalidValue;
+    const int stg = walk == mb::kWalkStrahlerStaged;
+    int4* sc4 = (int4*)sched;
+    switch (S) {
+      case 2:
+        return (int)launch_strahler<2, uint8_t>(
+            lim, device, C, patterns, threads, bytes, st, a, b, masks, sc4, r,
+            l, n_tips, n_int, K, S, P, lanes, stg);
+      case 3:
+        return (int)launch_strahler<3, uint8_t>(
+            lim, device, C, patterns, threads, bytes, st, a, b, masks, sc4, r,
+            l, n_tips, n_int, K, S, P, lanes, stg);
+      case 4:
+        return (int)launch_strahler<4, uint8_t>(
+            lim, device, C, patterns, threads, bytes, st, a, b, masks, sc4, r,
+            l, n_tips, n_int, K, S, P, lanes, stg);
+      case 8:
+        return (int)launch_strahler<8, uint8_t>(
+            lim, device, C, patterns, threads, bytes, st, a, b, masks, sc4, r,
+            l, n_tips, n_int, K, S, P, lanes, stg);
+      case 20:
+        return (int)launch_strahler<20, uint32_t>(
+            lim, device, C, patterns, threads, bytes, st, a, b, masks, sc4, r,
+            l, n_tips, n_int, K, S, P, lanes, stg);
+      default:
+        if (S <= 8)
+          return (int)launch_strahler<0, uint8_t>(
+              lim, device, C, patterns, threads, bytes, st, a, b, masks, sc4,
+              r, l, n_tips, n_int, K, S, P, lanes, stg);
+        return (int)launch_strahler<0, uint32_t>(
+            lim, device, C, patterns, threads, bytes, st, a, b, masks, sc4, r,
+            l, n_tips, n_int, K, S, P, lanes, stg);
+    }
   }
   const int T = threads;
   const int G = lanes;

@@ -873,6 +873,11 @@ class McmcRunner:
         if pt.get("eig_rows"):
             self.log(f"   Eigensystems: {pt['eig_rows']} computed, "
                      f"{pt['eig_rows_changed']} with changed inputs")
+        walks = {k[len("pruning.walk."):]: v for k, v in pt.items()
+                 if k.startswith("pruning.walk.")}
+        if walks:
+            self.log("   pruning.cu launches by walk: "
+                     + "  ".join(f"{k} {v}" for k, v in sorted(walks.items())))
 
     def _resuming(self) -> bool:
         """True when ``append=yes`` finds ``<prefix>.ckp``.  Over processes

@@ -8,12 +8,18 @@ about that.  It is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``_build/`` beside this package (listed in ``.gitignore``) and loaded with
 ``ctypes`` through a plain C interface.
 
-The kernel has four walks.  Most shapes take the on-chip walk of
+The kernel has five walks.  Most shapes take the on-chip walk of
 ``csrc/onchip_walk.cuh``: one block per (chain, tile of T patterns), the
 K·S entries of a step spread over up to 32 lanes of a pattern, every
 partial in shared memory, at most n_tips / 2 live slots (``live_slot_map``
 is the Python twin of the kernel's slot allocator), with the chain's
-operators on chip ("whole") or staged a step ahead ("staged").  A shape
+operators on chip ("whole") or staged a step ahead ("staged").  Where the
+tips are 0/1 and packed as bit masks (``pack_tips``; ``PruningCuda``
+packs them once a division), large trees take the Strahler walk of
+``csrc/strahler_walk.cuh`` ("strahler", "strahler_staged"): the same
+step, its steps in a Strahler postorder that a pre-pass kernel writes
+from lr (``strahler_schedule`` is its twin), at most floor(log2 n_tips)
+live slots, so a block holds many more patterns.  A shape
 that does not fit a block of 32 threads takes the tiled walk of
 ``csrc/tiled_walk.cuh`` ("tiled"): one thread-block cluster per (chain,
 tile), the categories split across its blocks, each (step, category) a
@@ -72,7 +78,7 @@ SOURCES = {"pruning": "pruning.cu", "multiwalk": "multiwalk.cu",
            "wavefront": "wavefront.cu", "stacked": "stacked.cu",
            "eigh": "eigh.cu"}
 _HEADERS = ("down_pass.cuh", "onchip_walk.cuh", "group_walk.cuh",
-            "tiled_walk.cuh")
+            "tiled_walk.cuh", "strahler_walk.cuh")
 # state counts with a template in the on-chip walk (csrc/onchip_walk.cuh;
 # the tiled walk's launch in csrc/pruning.cu has one for S 61, the codons)
 TEMPLATED_S = (2, 3, 4, 8, 20)
@@ -81,8 +87,10 @@ TEMPLATED_S = (2, 3, 4, 8, 20)
 MAX_RUNTIME_S = 64
 MAX_RUNTIME_K = 16
 # the walks of the size rule in csrc/onchip_walk.cuh, by its codes (the
-# tiled walk is pruning.cu's alone)
-WALKS = ("whole", "staged", "global", "tiled")
+# tiled and Strahler walks are pruning.cu's alone)
+WALKS = ("whole", "staged", "global", "tiled", "strahler", "strahler_staged")
+# the walks that read packed tips (csrc/strahler_walk.cuh)
+STRAHLER_WALKS = ("strahler", "strahler_staged")
 # threads a block of the global-scratch walk (kThreads, csrc/down_pass.cuh)
 GLOBAL_THREADS = 128
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -90,9 +98,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _GROUP_PLAN = [_PTR] + [_INT] * 4 + [_PTR]
 _ENTRY_POINTS = {
-    "pruning": {"mb_pruning_down": [_PTR] * 6 + [_INT] * 13 + [_PTR],
-                "mb_pruning_plan": [_INT] * 6 + [_PTR],
-                "mb_tiled_plan": [_INT] * 8 + [_PTR]},
+    "pruning": {"mb_pruning_down": [_PTR] * 8 + [_INT] * 13 + [_PTR],
+                "mb_pruning_plan": [_INT] * 7 + [_PTR],
+                "mb_tiled_plan": [_INT] * 8 + [_PTR],
+                "mb_strahler_schedule": [_PTR] * 2 + [_INT] * 4 + [_PTR]},
     "multiwalk": {"mb_multiwalk_down": [_PTR] * 9 + [_INT] * 10 + [_PTR],
                   "mb_group_plan": _GROUP_PLAN},
     "wavefront": {"mb_wavefront_down": [_PTR] * 5 + [_INT] * 14 + [_PTR],
@@ -251,16 +260,19 @@ def device_index(dev: torch.device) -> int:
 
 
 def pruning_plan(C: int, n_tips: int, K: int, S: int, P: int,
-                 device) -> dict:
+                 device, packed: bool = False) -> dict:
     """The size rule's choice for one ``pruning_down`` launch
-    (``csrc/onchip_walk.cuh``, then ``csrc/tiled_walk.cuh``), asked of the
-    kernel library once per shape and device: ``walk`` ("whole", "staged",
-    "tiled" or "global"), the ``threads`` of a block, the patterns ``T``
-    it covers, the ``lanes`` of a pattern (along s on the tiled walk), the
-    blocks of a ``cluster`` (0 off the tiled walk) and the block's dynamic
-    shared memory ``smem_bytes``, which ``pruning_launch`` passes to the
-    kernel library as they are.  ``size_rule`` is its Python twin."""
-    return _plan(C, n_tips, K, S, P, device_index(torch.device(device)))
+    (``csrc/onchip_walk.cuh``, then ``csrc/strahler_walk.cuh`` where the
+    tips are ``packed`` as masks, then ``csrc/tiled_walk.cuh``), asked of
+    the kernel library once per shape and device: ``walk`` ("whole",
+    "staged", "strahler", "strahler_staged", "tiled" or "global"), the
+    ``threads`` of a block, the patterns ``T`` it covers, the ``lanes`` of
+    a pattern (along s on the tiled walk), the blocks of a ``cluster`` (0
+    off the tiled walk) and the block's dynamic shared memory
+    ``smem_bytes``, which ``pruning_launch`` passes to the kernel library
+    as they are.  ``size_rule`` is its Python twin."""
+    return _plan(C, n_tips, K, S, P, device_index(torch.device(device)),
+                 packed=bool(packed))
 
 
 def tiled_plan(C: int, n_tips: int, K: int, S: int, P: int, device,
@@ -275,11 +287,11 @@ def tiled_plan(C: int, n_tips: int, K: int, S: int, P: int, device,
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(C, n_tips, K, S, P, dev, forced=None):
+def _plan(C, n_tips, K, S, P, dev, forced=None, packed=False):
     lib = library("pruning").lib
     out = (ctypes.c_int * 6)()
     if forced is None:
-        err = lib.mb_pruning_plan(C, n_tips, K, S, P, dev, out)
+        err = lib.mb_pruning_plan(C, n_tips, K, S, P, dev, int(packed), out)
     else:
         err = lib.mb_tiled_plan(C, n_tips, K, S, P, dev, *forced, out)
     if err != 0:
@@ -289,8 +301,11 @@ def _plan(C, n_tips, K, S, P, dev, forced=None):
 
 
 # the limits of an H100 that the size rule reads (opt-in shared memory a
-# block, streaming multiprocessors) and the constants of its two headers
+# block, streaming multiprocessors, shared memory of an SM and the part
+# the system keeps a block) and the constants of its headers
 H100_SMEM_OPTIN, H100_SMS = 232_448, 132
+H100_SMEM_SM, H100_SMEM_RESERVED = 233_472, 1_024
+_STRAHLER_MAX_TIPS = 2048
 _MAX_ITEMS, _THREADS_PER_SM, _GLOBAL_BLOCK = 8, 512, 128
 _TILED_ROWS, _TILED_MAX_CLUSTER = 4, 8
 _TILED_BLOCKS_PER_SM, _TILED_TILES = 2, (32, 16, 8, 4)
@@ -310,6 +325,78 @@ def _onchip_smem_bytes(n_tips, K, S, G, BT, staged) -> int:
     words = ((2 * step if staged else n_int * step) + L * K * S * (T | 1)
              + n_tips * S * T + 3 * n_int + (L + 31) // 32)
     return (4 * words + 15) // 16 * 16
+
+
+def strahler_slots(n_tips: int) -> int:
+    """Slots of the Strahler walk: floor(log2 n_tips), at least 1."""
+    return max(1, n_tips.bit_length() - 1)
+
+
+def _strahler_smem_bytes(n_tips, K, S, G, BT, staged) -> int:
+    """``strahler_smem_bytes`` of ``csrc/strahler_walk.cuh``."""
+    n_int, T = n_tips - 1, BT // G
+    step = 2 * K * S * S
+    words = (4 * n_int + (2 * step if staged else n_int * step)
+             + strahler_slots(n_tips) * K * S * (T | 1)
+             + (n_tips * T * (1 if S <= 8 else 4) + 3) // 4)
+    return (4 * words + 15) // 16 * 16
+
+
+def _busy_threads(nbytes, BT, lanes, smem_sm, reserved, sms) -> int:
+    """``busy_threads`` of ``csrc/strahler_walk.cuh``: threads a block keeps
+    busy on an SM, times the SMs, at most the launch's lanes."""
+    per_sm = min(min(smem_sm // (nbytes + reserved), 32) * BT,
+                 _THREADS_PER_SM)
+    return min(per_sm * sms, lanes)
+
+
+def _strahler_plan(C, n_tips, K, S, P, G, today, smem, sms, smem_sm,
+                   reserved):
+    """``strahler_plan`` of ``csrc/strahler_walk.cuh``: the Strahler
+    walk's block where it keeps more than twice as many threads busy as
+    ``today``'s on-chip block, else None."""
+    if n_tips < 3 or n_tips > _STRAHLER_MAX_TIPS or S > 32:
+        return None
+    lanes = C * P * G
+    best = 2 * _busy_threads(today["smem_bytes"], today["threads"], lanes,
+                         smem_sm, reserved, sms)
+    pick = None
+    for staged in (False, True):
+        for BT in (128, 64, 32):
+            if BT < G:
+                continue
+            b = _strahler_smem_bytes(n_tips, K, S, G, BT, staged)
+            if b > smem:
+                continue
+            busy = _busy_threads(b, BT, lanes, smem_sm, reserved, sms)
+            if busy > best:
+                best = busy
+                pick = {"walk": "strahler_staged" if staged else "strahler",
+                        "threads": BT, "T": BT // G, "lanes": G,
+                        "cluster": 0, "smem_bytes": b}
+    return pick
+
+
+def strahler_block(n_tips: int, K: int, S: int, G: int, threads: int,
+                   staged: bool) -> dict:
+    """A Strahler walk's plan forced to ``threads`` a block, G lanes a
+    pattern and whole or ``staged`` operators, in ``pruning_plan``'s form
+    (``chip_smoke.py`` times the walk's other blocks with it)."""
+    return {"walk": "strahler_staged" if staged else "strahler",
+            "threads": threads, "T": threads // G, "lanes": G, "cluster": 0,
+            "smem_bytes": _strahler_smem_bytes(n_tips, K, S, G, threads,
+                                               staged)}
+
+
+def busy_warps(plan: dict, C: int, P: int, smem_sm: int = H100_SMEM_SM,
+               reserved: int = H100_SMEM_RESERVED,
+               sms: int = H100_SMS) -> float:
+    """Warps an on-chip or Strahler ``plan`` keeps busy on an SM at C
+    chains and P patterns, as the size rule counts them (``busy_threads``
+    of ``csrc/strahler_walk.cuh``, over 32), an H100's by default."""
+    return _busy_threads(plan["smem_bytes"], plan["threads"],
+                         C * P * plan["lanes"], smem_sm, reserved,
+                         sms) / (32 * sms)
 
 
 def _walk_at(n_tips, K, S, G, BT, budget) -> str:
@@ -351,12 +438,17 @@ def _tiled_threads(S, T, per_sm) -> int:
 
 
 def size_rule(C: int, n_tips: int, K: int, S: int, P: int,
-              smem: int = H100_SMEM_OPTIN, sms: int = H100_SMS) -> dict:
+              smem: int = H100_SMEM_OPTIN, sms: int = H100_SMS, *,
+              packed: bool = False, smem_sm: int = H100_SMEM_SM,
+              reserved: int = H100_SMEM_RESERVED) -> dict:
     """The Python twin of ``pruning_plan`` (``mb_pruning_plan``: the
     on-chip walk's rule of ``csrc/onchip_walk.cuh:onchip_plan`` for one
-    division, then ``csrc/tiled_walk.cuh:tiled_plan``) for a device with
-    ``smem`` bytes of opt-in shared memory a block and ``sms``
-    multiprocessors, an H100's by default."""
+    division, then, with ``packed`` tips, ``csrc/strahler_walk.cuh:
+    strahler_plan``, or ``csrc/tiled_walk.cuh:tiled_plan`` where no
+    on-chip walk fits) for a device with ``smem`` bytes of opt-in shared
+    memory a block, ``sms`` multiprocessors, ``smem_sm`` bytes of shared
+    memory an SM and ``reserved`` of them kept a block, an H100's by
+    default."""
     most = min(_pow2_at_least(K * S), 32)
     want = -(-sms * _THREADS_PER_SM // (C * P))
     G = max(_pow2_at_least(min(want, most)),
@@ -370,9 +462,12 @@ def size_rule(C: int, n_tips: int, K: int, S: int, P: int,
             break
     walk = _walk_at(n_tips, K, S, G, BT, smem)
     if walk != "global":
-        return {"walk": walk, "threads": BT, "T": BT // G, "lanes": G,
-                "cluster": 0, "smem_bytes": _onchip_smem_bytes(
-                    n_tips, K, S, G, BT, walk == "staged")}
+        today = {"walk": walk, "threads": BT, "T": BT // G, "lanes": G,
+                 "cluster": 0, "smem_bytes": _onchip_smem_bytes(
+                     n_tips, K, S, G, BT, walk == "staged")}
+        pick = packed and _strahler_plan(C, n_tips, K, S, P, G, today, smem,
+                                         sms, smem_sm, reserved)
+        return pick or today
     Q = tiled_cluster(K)
     fits = [T for T in _TILED_TILES if T >= 32 // _tiled_lanes(S)
             and _tiled_smem_bytes(n_tips, K, S, T, Q) <= smem]
@@ -389,9 +484,12 @@ def size_rule(C: int, n_tips: int, K: int, S: int, P: int,
             "lanes": 1, "cluster": 0, "smem_bytes": 0}
 
 
-def pruning_launch(lr, pstep, tips, scratch, root, ls, plan) -> int:
+def pruning_launch(lr, pstep, tips, scratch, root, ls, plan, masks=None,
+                   sched=None) -> int:
     """One launch of ``csrc/pruning.cu`` on preallocated outputs (scratch
-    ``[C, n_int, K, S, P]`` on the global walk, else None) as ``plan``
+    ``[C, n_int, K, S, P]`` on the global walk, else None; on a Strahler
+    walk the ``masks`` of ``pack_tips`` and the schedule's buffer
+    ``sched`` int32 [C, n_int, 4], else None) as ``plan``
     (``pruning_plan``) says, on the current stream of the operands'
     device.  Returns the CUDA error code (0 = success)."""
     C, n_int = lr.shape[:2]
@@ -401,31 +499,82 @@ def pruning_launch(lr, pstep, tips, scratch, root, ls, plan) -> int:
     return library("pruning").lib.mb_pruning_down(
         lr.data_ptr(), pstep.data_ptr(), tips.data_ptr(),
         None if scratch is None else scratch.data_ptr(), root.data_ptr(),
-        ls.data_ptr(), C, n_tips, n_int, K, S, P, WALKS.index(plan["walk"]),
-        plan["threads"], plan["smem_bytes"], plan["T"], plan["lanes"],
-        plan["cluster"], device_index(dev),
+        ls.data_ptr(), None if masks is None else masks.data_ptr(),
+        None if sched is None else sched.data_ptr(), C, n_tips, n_int, K, S,
+        P, WALKS.index(plan["walk"]), plan["threads"], plan["smem_bytes"],
+        plan["T"], plan["lanes"], plan["cluster"], device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
 
 
-def pruning_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor):
+def launch_buffers(plan, C: int, n_int: int, K: int, S: int, P: int, dev):
+    """The scratch a launch on ``plan`` needs beside its outputs:
+    (scratch [C, n_int, K, S, P] on the global-scratch walk, the
+    schedule's sched int32 [C, n_int, 4] on a Strahler walk), None where
+    the walk needs none."""
+    scratch = torch.empty((C, n_int, K, S, P), dtype=torch.float32,
+                          device=dev) if plan["walk"] == "global" else None
+    sched = torch.empty((C, n_int, 4), dtype=torch.int32, device=dev) \
+        if plan["walk"] in STRAHLER_WALKS else None
+    return scratch, sched
+
+
+def pruning_down(lr: torch.Tensor, pstep: torch.Tensor, tips: torch.Tensor,
+                 masks: torch.Tensor | None = None):
     """Launch the CUDA down-pass.  lr int32 [C, n_int, 2] child slots per
-    step; pstep f32 [C, n_int, 2, K, S, S]; tips f32 [n_tips, S, P].
-    Returns (root [C, K, S, P], ls [C, P]).  Raises on anything the kernel
-    does not take, and when the launch is refused."""
+    step; pstep f32 [C, n_int, 2, K, S, S]; tips f32 [n_tips, S, P];
+    ``masks`` the tips packed by ``pack_tips`` (or None), which lets the
+    size rule take a Strahler walk.  Returns (root [C, K, S, P],
+    ls [C, P]).  Raises on anything the kernel does not take, and when
+    the launch is refused."""
     C, n_int, K, S, n_tips, P = check_step_operands(lr, pstep, tips)
     check_cuda_operands("pruning_down", lr=lr, pstep=pstep, tips=tips)
     check_kernel_shape(S, K, "pruning_down")
+    if masks is not None:
+        check_cuda_operands("pruning_down", lr=lr, masks=masks)
+        want = torch.uint8 if S <= 8 else torch.int32
+        if masks.dtype != want \
+                or tuple(masks.shape) != (n_tips, mask_pitch(S, P)):
+            raise ValueError(f"masks must be {want} [{n_tips}, "
+                             f"{mask_pitch(S, P)}], got {masks.dtype} "
+                             f"{tuple(masks.shape)}")
     dev = lr.device
-    plan = pruning_plan(C, n_tips, K, S, P, dev)
-    # only the global-scratch walk keeps partials in device memory
-    scratch = torch.empty((C, n_int, K, S, P), dtype=torch.float32,
-                          device=dev) if plan["walk"] == "global" else None
+    plan = pruning_plan(C, n_tips, K, S, P, dev, masks is not None)
+    scratch, sched = launch_buffers(plan, C, n_int, K, S, P, dev)
     root = torch.empty((C, K, S, P), dtype=torch.float32, device=dev)
     ls = torch.empty((C, P), dtype=torch.float32, device=dev)
-    err = pruning_launch(lr, pstep, tips, scratch, root, ls, plan)
+    err = pruning_launch(lr, pstep, tips, scratch, root, ls, plan, masks,
+                         sched)
     if err != 0:
         raise launch_error(library("pruning").lib, err, "pruning_down")
     return root, ls
+
+
+def mask_pitch(S: int, P: int) -> int:
+    """The row pitch of ``pack_tips``'s masks: P rounded up to a whole
+    word for byte masks (S <= 8), P for 32-bit ones."""
+    return -(-P // 4) * 4 if S <= 8 else P
+
+
+def pack_tips(tips: torch.Tensor) -> torch.Tensor | None:
+    """The Strahler walk's tips (``csrc/strahler_walk.cuh``): bit j of tip
+    t's mask at pattern p is tips[t, j, p], for tips [n_tips, S, P] whose
+    every entry is exactly 0 or 1.  uint8 [n_tips, pitch] (P rounded up
+    to a multiple of 4, zeros past P) for S <= 8, int32 [n_tips, P] (the
+    bits of a uint32) up to S 32, on the tips' device; None for S > 32 or
+    any other entry, where the tips stay floats."""
+    n_tips, S, P = tips.shape
+    if S > 32 or not bool(((tips == 0) | (tips == 1)).all()):
+        return None
+    bit = torch.arange(S, device=tips.device, dtype=torch.int64)
+    word = ((tips != 0).to(torch.int64) << bit[None, :, None]).sum(1)
+    if S > 8:
+        # the bits of a uint32 in an int32
+        return torch.where(word >= 2 ** 31, word - 2 ** 32,
+                           word).to(torch.int32)
+    out = torch.zeros((n_tips, mask_pitch(S, P)), dtype=torch.uint8,
+                      device=tips.device)
+    out[:, :P] = word.to(torch.uint8)
+    return out
 
 
 def pruning_down_plain(lr: torch.Tensor, pstep: torch.Tensor,
@@ -462,6 +611,76 @@ def slot_operands(order, left, right, n_tips: int):
     rch = right.gather(1, order)
     lr = torch.stack([slot.gather(1, lch), slot.gather(1, rch)], -1)
     return lr.to(torch.int32), lch, rch
+
+
+def strahler_schedule(lr, n_tips: int) -> np.ndarray:
+    """The Python twin of the Strahler walk's pre-pass
+    (``csrc/strahler_walk.cuh:strahler_schedule_kernel``) for one chain's
+    child slots lr [n_int, 2], given in a postorder whose last step is the
+    root: int64 [n_int, 4], row q the q-th step of the walk (its original
+    step index, its left and right child codes, its slot).  The walk
+    visits first, at every internal node, the child whose subtree needs
+    more slots (its Strahler number with tips 0; the left one on a tie);
+    a step's slot is its depth in the stack of live partials; a child code
+    is a tip's index, or -(slot + 1) of an internal child."""
+    lr = np.asarray(lr, np.int64)
+    n_int = lr.shape[0]
+    need = np.zeros(n_int, np.int64)
+    size = np.zeros(n_int, np.int64)
+    first = np.zeros(n_int, np.int64)
+    for i, children in enumerate(lr):
+        nd = [need[c - n_tips] if c >= n_tips else 0 for c in children]
+        sz = [size[c - n_tips] if c >= n_tips else 0 for c in children]
+        need[i] = nd[0] + 1 if nd[0] == nd[1] else max(nd)
+        size[i] = sz[0] + sz[1] + 1
+        first[i] = int(nd[1] > nd[0])
+    pos = np.zeros(n_int, np.int64)
+    depth = np.zeros(n_int, np.int64)
+    pos[-1] = n_int - 1
+    out = np.zeros((n_int, 4), np.int64)
+    for i in range(n_int - 1, -1, -1):
+        e, d = pos[i], depth[i]
+        a, b = lr[i, first[i]], lr[i, 1 - first[i]]
+        db = d
+        if a >= n_tips:
+            pos[a - n_tips] = e - size[i] + size[a - n_tips]
+            depth[a - n_tips] = d
+            db = d + 1
+        if b >= n_tips:
+            pos[b - n_tips], depth[b - n_tips] = e - 1, db
+        codes = [c if c < n_tips else -depth[c - n_tips] - 1 for c in lr[i]]
+        out[e] = (i, *codes, d)
+    return out
+
+
+def strahler_slot_map(lr, n_tips: int):
+    """The Strahler walk's order and slots for one chain's child slots lr
+    [n_int, 2] (``strahler_schedule``): (order [n_int], the original step
+    the walk takes q-th; slot [n_int], step i's shared-memory slot).  At
+    most ``strahler_slots(n_tips)`` slots are used."""
+    sched = strahler_schedule(lr, n_tips)
+    slot = np.empty(len(sched), np.int64)
+    slot[sched[:, 0]] = sched[:, 3]
+    return sched[:, 0].copy(), slot
+
+
+def strahler_schedule_cuda(lr: torch.Tensor) -> torch.Tensor:
+    """The Strahler walk's pre-pass alone on the card: int32
+    [C, n_int, 4], each chain's ``strahler_schedule``."""
+    check_cuda_operands("strahler_schedule", lr=lr)
+    if lr.dtype != torch.int32 or lr.ndim != 3 or lr.shape[2] != 2:
+        raise ValueError(f"lr must be int32 [C, n_int, 2], got {lr.dtype} "
+                         f"{tuple(lr.shape)}")
+    C, n_int = lr.shape[:2]
+    sched = torch.empty((C, n_int, 4), dtype=torch.int32, device=lr.device)
+    lib = library("pruning").lib
+    err = lib.mb_strahler_schedule(
+        lr.data_ptr(), sched.data_ptr(), C, n_int + 1, n_int,
+        device_index(lr.device),
+        torch.cuda.current_stream(lr.device).cuda_stream)
+    if err != 0:
+        raise launch_error(lib, err, "strahler_schedule")
+    return sched
 
 
 def live_slot_map(lr, n_tips: int, spare: bool = False) -> np.ndarray:
@@ -717,18 +936,25 @@ class PruningCuda:
     counterpart of ``PruningPallas``.
 
     Built once per (division, engine) from the constant tip partials
-    [n_tips, P, S]; calling it maps each chain's (postorder, left, right,
+    [n_tips, P, S], with their masks (``pack_tips``) where every entry is
+    0 or 1; calling it maps each chain's (postorder, left, right,
     P-tensor) to (root partials [C, K, S, P], logscale [C, P]).
-    ``launches`` counts kernel launches (never plain-version calls).
+    ``launches`` counts kernel launches (never plain-version calls),
+    ``launches_by_walk`` the same by the size rule's walk; each launch
+    also adds one to the spans counter ``pruning.walk.<walk>``.
     """
 
     def __init__(self, tips: np.ndarray, n_cats: int, device):
         n_tips, P, S = tips.shape
         self.n_tips, self.P, self.S, self.K = n_tips, P, S, n_cats
-        self.tips = torch.as_tensor(
+        host = torch.as_tensor(
             np.ascontiguousarray(np.transpose(tips, (0, 2, 1))),
-            dtype=torch.float32, device=device)                 # [n, S, P]
+            dtype=torch.float32)                                # [n, S, P]
+        self.tips = host.to(device)
+        masks = pack_tips(host)
+        self.masks = None if masks is None else masks.to(device)
         self.launches = 0
+        self.launches_by_walk: dict[str, int] = {}
 
     def operands(self, order, left, right, Pmat):
         """(lr int32 [C, n_int, 2], pstep [C, n_int, 2, K, S, S]) from
@@ -743,7 +969,15 @@ class PruningCuda:
         lr, pstep = self.operands(order, left, right, Pmat)
         with SPANS("gen.lnl.launch"):
             if self.tips.is_cuda:
-                root, ls = pruning_down(lr, pstep, self.tips)
-                self.launches += 1
+                root, ls = pruning_down(lr, pstep, self.tips, self.masks)
+                self.count_launch(lr.shape[0], lr.device)
                 return root, ls
             return pruning_down_plain(lr, pstep, self.tips)
+
+    def count_launch(self, C: int, dev):
+        """Count one kernel launch at C chains under its walk."""
+        walk = pruning_plan(C, self.n_tips, self.K, self.S, self.P, dev,
+                            self.masks is not None)["walk"]
+        self.launches += 1
+        self.launches_by_walk[walk] = self.launches_by_walk.get(walk, 0) + 1
+        SPANS.add(f"pruning.walk.{walk}", 1)

@@ -41,7 +41,8 @@ import torch
 
 from ..spans import SPANS
 from .pruning import coding_correction, site_loglik_from_root
-from .pruning_cuda import PruningCuda, pruning_down, pruning_down_plain
+from .pruning_cuda import (PruningCuda, pack_tips, pruning_down,
+                           pruning_down_plain)
 
 
 class Shards:
@@ -107,6 +108,8 @@ class PruningCudaSharded:
         tt = np.transpose(np.asarray(tips, np.float32), (0, 2, 1))
         self.tips = Shards.scatter(tt, 2, self.devices,
                                    self.device).parts        # [n, S, P/k]
+        # each shard's packed tips, where they are 0/1 (pack_tips)
+        self.masks = [pack_tips(t) for t in self.tips]
         self.coding = coding
         self.dummy = None if coding == "all" else PruningCuda(
             np.broadcast_to(np.eye(S, dtype=np.float32), (n_tips, S, S)),
@@ -119,12 +122,12 @@ class PruningCudaSharded:
     def __call__(self, order, left, right, Pmat):
         lr, pstep = self.operands(order, left, right, Pmat)
         out = []
-        for dev, tips in zip(self.devices, self.tips):
+        for dev, tips, masks in zip(self.devices, self.tips, self.masks):
             lr_d = lr.to(dev, non_blocking=True)
             pstep_d = pstep.to(dev, non_blocking=True)
             with SPANS("gen.lnl.launch"):
                 if tips.is_cuda:
-                    out.append(pruning_down(lr_d, pstep_d, tips))
+                    out.append(pruning_down(lr_d, pstep_d, tips, masks))
                     self.launches += 1
                 else:
                     out.append(pruning_down_plain(lr_d, pstep_d, tips))

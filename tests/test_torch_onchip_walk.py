@@ -17,9 +17,27 @@ through its Python twin ``ops/pruning_cuda.py:live_slot_map``.
   writes a slot that another step of its row reads or writes, so the
   kernel needs no block barrier inside a row.
 
+* The Strahler walk's schedule (``csrc/strahler_walk.cuh``, its twin
+  ``ops/pruning_cuda.py:strahler_schedule``) on random engine trees,
+  caterpillars and balanced trees of 4-335 tips: a postorder (each step
+  once, children first, the root last) whose slots never overwrite a
+  live partial and stay within floor(log2 n_tips), the bound tight on
+  balanced trees of 2^k tips; a walk of ``pruning_down_plain``'s
+  arithmetic in that order and those slots gives the same root partials
+  bit for bit and ls within float32 rounding of the sum's new order.
+* The packed tips (``pack_tips``) round-trip to the 0/1 tips, and tips
+  with any other value, or S > 32, are not packed.
+* The size rule's twin takes the Strahler walk at the benchmark cells'
+  shapes with 8 or more busy warps an SM, and keeps its plan, packed tips
+  or not, at every ``chip_smoke.py`` kernel case before them and at
+  primates' shape.
+
 The kernel's own allocator runs only on a GPU; ``chip_smoke.py`` and the
 ``gpu``-marked tests of ``test_torch_pruning.py`` hold its results to the
 plain version there."""
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -208,3 +226,179 @@ def test_check_kernel_shape_names_the_templated_states():
         PC.check_kernel_shape(S, 40, "pruning_down")
     with pytest.raises(ValueError, match=r"templated S in \(2, 3, 4, 8, 20\)"):
         PC.check_kernel_shape(61, 17, "pruning_down")
+
+
+# ------------------------------------------------- the Strahler walk's order
+
+STRAHLER_TIPS = [4, 12, 33, 114, 128, 169, 335]
+
+
+def _tree_lr(n_tips, shape, k=0):
+    """lr [n_int, 2] of the engine's k-th random tree, or of a caterpillar
+    or balanced tree in level order."""
+    if shape == "random":
+        return _engine_lr(n_tips, C=k + 1, seed=n_tips)[k]
+    return _level_lr(n_tips, shape)
+
+
+def _check_schedule(lr, n_tips):
+    """The schedule against a replay of the walk; returns the slots
+    used."""
+    sched = PC.strahler_schedule(lr, n_tips)
+    n_int = len(lr)
+    order, slot = PC.strahler_slot_map(lr, n_tips)
+    assert sorted(order.tolist()) == list(range(n_int)), "a step twice"
+    assert order[-1] == n_int - 1, "the root is not last"
+    live, done = {}, set()
+    for q, (i, lc, rc, s) in enumerate(sched):
+        assert slot[i] == s
+        for h, code in enumerate((lc, rc)):
+            child = lr[i][h]
+            if child < n_tips:
+                assert code == child
+            else:
+                j = int(child - n_tips)
+                assert j in done, "a parent before its child"
+                assert code == -slot[j] - 1
+                assert live.pop(slot[j]) == j, "a live partial was lost"
+        if q < n_int - 1:
+            assert s not in live, "a live slot was overwritten"
+            live[s] = i
+        done.add(int(i))
+    used = int(sched[:-1, 3].max()) + 1 if n_int > 1 else 0
+    assert used <= PC.strahler_slots(n_tips)
+    return used
+
+
+@pytest.mark.parametrize("shape", ["random", "caterpillar", "balanced"])
+@pytest.mark.parametrize("n_tips", STRAHLER_TIPS)
+def test_strahler_schedule_is_a_postorder_within_log2_slots(n_tips, shape):
+    for k in range(3 if shape == "random" else 1):
+        used = _check_schedule(_tree_lr(n_tips, shape, k), n_tips)
+        if shape == "caterpillar":
+            assert used == 1
+        elif shape == "balanced" and n_tips & (n_tips - 1) == 0:
+            # the bound is tight
+            assert used == PC.strahler_slots(n_tips) == n_tips.bit_length() - 1
+
+
+def _plain_walk_in_strahler_order(lr, pstep, tips):
+    """pruning_down_plain's arithmetic, batched over chains as it is, with
+    each chain's steps in its Strahler order and its partials in the
+    schedule's slots: buffer rows n_tips + s are the slots."""
+    C, n_int = lr.shape[:2]
+    K, S = pstep.shape[3], pstep.shape[4]
+    n_tips, _, P = tips.shape
+    sched = torch.as_tensor(np.stack([
+        PC.strahler_schedule(lr[c].numpy(), n_tips) for c in range(C)]))
+    code = sched[:, :, 1:3]
+    rowof = torch.where(code >= 0, code, n_tips - code - 1)
+    rows = torch.arange(C)
+    cl = tips.new_empty((C, n_tips + PC.strahler_slots(n_tips), K, S, P))
+    cl[:, :n_tips] = tips[None, :, None]
+    ls = tips.new_zeros((C, P))
+    for q in range(n_int):
+        step = sched[:, q, 0]
+        wl = torch.einsum("cksj,ckjp->cksp", pstep[rows, step, 0],
+                          cl[rows, rowof[:, q, 0]])
+        wr = torch.einsum("cksj,ckjp->cksp", pstep[rows, step, 1],
+                          cl[rows, rowof[:, q, 1]])
+        x = wl * wr
+        m = torch.clamp_min(x.amax(dim=(1, 2)), 1e-30)
+        if q == n_int - 1:
+            root = x / m[:, None, None]
+        else:
+            cl[rows, n_tips + sched[:, q, 3]] = x / m[:, None, None]
+        ls = ls + torch.log(m)
+    return root, ls
+
+
+@pytest.mark.parametrize("n_tips,P,S,K,C", [(12, 41, 4, 4, 3),
+                                            (33, 20, 3, 4, 2),
+                                            (114, 12, 4, 4, 2),
+                                            (169, 10, 4, 4, 2),
+                                            (9, 20, 20, 1, 2)])
+def test_walk_in_strahler_order_equals_the_plain_version(n_tips, P, S, K, C):
+    rng = np.random.default_rng(P + n_tips)
+    lr = torch.as_tensor(_engine_lr(n_tips, C, seed=S + n_tips))
+    tips = (rng.random((n_tips, S, P)) < 0.4).astype(np.float32)
+    tips[:, 0] = 1.0
+    pstep = rng.random((C, n_tips - 1, 2, K, S, S)).astype(np.float32) + 0.05
+    pstep /= pstep.sum(-1, keepdims=True)
+    tips, pstep = torch.as_tensor(tips), torch.as_tensor(pstep)
+    root_s, ls_s = _plain_walk_in_strahler_order(lr, pstep, tips)
+    root_p, ls_p = PC.pruning_down_plain(lr, pstep, tips)
+    assert torch.equal(root_s, root_p)
+    # the same n_int float32 terms summed in another order
+    tol = (n_tips - 1) * torch.finfo(torch.float32).eps * ls_p.abs().max()
+    assert (ls_s - ls_p).abs().max() <= tol
+
+
+# ----------------------------------------------------------- packed tips
+
+def _unpack(masks, S, P):
+    """The float tips [n_tips, S, P] of ``pack_tips``'s masks."""
+    word = masks[:, :P].to(torch.int64) & (2 ** 32 - 1)
+    bit = torch.arange(S, dtype=torch.int64)
+    return ((word[:, None, :] >> bit[None, :, None]) & 1).to(torch.float32)
+
+
+@pytest.mark.parametrize("S", [2, 3, 4, 8, 20, 32])
+def test_pack_tips_round_trips(S):
+    rng = np.random.default_rng(S)
+    n_tips, P = 7, 37
+    tips = torch.as_tensor((rng.random((n_tips, S, P)) < 0.5)
+                           .astype(np.float32))
+    tips[0, :, 0] = 1.0                     # every bit, bit 31 at S 32
+    masks = PC.pack_tips(tips)
+    assert masks.dtype == (torch.uint8 if S <= 8 else torch.int32)
+    assert masks.shape == (n_tips, PC.mask_pitch(S, P))
+    assert PC.mask_pitch(S, P) == (40 if S <= 8 else 37)
+    assert torch.equal(_unpack(masks, S, P), tips)
+    if S <= 8:
+        assert not masks[:, P:].any()       # the pitch's padding
+
+
+def test_tips_not_0_1_are_not_packed():
+    rng = np.random.default_rng(3)
+    tips = (rng.random((9, 50, 4)) < 0.5).astype(np.float32)   # [n, P, S]
+    assert PC.PruningCuda(tips, 4, "cpu").masks is not None
+    tips[3, 7, 2] = 0.5
+    assert PC.PruningCuda(tips, 4, "cpu").masks is None
+    assert PC.pack_tips(torch.ones((5, 61, 10))) is None       # S > 32
+
+
+# ------------------------------------------------------------ size rule
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
+
+
+@pytest.mark.parametrize("C,n_tips,K,S,P", [(32, 169, 4, 4, 23000),
+                                            (16, 169, 4, 4, 1270)])
+def test_size_rule_takes_the_strahler_walk_at_the_cells(C, n_tips, K, S, P):
+    today = PC.size_rule(C, n_tips, K, S, P)
+    plan = PC.size_rule(C, n_tips, K, S, P, packed=True)
+    assert today["walk"] == "whole" and PC.busy_warps(today, C, P) <= 2
+    assert plan["walk"] in PC.STRAHLER_WALKS
+    assert PC.busy_warps(plan, C, P) >= 8
+    assert plan["smem_bytes"] <= PC.H100_SMEM_OPTIN
+
+
+KEPT = [c for c in CS.KERNEL_CASES if c not in CS.HACKETT_SHAPES] \
+    + [(12, 413, 4, 4, C) for C in (4, 32)]
+
+
+@pytest.mark.parametrize("n_tips,P,S,K,C", KEPT)
+def test_size_rule_keeps_its_plan_at_the_kernel_cases(n_tips, P, S, K, C):
+    today = PC.size_rule(C, n_tips, K, S, P)
+    assert PC.size_rule(C, n_tips, K, S, P, packed=True) == today
+    assert today["walk"] == CS.KERNEL_WALKS.get((n_tips, P, S, K), "whole")

@@ -223,6 +223,45 @@ def test_kernel_matches_plain_on_gpu(cuda_device, n_tips, P, S, K):
     assert plan == PC.size_rule(4, n_tips, K, S, P), plan
 
 
+# the benchmark's 169 taxa at 16 and 32 chains and hymfossil's 114 at 32:
+# the Strahler walk on the packed tips
+STRAHLER_GPU_CASES = [(169, 600, 4, 4, 16), (169, 2048, 4, 4, 32),
+                      (114, 300, 4, 4, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tips,P,S,K,C", STRAHLER_GPU_CASES)
+def test_strahler_walk_matches_plain_on_gpu(cuda_device, n_tips, P, S, K, C):
+    """The walk against the plain version, its root partials against the
+    walk of the float tips bit for bit, its plan against the twin and its
+    device schedule against ``strahler_schedule``."""
+    tree, tips, lam, U, V, pi, cat = _case(n_tips, P, S, K, C, seed=9)
+    args = [a.to(cuda_device) for a in _torch_args(tree, tips, lam, U, V,
+                                                   cat)]
+    pruner = PC.PruningCuda(tips, K, cuda_device)
+    assert pruner.masks is not None
+    P_ = TP.branch_tiprobs(args[3], args[5], args[6], args[7], args[8], 0.0)
+    from mrbayes_tpu_torch.ops.traversal import postorder_internal
+    lr, pstep = pruner.operands(postorder_internal(args[2], n_tips),
+                                args[0], args[1], P_)
+    root_k, ls_k = PC.pruning_down(lr, pstep, pruner.tips, pruner.masks)
+    root_o, _ = PC.pruning_down(lr, pstep, pruner.tips)
+    root_p, ls_p = PC.pruning_down_plain(lr, pstep, pruner.tips)
+    assert torch.equal(root_k, root_o)
+    a = _site_lnl(root_k.permute(0, 3, 1, 2).cpu().numpy(), ls_k.cpu().numpy(),
+                  pi)
+    b = _site_lnl(root_p.permute(0, 3, 1, 2).cpu().numpy(), ls_p.cpu().numpy(),
+                  pi)
+    np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-5)
+    plan = PC.pruning_plan(C, n_tips, K, S, P, cuda_device, True)
+    assert plan["walk"] in PC.STRAHLER_WALKS, plan
+    assert plan == PC.size_rule(C, n_tips, K, S, P, packed=True), plan
+    sched = PC.strahler_schedule_cuda(lr).cpu().numpy()
+    for c in range(C):
+        assert (sched[c] == PC.strahler_schedule(lr[c].cpu().numpy(),
+                                                  n_tips)).all()
+
+
 @pytest.fixture(scope="module")
 def dataset():
     nf = read_nexus_file(example("primates.nex"))

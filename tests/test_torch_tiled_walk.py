@@ -303,7 +303,8 @@ def test_size_rule_codon_shapes(shape, walk, C):
 def test_size_rule_keeps_every_listed_walk():
     """Every pruning.cu shape that chip_smoke.py and the gpu cases of
     tests/test_torch_pruning.py list keeps its walk, the global-scratch
-    ones now tiled."""
+    ones now tiled, with its 0/1 tips packed as chip_smoke.py packs them
+    (the 169-taxon cases take the Strahler walk)."""
     sm = _smoke()
     cases = [(n, P, S, K, C) for n, P, S, K, C in sm.KERNEL_CASES]
     cases += [shape + (C,) for shape in sm.KIM_CODON_SHAPES
@@ -316,7 +317,7 @@ def test_size_rule_keeps_every_listed_walk():
     cases += [shape + (4,) for shape in gpu_cases]
     was_global = {(9, 70, 32, 16), (9, 239, 61, 8)}
     for n, P, S, K, C in cases:
-        walk = PC.size_rule(C, n, K, S, P)["walk"]
+        walk = PC.size_rule(C, n, K, S, P, packed=True)["walk"]
         assert walk == expect.get((n, P, S, K), "whole"), (n, P, S, K, C)
         assert (walk == "tiled") == ((n, P, S, K) in was_global
                                      or n == 114), (n, P, S, K, C)
